@@ -1,0 +1,29 @@
+"""anncur_tpu_torch: the PyTorch + CUDA port of ``anncur_tpu`` for one
+NVIDIA H100.
+
+The JAX package stays the reference; this package keeps its module
+layout and names so each file has an obvious counterpart:
+
+- ``models``  : BERT encoder, cross-encoder, tokenizer copies, weight
+                conversion from the JAX param pytree.
+- ``ops``     : the hand-written CUDA kernels (attention forward, fused
+                f32 MIPS top-k) beside their plain PyTorch versions, pinv.
+- ``indexer`` : exact score-matrix build.
+- ``core``    : CUR index and the fixed-anchor retriever.
+- ``data``    : token representation builders (copies).
+
+Nothing here imports ``jax`` or ``anncur_tpu``. Entry points default to
+``device="cuda"`` and raise when CUDA is absent unless the caller passes
+``device="cpu"``.
+"""
+
+import torch
+
+# Score-path matmuls (latent projection, CUR build, pooler, score head)
+# must run in true f32: the JAX package measured CUR recall collapsing at
+# reduced matmul precision, and TF32 keeps only ~3 decimal digits.
+# PyTorch defaults cuBLAS matmuls to f32 but cuDNN to TF32; pin both.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

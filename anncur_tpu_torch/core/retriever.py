@@ -1,0 +1,400 @@
+"""Fixed-anchor CUR retriever: the serving API, on one GPU.
+
+Counterpart of the fixed-anchor path of ``anncur_tpu/core/retriever.py``:
+
+offline:  exact CE scores of train queries vs all items
+          (ScoreMatrixBuilder) -> CurIndex (latent item embeddings U@R)
+online:   query tokens -> CE-score against the k_i anchor items only ->
+          project through the latent factors and take the top-k_retvr
+          candidates (kernel B, ``ops/mips_kernel.py``) -> exact CE rerank
+          -> top-k results.
+
+Cost per query = n_anchor_items + top_k_retvr CE calls (the reference's
+cost axis, run_retrieval_eval_wrt_exact_crossenc.py:480-481). The
+adaptive engine is not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import pickle
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.nn import functional as F
+
+from anncur_tpu_torch.core.cur import CurIndex, build_cur
+from anncur_tpu_torch.data.tokenization import get_context_representation_ids
+from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, padded_pair_len
+from anncur_tpu_torch.models.crossencoder import CrossEncoder
+from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+from anncur_tpu_torch.ops.mips import topk_stable
+from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+
+LOGGER = logging.getLogger(__name__)
+
+
+def _largest_divisor_leq(n: int, target: int) -> int:
+    """Largest divisor of ``n`` that is <= target (>= 1)."""
+    for d in range(min(max(target, 1), n), 0, -1):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def _make_pair_scorer(ce: CrossEncoder, lm: int, le: int, pair_pad_multiple: int):
+    """(c, Lm) query block + (c, width, Le) candidate tokens -> (c, width)
+    CE scores. The pair layout (mention ⧺ candidate[1:], padded to the
+    builder's pair length) stays in lockstep with
+    ``indexer/score_matrix.py::build_pairs``: the train matrix and the
+    online scores must come from one pair shape."""
+    raw_len = lm + le - 1
+    pair_len = padded_pair_len(lm, le, pair_pad_multiple, ce.spec.max_position_embeddings)
+
+    def score_pairs(m_blk: torch.Tensor, cand_toks: torch.Tensor) -> torch.Tensor:
+        c, width, _ = cand_toks.shape
+        left = m_blk[:, None, :].expand(c, width, lm)
+        pairs = torch.cat([left, cand_toks[:, :, 1:]], dim=-1).reshape(c * width, raw_len)
+        pairs = F.pad(pairs, (0, pair_len - raw_len))
+        return ce.score(pairs, first_segment_end=lm).reshape(c, width)
+
+    return score_pairs
+
+
+@dataclasses.dataclass
+class CurRetriever:
+    """Serving-time CUR retriever over one item corpus."""
+
+    encoder: CrossEncoder
+    tokenizer: WordPieceTokenizer
+    item_tokens: np.ndarray  # (n_items, Le)
+    index: CurIndex
+    anchor_item_ids: np.ndarray  # (k_i,)
+    max_query_len: int = 128
+    # each CE forward scores ~target_pairs_per_step pairs whatever the
+    # candidate width: queries per step = target // width
+    target_pairs_per_step: int = 4096
+    pair_pad_multiple: int = 128
+    # the item axis is padded to a multiple of this block (token rows and
+    # latent rows zero, never selected), as in the JAX package
+    item_pad_multiple: int = 1024
+    # dynamic corpus (set by .build()): U = pinv(R[:, anchors]) and the
+    # anchor-query tokens let add_items extend the index without a rebuild
+    train_query_tokens: Optional[np.ndarray] = None
+    u: Optional[np.ndarray] = None  # (k_c, k_q)
+    # position -> stable external item id (identity until remove_items)
+    item_ids: Optional[np.ndarray] = None
+    # monotonic id allocator, never derived from max(item_ids)
+    next_item_id: Optional[int] = None
+    device: DeviceLike = "cuda"
+
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        if self.encoder.device != self.device:
+            raise ValueError(f"encoder lives on {self.encoder.device}, retriever on {self.device}")
+        if self.index.approx_preference != "rows":
+            # the query computes anchor_scores @ latent_cols, which is U@R
+            # only under 'rows'; a 'cols' index would rank wrongly
+            raise ValueError(
+                "CurRetriever serves indexes built with approx_preference="
+                f"'rows'; got {self.index.approx_preference!r}"
+            )
+        self._dev_consts = None
+        if self.item_ids is None:
+            self.item_ids = np.arange(self.item_tokens.shape[0], dtype=np.int64)
+        if self.next_item_id is None:
+            self.next_item_id = int(self.item_ids.max()) + 1 if len(self.item_ids) else 0
+
+    @property
+    def cost_per_query(self) -> int:
+        """CE calls per query on the anchor stage."""
+        return len(self.anchor_item_ids)
+
+    def _stage_batch(self, k: int) -> int:
+        return max(1, self.target_pairs_per_step // max(1, k))
+
+    def _padded_n_items(self) -> int:
+        n = self.item_tokens.shape[0]
+        return n + (-n) % max(1, int(self.item_pad_multiple))
+
+    def _device_consts(self):
+        """(item_tokens (n_pad, Le) int32, anchor_ids (k_i,) long,
+        latent_items (n_pad, k_c) f32 contiguous) on the device. The latent
+        item factors are kept transposed, once, so kernel B reads item rows;
+        rows >= the real item count are zero and never selected."""
+        if self._dev_consts is None:
+            n = self.item_tokens.shape[0]
+            n_pad = self._padded_n_items()
+            items = torch.zeros((n_pad, self.item_tokens.shape[1]), dtype=torch.int32, device=self.device)
+            items[:n] = torch.as_tensor(self.item_tokens, dtype=torch.int32, device=self.device)
+            k_c = self.index.latent_cols.shape[0]
+            latent = torch.zeros((n_pad, k_c), dtype=torch.float32, device=self.device)
+            latent[:n] = self.index.latent_cols.to(self.device, torch.float32).T
+            anchors = torch.as_tensor(np.asarray(self.anchor_item_ids, np.int64), device=self.device)
+            self._dev_consts = (items, anchors, latent.contiguous())
+        return self._dev_consts
+
+    # ---------------- offline build ----------------------------------- #
+
+    @classmethod
+    def build(
+        cls,
+        encoder: CrossEncoder,
+        tokenizer: WordPieceTokenizer,
+        train_query_tokens: np.ndarray,  # (k_q, Lm) anchor queries
+        item_tokens: np.ndarray,  # (n_items, Le)
+        n_anchor_items: int,
+        builder: ScoreMatrixBuilder,
+        seed: int = 0,
+        train_scores: Optional[np.ndarray] = None,
+        max_query_len: int = 128,
+        rcond=None,
+        **kw,
+    ) -> "CurRetriever":
+        """Offline indexing: score the anchor queries against ALL items,
+        sample anchor items (the JAX package's numpy draw, so both pick the
+        same anchors for one seed), build the CUR latent factors with all
+        train rows as anchors. ``rcond``: see ``core/cur.py::build_cur``.
+        Extra keyword arguments go to the constructor; ``device`` defaults
+        to the encoder's."""
+        kw.setdefault("device", encoder.device)
+        if train_scores is None:
+            train_scores = builder(train_query_tokens, item_tokens)
+        n_items = item_tokens.shape[0]
+        rng = np.random.default_rng(seed)
+        anchors = np.asarray(
+            sorted(rng.choice(n_items, size=min(n_anchor_items, n_items), replace=False))
+        )
+        index, u = build_cur(
+            rows=train_scores,
+            cols=np.asarray(train_scores)[:, anchors],
+            row_idxs=np.arange(train_scores.shape[0]),
+            col_idxs=anchors,
+            approx_preference="rows",
+            validate=False,
+            rcond=rcond,
+            return_u=True,
+            device=encoder.device,
+        )
+        return cls(
+            encoder=encoder,
+            tokenizer=tokenizer,
+            item_tokens=np.asarray(item_tokens),
+            index=index,
+            anchor_item_ids=anchors,
+            max_query_len=max_query_len,
+            train_query_tokens=np.asarray(train_query_tokens),
+            u=u.cpu().numpy(),
+            **kw,
+        )
+
+    # ---------------- dynamic corpus ----------------------------------- #
+
+    def add_items(self, new_item_tokens: np.ndarray, builder: ScoreMatrixBuilder) -> np.ndarray:
+        """Add items without rebuilding: each new item costs k_q CE calls
+        and one small matvec, its latent column is ``U @ r_new`` (U depends
+        only on the anchor intersection, which new items never touch), so
+        the result equals a full rebuild with the same anchors. Returns the
+        stable external ids of the new items."""
+        if self.u is None or self.train_query_tokens is None:
+            raise ValueError(
+                "add_items requires a retriever created by CurRetriever.build "
+                "(it stores U and the anchor-query tokens)"
+            )
+        new_item_tokens = np.asarray(new_item_tokens, np.int32)
+        new_scores = builder(self.train_query_tokens, new_item_tokens)
+        # f64 host matmul: U can be ill-conditioned (large entries cancel)
+        new_latent = (np.asarray(self.u, np.float64) @ np.asarray(new_scores, np.float64)).astype(np.float32)
+        latent_cols = torch.cat(
+            [self.index.latent_cols, torch.as_tensor(new_latent, device=self.index.latent_cols.device)], dim=1
+        )
+        self.index = dataclasses.replace(self.index, latent_cols=latent_cols)
+        self.item_tokens = np.concatenate([self.item_tokens, new_item_tokens], axis=0)
+        new_ids = np.arange(self.next_item_id, self.next_item_id + new_item_tokens.shape[0], dtype=np.int64)
+        self.next_item_id += new_item_tokens.shape[0]
+        self.item_ids = np.concatenate([self.item_ids, new_ids])
+        self._dev_consts = None
+        return new_ids
+
+    def remove_items(self, ids: np.ndarray) -> int:
+        """Remove items by stable external id. Anchor items cannot be
+        removed (their tokens feed the anchor stage and their columns define
+        U). Remaining items keep their ids; the item axis is compacted, so
+        padding stays at its tail. Duplicate ids collapse. Returns the
+        number of items removed."""
+        ids = np.asarray(ids)
+        pos_of = {int(e): p for p, e in enumerate(self.item_ids)}
+        missing = [int(i) for i in ids if int(i) not in pos_of]
+        if missing:
+            raise KeyError(f"unknown item ids: {missing[:5]}")
+        positions = np.unique(np.asarray([pos_of[int(i)] for i in ids], dtype=np.int64))
+        anchor_set = set(int(a) for a in np.asarray(self.anchor_item_ids))
+        hit = [int(p) for p in positions if int(p) in anchor_set]
+        if hit:
+            raise ValueError(
+                f"cannot remove anchor items (positions {hit[:5]}); "
+                "rebuild the index with new anchors instead"
+            )
+        keep = np.setdiff1d(np.arange(self.item_tokens.shape[0]), positions)
+        self.item_tokens = self.item_tokens[keep]
+        self.item_ids = self.item_ids[keep]
+        # anchor positions shift left past removed slots
+        old_anchor_pos = np.asarray(self.anchor_item_ids)
+        self.anchor_item_ids = old_anchor_pos - np.searchsorted(positions, old_anchor_pos)
+        dev = self.index.latent_cols.device
+        self.index = dataclasses.replace(
+            self.index,
+            latent_cols=self.index.latent_cols[:, torch.as_tensor(keep, device=dev)],
+            col_idxs=torch.as_tensor(self.anchor_item_ids, dtype=torch.long, device=dev),
+        )
+        self._dev_consts = None
+        return int(positions.size)
+
+    # ---------------- persistence -------------------------------------- #
+
+    def save(self, path: str) -> None:
+        """Persist the serving state in the JAX package's pickle format;
+        encoder weights and the tokenizer are saved separately."""
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "wb") as fout:
+            pickle.dump(
+                {
+                    "latent_rows": self.index.latent_rows.cpu().numpy(),
+                    "latent_cols": self.index.latent_cols.cpu().numpy(),
+                    "row_idxs": self.index.row_idxs.cpu().numpy().astype(np.int32),
+                    "col_idxs": self.index.col_idxs.cpu().numpy().astype(np.int32),
+                    "approx_preference": self.index.approx_preference,
+                    "anchor_item_ids": np.asarray(self.anchor_item_ids),
+                    "item_tokens": np.asarray(self.item_tokens),
+                    "item_ids": np.asarray(self.item_ids),
+                    "u": None if self.u is None else np.asarray(self.u),
+                    "train_query_tokens": None
+                    if self.train_query_tokens is None
+                    else np.asarray(self.train_query_tokens),
+                    "max_query_len": self.max_query_len,
+                    "next_item_id": int(self.next_item_id),
+                    "format_version": 1,
+                },
+                fout,
+            )
+
+    @classmethod
+    def load(
+        cls, path: str, encoder: CrossEncoder, tokenizer: WordPieceTokenizer, **kw
+    ) -> "CurRetriever":
+        """Inverse of save() (also reads the JAX package's files); pass the
+        encoder and tokenizer the index was built with. Extra keyword
+        arguments override serving knobs."""
+        with open(path, "rb") as fin:
+            d = pickle.load(fin)
+        if "next_item_id" not in d:
+            LOGGER.warning(
+                "state dict has no next_item_id; id allocator re-derived as "
+                "max(item_ids)+1, which reuses the id of a removed max-id item"
+            )
+        dev = encoder.device
+        index = CurIndex(
+            latent_rows=torch.as_tensor(np.asarray(d["latent_rows"], np.float32), device=dev),
+            latent_cols=torch.as_tensor(np.asarray(d["latent_cols"], np.float32), device=dev),
+            row_idxs=torch.as_tensor(np.asarray(d["row_idxs"], np.int64), device=dev),
+            col_idxs=torch.as_tensor(np.asarray(d["col_idxs"], np.int64), device=dev),
+            approx_preference=d["approx_preference"],
+        )
+        kw.setdefault("device", dev)
+        return cls(
+            encoder=encoder,
+            tokenizer=tokenizer,
+            item_tokens=np.asarray(d["item_tokens"]),
+            index=index,
+            anchor_item_ids=np.asarray(d["anchor_item_ids"]),
+            max_query_len=int(d["max_query_len"]),
+            train_query_tokens=d["train_query_tokens"],
+            u=d["u"],
+            item_ids=np.asarray(d["item_ids"]),
+            next_item_id=d.get("next_item_id"),
+            **kw,
+        )
+
+    # ---------------- online query ------------------------------------ #
+
+    def _anchor_scores(self, qtoks: torch.Tensor, chunk: int) -> torch.Tensor:
+        """(q, k_i) f32 exact CE scores of query tokens against the
+        anchor items, ``chunk`` queries per CE forward."""
+        items, anchor_ids, _ = self._device_consts()
+        score_pairs = _make_pair_scorer(self.encoder, qtoks.shape[1], items.shape[1], self.pair_pad_multiple)
+        anchor_toks = items[anchor_ids][None]  # (1, k_i, Le)
+        return torch.cat(
+            [score_pairs(blk, anchor_toks.expand(blk.shape[0], -1, -1)) for blk in qtoks.split(chunk)]
+        )
+
+    @torch.no_grad()
+    def query_tokens_batch(
+        self,
+        query_tokens: np.ndarray,  # (q, Lm)
+        top_k: int = 10,
+        top_k_retvr: int = 100,
+        rerank: bool = True,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(scores (q, top_k), stable item ids (q, top_k)). Cost per query =
+        n_anchor_items + top_k_retvr CE calls (reference online path,
+        ..._w_fixed_train_test_splits.py:286-303)."""
+        query_tokens = np.asarray(query_tokens, np.int32)
+        q, lm = query_tokens.shape
+        n_items = self.item_tokens.shape[0]
+        top_k_retvr = min(top_k_retvr, self.index.n_cols)
+        top_k = min(top_k, top_k_retvr if rerank else self.index.n_cols)
+        k_i = len(self.anchor_item_ids)
+        chunk = max(1, min(self._stage_batch(max(k_i, top_k_retvr)), q))
+        q_pad = q + (-q) % chunk
+        qtoks = torch.zeros((q_pad, lm), dtype=torch.int32, device=self.device)
+        qtoks[:q] = torch.as_tensor(query_tokens, device=self.device)
+        items, _, latent_items = self._device_consts()
+        anchor_scores = self._anchor_scores(qtoks, chunk)
+        # latent projection + top-k in f32 (kernel B on the card); padded
+        # item rows sit at the tail and are never selected
+        if not rerank:
+            s, i = mips_topk_fused(anchor_scores, latent_items, top_k, n_items)
+            return s[:q].cpu().numpy(), self.item_ids[i[:q].cpu().numpy()]
+        _, cand = mips_topk_fused(anchor_scores, latent_items, top_k_retvr, n_items)
+
+        # rerank stage: bigger query chunks (only top_k_retvr candidates each)
+        score_pairs = _make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
+        r_chunk = _largest_divisor_leq(q_pad, self._stage_batch(top_k_retvr))
+        exact = torch.cat(
+            [score_pairs(blk, items[c]) for blk, c in zip(qtoks.split(r_chunk), cand.split(r_chunk))]
+        )  # (q_pad, top_k_retvr)
+        s, order = topk_stable(exact, top_k)
+        ids = torch.gather(cand, 1, order)
+        return s[:q].cpu().numpy(), self.item_ids[ids[:q].cpu().numpy()]
+
+    def tokenize_query(self, mention: str, context_left: str = "", context_right: str = "") -> List[int]:
+        """The query-tokenization contract: lowercasing + quota-balanced
+        context representation at max_query_len."""
+        return get_context_representation_ids(
+            {
+                "mention": mention.lower(),
+                "context_left": context_left.lower(),
+                "context_right": context_right.lower(),
+            },
+            self.tokenizer,
+            self.max_query_len,
+        )
+
+    def query(
+        self,
+        mention: str,
+        context_left: str = "",
+        context_right: str = "",
+        top_k: int = 10,
+        top_k_retvr: int = 100,
+    ) -> List[Tuple[int, float]]:
+        """Single text query -> [(item_id, score)]."""
+        ids = self.tokenize_query(mention, context_left, context_right)
+        scores, idx = self.query_tokens_batch(
+            np.asarray([ids], np.int32), top_k=top_k, top_k_retvr=top_k_retvr
+        )
+        return list(zip(idx[0].tolist(), scores[0].tolist()))

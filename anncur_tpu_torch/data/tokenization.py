@@ -1,0 +1,105 @@
+"""Mention/entity token representation builders (id-level).
+
+A copy of the id-level builders of ``anncur_tpu/data/tokenization.py``
+(importing that module loads JAX through ``anncur_tpu/models``). Exact
+semantic parity with the reference builders
+(utils/data_process.py:949-1040, originally from BLINK):
+
+- mention: ``[CLS] left [unused0] mention [unused1] right [SEP]`` with
+  left/right context quota balancing around the mention,
+- entity: ``[CLS] title [unused2] description [SEP]``,
+- fixed length, zero-padded.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import numpy as np
+
+from anncur_tpu_torch.models.special_tokens import (
+    ENT_END_TAG,
+    ENT_START_TAG,
+    ENT_TITLE_TAG,
+    check_tag_ids,
+)
+from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+
+
+def get_context_representation_ids(
+    sample: Dict,
+    tokenizer: WordPieceTokenizer,
+    max_seq_length: int,
+) -> List[int]:
+    """Mention-in-context ids with quota balancing
+    (reference: utils/data_process.py:965-1008)."""
+    v = tokenizer.vocab
+    cls_id, sep_id = v["[CLS]"], v["[SEP]"]
+    start_id, end_id = v[ENT_START_TAG], v[ENT_END_TAG]
+
+    mention_ids: List[int] = []
+    if sample.get("mention"):
+        mention_ids = [start_id] + tokenizer.encode(sample["mention"]) + [end_id]
+    left = tokenizer.encode(sample["context_left"])
+    right = tokenizer.encode(sample["context_right"])
+
+    left_quota = (max_seq_length - len(mention_ids)) // 2 - 1
+    right_quota = max_seq_length - len(mention_ids) - left_quota - 2
+    if len(left) <= left_quota:
+        if len(right) > right_quota:
+            right_quota += left_quota - len(left)
+    else:
+        if len(right) <= right_quota:
+            left_quota += right_quota - len(right)
+
+    # BLINK-semantics quirk kept bug-for-bug (reference
+    # utils/data_process.py:991): `left[-left_quota:]` with left_quota == 0
+    # is `[-0:]`, i.e. the WHOLE left context (the final [:max_seq_length]
+    # truncation then clips it). Token ids must match reference
+    # checkpoints, so this is not "fixed".
+    ids = (
+        [cls_id] + left[-left_quota:] + mention_ids + right[:right_quota] + [sep_id]
+    )[:max_seq_length]
+    return ids + [0] * (max_seq_length - len(ids))
+
+
+def get_candidate_representation_ids(
+    candidate_desc: str,
+    tokenizer: WordPieceTokenizer,
+    max_seq_length: int,
+    candidate_title: str | None = None,
+) -> List[int]:
+    """Entity ids: title [unused2] description
+    (reference: utils/data_process.py:1011-1040)."""
+    v = tokenizer.vocab
+    ids = tokenizer.encode(candidate_desc)
+    if candidate_title is not None:
+        check_tag_ids(v)  # tags read at fixed ids by the encoders
+        ids = tokenizer.encode(candidate_title) + [v[ENT_TITLE_TAG]] + ids
+    ids = [v["[CLS]"]] + ids[: max_seq_length - 2] + [v["[SEP]"]]
+    return ids + [0] * (max_seq_length - len(ids))
+
+
+def tokenize_mentions(
+    mentions: Sequence[Dict],
+    tokenizer: WordPieceTokenizer,
+    max_seq_length: int,
+) -> np.ndarray:
+    """(n_ments, L) int32 token-id matrix."""
+    out = np.zeros((len(mentions), max_seq_length), np.int32)
+    for i, m in enumerate(mentions):
+        out[i] = get_context_representation_ids(m, tokenizer, max_seq_length)
+    return out
+
+
+def tokenize_entities(
+    entities: Sequence,
+    tokenizer: WordPieceTokenizer,
+    max_seq_length: int,
+) -> np.ndarray:
+    """(n_ents, L) int32 matrix from [(title, description)]
+    (reference CLI: utils/tokenize_entities.py:21-40)."""
+    out = np.zeros((len(entities), max_seq_length), np.int32)
+    for i, (title, desc) in enumerate(entities):
+        out[i] = get_candidate_representation_ids(desc, tokenizer, max_seq_length, title)
+    return out

@@ -1,0 +1,131 @@
+"""Cross-encoder: joint (mention ⧺ entity) sequence -> scalar score.
+
+Counterpart of ``anncur_tpu/models/crossencoder.py``, inference only.
+Two heads, parity with the reference (models/crossencoder.py):
+
+- 'default':  pooled representation -> Linear(h, 1),
+- 'w_embeds': contextualized embeddings at [unused0/1] (mention,
+  averaged) and [unused2] (entity title); score = dot product.
+
+The module holds its parameters in the JAX pytree layout (``bert``,
+``score_linear``) as f32 and computes in ``compute_dtype``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from anncur_tpu_torch.models.bert import (
+    BertSpec,
+    bert_encode,
+    init_bert_params,
+    params_module,
+)
+from anncur_tpu_torch.models.pooling import _first_position, pool_sequence
+from anncur_tpu_torch.models.special_tokens import (
+    ENT_END_ID,
+    ENT_START_ID,
+    ENT_TITLE_ID,
+    NULL_IDX,
+)
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+
+
+def to_cross_bert_input(token_ids: torch.Tensor, first_segment_end: int, null_idx: int = NULL_IDX):
+    """(token_ids, segment_ids, mask) for a concatenated pair sequence:
+    segment 1 starts at ``first_segment_end`` and is flagged only where
+    tokens are non-null (reference: models/crossencoder.py:29-48)."""
+    mask = token_ids != null_idx
+    if first_segment_end > 0:
+        pos = torch.arange(token_ids.shape[1], device=token_ids.device)[None, :]
+        segment_ids = ((pos >= first_segment_end) & mask).to(token_ids.dtype)
+    else:
+        segment_ids = torch.zeros_like(token_ids)
+    return token_ids * mask.to(token_ids.dtype), segment_ids, mask
+
+
+def init_crossencoder_params(
+    rng: np.random.Generator, spec: BertSpec, cross_enc_type: str = "default"
+) -> Dict[str, Any]:
+    """Random params in the JAX ``CrossEncoder.init`` layout, from numpy."""
+    params: Dict[str, Any] = {"bert": init_bert_params(rng, spec)}
+    if cross_enc_type == "default":
+        h = spec.hidden_size
+        params["score_linear"] = {
+            "kernel": rng.standard_normal((h, 1), dtype=np.float32)
+            * np.float32(spec.initializer_range),
+            "bias": np.zeros((1,), np.float32),
+        }
+    elif cross_enc_type != "w_embeds":
+        raise ValueError(f"cross_enc_type={cross_enc_type!r}")
+    return params
+
+
+class CrossEncoder(nn.Module):
+    """Cross-encoder scorer in eval mode.
+
+    ``params``: a JAX-layout tree with numpy leaves (``models/convert.py``
+    builds one from a JAX checkpoint); None draws random weights from
+    ``np.random.default_rng(seed)``."""
+
+    def __init__(
+        self,
+        spec: BertSpec = BertSpec(),
+        cross_enc_type: str = "default",
+        pooling_type: str = "cls_w_lin",
+        compute_dtype: torch.dtype = torch.bfloat16,
+        device: DeviceLike = "cuda",
+        params: Optional[Dict[str, Any]] = None,
+        seed: int = 0,
+    ):
+        super().__init__()
+        if cross_enc_type not in ("default", "w_embeds"):
+            raise ValueError(f"cross_enc_type={cross_enc_type!r}")
+        self.device = resolve_device(device)
+        self.spec = spec
+        self.cross_enc_type = cross_enc_type
+        self.pooling_type = pooling_type
+        self.compute_dtype = compute_dtype
+        if params is None:
+            params = init_crossencoder_params(np.random.default_rng(seed), spec, cross_enc_type)
+        self.bert = params_module(params["bert"], self.device)
+        if cross_enc_type == "default":
+            self.score_linear = params_module(params["score_linear"], self.device)
+        self.eval()
+
+    def _bert(self, token_ids, first_segment_end, cls_only=False, out_positions=None):
+        token_ids, segment_ids, mask = to_cross_bert_input(token_ids, first_segment_end)
+        return bert_encode(
+            self.bert, token_ids, segment_ids, mask, self.spec,
+            compute_dtype=self.compute_dtype, cls_only=cls_only, out_positions=out_positions,
+        )
+
+    @torch.no_grad()
+    def score(self, pair_token_ids, first_segment_end: int) -> torch.Tensor:
+        """Scalar f32 score per pair, shape (b,) (reference: score_candidate
+        -> forward, crossencoder.py:450-468). Token ids may be numpy or a
+        tensor; they are moved to the module's device."""
+        pair_token_ids = torch.as_tensor(pair_token_ids, device=self.device)
+        if self.cross_enc_type == "default":
+            # the final layer runs at CLS only when the head reads CLS (exact)
+            cls_only = self.pooling_type in ("cls", "cls_w_lin")
+            seq_out, pooled = self._bert(pair_token_ids, first_segment_end, cls_only=cls_only)
+            emb = pool_sequence(seq_out, pooled, self.pooling_type)
+            lin = self.score_linear
+            return (emb @ lin["kernel"] + lin["bias"])[:, 0]
+        # w_embeds: the final layer runs only at the three tag positions
+        pos = torch.stack(
+            [
+                _first_position(pair_token_ids, ENT_START_ID),
+                _first_position(pair_token_ids, ENT_END_ID),
+                _first_position(pair_token_ids, ENT_TITLE_ID),
+            ],
+            dim=1,
+        )
+        seq_out, _ = self._bert(pair_token_ids, first_segment_end, out_positions=pos)
+        m_emb = (seq_out[:, 0, :] + seq_out[:, 1, :]) / 2.0
+        return (m_emb * seq_out[:, 2, :]).sum(-1)

@@ -1,0 +1,83 @@
+"""Fused f32 matmul + top-k: kernel B (``csrc/mips_topk.cu``).
+
+Replaces ``anncur_tpu/ops/mips_pallas.py::_mips_kernel`` and
+``::_maxmask_kernel``. The fixed-anchor query runs its latent projection
++ top-k_retvr stage through :func:`mips_topk_fused`. Its plain version is
+``ops/mips.py::mips_topk``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from anncur_tpu_torch.ops import cuda_build
+from anncur_tpu_torch.ops.mips import mips_topk
+
+MAX_K = 256  # k is rounded up to a power of two that one 256-item split holds
+
+
+def mips_topk_fused(
+    queries: torch.Tensor,  # (q, d) f32
+    items: torch.Tensor,  # (n, d) f32
+    k: int,
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(scores (q, k) f32, ids (q, k) int64): the k best items per query
+    by IEEE f32 inner product among the first ``n_valid`` items, scores
+    descending, ties to the smallest id.
+
+    CPU tensors take the plain :func:`mips_topk`; CUDA tensors launch
+    kernel B or raise."""
+    n = items.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    if queries.device.type == "cpu" and items.device.type == "cpu":
+        return mips_topk(queries, items, k, n_valid)
+    _check(queries, items, k, n_valid)
+    q, d = queries.shape
+    dev = queries.device
+    lib = _lib()
+    scratch = int(lib.mips_topk_scratch_entries(q, n, k))
+    scratch_s = torch.empty(scratch, dtype=torch.float32, device=dev)
+    scratch_i = torch.empty(scratch, dtype=torch.int32, device=dev)
+    out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
+    rc = lib.mips_topk_fused(
+        queries.data_ptr(), items.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        scratch_s.data_ptr(), scratch_i.data_ptr(), q, n, d, k, n_valid,
+        dev.index if dev.index is not None else torch.cuda.current_device(),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    cuda_build.check(lib, rc, "mips_topk kernel")
+    mips_topk_fused.launches += 1
+    return out_s, out_i
+
+
+mips_topk_fused.launches = 0  # kernel B launches; chip_smoke reads and resets it
+
+
+def _check(queries, items, k, n_valid) -> None:
+    if queries.device.type != "cuda" or items.device != queries.device:
+        raise ValueError("mips_topk_fused: queries and items must lie on one CUDA device")
+    if queries.dtype != torch.float32 or items.dtype != torch.float32:
+        raise ValueError(f"mips_topk_fused: f32 only, got {queries.dtype}/{items.dtype}")
+    if queries.dim() != 2 or items.dim() != 2 or queries.shape[1] != items.shape[1]:
+        raise ValueError(f"mips_topk_fused: queries {tuple(queries.shape)} vs items {tuple(items.shape)}")
+    if not (queries.is_contiguous() and items.is_contiguous()):
+        raise ValueError("mips_topk_fused: queries and items must be contiguous")
+    n = items.shape[0]
+    if not 1 <= k <= min(n_valid, MAX_K) or n_valid > n or queries.shape[0] < 1:
+        raise ValueError(f"mips_topk_fused needs 1 <= k <= min(n_valid, {MAX_K}), n_valid <= n; got k={k} n_valid={n_valid} n={n}")
+
+
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load("mips_topk")
+    if lib.mips_topk_fused.argtypes is None:
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.mips_topk_fused.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.mips_topk_fused.restype = i32
+        lib.mips_topk_scratch_entries.argtypes = [i32] * 3
+        lib.mips_topk_scratch_entries.restype = ctypes.c_longlong
+    return lib

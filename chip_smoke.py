@@ -1,0 +1,426 @@
+"""Smoke run of the PyTorch + CUDA port (``anncur_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero before the result line:
+
+1. environment: the card (``nvidia-smi`` name and power limit), torch and
+   CUDA versions, and both kernels built from ``anncur_tpu_torch/csrc``
+   (one ``nvcc`` per source, started together);
+2. each hand-written kernel against its plain PyTorch version on the card
+   at the main path's shapes, with its time, the plain version's, a
+   PyTorch library call's (a yardstick the port never calls) and the
+   least time the card could take (``bound_ms``);
+3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
+   scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
+4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
+   10,000 items at cost 600 (500 anchors + top-100 rerank, top-10);
+5. the ``kernels`` line: each kernel's launches on phases 3-4 (counts set
+   to 0 just before each phase and read just after), error and times;
+6. the last line, ``{"ok": true, "device": {...}}``.
+
+Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# peaks of one H100 SXM (NVIDIA data sheet, dense): bytes/s of HBM3 and
+# op/s of the types the kernels take
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bf16": 989e12, "f32": 67e12}
+# tolerances of kernel vs plain version
+ATTN_ATOL = 2e-2  # bf16 output: 8-bit mantissa, f32 sums in other orders
+MIPS_RTOL = 1e-4  # f32 FFMA vs cuBLAS f32: one dot of 500 terms, other order
+MIPS_TIE_GAP = 1e-5  # ids compared where neighbours differ by more (x max|s|)
+CE_ATOL = 2e-2  # bf16 CE scores, kernel A vs plain attention, 12 layers
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def time_ms(fn, reps, flush):
+    """Mean device ms of ``fn`` over ``reps`` calls, CUDA events around
+    each call. ``flush`` (512 MB) is rewritten before each call: every
+    call finds the 50 MB L2 cache cold, as the main path does, and the
+    card stays busy (~0.2 ms) while the host enqueues the call, so the
+    events time the device's work and not the host's launch overhead."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(reps):
+        flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+
+
+# --------------------------------------------------------------------- #
+# phase 2: kernels vs plain versions
+# --------------------------------------------------------------------- #
+
+
+def attention_inputs(gen, b, g, s, nh, hd, dev):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    k, v = rnd(b, s, nh, hd), rnd(b, s, nh, hd)
+    lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    key_valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    return rnd(b, g, nh, hd), k, v, key_valid, lengths
+
+
+def check_attention(dev, flush):
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    s, nh, hd = 256, 12, 64
+    max_err = 0.0
+    for g in (256, 1, 3):
+        q, k, v, key_valid, lengths = attention_inputs(gen, 64, g, s, nh, hd, dev)
+        got = attention(q, k, v, key_valid).float()
+        want = attention_plain(q, k, v, key_valid).float()
+        torch.cuda.synchronize()
+        # real query rows: all of a 1- or 3-row slice, rows < length of a full layer
+        rows = torch.arange(g, device=dev)[None, :] < (lengths[:, None] if g == s else g)
+        rows = rows.expand(q.shape[0], g)
+        err = float((got - want).abs().amax(dim=(2, 3))[rows].max())
+        log(f"  kernel A b=64 g={g}: max |kernel - plain| = {err:.3e} (tol {ATTN_ATOL})")
+        if not err <= ATTN_ATOL:
+            fail(f"attention g={g} disagrees with its plain version: {err}")
+        max_err = max(max_err, err)
+
+    # the build's full-layer shape: 2048 pairs per CE forward
+    b = 2048
+    q, k, v, key_valid, lengths = attention_inputs(gen, b, s, s, nh, hd, dev)
+    got = attention(q, k, v, key_valid).float()
+    want = attention_plain(q, k, v, key_valid).float()
+    rows = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    err = float((got - want).abs().amax(dim=(2, 3))[rows].max())
+    del got, want
+    log(f"  kernel A b={b} g={s}: max |kernel - plain| = {err:.3e}")
+    if not err <= ATTN_ATOL:
+        fail(f"attention at b={b} disagrees with its plain version: {err}")
+    max_err = max(max_err, err)
+
+    mask = key_valid[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: attention(q, k, v, key_valid), 10, flush)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v, key_valid), 3, flush)
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10, flush
+    )
+    # what these inputs need: q and out whole, k and v at valid keys only,
+    # the mask; QK^T and PV over valid keys (multiply-add = 2 ops)
+    n_keys = int(lengths.sum())
+    row_bytes = nh * hd * q.element_size()
+    nbytes = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + key_valid.numel()
+    ops = 4 * nh * s * n_keys * hd
+    return {
+        "name": "attention_fwd",
+        "route": "cuda",
+        "source": "anncur_tpu_torch/csrc/attention.cu",
+        "replaces": "anncur_tpu/models/bert.py:278",
+        "max_abs_err": max_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **bound(nbytes, ops, "bf16"),
+        "library_ms": library_ms,
+        "shape": f"b={b} g={s} s={s} nh={nh} hd={hd} bf16",
+    }
+
+
+def mips_inputs(gen, dev):
+    q, d, n, n_valid, k = 32, 500, 10240, 10000, 100
+    queries = torch.randn(q, d, generator=gen, device=dev)
+    items = torch.randn(n, d, generator=gen, device=dev)
+    # ties: each query's best item duplicated at another valid position,
+    # and query 0's best copied into the padding (must never be selected)
+    best = (queries @ items[:n_valid].T).argmax(dim=1)
+    dup_at = torch.randperm(n_valid, generator=gen, device=dev)[:q]
+    items[dup_at] = items[best]
+    items[n_valid + 7] = items[best[0]]
+    return queries, items.contiguous(), k, n_valid
+
+
+def check_mips(queries, items, k, n_valid, what):
+    from anncur_tpu_torch.ops.mips import mips_topk
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+    s_k, i_k = mips_topk_fused(queries, items, k, n_valid)
+    s_p, i_p = mips_topk(queries, items, k, n_valid)
+    torch.cuda.synchronize()
+    scale = float(s_p.abs().max())
+    err = float((s_k - s_p).abs().max())
+    if not err <= MIPS_RTOL * scale:
+        fail(f"{what}: kernel B scores differ from plain by {err} (scale {scale})")
+    if int(i_k.max()) >= n_valid or int(i_k.min()) < 0:
+        fail(f"{what}: kernel B selected a column >= n_valid or < 0")
+    # ids where the plain score stands apart from both neighbours
+    gap = -(s_p[:, 1:] - s_p[:, :-1])
+    sep = torch.ones_like(s_p, dtype=torch.bool)
+    sep[:, :-1] &= gap > MIPS_TIE_GAP * scale
+    sep[:, 1:] &= gap > MIPS_TIE_GAP * scale
+    if not torch.equal(i_k[sep], i_p[sep]):
+        fail(f"{what}: kernel B ids differ from plain at separated scores")
+    # ties (exactly equal kernel scores) go to the smaller id
+    tied = s_k[:, 1:] == s_k[:, :-1]
+    if not bool((i_k[:, 1:] > i_k[:, :-1])[tied].all()):
+        fail(f"{what}: kernel B broke a tie towards the larger id")
+    if not bool((s_k[:, 1:] <= s_k[:, :-1]).all()):
+        fail(f"{what}: kernel B scores not descending")
+    log(
+        f"  {what}: max |kernel - plain| = {err:.3e} (scale {scale:.1f}), "
+        f"{int(sep.sum())}/{sep.numel()} ids compared, {int(tied.sum())} ties in order"
+    )
+    return err
+
+
+def check_mips_kernel(dev, flush):
+    from anncur_tpu_torch.ops.mips import mips_topk
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    queries, items, k, n_valid = mips_inputs(gen, dev)
+    err = check_mips(queries, items, k, n_valid, "kernel B q=32 d=500 n=10240 k=100")
+    ms = time_ms(lambda: mips_topk_fused(queries, items, k, n_valid), 50, flush)
+    plain_ms = time_ms(lambda: mips_topk(queries, items, k, n_valid), 50, flush)
+    library_ms = time_ms(lambda: torch.topk(queries @ items[:n_valid].T, k), 50, flush)
+    q, d = queries.shape
+    # what this call needs: the queries, the n_valid real item rows, outputs
+    nbytes = 4 * (q * d + n_valid * d) + q * k * (4 + 8)
+    ops = 2 * q * n_valid * d
+    return {
+        "name": "mips_topk_fused",
+        "route": "cuda",
+        "source": "anncur_tpu_torch/csrc/mips_topk.cu",
+        "replaces": "anncur_tpu/ops/mips_pallas.py:116",  # _mips_kernel
+        "also_replaces": "anncur_tpu/ops/mips_pallas.py:149",  # _maxmask_kernel
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **bound(nbytes, ops, "f32"),
+        "library_ms": library_ms,
+        "shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} f32",
+    }
+
+
+def bound(nbytes, ops, dtype):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# --------------------------------------------------------------------- #
+# phases 3-4: the port's main path
+# --------------------------------------------------------------------- #
+
+
+def reset_counts():
+    from anncur_tpu_torch.ops.attention import attention
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+    attention.launches = 0
+    mips_topk_fused.launches = 0
+
+
+def read_counts():
+    from anncur_tpu_torch.ops.attention import attention
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+    return {"attention_fwd": attention.launches, "mips_topk_fused": mips_topk_fused.launches}
+
+
+def rescore_with_plain_attention(ce, pairs, lm):
+    """CE scores of ``pairs`` with the plain attention in every layer."""
+    from anncur_tpu_torch.models import bert
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+
+    bert.attention = attention_plain
+    try:
+        return ce.score(pairs, first_segment_end=lm)
+    finally:
+        bert.attention = attention
+
+
+def phase_build(ce, spec, dev, rng):
+    from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, build_pairs, padded_pair_len
+
+    lm = le = 128  # ZeShEL max mention/entity lengths -> 256-token pairs
+    n_ments, n_ents = 32, 2048
+    ment = rng.integers(1, spec.vocab_size, size=(n_ments, lm)).astype(np.int32)
+    ent = rng.integers(1, spec.vocab_size, size=(n_ents, le)).astype(np.int32)
+    builder = ScoreMatrixBuilder(ce, ment_block=32, ent_block=64, max_pairs_per_program=32768, device=dev)
+    builder(ment, ent[:64])  # warm-up: cuBLAS handles, kernel loads
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    scores = builder(ment, ent)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    pairs_per_s = n_ments * n_ents / dt
+    log(f"  build {n_ments}x{n_ents} pairs of 256 tokens: {dt:.3f} s, {pairs_per_s:.1f} pairs/s; launches {counts}")
+    if scores.shape != (n_ments, n_ents) or not np.isfinite(scores).all():
+        fail("score matrix has the wrong shape or non-finite values")
+    if counts["attention_fwd"] == 0:
+        fail("the build never launched kernel A")
+
+    # a 2 x 64 sub-block again, with the plain attention, on the card
+    sub = 64
+    pairs = build_pairs(
+        torch.as_tensor(ment[:2], device=dev), torch.as_tensor(ent[:sub], device=dev),
+        padded_pair_len(lm, le, builder.pair_pad_multiple, spec.max_position_embeddings),
+    )
+    plain = rescore_with_plain_attention(ce, pairs, lm).reshape(2, sub).cpu().numpy()
+    err = float(np.abs(plain - scores[:2, :sub]).max())
+    log(f"  build sub-block 2x{sub} vs plain attention: max |diff| = {err:.3e} (tol {CE_ATOL}), score range [{scores.min():.4f}, {scores.max():.4f}]")
+    if not err <= CE_ATOL:
+        fail(f"score matrix disagrees with the plain-attention CE: {err}")
+    return {"pairs_per_s": pairs_per_s, "seconds": dt, "launches": counts, "plain_attention_err": err}
+
+
+def phase_serve(ce, spec, dev, rng):
+    from anncur_tpu_torch.core.cur import build_cur
+    from anncur_tpu_torch.core.retriever import CurRetriever
+    from anncur_tpu_torch.indexer.score_matrix import padded_pair_len
+    from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer, make_test_vocab
+    lm = le = 128
+    n_items, n_train, k_i, k_retvr, top_k, n_q = 10000, 500, 500, 100, 10, 32
+    item_toks = rng.integers(1, spec.vocab_size, size=(n_items, le)).astype(np.int32)
+    train = (rng.standard_normal((n_train, 16)) @ rng.standard_normal((16, n_items))).astype(np.float32)
+    anchors = np.asarray(sorted(rng.choice(n_items, k_i, replace=False)))
+    index = build_cur(
+        rows=train, cols=train[:, anchors], row_idxs=np.arange(n_train), col_idxs=anchors,
+        approx_preference="rows", validate=False, device=dev,
+    )
+    retriever = CurRetriever(
+        encoder=ce, tokenizer=WordPieceTokenizer(make_test_vocab()), item_tokens=item_toks,
+        index=index, anchor_item_ids=anchors, max_query_len=lm, target_pairs_per_step=4096, device=dev,
+    )
+    qtoks = rng.integers(1, spec.vocab_size, size=(n_q, lm)).astype(np.int32)
+    retriever.query_tokens_batch(qtoks, top_k=top_k, top_k_retvr=k_retvr)  # warm-up
+    torch.cuda.synchronize()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    scores, ids = retriever.query_tokens_batch(qtoks, top_k=top_k, top_k_retvr=k_retvr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    qps = n_q / dt
+    ce_pairs_per_s = n_q * (k_i + k_retvr) / dt
+    log(f"  serve {n_q} queries at cost {k_i + k_retvr}: {dt:.3f} s, {qps:.2f} q/s, {ce_pairs_per_s:.1f} CE pairs/s; launches {counts}")
+    if scores.shape != (n_q, top_k) or ids.shape != (n_q, top_k) or not np.isfinite(scores).all():
+        fail("query result has the wrong shape or non-finite scores")
+    if not (np.diff(scores, axis=1) <= 0).all() or ids.min() < 0 or ids.max() >= n_items:
+        fail("query result is not sorted or holds ids out of range")
+    if any(len(set(row)) != top_k for row in ids.tolist()):
+        fail("query result repeats an id within a row")
+    if counts["attention_fwd"] == 0 or counts["mips_topk_fused"] != 1:
+        fail(f"the query batch did not run kernel A and kernel B once: {counts}")
+
+    # kernel B vs the plain MIPS on this batch's anchor scores
+    items, _, latent = retriever._device_consts()
+    anchor_scores = retriever._anchor_scores(torch.as_tensor(qtoks, device=dev), retriever._stage_batch(k_i))
+    mips_err = check_mips(anchor_scores, latent, k_retvr, n_items, "kernel B on the query's anchor scores")
+    # the reranked scores are the CE's scores of the returned items
+    pairs = torch.cat(
+        [torch.as_tensor(qtoks[:2], device=dev)[:, None, :].expand(2, top_k, lm),
+         items[torch.as_tensor(ids[:2], device=dev)][:, :, 1:]], dim=-1,
+    ).reshape(2 * top_k, lm + le - 1)
+    pair_len = padded_pair_len(lm, le, retriever.pair_pad_multiple, spec.max_position_embeddings)
+    pairs = torch.nn.functional.pad(pairs, (0, pair_len - (lm + le - 1)))
+    direct = ce.score(pairs, first_segment_end=lm).reshape(2, top_k).cpu().numpy()
+    rerank_err = float(np.abs(direct - scores[:2]).max())
+    log(f"  reranked scores vs direct CE scores: max |diff| = {rerank_err:.3e} (tol {CE_ATOL})")
+    if not rerank_err <= CE_ATOL:
+        fail(f"reranked scores differ from the CE's: {rerank_err}")
+    res = retriever.query("alpha beta", context_left="gamma delta", top_k=3, top_k_retvr=k_retvr)
+    if len(res) != 3 or not all(0 <= i < n_items and math.isfinite(s) for i, s in res):
+        fail(f"text query returned {res}")
+    log(f"  text query -> {res}")
+    return {"qps": qps, "ce_pairs_per_s": ce_pairs_per_s, "seconds": dt, "launches": counts, "mips_err": mips_err}
+
+
+# --------------------------------------------------------------------- #
+
+
+def main():
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
+    sys.path.insert(0, ROOT)
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+    from anncur_tpu_torch.ops import cuda_build
+
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
+    build_s = cuda_build.build()
+    log(f"kernels built from {os.path.relpath(cuda_build.CSRC_DIR, ROOT)} in {build_s:.1f} s")
+
+    log("phase 2: kernels vs plain versions")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    kernels = [check_attention(dev, flush), check_mips_kernel(dev, flush)]
+    del flush
+    torch.cuda.empty_cache()
+
+    log("phase 3: build (bert-base CE, bf16, random weights from seed 0)")
+    spec = BertSpec()
+    t0 = time.perf_counter()
+    ce = CrossEncoder(spec, cross_enc_type="default", compute_dtype=torch.bfloat16, device=dev, seed=0)
+    log(f"  CE initialised in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    build = phase_build(ce, spec, dev, rng)
+
+    log("phase 4: serve (10,000 items, 500 anchors, top-100 rerank, top-10)")
+    serve = phase_serve(ce, spec, dev, rng)
+
+    for kern in kernels:
+        kern["launches"] = build["launches"][kern["name"]] + serve["launches"][kern["name"]]
+    if kernels[0]["launches"] == 0 or kernels[1]["launches"] == 0:
+        fail("a kernel of the main path was never launched")
+    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], serve["mips_err"])
+    summary = {
+        "build_pairs_per_s": build["pairs_per_s"],
+        "query_qps_cost600": serve["qps"],
+        "query_ce_pairs_per_s": serve["ce_pairs_per_s"],
+        "launches_build": build["launches"],
+        "launches_query_batch": serve["launches"],
+        "card": smi,
+    }
+    log(json.dumps({"summary": summary}))
+    log(smi)
+    log(json.dumps({"kernels": kernels}))
+    print(json.dumps({
+        "ok": True,
+        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count()},
+    }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

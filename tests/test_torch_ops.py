@@ -1,0 +1,96 @@
+"""Port parity, ops: the plain MIPS top-k (kernel B's plain version and
+the CPU path of its wrapper) against the JAX package's ``mips_topk`` and
+both Pallas MIPS kernels in interpret mode, with padding and ties; the
+pseudoinverse and its cutoffs (CPU)."""
+
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from anncur_tpu.ops import mips as jmips
+import anncur_tpu.ops.pinv  # noqa: F401  (the package re-exports a function named pinv)
+from anncur_tpu.ops.mips_pallas import mips_topk_pallas, mips_topk_pallas_maxmask
+
+from anncur_tpu_torch.ops import pinv as tpinv
+from anncur_tpu_torch.ops.mips import masked_topk, mips_topk, topk_stable
+from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+jpinv = sys.modules["anncur_tpu.ops.pinv"]
+torch.set_num_threads(2)  # xdist runs several test files side by side
+
+
+def _tied_inputs(rng, q, n, d):
+    """Small integer entries: products are exact in f32 and many tie."""
+    queries = rng.integers(-2, 3, size=(q, d)).astype(np.float32)
+    items = rng.integers(-2, 3, size=(n, d)).astype(np.float32)
+    items[37] = items[251 % n]  # duplicated rows too
+    return queries, items
+
+
+@pytest.mark.parametrize("n,k", [(300, 7), (512, 16), (130, 64)])
+def test_mips_topk_matches_jax_and_pallas_kernels(rng, n, k):
+    queries, items = _tied_inputs(rng, 6, n, 32)
+    s_t, i_t = mips_topk(torch.as_tensor(queries), torch.as_tensor(items), k)
+    # lax.top_k and the port's stable sort both break ties to the lowest
+    # index, so ids must be identical, not just tied sets
+    s_j, i_j = jmips.mips_topk(jnp.asarray(queries), jnp.asarray(items), k)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    s_p, i_p = mips_topk_pallas(jnp.asarray(queries), jnp.asarray(items), k, tile=128, interpret=True)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_p))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_p))
+    s_m, i_m = mips_topk_pallas_maxmask(
+        jnp.asarray(queries), jnp.asarray(items), k, tile=128, q_tile=4, interpret=True
+    )
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_m))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_m))
+    # the kernel wrapper takes the plain version for CPU tensors
+    s_f, i_f = mips_topk_fused(torch.as_tensor(queries), torch.as_tensor(items), k)
+    assert torch.equal(i_f, i_t) and torch.equal(s_f, s_t)
+    assert mips_topk_fused.launches == 0
+
+
+def test_mips_topk_n_valid_matches_masked_jax(rng):
+    """Columns >= n_valid (the retriever's item padding) are never selected:
+    the same ids as the JAX retriever's where(valid, approx, -inf) + top_k."""
+    queries, items = _tied_inputs(rng, 5, 300, 16)
+    n_valid = 211
+    valid = np.arange(300) < n_valid
+    full = jnp.dot(jnp.asarray(queries), jnp.asarray(items).T, precision="highest")
+    s_j, i_j = jmips.masked_topk(full, 20, jnp.asarray(valid))
+    s_t, i_t = mips_topk(torch.as_tensor(queries), torch.as_tensor(items), 20, n_valid=n_valid)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
+    assert int(i_t.max()) < n_valid
+    s_m, i_m = masked_topk(torch.as_tensor(np.array(full)), 20, torch.as_tensor(valid))
+    assert torch.equal(i_m, i_t)
+    with pytest.raises(ValueError):
+        mips_topk(torch.as_tensor(queries), torch.as_tensor(items), 20, n_valid=10)
+
+
+def test_topk_stable_ties_to_lowest_index():
+    scores = torch.tensor([[1.0, 3.0, 3.0, 2.0, 3.0], [0.0, 0.0, 0.0, 0.0, 0.0]])
+    vals, idx = topk_stable(scores, 4)
+    assert idx.tolist() == [[1, 2, 4, 3], [0, 1, 2, 3]]
+    assert vals.tolist() == [[3.0, 3.0, 3.0, 2.0], [0.0, 0.0, 0.0, 0.0]]
+
+
+@pytest.mark.parametrize("shape,rank", [((12, 9), 9), ((20, 16), 5), ((16, 16), 16)])
+def test_pinv_and_cutoffs_match_jax(rng, shape, rank):
+    mat = (rng.standard_normal((shape[0], rank)) @ rng.standard_normal((rank, shape[1]))).astype(np.float32)
+    mat += 1e-4 * rng.standard_normal(shape).astype(np.float32)
+    np.testing.assert_array_equal(tpinv.pinv_f64(mat), jpinv.pinv_f64(mat))
+    assert tpinv.noise_rcond(mat) == jpinv.noise_rcond(mat)
+    assert tpinv.auto_rcond(mat) == jpinv.auto_rcond(mat)
+    # f32 SVDs from two LAPACK drivers agree to f32 noise scaled by the
+    # largest kept 1/sigma: compare where the cutoff keeps only signal (the
+    # default cutoff keeps the 1e-4 noise directions of a low-rank matrix)
+    for rcond in (None, 1e-3) if rank == min(shape) else (1e-3,):
+        want = np.asarray(jpinv.pinv(jnp.asarray(mat), rcond))
+        got = tpinv.pinv(torch.as_tensor(mat), rcond).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4 * max(1.0, np.abs(want).max()), rtol=0)
+    zero = np.zeros((4, 3), np.float32)
+    assert tpinv.noise_rcond(zero) == jpinv.noise_rcond(zero) == 0.0
