@@ -1,22 +1,28 @@
 """Where the time goes on the card: device time by kernel for one
-bert-base CE forward of a build step and for one cost-600 query batch.
+bert-base CE forward of a build step, for one cost-600 query batch and
+for one cross-encoder train step.
 
     python -m anncur_tpu_torch.cli.profile_ce [--pairs 2048] [--queries 32]
 
-Random weights from seed 0, bf16, 256-token pairs, the shapes of
-``chip_smoke.py``. Each section runs once to warm up, then once under
-``torch.profiler`` (CPU + CUDA activities). It prints one JSON line per
-section: the wall time (host clock around work that ends in a
-synchronize), the summed device time of its kernels, the device's idle
-share of the wall time, and the device time by group (kernel A, kernel
-B, matmuls, everything else) and of the ten costliest kernels.
-Needs a CUDA card.
+Random weights from seed 0, bf16, the shapes of ``chip_smoke.py``:
+256-token pairs for the forward and the query batch; for the train step
+the Trainer at ``configs/el_zeshel_cross_enc.json``'s widths with random
+negatives, 4 micro-batches of one mention x 64 pairs of 255 tokens,
+attention dropout 0 and hidden dropout 0.1. Each section runs once to
+warm up, then once under ``torch.profiler`` (CPU + CUDA activities). It
+prints one JSON line per section: the wall time (host clock around work
+that ends in a synchronize), the summed device time of its kernels, the
+device's idle share of the wall time, and the device time by group
+(kernels A, B, C, D, matmuls, everything else) and of the ten costliest
+kernels. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -26,6 +32,10 @@ import torch
 def _group(name: str) -> str:
     if "attention_fwd_kernel" in name:
         return "kernel_A_attention"
+    if "attention_bwd_dkv_kernel" in name:
+        return "kernel_C_attention_bwd_dkv"
+    if "attention_bwd_dq_kernel" in name:
+        return "kernel_D_attention_bwd_dq"
     if name.startswith("mips_") or "mips_split_topk" in name or "mips_merge" in name:
         return "kernel_B_mips_topk"
     low = name.lower()
@@ -70,6 +80,35 @@ def profile(fn, label: str) -> dict:
         "groups_ms": groups,
         "top_kernels_ms": [[name[:120], us / 1e3] for name, us in top],
     }
+
+
+def train_step_section(dev, rng) -> dict:
+    """One Trainer step at phase 5 of ``chip_smoke.py``'s shapes."""
+    from anncur_tpu_torch.config import Config
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+    from anncur_tpu_torch.train.data import EntLinkDataset
+    from anncur_tpu_torch.train.trainer import Trainer
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    cfg = Config.from_json(os.path.join(repo, "configs", "el_zeshel_cross_enc.json"))
+    spec = BertSpec(attention_dropout=0.0, hidden_dropout=0.1)
+    with tempfile.TemporaryDirectory() as res_dir:
+        cfg.update_from_dict({"neg_strategy": "random", "train_batch_size": 4, "base_res_dir": res_dir, "seed": 0})
+        n_ments, n_ents = 8, 1000
+        data = EntLinkDataset(
+            rng.integers(1, spec.vocab_size, size=(n_ments, cfg.max_input_len)).astype(np.int32),
+            rng.integers(1, spec.vocab_size, size=(n_ents, cfg.max_label_len)).astype(np.int32),
+            rng.integers(0, n_ents, size=n_ments),
+        )
+        ce = CrossEncoder(spec, cfg.cross_enc_type, cfg.pooling_type, torch.bfloat16, device=dev, seed=0)
+        trainer = Trainer(cfg, ce, total_steps=100)
+        state = trainer.init_state()
+        negs = trainer._epoch_negatives(data, state, 0)
+        batches = [trainer._shard_batch(b) for b in trainer._make_batches(data, negs, cfg.train_batch_size, 0)]
+        steps = iter(batches)
+        pairs = cfg.train_batch_size * (1 + cfg.num_negs)
+        return profile(lambda: trainer.train_step(state, next(steps)), f"train_step_{pairs}_pairs")
 
 
 def main(argv=None):
@@ -118,6 +157,9 @@ def main(argv=None):
             f"query_batch_{args.queries}_cost600",
         )
     )
+    del retriever, ce
+    torch.cuda.empty_cache()
+    out.append(train_step_section(dev, rng))
     card = torch.cuda.get_device_name(0)
     for rec in out:
         rec["device"] = card

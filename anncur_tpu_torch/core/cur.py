@@ -21,7 +21,7 @@ import torch
 
 from anncur_tpu_torch.ops.mips import topk_stable
 from anncur_tpu_torch.ops.pinv import auto_rcond, noise_rcond, pinv, pinv_f64
-from anncur_tpu_torch.utils.device import DeviceLike
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +92,8 @@ def build_cur(
     """Build a CUR index from anchor rows/cols of the score matrix.
 
     Inputs are numpy arrays or tensors; the index lives on ``device``
-    (default: ``rows``'s device if it is a tensor, else the CPU).
+    (default: ``rows``'s device if it is a tensor, else the card; raises
+    without CUDA unless ``device="cpu"``).
 
     ``pinv_impl``: 'f64_host' (numpy float64 LAPACK, the reference's
     numerics; 'auto' picks it) or 'f32' (torch on ``device``).
@@ -102,8 +103,8 @@ def build_cur(
     ``full_matrix`` gives the oracle ``U = pinv(C) @ A @ pinv(R)``.
     ``return_u`` also returns U (incremental item addition needs it)."""
     if device is None:
-        device = rows.device if torch.is_tensor(rows) else "cpu"
-    device = torch.device(device)
+        device = rows.device if torch.is_tensor(rows) else "cuda"
+    device = resolve_device(device)
     rows = _as_f32(rows, device)
     cols = _as_f32(cols, device)
     row_idxs = _as_long(row_idxs, device)
@@ -169,10 +170,12 @@ def save_cur_index(path: str, index: CurIndex) -> None:
         )
 
 
-def load_cur_index(path: str, device: DeviceLike = "cpu") -> CurIndex:
+def load_cur_index(path: str, device: DeviceLike = "cuda") -> CurIndex:
+    """The index saved at ``path``, on ``device`` (raises without CUDA
+    unless ``device="cpu"``)."""
+    dev = resolve_device(device)
     with open(path, "rb") as fin:
         d = pickle.load(fin)
-    dev = torch.device(device)
     return CurIndex(
         latent_rows=torch.as_tensor(np.asarray(d["latent_rows"], np.float32), device=dev),
         latent_cols=torch.as_tensor(np.asarray(d["latent_cols"], np.float32), device=dev),

@@ -25,6 +25,12 @@
 // Layout is the JAX one: q (b, g, nh, hd), k and v (b, s, nh, hd), any
 // strides on the batch, row and head axes, hd contiguous; out (b, g, nh, hd)
 // contiguous. The kernel allocates nothing and runs on the caller's stream.
+//
+// For the backward (csrc/attention_bwd.cu) the launch may also write each
+// row's log-sum-exp, lse = m + log(l) in f32, shape (b, nh, g): the online
+// softmax's running max and sum, which the backward kernels use to recompute
+// P = exp(score - lse) without a second pass over the keys. A null lse
+// pointer (inference) writes nothing extra.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +77,7 @@ template <typename T, int HD>
 __global__ void __launch_bounds__(kThreads)
 attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                     T* __restrict__ out, int g, int s, int nh,
+                     T* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
                      long long q_sb, long long q_sr, long long q_sh,
                      long long k_sb, long long k_sr, long long k_sh,
                      long long v_sb, long long v_sr, long long v_sh,
@@ -163,11 +169,12 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < 8; ++e) o[e] = acc[d + e] * inv;
     store8(op + d, o);
   }
+  if (lse != nullptr) lse[(static_cast<size_t>(b) * nh + h) * g + row] = m + logf(l);
 }
 
 template <typename T, int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid,
-                   void* out, int b, int g, int s, int nh, const long long* st,
+                   void* out, float* lse, int b, int g, int s, int nh, const long long* st,
                    float scale, cudaStream_t stream) {
   const size_t smem = 2 * static_cast<size_t>(s) * HD * sizeof(T) + s * sizeof(float);
   auto kern = attention_fwd_kernel<T, HD>;
@@ -177,20 +184,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* key_
   const dim3 grid(b * nh, (g + kThreads - 1) / kThreads);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), g, s, nh,
+      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), lse, g, s, nh,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const void* key_valid, void* out, int b, int g, int s, int nh,
+                        const void* key_valid, void* out, float* lse, int b, int g, int s, int nh,
                         const long long* st, float scale, cudaStream_t stream) {
   switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, key_valid, out, b, g, s, nh, st, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, key_valid, out, b, g, s, nh, st, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, key_valid, out, b, g, s, nh, st, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, key_valid, out, b, g, s, nh, st, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -198,9 +205,10 @@ cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
 }  // namespace
 
 // strides (in elements): q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh,
-// valid_sb. Returns cudaGetLastError() after the launch.
+// valid_sb. lse: null, or (b, nh, g) f32 for the row log-sum-exp. Returns
+// cudaGetLastError() after the launch.
 extern "C" int attention_fwd(const void* q, const void* k, const void* v,
-                             const void* key_valid, void* out, int is_bf16, int b,
+                             const void* key_valid, void* out, void* lse, int is_bf16, int b,
                              int g, int s, int nh, int hd, long long q_sb,
                              long long q_sr, long long q_sh, long long k_sb,
                              long long k_sr, long long k_sh, long long v_sb,
@@ -211,8 +219,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   const long long st[10] = {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, key_valid, out, b, g, s, nh, st, scale, cs);
-  return dispatch_hd<float>(hd, q, k, v, key_valid, out, b, g, s, nh, st, scale, cs);
+    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, key_valid, out, static_cast<float*>(lse), b, g,
+                                      s, nh, st, scale, cs);
+  return dispatch_hd<float>(hd, q, k, v, key_valid, out, static_cast<float*>(lse), b, g, s, nh, st,
+                            scale, cs);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -8,6 +8,7 @@ semantic parity with the reference builders
 - mention: ``[CLS] left [unused0] mention [unused1] right [SEP]`` with
   left/right context quota balancing around the mention,
 - entity: ``[CLS] title [unused2] description [SEP]``,
+- pair: mention ⧺ entity[1:] (drop the entity CLS),
 - fixed length, zero-padded.
 """
 
@@ -78,6 +79,14 @@ def get_candidate_representation_ids(
         ids = tokenizer.encode(candidate_title) + [v[ENT_TITLE_TAG]] + ids
     ids = [v["[CLS]"]] + ids[: max_seq_length - 2] + [v["[SEP]"]]
     return ids + [0] * (max_seq_length - len(ids))
+
+
+def create_input_label_pair(input_token_idxs, label_token_idxs):
+    """Concatenate mention ⧺ entity dropping the entity CLS
+    (reference: utils/data_process.py:949-959)."""
+    input_token_idxs = np.asarray(input_token_idxs)
+    label_token_idxs = np.asarray(label_token_idxs)
+    return np.concatenate([input_token_idxs, label_token_idxs[1:]])
 
 
 def tokenize_mentions(

@@ -1,4 +1,4 @@
-"""BERT encoder for inference, in PyTorch.
+"""BERT encoder, in PyTorch.
 
 Counterpart of ``anncur_tpu/models/bert.py`` with the same numerics:
 
@@ -8,24 +8,37 @@ Counterpart of ``anncur_tpu/models/bert.py`` with the same numerics:
 - gelu tanh under bf16 and erf otherwise (``BertSpec.gelu_approximate``),
 - an additive key mask of -1e9 inside attention,
 - the final layer computed only at CLS or at ``out_positions``,
-- the tanh pooler in f32.
+- the tanh pooler in f32,
+- in training, inverted dropout at the JAX sites (after the embedding
+  LayerNorm, on each layer's attention and MLP outputs, and on the
+  attention probabilities) and optional remat.
 
-Attention always goes through ``ops/attention.py``, which launches kernel
-A on CUDA tensors. Parameters keep the JAX pytree layout (``embeddings``,
-``layers[i].attn|mlp``, ``pooler``; kernels ``(in, out)``), so a JAX
-checkpoint maps one to one (``models/convert.py``). No dropout, no remat:
-training is not ported yet.
+Attention goes through ``ops/attention.py`` (kernel A forward, kernels C
+and D backward on the card) whenever no attention dropout applies, which is
+JAX's flash condition; with attention dropout in training it is plain
+tensor ops, as JAX's ``_attn_core``. Parameters keep the JAX pytree layout
+(``embeddings``, ``layers[i].attn|mlp``, ``pooler``; kernels ``(in,
+out)``), so a JAX checkpoint maps one to one (``models/convert.py``).
+
+Randomness comes from an explicit ``torch.Generator``: each forward draws
+one integer seed per dropout site off it, and each site's mask comes from
+a generator seeded with that integer on the activations' device. The
+seeds are drawn before any checkpointed region, so remat's recompute
+redraws the same masks (``torch.utils.checkpoint`` restores only the
+default generators, not a caller's).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+import math
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from anncur_tpu_torch.ops.attention import attention
 
@@ -124,7 +137,8 @@ def init_bert_params(rng: np.random.Generator, spec: BertSpec) -> BertParams:
 
 def params_module(tree, device: torch.device) -> nn.Module:
     """Nested dict/list of arrays -> ModuleDict/ModuleList/ParameterDict
-    holding f32 parameters (no grad), same keys as the JAX tree."""
+    holding f32 parameters, same keys as the JAX tree. They do not require
+    grad; a trainer turns that on (``Module.requires_grad_``)."""
     if isinstance(tree, (list, tuple)):
         return nn.ModuleList([params_module(t, device) for t in tree])
     if all(not isinstance(v, (dict, list, tuple)) for v in tree.values()):
@@ -138,6 +152,39 @@ def params_module(tree, device: torch.device) -> nn.Module:
             }
         )
     return nn.ModuleDict({key: params_module(val, device) for key, val in tree.items()})
+
+
+def params_tree(module: nn.Module):
+    """Inverse of :func:`params_module`: the JAX-layout tree with f32 numpy
+    leaves (copies)."""
+    if isinstance(module, nn.ModuleList):
+        return [params_tree(m) for m in module]
+    if isinstance(module, nn.ParameterDict):
+        return {key: p.detach().cpu().numpy().copy() for key, p in module.items()}
+    return {key: params_tree(m) for key, m in module.items()}
+
+
+@torch.no_grad()
+def load_params_(module: nn.Module, tree) -> None:
+    """Copy a JAX-layout tree (numpy or tensor leaves) into the parameters
+    of :func:`params_module`'s module, in place; shapes must match."""
+    if isinstance(module, nn.ModuleList):
+        if len(module) != len(tree):
+            raise ValueError(f"{len(tree)} entries for {len(module)} layers")
+        for m, t in zip(module, tree):
+            load_params_(m, t)
+        return
+    if set(module.keys()) != set(tree.keys()):
+        raise ValueError(f"tree keys {sorted(tree)} != module keys {sorted(module.keys())}")
+    if isinstance(module, nn.ParameterDict):
+        for key, p in module.items():
+            val = torch.as_tensor(np.asarray(tree[key], np.float32))
+            if tuple(val.shape) != tuple(p.shape):
+                raise ValueError(f"{key}: shape {tuple(val.shape)} != {tuple(p.shape)}")
+            p.copy_(val)
+        return
+    for key, m in module.items():
+        load_params_(m, tree[key])
 
 
 # --------------------------------------------------------------------- #
@@ -162,11 +209,46 @@ def _gelu(x, approximate=None):
     return F.gelu(x, approximate="tanh" if approximate else "none")
 
 
-def _encoder_layer(x, key_valid, lp, spec: BertSpec, dtype, rows=None):
+def draw_seeds(generator: torch.Generator, n: int) -> List[int]:
+    """``n`` integer seeds off ``generator`` (one draw, on its device)."""
+    return torch.randint(0, 2**62, (n,), generator=generator, device=generator.device).tolist()
+
+
+def dropout(x, seed: Optional[int], rate: float):
+    """Inverted dropout (``anncur_tpu/models/bert.py::_dropout``): keep
+    with probability 1 - rate and scale by 1 / (1 - rate); identity when
+    ``seed`` is None or the rate is 0. The mask comes from a generator
+    seeded with ``seed`` on ``x``'s device."""
+    if seed is None or not rate:
+        return x
+    u = torch.rand(x.shape, generator=torch.Generator(device=x.device).manual_seed(seed), device=x.device)
+    return torch.where(u < 1.0 - rate, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def attention_dropout_core(q, k, v, key_valid, seed: int, rate: float, dtype):
+    """Attention with dropout on the probabilities, as plain tensor ops
+    (``anncur_tpu/models/bert.py::_attn_core``): f32 scores and softmax,
+    probabilities cast to the compute dtype, dropped, then P V."""
+    hd = q.shape[-1]
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
+    bias = torch.where(key_valid, 0.0, -1e9).to(torch.float32)
+    probs = torch.softmax(scores + bias[:, None, None, :], dim=-1).to(dtype)
+    probs = dropout(probs, seed, rate)
+    return torch.einsum("bnqk,bknd->bqnd", probs, v.to(dtype))
+
+
+def _encoder_layer(
+    x, key_valid, lp, spec: BertSpec, dtype, rows=None,
+    seeds: Optional[Sequence[int]] = None, rate: float = 0.0, attn_remat: bool = False,
+):
     """One encoder layer. ``rows``: None for every position, else a
     (b, g) long tensor of the positions the final layer is computed at
     (exact: attention needs only those query rows, the MLP is
-    position-wise; ``anncur_tpu/models/bert.py::_encoder_layer_select_only``)."""
+    position-wise; ``anncur_tpu/models/bert.py::_encoder_layer_select_only``).
+    ``seeds``: None (no dropout) or the (attention, hidden 1, hidden 2)
+    dropout seeds; ``rate`` is the hidden dropout rate."""
+    attn_seed, hid_seed1, hid_seed2 = seeds if seeds is not None else (None, None, None)
+    attn_rate = spec.attention_dropout if seeds is not None else 0.0
     p = lp["attn"]
     b, s, h = x.shape
     nh, hd = spec.num_heads, spec.head_dim
@@ -175,16 +257,28 @@ def _encoder_layer(x, key_valid, lp, spec: BertSpec, dtype, rows=None):
     q = _dense(x_sel, p["q_kernel"], p["q_bias"], dtype).reshape(b, g, nh, hd)
     k = _dense(x, p["k_kernel"], p["k_bias"], dtype).reshape(b, s, nh, hd)
     v = _dense(x, p["v_kernel"], p["v_bias"], dtype).reshape(b, s, nh, hd)
-    ctx = attention(q, k, v, key_valid).reshape(b, g, h)
-    a = _dense(ctx, p["out_kernel"], p["out_bias"], dtype)
+    if attn_rate:
+        # JAX's XLA path (its flash kernel takes no dropout); remat='attn'
+        # recomputes this core in backward instead of keeping its (s, s)
+        # tensors (on the kernel path there is nothing to gain: kernels C
+        # and D recompute P anyway)
+        args = (q, k, v, key_valid, attn_seed, attn_rate, dtype)
+        if attn_remat:
+            ctx = checkpoint(attention_dropout_core, *args, use_reentrant=False)
+        else:
+            ctx = attention_dropout_core(*args)
+    else:
+        ctx = attention(q, k, v, key_valid)
+    a = _dense(ctx.reshape(b, g, h), p["out_kernel"], p["out_bias"], dtype)
+    a = dropout(a, hid_seed1, rate)
     x0 = _layer_norm(x_sel + a, p["ln_scale"], p["ln_bias"], spec.layer_norm_eps)
     mp = lp["mlp"]
     m = _gelu(_dense(x0, mp["in_kernel"], mp["in_bias"], dtype), spec.gelu_approximate)
     m = _dense(m, mp["out_kernel"], mp["out_bias"], dtype)
+    m = dropout(m, hid_seed2, rate)
     return _layer_norm(x0 + m, mp["ln_scale"], mp["ln_bias"], spec.layer_norm_eps)
 
 
-@torch.no_grad()
 def bert_encode(
     params: nn.Module,  # params_module() of a BertParams tree
     token_ids: torch.Tensor,  # (b, s) int
@@ -194,13 +288,22 @@ def bert_encode(
     compute_dtype: torch.dtype = torch.bfloat16,
     cls_only: bool = False,
     out_positions: Optional[torch.Tensor] = None,  # (b, g) int
+    generator: Optional[torch.Generator] = None,
+    dropout_on: bool = False,
+    remat=False,  # False | True (per layer) | 'attn' (the dropout-attention core)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sequence_output (b, s, h) f32, pooled_output (b, h) f32).
 
     ``cls_only``: the final layer runs at CLS only; sequence_output is
     (b, 1, h). ``out_positions``: the final layer runs at these positions
     only; sequence_output is (b, g, h), row j at ``out_positions[:, j]``.
-    Both are exact (``anncur_tpu.models.bert.bert_encode``)."""
+    Both are exact (``anncur_tpu.models.bert.bert_encode``).
+
+    Gradients flow as the caller's grad mode says; the inference callers
+    run under ``torch.no_grad``. ``dropout_on`` with a ``generator`` turns
+    on dropout at the spec's rates (JAX's ``dropout=True`` with a
+    ``dropout_rng``). ``remat``: True checkpoints every full layer
+    (``use_reentrant=False``), 'attn' only the dropout-attention core."""
     b, s = token_ids.shape
     token_ids = token_ids.long()
     emb = params["embeddings"]
@@ -209,14 +312,33 @@ def bert_encode(
     key_valid = attention_mask > 0
 
     layers = params["layers"]
-    last = len(layers) - 1
+    n_layers = len(layers)
+    want_dropout = dropout_on and generator is not None
+    rate = spec.hidden_dropout if want_dropout else 0.0
+    layer_seeds: List[Optional[Tuple[int, int, int]]] = [None] * n_layers
+    if want_dropout:
+        # every seed of this forward in one draw, before any checkpoint
+        seeds = draw_seeds(generator, 1 + 3 * n_layers)
+        x = dropout(x, seeds[0], rate)
+        if spec.hidden_dropout or spec.attention_dropout:
+            layer_seeds = [tuple(seeds[1 + 3 * i: 4 + 3 * i]) for i in range(n_layers)]
+
     for li, lp in enumerate(layers):
         rows = None
-        if li == last and cls_only:
+        if li == n_layers - 1 and cls_only:
             rows = torch.zeros((b, 1), dtype=torch.long, device=x.device)
-        elif li == last and out_positions is not None:
+        elif li == n_layers - 1 and out_positions is not None:
             rows = out_positions.long()
-        x = _encoder_layer(x, key_valid, lp, spec, compute_dtype, rows)
+        if remat is True and rows is None and torch.is_grad_enabled():
+            x = checkpoint(
+                _encoder_layer, x, key_valid, lp, spec, compute_dtype, None,
+                layer_seeds[li], rate, False, use_reentrant=False,
+            )
+        else:
+            x = _encoder_layer(
+                x, key_valid, lp, spec, compute_dtype, rows, layer_seeds[li], rate,
+                attn_remat=remat == "attn",
+            )
 
     seq_out = x.float()
     pooler = params["pooler"]

@@ -1,4 +1,4 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across between the two packages, both ways.
 
 The JAX ``CrossEncoder.init`` / ``train/checkpoint.py`` param pytree
 (``bert.embeddings.*``, ``bert.layers[i].attn|mlp.*``, ``bert.pooler.*``,
@@ -60,3 +60,13 @@ def crossencoder_from_jax_params(
         device=device,
         params=tree,
     )
+
+
+def crossencoder_to_jax_params(ce: CrossEncoder) -> Dict[str, Any]:
+    """The port's CrossEncoder parameters as a JAX-layout param tree with
+    f32 numpy leaves: ``anncur_tpu``'s ``CrossEncoder.score`` takes it as
+    ``params`` (after ``jnp.asarray``), and ``train/checkpoint.py`` saves it
+    as a checkpoint's ``params``."""
+    tree = ce.params_tree()
+    _check_tree(tree, ce.spec, ce.cross_enc_type)
+    return tree

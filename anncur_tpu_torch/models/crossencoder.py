@@ -1,14 +1,17 @@
 """Cross-encoder: joint (mention ⧺ entity) sequence -> scalar score.
 
-Counterpart of ``anncur_tpu/models/crossencoder.py``, inference only.
-Two heads, parity with the reference (models/crossencoder.py):
+Counterpart of ``anncur_tpu/models/crossencoder.py``. Two heads, parity
+with the reference (models/crossencoder.py):
 
-- 'default':  pooled representation -> Linear(h, 1),
+- 'default':  pooled representation -> dropout -> Linear(h, 1),
 - 'w_embeds': contextualized embeddings at [unused0/1] (mention,
   averaged) and [unused2] (entity title); score = dot product.
 
 The module holds its parameters in the JAX pytree layout (``bert``,
-``score_linear``) as f32 and computes in ``compute_dtype``.
+``score_linear``) as f32 and computes in ``compute_dtype``. ``score``
+without ``train`` is the inference path (``torch.no_grad``); with
+``train=True`` gradients flow, and dropout applies when a generator is
+given (JAX's ``train and rng is not None``).
 """
 
 from __future__ import annotations
@@ -22,8 +25,12 @@ from torch import nn
 from anncur_tpu_torch.models.bert import (
     BertSpec,
     bert_encode,
+    draw_seeds,
+    dropout,
     init_bert_params,
+    load_params_,
     params_module,
+    params_tree,
 )
 from anncur_tpu_torch.models.pooling import _first_position, pool_sequence
 from anncur_tpu_torch.models.special_tokens import (
@@ -66,11 +73,14 @@ def init_crossencoder_params(
 
 
 class CrossEncoder(nn.Module):
-    """Cross-encoder scorer in eval mode.
+    """Cross-encoder scorer.
 
     ``params``: a JAX-layout tree with numpy leaves (``models/convert.py``
     builds one from a JAX checkpoint); None draws random weights from
-    ``np.random.default_rng(seed)``."""
+    ``np.random.default_rng(seed)``. The parameters do not require grad
+    until a trainer turns them on (``requires_grad_()``). ``remat`` as
+    ``anncur_tpu.models.crossencoder.CrossEncoder.remat``: False, True (per
+    layer) or 'attn' (the dropout-attention core)."""
 
     def __init__(
         self,
@@ -81,6 +91,7 @@ class CrossEncoder(nn.Module):
         device: DeviceLike = "cuda",
         params: Optional[Dict[str, Any]] = None,
         seed: int = 0,
+        remat=False,
     ):
         super().__init__()
         if cross_enc_type not in ("default", "w_embeds"):
@@ -90,6 +101,7 @@ class CrossEncoder(nn.Module):
         self.cross_enc_type = cross_enc_type
         self.pooling_type = pooling_type
         self.compute_dtype = compute_dtype
+        self.remat = remat
         if params is None:
             params = init_crossencoder_params(np.random.default_rng(seed), spec, cross_enc_type)
         self.bert = params_module(params["bert"], self.device)
@@ -97,24 +109,59 @@ class CrossEncoder(nn.Module):
             self.score_linear = params_module(params["score_linear"], self.device)
         self.eval()
 
-    def _bert(self, token_ids, first_segment_end, cls_only=False, out_positions=None):
+    def params_tree(self) -> Dict[str, Any]:
+        """The parameters as a JAX-layout tree with f32 numpy leaves."""
+        tree: Dict[str, Any] = {"bert": params_tree(self.bert)}
+        if self.cross_enc_type == "default":
+            tree["score_linear"] = params_tree(self.score_linear)
+        return tree
+
+    def load_params_(self, tree: Dict[str, Any]) -> "CrossEncoder":
+        """Copy a JAX-layout tree into the parameters, in place."""
+        want = {"bert", "score_linear"} if self.cross_enc_type == "default" else {"bert"}
+        if set(tree) != want:
+            raise ValueError(f"tree keys {sorted(tree)} vs {sorted(want)}")
+        load_params_(self.bert, tree["bert"])
+        if self.cross_enc_type == "default":
+            load_params_(self.score_linear, tree["score_linear"])
+        return self
+
+    def _bert(self, token_ids, first_segment_end, cls_only=False, out_positions=None, generator=None):
         token_ids, segment_ids, mask = to_cross_bert_input(token_ids, first_segment_end)
         return bert_encode(
             self.bert, token_ids, segment_ids, mask, self.spec,
             compute_dtype=self.compute_dtype, cls_only=cls_only, out_positions=out_positions,
+            generator=generator, dropout_on=generator is not None, remat=self.remat,
         )
 
-    @torch.no_grad()
-    def score(self, pair_token_ids, first_segment_end: int) -> torch.Tensor:
+    def score(
+        self,
+        pair_token_ids,
+        first_segment_end: int,
+        train: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> torch.Tensor:
         """Scalar f32 score per pair, shape (b,) (reference: score_candidate
         -> forward, crossencoder.py:450-468). Token ids may be numpy or a
-        tensor; they are moved to the module's device."""
+        tensor; they are moved to the module's device.
+
+        ``train=False`` (inference) runs under ``torch.no_grad``. With
+        ``train=True`` gradients flow, and a ``generator`` turns on dropout:
+        the encoder's, and for the 'default' head a keep-0.9 dropout on the
+        pooled embedding (``anncur_tpu/models/crossencoder.py:138-140``)."""
+        if not train:
+            with torch.no_grad():
+                return self._score(pair_token_ids, first_segment_end, None)
+        return self._score(pair_token_ids, first_segment_end, generator)
+
+    def _score(self, pair_token_ids, first_segment_end, generator):
         pair_token_ids = torch.as_tensor(pair_token_ids, device=self.device)
         if self.cross_enc_type == "default":
             # the final layer runs at CLS only when the head reads CLS (exact)
             cls_only = self.pooling_type in ("cls", "cls_w_lin")
-            seq_out, pooled = self._bert(pair_token_ids, first_segment_end, cls_only=cls_only)
-            emb = pool_sequence(seq_out, pooled, self.pooling_type)
+            head_seed = None if generator is None else draw_seeds(generator, 1)[0]
+            seq_out, pooled = self._bert(pair_token_ids, first_segment_end, cls_only=cls_only, generator=generator)
+            emb = dropout(pool_sequence(seq_out, pooled, self.pooling_type), head_seed, 0.1)
             lin = self.score_linear
             return (emb @ lin["kernel"] + lin["bias"])[:, 0]
         # w_embeds: the final layer runs only at the three tag positions
@@ -126,6 +173,6 @@ class CrossEncoder(nn.Module):
             ],
             dim=1,
         )
-        seq_out, _ = self._bert(pair_token_ids, first_segment_end, out_positions=pos)
+        seq_out, _ = self._bert(pair_token_ids, first_segment_end, out_positions=pos, generator=generator)
         m_emb = (seq_out[:, 0, :] + seq_out[:, 1, :]) / 2.0
         return (m_emb * seq_out[:, 2, :]).sum(-1)

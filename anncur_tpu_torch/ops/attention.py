@@ -1,11 +1,19 @@
-"""Attention forward: kernel A (``csrc/attention.cu``) and its plain version.
+"""Attention: kernel A forward (``csrc/attention.cu``), kernels C and D
+backward (``csrc/attention_bwd.cu``), and their plain versions.
 
-Replaces ``anncur_tpu/models/bert.py::_flash_attention`` (the stock
-Pallas TPU flash-attention forward). Every encoder layer of the port's
-CE forward calls :func:`attention`, the final layer's 1- or 3-row query
-slice included. Layout is the JAX one: q ``(b, g, nh, hd)`` with
-``g <= s``, k and v ``(b, s, nh, hd)``, ``key_valid`` ``(b, s)`` bool; the
-result is ``(b, g, nh, hd)`` in q's dtype.
+Replaces ``anncur_tpu/models/bert.py::_flash_attention``: the stock
+Pallas TPU flash-attention forward and, under ``jax.grad``, its backward
+(``_flash_attention_bwd_dkv`` and ``_flash_attention_bwd_dq``). Every
+encoder layer of the port's CE calls :func:`attention`, the final layer's
+1- or 3-row query slice included. Layout is the JAX one: q ``(b, g, nh,
+hd)`` with ``g <= s``, k and v ``(b, s, nh, hd)``, ``key_valid`` ``(b, s)``
+bool; the result is ``(b, g, nh, hd)`` in q's dtype.
+
+On CUDA tensors, a call that needs a gradient goes through
+:class:`AttentionFunction`: kernel A also writes the row log-sum-exp, and
+the backward launches kernels C (dK, dV) and D (dQ). A call without one
+launches kernel A alone. CPU tensors take the plain versions, and autograd
+differentiates :func:`attention_plain`.
 """
 
 from __future__ import annotations
@@ -31,22 +39,120 @@ def attention_plain(q, k, v, key_valid):
     return torch.einsum("bnqk,bknd->bqnd", probs, v.float()).to(q.dtype)
 
 
+def attention_bwd_plain(q, k, v, key_valid, dout):
+    """(dQ, dK, dV) in q's dtype: the autograd of :func:`attention_plain`,
+    the plain version of kernels C and D."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_plain(*leaves, key_valid)
+        return torch.autograd.grad(out, leaves, dout)
+
+
 def attention(q, k, v, key_valid):
     """softmax(QKᵀ/√hd + bias) V with bias -1e9 at invalid keys.
 
     CPU tensors take :func:`attention_plain`; CUDA tensors launch kernel A
-    or raise."""
+    (and, when a gradient is needed, kernels C and D in backward) or raise."""
     tensors = (q, k, v, key_valid)
     if all(t.device.type == "cpu" for t in tensors):
         return attention_plain(q, k, v, key_valid)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return AttentionFunction.apply(q, k, v, key_valid)
+    return attention_fwd(q, k, v, key_valid)[0]
+
+
+attention.launches = 0  # kernel A launches; chip_smoke reads and resets it
+
+
+class AttentionFunction(torch.autograd.Function):
+    """Kernel A forward with the row log-sum-exp saved; kernels C and D
+    backward. ``D = rowsum(dO * O)`` is a plain reduction beforehand, as
+    JAX computes it outside Pallas (``flash_attention.py:273-275``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_valid):
+        out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, key_valid, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (b, nh, g)
+        dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
+        dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
+        return dq, dk, dv, None
+
+
+def attention_fwd(q, k, v, key_valid, with_lse: bool = False):
+    """Kernel A: ``(out, lse)``; ``lse`` is the (b, nh, g) f32 row
+    log-sum-exp when ``with_lse``, else None."""
     _check(q, k, v, key_valid)
     b, g, nh, hd = q.shape
     s = k.shape[1]
     out = torch.empty((b, g, nh, hd), dtype=q.dtype, device=q.device)
-    lib = _lib()
+    lse = torch.empty((b, nh, g), dtype=torch.float32, device=q.device) if with_lse else None
+    lib = _lib("attention", "attention_fwd", 6)
     rc = lib.attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-        int(q.dtype == torch.bfloat16), b, g, s, nh, hd,
+        None if lse is None else lse.data_ptr(), *_geometry(q, k, v, key_valid),
+    )
+    cuda_build.check(lib, rc, "attention kernel")
+    attention.launches += 1
+    return out, lse
+
+
+def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta):
+    """Kernel C: ``(dK, dV)``, each (b, s, nh, hd) in q's dtype, from the
+    forward's inputs, ``dout`` (b, g, nh, hd) contiguous, and the (b, nh, g)
+    f32 ``lse`` and ``delta = rowsum(dout * out)``. CPU tensors take
+    :func:`attention_bwd_plain`."""
+    if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
+        return attention_bwd_plain(q, k, v, key_valid, dout)[1:]
+    _check_bwd(q, k, v, key_valid, dout, lse, delta)
+    dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
+    lib = _lib("attention_bwd", "attention_bwd_dkv", 9)
+    rc = lib.attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        *_geometry(q, k, v, key_valid),
+    )
+    cuda_build.check(lib, rc, "attention dK/dV kernel")
+    attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+attention_bwd_dkv.launches = 0  # kernel C launches
+
+
+def attention_bwd_dq(q, k, v, key_valid, dout, lse, delta):
+    """Kernel D: dQ, (b, g, nh, hd) in q's dtype; arguments as
+    :func:`attention_bwd_dkv`. CPU tensors take :func:`attention_bwd_plain`."""
+    if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
+        return attention_bwd_plain(q, k, v, key_valid, dout)[0]
+    _check_bwd(q, k, v, key_valid, dout, lse, delta)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _lib("attention_bwd", "attention_bwd_dq", 8)
+    rc = lib.attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_geometry(q, k, v, key_valid),
+    )
+    cuda_build.check(lib, rc, "attention dQ kernel")
+    attention_bwd_dq.launches += 1
+    return dq
+
+
+attention_bwd_dq.launches = 0  # kernel D launches
+
+
+def _geometry(q, k, v, key_valid):
+    """The C entries' arguments after the pointers: dtype flag, sizes,
+    strides (in elements), scale, device, stream."""
+    b, g, nh, hd = q.shape
+    return (
+        int(q.dtype == torch.bfloat16), b, g, k.shape[1], nh, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
@@ -54,12 +160,6 @@ def attention(q, k, v, key_valid):
         q.device.index if q.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    cuda_build.check(lib, rc, "attention kernel")
-    attention.launches += 1
-    return out
-
-
-attention.launches = 0  # kernel A launches; chip_smoke reads and resets it
 
 
 def _check(q, k, v, key_valid) -> None:
@@ -91,11 +191,30 @@ def _check(q, k, v, key_valid) -> None:
         raise ValueError(f"attention: s={s}, hd={hd} needs {smem} B of shared memory")
 
 
-def _lib() -> ctypes.CDLL:
-    lib = cuda_build.load("attention")
-    fn = lib.attention_fwd
+def _check_bwd(q, k, v, key_valid, dout, lse, delta) -> None:
+    """What kernels C and D take beyond the forward's inputs: a contiguous
+    ``dout`` shaped and typed like q, and contiguous (b, nh, g) f32 ``lse``
+    and ``delta``, all on q's device. (They stage 64 rows at a time, so s
+    is not bounded by shared memory.)"""
+    _check(q, k, v, key_valid)
+    b, g, nh, _ = q.shape
+    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device or not dout.is_contiguous():
+        raise ValueError(f"attention backward: dout must be a contiguous {tuple(q.shape)} {q.dtype} tensor on {q.device}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (
+            t is None or tuple(t.shape) != (b, nh, g) or t.dtype != torch.float32
+            or t.device != q.device or not t.is_contiguous()
+        ):
+            raise ValueError(f"attention backward: {name} must be a contiguous ({b}, {nh}, {g}) f32 tensor on {q.device}")
+
+
+def _lib(source: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
+    """The library of ``csrc/<source>.cu`` with ``entry``'s signature set:
+    ``n_ptrs`` pointers, then the arguments of :func:`_geometry`."""
+    lib = cuda_build.load(source)
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * 5 + [i32] * 6 + [i64] * 10 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + [i64] * 10 + [ctypes.c_float, i32, ptr]
         fn.restype = i32
     return lib

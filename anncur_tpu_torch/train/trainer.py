@@ -1,0 +1,321 @@
+"""Cross-encoder training on one device.
+
+Counterpart of ``anncur_tpu/train/trainer.py`` for the cross-encoder
+(parity with the reference's PyTorch-Lightning trainer,
+models/pairwise_trainer.py:168-266): gradient accumulation over
+micro-batches averaged into one optimizer step, per-micro-batch dropout
+streams, eval-mode dev evaluation with top-k checkpoints, an end-of-epoch
+checkpoint, and resume.
+
+Not ported yet, and raising ``NotImplementedError`` rather than skipped:
+bi-encoder training (ROADMAP Queue 1 item 10, with ``models/biencoder.py``)
+and a device mesh or tensor parallelism (Queue 1 item 14).
+
+Randomness: the state's ``rng`` is a CPU ``torch.Generator`` seeded from
+``Config.seed``. Each step draws one seed per micro-batch off it (JAX
+splits the step key and folds in the micro-batch index), and each
+micro-batch's loss draws its own seeds for the positive and the negative
+forwards; the masks themselves come from generators on the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import logging
+import os
+import time
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from anncur_tpu_torch.config import Config
+from anncur_tpu_torch.models.bert import draw_seeds
+from anncur_tpu_torch.models.crossencoder import CrossEncoder, init_crossencoder_params
+from anncur_tpu_torch.train import data as data_mod
+from anncur_tpu_torch.train.checkpoint import TopKCheckpointManager, load_pytree
+from anncur_tpu_torch.train.losses import crossenc_loss, mrr_from_scores
+from anncur_tpu_torch.train.optimizer import Optimizer, apply_updates, make_optimizer, named_parameters
+
+LOGGER = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class TrainState:
+    """``params`` are the model's own parameters (JAX paths -> tensors,
+    updated in place); ``opt_state`` the optimizer's dict; ``rng`` a CPU
+    generator."""
+
+    params: Dict[str, torch.Tensor]
+    opt_state: Dict
+    step: int
+    rng: torch.Generator
+
+
+class Trainer:
+    """Cross-encoder trainer, ``model_type`` 'cross_enc'."""
+
+    def __init__(
+        self,
+        config: Config,
+        model: CrossEncoder,
+        mesh=None,
+        total_steps: int = 10000,
+        tp_axis: Optional[str] = None,
+        tracker=None,
+    ):
+        if not isinstance(model, CrossEncoder):
+            raise NotImplementedError(
+                "bi-encoder training is not ported yet (ROADMAP Queue 1 item 10)"
+            )
+        if mesh is not None or tp_axis is not None:
+            raise NotImplementedError(
+                "mesh / tensor-parallel training is not ported yet (ROADMAP Queue 1 item 14)"
+            )
+        self.config = config
+        self.model = model
+        self.total_steps = total_steps
+        self.tracker = tracker
+        self._tx: Optional[Optimizer] = None
+        self._fse: Optional[int] = None
+        self._dev_negs_epoch: Optional[int] = None
+        self._dev_negs: Optional[np.ndarray] = None
+        self._warned_tail: set = set()
+        self._ckpt = TopKCheckpointManager(
+            os.path.join(config.result_dir, "model"),
+            k=config.num_top_k_ckpts,
+            metric=config.ckpt_metric,
+            mode="min" if config.ckpt_metric == "loss" else "max",
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.device
+
+    # ---------------- state ------------------------------------------- #
+
+    def init_state(self, params=None) -> TrainState:
+        """Fresh parameters (``params``, a JAX-layout tree, or random ones
+        from ``np.random.default_rng(config.seed)``), a fresh optimizer
+        state, step 0 and the seeded generator."""
+        cfg = self.config
+        if params is None:
+            params = init_crossencoder_params(
+                np.random.default_rng(cfg.seed), self.model.spec, self.model.cross_enc_type
+            )
+        self.model.load_params_(params)
+        self.model.requires_grad_(True)
+        named = named_parameters(self.model)
+        self._tx = make_optimizer(
+            named,
+            learning_rate=cfg.learning_rate,
+            weight_decay=cfg.weight_decay,
+            total_steps=self.total_steps,
+            warmup_proportion=cfg.warmup_proportion,
+            max_grad_norm=cfg.max_grad_norm,
+            type_optimization=cfg.type_optimization or "all",
+        )
+        return TrainState(params=named, opt_state=self._tx.init(named), step=0, rng=cfg.prng_key("cpu"))
+
+    # ---------------- losses ------------------------------------------ #
+
+    def _loss_fn(self, batch, generator: Optional[torch.Generator], train: bool = True) -> Tuple[torch.Tensor, Dict]:
+        """Cross-encoder loss of one batch. ``train=False`` is the eval
+        forward (no grad, no dropout); ``train=True`` with ``generator=None``
+        takes gradients without dropout (JAX's eval-mode ``_loss_fn`` under
+        ``value_and_grad``). The positive and the negative forwards draw
+        their own dropout streams."""
+        r_pos = r_neg = None
+        if train and generator is not None:
+            r_pos, r_neg = (torch.Generator().manual_seed(s) for s in draw_seeds(generator, 2))
+        fse = self._fse or self.config.max_input_len
+        pos_scores = self.model.score(batch["pos_pairs"], fse, train=train, generator=r_pos)
+        b, n, l = batch["neg_pairs"].shape
+        neg_scores = self.model.score(
+            batch["neg_pairs"].reshape(b * n, l), fse, train=train, generator=r_neg
+        ).reshape(b, n)
+        loss = crossenc_loss(pos_scores, neg_scores, self.config.loss_type)
+        return loss, {"loss": loss, "mrr": mrr_from_scores(pos_scores, neg_scores)}
+
+    # ---------------- train step -------------------------------------- #
+
+    def train_step(self, state: TrainState, batch: Dict[str, torch.Tensor]) -> Dict:
+        """One optimizer step over ``batch`` = :meth:`_shard_batch`'s
+        (grad_acc, micro, ...) tensors: gradients of each micro-batch's
+        loss, summed and divided by their count, then the optimizer. The
+        parameters, optimizer state, step and generator advance in place."""
+        if self._tx is None:
+            raise RuntimeError("call init_state first")
+        n_micro = next(iter(batch.values())).shape[0]
+        seeds = draw_seeds(state.rng, n_micro)
+        params = state.params
+        for p in params.values():
+            p.grad = None
+        micro_losses = []
+        for idx in range(n_micro):
+            mb = {k: v[idx] for k, v in batch.items()}
+            loss, _ = self._loss_fn(mb, torch.Generator().manual_seed(seeds[idx]))
+            loss.backward()  # accumulates into .grad as JAX sums the scan
+            micro_losses.append(loss.detach())
+        # a parameter the head never reads (the pooler under w_embeds) has
+        # no grad; JAX's is zeros
+        grads = {n: torch.zeros_like(p) if p.grad is None else p.grad / n_micro for n, p in params.items()}
+        apply_updates(params, self._tx.update(grads, state.opt_state, params))
+        for p in params.values():
+            p.grad = None
+        state.step += 1
+        micro = torch.stack(micro_losses)
+        return {"loss": micro.mean(), "micro_losses": micro}
+
+    def _shard_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """Stack into (grad_acc, micro_b, ...) tensors on the device; a batch
+        not divisible by ``grad_acc_steps`` loses its tail, with a warning."""
+        acc = max(1, self.config.grad_acc_steps)
+        out = {}
+        for k, v in batch.items():
+            if np.ndim(v) == 0:
+                continue
+            v = np.asarray(v)
+            b = v.shape[0]
+            micro = b // acc
+            if micro == 0:
+                acc_eff, micro = 1, b
+            else:
+                acc_eff = acc
+            if acc_eff * micro != b and k not in self._warned_tail:
+                self._warned_tail.add(k)
+                LOGGER.warning(
+                    "batch %r size %d not divisible by grad_acc_steps=%d: "
+                    "dropping %d samples per step — pick a divisible "
+                    "train_batch_size", k, b, acc_eff, b - acc_eff * micro,
+                )
+            out[k] = torch.as_tensor(
+                v[: acc_eff * micro].reshape((acc_eff, micro) + v.shape[1:]), device=self.device
+            )
+        if "first_segment_end" in batch:
+            # pair layout is constant per dataset
+            self._fse = int(batch["first_segment_end"])
+        return out
+
+    # ---------------- eval -------------------------------------------- #
+
+    def evaluate(self, state: TrainState, batches: Iterator[Dict]) -> Dict[str, float]:
+        """Eval-mode dev metrics: each batch's mean weighted by its size, so
+        a short tail batch counts each example once."""
+        losses, mrrs, weights = [], [], []
+        for batch in batches:
+            if "first_segment_end" in batch:
+                self._fse = int(batch["first_segment_end"])
+            b = {
+                k: torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in batch.items()
+                if k != "first_segment_end"
+            }
+            loss, aux = self._loss_fn(b, None, train=False)
+            losses.append(float(loss))
+            weights.append(next(v.shape[0] for v in b.values() if v.dim() > 0))
+            mrrs.append(float(aux["mrr"]))
+        w = np.asarray(weights, np.float64)
+        res = {"dev_loss": float(np.average(losses, weights=w)) if losses else float("nan")}
+        if mrrs:
+            res["dev_mrr"] = float(np.average(mrrs, weights=w))
+        return res
+
+    # ---------------- full loop --------------------------------------- #
+
+    def _checkpoint_tree(self, state: TrainState) -> Dict:
+        return {
+            "params": self.model.params_tree(),
+            "opt_state": state.opt_state,
+            "step": int(state.step),
+            # rng continuity: resume picks up the dropout stream mid-sequence
+            "rng": state.rng,
+        }
+
+    def _restore(self, state: TrainState, tree: Dict) -> TrainState:
+        self.model.load_params_(tree["params"])
+        opt = tree["opt_state"]
+        state.opt_state["count"] = int(opt["count"])
+        for key in ("mu", "nu"):
+            for n, t in state.opt_state.get(key, {}).items():
+                t.copy_(torch.as_tensor(opt[key][n]))
+        state.step = int(tree["step"])
+        state.rng.set_state(torch.as_tensor(tree["rng"]))
+        return state
+
+    def train(
+        self,
+        train_data: data_mod.EntLinkDataset,
+        dev_data: Optional[data_mod.EntLinkDataset] = None,
+        resume: bool = False,
+    ) -> TrainState:
+        cfg = self.config
+        state = self.init_state()
+        start_epoch = 0
+        if resume:
+            last = self._ckpt.latest_eoe()
+            if last is not None:
+                tree, _ = load_pytree(last["path"])
+                state = self._restore(state, tree)
+                start_epoch = last["epoch"] + 1
+                LOGGER.info("resumed from %s (epoch %d)", last["path"], start_epoch)
+
+        batch_size = cfg.train_batch_size
+        fast_dev = cfg.fast_dev_run
+        eval_every = int(cfg.eval_interval) if cfg.eval_interval and cfg.eval_interval > 0 else 0
+        steps_since_eval = 0
+        for epoch in range(start_epoch, cfg.num_epochs):
+            neg_labels = self._epoch_negatives(train_data, state, epoch)
+            batches = self._make_batches(train_data, neg_labels, batch_size, epoch)
+            t0 = time.time()
+            for bi, batch in enumerate(batches):
+                if fast_dev and bi >= fast_dev:
+                    break
+                metrics = self.train_step(state, self._shard_batch(batch))
+                steps_since_eval += 1
+                if eval_every and dev_data is not None and steps_since_eval >= eval_every:
+                    # mid-epoch dev eval + top-k checkpointing (reference:
+                    # eval_interval / PL val_check_interval)
+                    steps_since_eval = 0
+                    self._dev_eval_and_ckpt(state, dev_data, batch_size, epoch)
+                if bi % cfg.print_interval == 0:
+                    loss_val = float(metrics["loss"])
+                    LOGGER.info(
+                        "epoch %d step %d loss %.4f (%.2f s/step)",
+                        epoch, state.step, loss_val, (time.time() - t0) / (bi + 1),
+                    )
+                    if self.tracker is not None:
+                        self.tracker.log({"train_loss": loss_val, "epoch": epoch}, step=state.step)
+            # dev eval + checkpoints (reference: top-k on dev metric +
+            # end-of-epoch, pairwise_trainer.py:214-237)
+            if dev_data is not None:
+                self._dev_eval_and_ckpt(state, dev_data, batch_size, epoch)
+            self._ckpt.save_end_of_epoch(self._checkpoint_tree(state), epoch, state.step)
+        return state
+
+    def _dev_eval_and_ckpt(self, state: TrainState, dev_data, batch_size: int, epoch: int) -> None:
+        cfg = self.config
+        # dev negatives are mined once per epoch, not once per eval
+        if self._dev_negs_epoch != epoch:
+            self._dev_negs = self._epoch_negatives(dev_data, state, epoch)
+            self._dev_negs_epoch = epoch
+        dev_metrics = self.evaluate(
+            state,
+            self._make_batches(dev_data, self._dev_negs, batch_size, epoch, shuffle=False, for_eval=True),
+        )
+        LOGGER.info("epoch %d dev: %s", epoch, dev_metrics)
+        if self.tracker is not None:
+            self.tracker.log(dict(dev_metrics, epoch=epoch), step=state.step)
+        metric_val = dev_metrics["dev_mrr" if cfg.ckpt_metric == "mrr" else "dev_loss"]
+        if np.isfinite(metric_val):
+            self._ckpt.maybe_save(self._checkpoint_tree(state), metric_val, state.step, epoch)
+
+    def _epoch_negatives(self, data, state: TrainState, epoch: int) -> np.ndarray:
+        cfg = self.config
+        return data_mod.mine_negatives(data, cfg.neg_strategy, cfg.num_negs, seed=epoch, device=self.device)
+
+    def _make_batches(self, data, neg_labels, batch_size, epoch, shuffle=None, for_eval=False):
+        shuffle = self.config.shuffle_data if shuffle is None else shuffle
+        # eval sees every example exactly once: no tail drop, no wrap-padding
+        tail = {"drop_remainder": False, "pad_remainder": False} if for_eval else {}
+        return data_mod.crossenc_batches(data, neg_labels, batch_size, shuffle, epoch, **tail)

@@ -5,19 +5,26 @@
 Phases, in order; any failure exits non-zero before the result line:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch and
-   CUDA versions, and both kernels built from ``anncur_tpu_torch/csrc``
+   CUDA versions, and every kernel built from ``anncur_tpu_torch/csrc``
    (one ``nvcc`` per source, started together);
 2. each hand-written kernel against its plain PyTorch version on the card
    at the main path's shapes, with its time, the plain version's, a
    PyTorch library call's (a yardstick the port never calls) and the
-   least time the card could take (``bound_ms``);
+   least time the card could take (``bound_ms``): kernel A (attention
+   forward, with its row log-sum-exp), kernels C and D (attention
+   backward, dK/dV and dQ) and kernel B (MIPS top-k);
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
    10,000 items at cost 600 (500 anchors + top-100 rerank, top-10);
-5. the ``kernels`` line: each kernel's launches on phases 3-4 (counts set
+5. train: the Trainer takes 1 warm-up and 5 timed steps of bert-base
+   cross-encoder training at the widths of
+   ``configs/el_zeshel_cross_enc.json`` (4 micro-batches of one mention x
+   64 pairs of 255 tokens per step), then one micro-batch's loss and
+   gradient norm are held against the plain attention's;
+6. the ``kernels`` line: each kernel's launches on phases 3-5 (counts set
    to 0 just before each phase and read just after), error and times;
-6. the last line, ``{"ok": true, "device": {...}}``.
+7. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -43,6 +50,13 @@ ATTN_ATOL = 2e-2  # bf16 output: 8-bit mantissa, f32 sums in other orders
 MIPS_RTOL = 1e-4  # f32 FFMA vs cuBLAS f32: one dot of 500 terms, other order
 MIPS_TIE_GAP = 1e-5  # ids compared where neighbours differ by more (x max|s|)
 CE_ATOL = 2e-2  # bf16 CE scores, kernel A vs plain attention, 12 layers
+GRAD_RTOL = 2e-2  # kernels C/D grads vs plain autograd, x the plain grad's max (bf16 out)
+LSE_RTOL = 1e-5  # kernel A's f32 log-sum-exp vs torch.logsumexp, sums in another order
+TRAIN_LOSS_ATOL = 2e-2  # bf16 CE loss through 12 layers, kernels vs plain attention
+TRAIN_GNORM_RTOL = 2e-2  # global gradient norm, the same
+# gradients that are 0 in exact arithmetic (a shift under a softmax), so
+# a step may leave them, and their parameters, unchanged
+ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
 
 
 def log(msg):
@@ -148,6 +162,77 @@ def check_attention(dev, flush):
     }
 
 
+def time_grad_ms(out, inputs, dout, reps, flush):
+    """Device ms of the backward alone of ``out`` (a graph built once)."""
+    return time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True), reps, flush)
+
+
+def check_attention_bwd(dev, flush):
+    """Kernels C and D (and kernel A's lse) against the plain autograd at
+    the training shape: 64 pairs of 255 tokens, random key lengths."""
+    from anncur_tpu_torch.ops.attention import (
+        attention_bwd_dkv, attention_bwd_dq, attention_bwd_plain, attention_fwd, attention_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, s, nh, hd = 64, 255, 12, 64
+    errs = {"dkv": 0.0, "dq": 0.0, "lse": 0.0}
+    for g in (s, 1):
+        q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
+        rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]) if g == s else torch.ones(b, g, dtype=torch.bool, device=dev)
+        # rows past a pair's length never reach a loss: their dO is 0, as in the CE
+        dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(q.dtype)
+        out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
+        dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
+        want = attention_bwd_plain(q, k, v, key_valid, dout)
+        scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
+        want_lse = torch.logsumexp(scores + torch.where(key_valid, 0.0, -1e9)[:, None, None, :], dim=-1)
+        torch.cuda.synchronize()
+        lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).transpose(1, 2)[rows].max())
+        for name, got, ref, sel in (("dq", dq, want[0], rows), ("dkv", dk, want[1], key_valid), ("dkv", dv, want[2], key_valid)):
+            err = float((got.float() - ref.float()).abs().amax(dim=(2, 3))[sel].max() / ref.float().abs().max())
+            errs[name] = max(errs[name], err)
+        zero = bool((dk[~key_valid] == 0).all() and (dv[~key_valid] == 0).all())
+        log(f"  kernels C/D b={b} g={g} s={s}: max |kernel - plain| / max|plain| dQ {errs['dq']:.3e}, dK/dV {errs['dkv']:.3e} (tol {GRAD_RTOL}); masked keys zero: {zero}; lse rel err {lse_err:.2e}")
+        if not (errs["dq"] <= GRAD_RTOL and errs["dkv"] <= GRAD_RTOL and zero):
+            fail(f"attention backward kernels disagree with the plain autograd at g={g}: {errs}, masked keys zero {zero}")
+        if not lse_err <= LSE_RTOL:
+            fail(f"kernel A's lse disagrees with logsumexp at g={g}: {lse_err}")
+        errs["lse"] = max(errs["lse"], lse_err)
+
+    # times at the full-layer shape (the last g = s case is rebuilt)
+    q, k, v, key_valid, lengths = attention_inputs(gen, b, s, s, nh, hd, dev)
+    rows = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+    dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(q.dtype)
+    out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dkv_ms = time_ms(lambda: attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta), 20, flush)
+    dq_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, lse, delta), 20, flush)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    plain_ms = time_grad_ms(attention_plain(*leaves, key_valid), leaves, dout, 5, flush)
+    lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_leaves, attn_mask=key_valid[:, None, None, :])
+    library_ms = time_grad_ms(lib_out, lib_leaves, dout.transpose(1, 2), 20, flush)
+    # what these inputs need: q, dO (all rows), k and v at valid keys, lse
+    # and D read; dK, dV at valid keys or dQ written. Operations over the
+    # valid keys: C does 4 products (S, dP, dV, dK), D 3 (S, dP, dQ)
+    n_keys = int(lengths.sum())
+    row_bytes = nh * hd * q.element_size()
+    common = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + 2 * lse.numel() * 4 + key_valid.numel()
+    pair_ops = 2 * nh * s * n_keys * hd  # one product of (s x valid keys x hd)
+    shape = f"b={b} g={s} s={s} nh={nh} hd={hd} bf16, random key lengths"
+    both = {"route": "cuda", "source": "anncur_tpu_torch/csrc/attention_bwd.cu", "plain_ms": plain_ms,
+            "library_ms": library_ms, "shape": shape}
+    return errs["lse"], [
+        {"name": "attention_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
+         "max_abs_err": errs["dkv"], "ms": dkv_ms, **bound(common + 2 * n_keys * row_bytes, 4 * pair_ops, "bf16"), **both},
+        {"name": "attention_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
+         "max_abs_err": errs["dq"], "ms": dq_ms, **bound(common + q.numel() * q.element_size(), 3 * pair_ops, "bf16"), **both},
+    ]
+
+
 def mips_inputs(gen, dev):
     q, d, n, n_valid, k = 32, 500, 10240, 10000, 100
     queries = torch.randn(q, d, generator=gen, device=dev)
@@ -234,19 +319,21 @@ def bound(nbytes, ops, dtype):
 # --------------------------------------------------------------------- #
 
 
-def reset_counts():
-    from anncur_tpu_torch.ops.attention import attention
+def _wrappers():
+    from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq
     from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 
-    attention.launches = 0
-    mips_topk_fused.launches = 0
+    return {"attention_fwd": attention, "attention_bwd_dkv": attention_bwd_dkv,
+            "attention_bwd_dq": attention_bwd_dq, "mips_topk_fused": mips_topk_fused}
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def read_counts():
-    from anncur_tpu_torch.ops.attention import attention
-    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
-
-    return {"attention_fwd": attention.launches, "mips_topk_fused": mips_topk_fused.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def rescore_with_plain_attention(ce, pairs, lm):
@@ -362,6 +449,101 @@ def phase_serve(ce, spec, dev, rng):
     return {"qps": qps, "ce_pairs_per_s": ce_pairs_per_s, "seconds": dt, "launches": counts, "mips_err": mips_err}
 
 
+def phase_train(dev, rng):
+    """Cross-encoder training through the Trainer at the widths of
+    configs/el_zeshel_cross_enc.json: bert-base, default head with
+    cls_w_lin, bf16, loss ce, all_encoder_layers, lr 1e-5, max_grad_norm
+    1, 128-token mentions and entities, 63 random negatives; attention
+    dropout 0 (the configuration that reaches the attention backward
+    kernels), hidden dropout 0.1; 4 micro-batches of one mention per step."""
+    import tempfile
+
+    from anncur_tpu_torch.config import Config
+    from anncur_tpu_torch.models import bert
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+    from anncur_tpu_torch.train.data import EntLinkDataset
+    from anncur_tpu_torch.train.trainer import Trainer
+
+    cfg = Config.from_json(os.path.join(ROOT, "configs", "el_zeshel_cross_enc.json"))
+    spec = BertSpec(attention_dropout=0.0, hidden_dropout=0.1)
+    warm, timed = 1, 5
+    with tempfile.TemporaryDirectory() as res_dir:
+        # random negatives (ZeShEL and a bi-encoder are not in the repo);
+        # 4 mentions per batch, one per micro-batch
+        cfg.update_from_dict({"neg_strategy": "random", "train_batch_size": 4, "base_res_dir": res_dir, "seed": 0})
+        lm, le = cfg.max_input_len, cfg.max_label_len
+        n_ments, n_ents = cfg.train_batch_size * (warm + timed), 1000
+        data = EntLinkDataset(
+            rng.integers(1, spec.vocab_size, size=(n_ments, lm)).astype(np.int32),
+            rng.integers(1, spec.vocab_size, size=(n_ents, le)).astype(np.int32),
+            rng.integers(0, n_ents, size=n_ments),
+        )
+        ce = CrossEncoder(spec, cfg.cross_enc_type, cfg.pooling_type, torch.bfloat16, device=dev, seed=0)
+        trainer = Trainer(cfg, ce, total_steps=100)
+        state = trainer.init_state()
+        negs = trainer._epoch_negatives(data, state, 0)
+        batches = [trainer._shard_batch(b) for b in trainer._make_batches(data, negs, cfg.train_batch_size, 0)]
+        pairs_per_step = cfg.train_batch_size * (1 + cfg.num_negs)
+        trainer.train_step(state, batches[0])  # warm-up: cuBLAS handles, kernel loads
+        torch.cuda.synchronize()
+        before = {n: p.detach().clone() for n, p in state.params.items()}
+        frozen = trainer._tx.frozen
+
+        reset_counts()
+        losses, step_s = [], []
+        for batch in batches[warm: warm + timed]:
+            t0 = time.perf_counter()
+            metrics = trainer.train_step(state, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        counts = read_counts()
+    secs = sum(step_s)
+    pairs_per_s = pairs_per_step * timed / secs
+    log(f"  train {timed} steps of {pairs_per_step} pairs of {lm + le - 1} tokens: {secs:.3f} s "
+        f"({', '.join(f'{t:.3f}' for t in step_s)} s/step), {pairs_per_s:.1f} pairs/s; losses {losses}; launches {counts}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"non-finite training loss: {losses}")
+    changed = {n: not torch.equal(p, before[n]) for n, p in state.params.items()}
+    stuck = [n for n, c in changed.items() if n not in frozen and not c and not n.endswith(ZERO_GRAD_LEAVES)]
+    moved_frozen = [n for n in frozen if changed[n]]
+    log(f"  {sum(changed.values())}/{len(changed)} parameter leaves changed; {len(frozen)} frozen (the embeddings)")
+    if stuck or moved_frozen or not frozen:
+        fail(f"trainable leaves unchanged {stuck}, frozen leaves changed {moved_frozen}, frozen {sorted(frozen)}")
+    per_micro = 2 * spec.num_layers  # positive and negative CE forwards, every layer
+    want = per_micro * cfg.grad_acc_steps * timed
+    if any(counts[k] != want for k in ("attention_fwd", "attention_bwd_dkv", "attention_bwd_dq")):
+        fail(f"training launched the attention kernels {counts}, not {want} times each")
+
+    # one micro-batch again, kernels vs plain attention, same dropout masks
+    mb = {k: v[0] for k, v in batches[0].items()}
+
+    def loss_and_norm():
+        for p in state.params.values():
+            p.grad = None
+        loss, _ = trainer._loss_fn(mb, torch.Generator().manual_seed(7))
+        loss.backward()
+        grads = [p.grad.float() for p in state.params.values() if p.grad is not None]
+        return float(loss.detach()), math.sqrt(sum(float((g * g).sum()) for g in grads))
+
+    loss_k, norm_k = loss_and_norm()
+    bert.attention = attention_plain
+    try:
+        loss_p, norm_p = loss_and_norm()
+    finally:
+        bert.attention = attention
+    for p in state.params.values():
+        p.grad = None
+    log(f"  micro-batch loss {loss_k:.5f} vs plain attention {loss_p:.5f} (tol {TRAIN_LOSS_ATOL}); "
+        f"grad norm {norm_k:.5f} vs {norm_p:.5f} (rtol {TRAIN_GNORM_RTOL})")
+    if not (abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL and abs(norm_k - norm_p) <= TRAIN_GNORM_RTOL * norm_p):
+        fail("training through the kernels disagrees with the plain attention")
+    return {"pairs_per_s": pairs_per_s, "step_s": step_s, "losses": losses, "launches": counts,
+            "loss_vs_plain": [loss_k, loss_p], "grad_norm_vs_plain": [norm_k, norm_p]}
+
+
 # --------------------------------------------------------------------- #
 
 
@@ -385,7 +567,10 @@ def main():
 
     log("phase 2: kernels vs plain versions")
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
-    kernels = [check_attention(dev, flush), check_mips_kernel(dev, flush)]
+    fwd = check_attention(dev, flush)
+    lse_err, bwd = check_attention_bwd(dev, flush)
+    fwd["lse_rel_err"] = lse_err
+    kernels = [fwd, *bwd, check_mips_kernel(dev, flush)]
     del flush
     torch.cuda.empty_cache()
 
@@ -400,17 +585,29 @@ def main():
     log("phase 4: serve (10,000 items, 500 anchors, top-100 rerank, top-10)")
     serve = phase_serve(ce, spec, dev, rng)
 
+    log("phase 5: train (bert-base CE, bf16, 4 x 64 pairs of 255 tokens per step)")
+    del ce
+    torch.cuda.empty_cache()
+    train = phase_train(dev, rng)
+
+    phases = (build, serve, train)
     for kern in kernels:
-        kern["launches"] = build["launches"][kern["name"]] + serve["launches"][kern["name"]]
-    if kernels[0]["launches"] == 0 or kernels[1]["launches"] == 0:
+        kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
+    if any(kern["launches"] == 0 for kern in kernels):
         fail("a kernel of the main path was never launched")
-    kernels[1]["max_abs_err"] = max(kernels[1]["max_abs_err"], serve["mips_err"])
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], serve["mips_err"])
     summary = {
         "build_pairs_per_s": build["pairs_per_s"],
         "query_qps_cost600": serve["qps"],
         "query_ce_pairs_per_s": serve["ce_pairs_per_s"],
+        "train_pairs_per_s": train["pairs_per_s"],
+        "train_step_s": train["step_s"],
+        "train_losses": train["losses"],
+        "train_loss_vs_plain": train["loss_vs_plain"],
+        "train_grad_norm_vs_plain": train["grad_norm_vs_plain"],
         "launches_build": build["launches"],
         "launches_query_batch": serve["launches"],
+        "launches_train": train["launches"],
         "card": smi,
     }
     log(json.dumps({"summary": summary}))

@@ -9,7 +9,14 @@ the plain versions against the JAX package). Run on a GPU host with
 import pytest
 import torch
 
-from anncur_tpu_torch.ops.attention import attention, attention_plain
+from anncur_tpu_torch.ops.attention import (
+    attention,
+    attention_bwd_dkv,
+    attention_bwd_dq,
+    attention_bwd_plain,
+    attention_fwd,
+    attention_plain,
+)
 from anncur_tpu_torch.ops.mips import mips_topk
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 
@@ -63,6 +70,82 @@ def test_attention_kernel_rejects_what_it_cannot_take(dev):
         attention(q.half(), k.half(), v.half(), valid)
     with pytest.raises(ValueError, match="one CUDA device"):
         attention(q, k, v, valid.cpu())
+
+
+def _real_rows(g, s, lengths):
+    """(b, g) rows that reach a loss: rows < length of a full layer, all of
+    a 1- or 3-row slice."""
+    b = lengths.shape[0]
+    if g == s:
+        return torch.arange(g, device=lengths.device)[None, :] < lengths[:, None]
+    return torch.ones(b, g, dtype=torch.bool, device=lengths.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g", [256, 1, 3])
+def test_attention_lse_matches_plain_logsumexp(dev, g, dtype):
+    q, k, v, valid, lengths = _attn_case(dev, 4, g, 256, 12, 64, dtype, seed=g)
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / 8.0
+    scores = scores + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    want = torch.logsumexp(scores, dim=-1)
+    torch.cuda.synchronize()
+    # f32 sums of exponentials in another order: relative 1e-5 of |lse|
+    rows = _real_rows(g, 256, lengths)[:, None, :].expand_as(want)
+    assert torch.allclose(lse[rows], want[rows], rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, attention_fwd(q, k, v, valid)[0])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("g", [256, 1, 3])
+def test_attention_backward_kernels_match_plain_autograd(dev, g, dtype, tol):
+    """Kernels C and D against the autograd of the plain attention, at
+    real query rows; masked keys get exactly zero dK, dV. Tolerance x the
+    plain gradient's max: bf16 outputs round to 8 bits (2e-2); f32 sums
+    in another order (1e-4)."""
+    s = 256
+    q, k, v, valid, lengths = _attn_case(dev, 4, g, s, 12, 64, dtype, seed=100 + g)
+    rows = _real_rows(g, s, lengths)
+    gen = torch.Generator(device=dev).manual_seed(g)
+    # padded query rows never reach a loss: their dO is 0, as in the CE
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype) * rows[:, :, None, None]
+    want = attention_bwd_plain(q, k, v, valid, dout)
+
+    before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves, valid)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    after = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    assert after == tuple(n + 1 for n in before)
+    for name, a, b, sel in (
+        ("dq", got[0], want[0], rows),
+        ("dk", got[1], want[1], valid),
+        ("dv", got[2], want[2], valid),
+    ):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().amax(dim=(2, 3))[sel].max().item()
+        scale = b.float().abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+    assert not got[1][~valid].any() and not got[2][~valid].any()
+
+
+def test_attention_backward_kernels_reject_what_they_cannot_take(dev):
+    q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    dout = torch.ones_like(out)
+    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
+    for fn in (attention_bwd_dkv, attention_bwd_dq):
+        with pytest.raises(ValueError, match="dout"):
+            fn(q, k, v, valid, dout.bfloat16(), lse, delta)
+        with pytest.raises(ValueError, match="dout"):
+            fn(q, k, v, valid, dout.transpose(1, 2).contiguous().transpose(1, 2), lse, delta)
+        with pytest.raises(ValueError, match="lse"):
+            fn(q, k, v, valid, dout, None, delta)
+        with pytest.raises(ValueError, match="delta"):
+            fn(q, k, v, valid, dout, lse, delta.double())
+        with pytest.raises(ValueError, match="head dim"):
+            fn(q[..., :8], k[..., :8], v[..., :8], valid, dout[..., :8].contiguous(), lse, delta)
 
 
 @pytest.mark.parametrize(

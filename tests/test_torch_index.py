@@ -2,6 +2,7 @@
 chunk-dir resume), the CUR build, and files that cross between the two
 packages in both directions (CPU)."""
 
+import functools
 import os
 
 import jax
@@ -121,7 +122,7 @@ def _jax_cur(mat, rows_i, cols_i, **kw):
 
 def _port_cur(mat, rows_i, cols_i, **kw):
     return tcur.build_cur(
-        rows=mat[rows_i], cols=mat[:, cols_i], row_idxs=rows_i, col_idxs=cols_i, **kw
+        rows=mat[rows_i], cols=mat[:, cols_i], row_idxs=rows_i, col_idxs=cols_i, device="cpu", **kw
     )
 
 
@@ -164,7 +165,7 @@ def test_build_cur_intersection_check_raises_in_both(rng):
     rows_i, cols_i = np.arange(4), np.arange(5)
     cols = mat[:, cols_i].copy()
     cols[0, 0] += 1.0
-    for build in (jcur.build_cur, tcur.build_cur):
+    for build in (jcur.build_cur, functools.partial(tcur.build_cur, device="cpu")):
         with pytest.raises(ValueError, match="intersection"):
             build(rows=mat[rows_i], cols=cols, row_idxs=rows_i, col_idxs=cols_i)
 
@@ -179,7 +180,21 @@ def test_cur_index_files_cross_packages(rng, tmp_path):
     np.testing.assert_array_equal(np.asarray(back_j.col_idxs), cols_i)
     idx_j = _jax_cur(mat, rows_i, cols_i, approx_preference="cols")
     jcur.save_cur_index(str(tmp_path / "j.pkl"), idx_j)
-    back_t = tcur.load_cur_index(str(tmp_path / "j.pkl"))
+    back_t = tcur.load_cur_index(str(tmp_path / "j.pkl"), device="cpu")
     assert back_t.approx_preference == "cols"
     np.testing.assert_array_equal(back_t.latent_rows.numpy(), np.asarray(idx_j.latent_rows))
     np.testing.assert_array_equal(back_t.row_idxs.numpy(), rows_i)
+
+
+def test_cur_entry_points_without_cpu_raise_when_cuda_absent(monkeypatch, rng, tmp_path):
+    """build_cur on numpy inputs and load_cur_index default to the card:
+    without CUDA they raise unless the caller passes device='cpu'."""
+    mat = make_low_rank(rng, 12, 16, 3)
+    rows_i, cols_i = np.arange(0, 12, 2), np.arange(0, 16, 3)
+    tcur.save_cur_index(str(tmp_path / "i.pkl"), _port_cur(mat, rows_i, cols_i))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcur.build_cur(rows=mat[rows_i], cols=mat[:, cols_i], row_idxs=rows_i, col_idxs=cols_i)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tcur.load_cur_index(str(tmp_path / "i.pkl"))
+    assert tcur.load_cur_index(str(tmp_path / "i.pkl"), device="cpu").latent_rows.device.type == "cpu"
