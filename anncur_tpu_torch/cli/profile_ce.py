@@ -30,7 +30,7 @@ import torch
 
 
 def _group(name: str) -> str:
-    if "attention_fwd_kernel" in name:
+    if "attention_fwd_" in name:
         return "kernel_A_attention"
     if "attention_bwd_dkv_kernel" in name:
         return "kernel_C_attention_bwd_dkv"

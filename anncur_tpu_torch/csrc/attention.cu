@@ -1,45 +1,325 @@
 // Kernel A: attention forward for the cross-encoder, for Hopper (sm_90a).
 //
-// Replaces anncur_tpu/models/bert.py::_flash_attention (the stock Pallas TPU
-// flash_attention forward) and computes what anncur_tpu/models/bert.py::
-// _attn_core computes at every real query row:
+// Replaces anncur_tpu/models/bert.py::_flash_attention, the stock Pallas TPU
+// flash-attention forward (jax/experimental/pallas/ops/tpu/flash_attention.py,
+// _flash_attention_kernel), and computes at every real query row what it and
+// anncur_tpu/models/bert.py::_attn_core compute:
 //     out = softmax(Q K^T / sqrt(hd) + bias) V,
 // bias = 0 at valid keys and -1e9 at padding (exp of a masked key is exactly
-// 0 in f32), with f32 scores, f32 softmax and f32 accumulation. The
-// probabilities never leave the chip.
+// 0 in f32, and a pair with no valid key attends every key). Scores, softmax
+// and accumulation are f32.
 //
-// Bound on the H100: at s=256, hd=64, nh=12 one pair-layer does ~201 MFLOP
-// and moves 1.57 MB of bf16 Q/K/V/O, 128 FLOP/B: below the bf16 tensor-core
-// ridge (~295 FLOP/B), so memory bounds it, ~0.47 us per pair-layer at
-// 3.35 TB/s. This first version does its arithmetic in f32 FFMA on the CUDA
-// cores (67 TFLOP/s), not on the tensor cores, so in practice it is bounded
-// by operations at ~3 us per pair-layer; mma/wgmma and TMA are later work.
+// Bound on the H100: at the build's shape (2048 pairs, g = s = 256, nh = 12,
+// hd = 64, bf16, random key lengths) the launch must read Q and write O
+// (1.61 GB) and read K and V at the valid keys (0.81 GB): 0.725 ms at
+// 3.35 TB/s. Its products over the valid keys are 207 GFLOP, 0.21 ms on the
+// bf16 tensor cores: ~128 FLOP/B, below the bf16 ridge (~295 FLOP/B), so
+// bytes bound it. mma.sync at a third of the tensor-core peak already keeps
+// the arithmetic under the byte time, so this design needs neither wgmma,
+// TMA nor warp specialisation.
 //
-// Design: one block per (pair, head, tile of 128 query rows). The head's K
-// and V rows for the whole sequence are copied into dynamic shared memory
-// (64 KB at s=256, hd=64, bf16: above the 48 KB default, hence
-// cudaFuncSetAttribute) beside the f32 key bias. Each thread owns one query
-// row: the row and its output accumulator live in registers, and it runs an
-// online softmax over chunks of 16 keys, one rescale per chunk. All threads
-// of a warp read the same K/V row at a time, a shared-memory broadcast.
+// bf16 design (hd in {16, 32, 64, 128}, templated on HD):
+// - One block per (pair, head, tile of query rows), the tile index fastest,
+//   so the tiles of one head run together and re-read its K/V from L2. Four
+//   warps own 16 query rows each. 64 rows rather than 128: an 8-warp block
+//   holds its registers and shared memory for twice as long, fits only two
+//   to an SM and timed slower on the H100, and 64-row tiles give twice the
+//   blocks at the training shape's 64 pairs and at most 63 padded rows of a
+//   ragged g. For g <= 16 (the CLS-only final layer's 1- or 3-row slice)
+//   one warp owns a 16-row tile, so no warp computes only padding.
+// - Q goes to shared memory once (cp.async, rows >= g zero-filled) and
+//   ldmatrix turns it into the A fragments of mma.sync m16n8k16 (bf16 in,
+//   f32 accumulate), which stay in registers. K and V stream in 64-key
+//   tiles, double-buffered with cp.async (keys >= s zero-filled, their
+//   scores -inf); rows are padded by 16 bytes so the ldmatrix row addresses
+//   fall in distinct banks. V is read with ldmatrix.trans as the B operand.
+// - S = Q K^T on the tensor cores, then S * scale + bias in f32. Online
+//   softmax: a row's values lie in a quad of lanes, so its max takes two
+//   shuffles; P = exp(S - m) in f32 and l sums the f32 P. P is rounded to
+//   bf16 and fed from registers as the A operand of P V, as the TPU kernel
+//   (p.astype(v.dtype)) and _attn_core (probs.astype(dtype)) round it.
+// - A 64-key tile with no valid key is skipped when its pair has one (one
+//   64-bit ballot word per tile, built once per block while Q and tile 0
+//   load): exact, since exp(-1e9 - m) is 0 in f32. Tile 0 always runs, so
+//   its loads need not wait for the mask: masked keys before a pair's
+//   first valid key are wiped exactly by that tile's rescale,
+//   exp(-1e9 - m) = 0. A pair with no valid key runs every tile.
+// - Epilogue: O / l rounded to bf16, staged in the warp's rows of the Q
+//   tile, written in 16-byte coalesced stores; rows >= g are not stored.
+//
+// f32 (no main-path caller on the card; the card tests use it): the first
+// version's CUDA-core body. One block per (pair, head, tile of 128 query
+// rows) copies the head's K, V and key bias to shared memory; each thread
+// owns one query row and runs an online softmax over chunks of 16 keys in
+// f32 FFMA.
+//
 // Layout is the JAX one: q (b, g, nh, hd), k and v (b, s, nh, hd), any
-// strides on the batch, row and head axes, hd contiguous; out (b, g, nh, hd)
-// contiguous. The kernel allocates nothing and runs on the caller's stream.
-//
-// For the backward (csrc/attention_bwd.cu) the launch may also write each
-// row's log-sum-exp, lse = m + log(l) in f32, shape (b, nh, g): the online
-// softmax's running max and sum, which the backward kernels use to recompute
-// P = exp(score - lse) without a second pass over the keys. A null lse
-// pointer (inference) writes nothing extra.
+// strides on the batch, row and head axes, hd contiguous and rows 16-byte
+// aligned; out (b, g, nh, hd) contiguous. For the backward
+// (csrc/attention_bwd.cu) a launch may also write each row's natural-log
+// log-sum-exp of its scaled, biased scores, lse = m + log(l) in f32, shape
+// (b, nh, g); a null lse pointer writes nothing extra, and out is the same
+// either way. The kernels allocate nothing and run on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
+using bf16 = __nv_bfloat16;
+using namespace mma_sm90;
+
+constexpr int kKeyTile = 64;  // keys per K/V tile of the bf16 kernel
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMaskBias = -1e9f;
+
+template <int HD, int NW>
+constexpr size_t bf16_smem_bytes(int n_tiles) {
+  // Q tile, two stages of K and V tiles (rows padded by 8 elements), one
+  // mask word per key tile
+  return static_cast<size_t>(16 * NW + 4 * kKeyTile) * (HD + 8) * sizeof(bf16) +
+         static_cast<size_t>(n_tiles) * sizeof(uint64_t);
+}
+
+// sc (a warp's 16 x 64 score tile in C fragments) <- sc * scale + bias,
+// bias 0 at valid keys, -1e9 at masked ones and -inf at keys past the end
+// (n_keys = keys of the tile below s); tmax <- each of the lane's two rows'
+// max over its 16 columns
+template <bool kAllValid>
+__device__ __forceinline__ void scale_and_bias(float (&sc)[kKeyTile / 8][4], float (&tmax)[2],
+                                               float scale, uint64_t bits, int n_keys, int kq) {
+  tmax[0] = tmax[1] = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kKeyTile / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int kt = 8 * j + kq + e;
+      float bias = 0.0f;
+      if (!kAllValid) bias = kt >= n_keys ? -INFINITY : (((bits >> kt) & 1) ? 0.0f : kMaskBias);
+      sc[j][e] = sc[j][e] * scale + bias;
+      sc[j][e + 2] = sc[j][e + 2] * scale + bias;
+      tmax[0] = fmaxf(tmax[0], sc[j][e]);
+      tmax[1] = fmaxf(tmax[1], sc[j][e + 2]);
+    }
+  }
+}
+
+// Four 4-warp blocks per SM at hd <= 64: ptxas then keeps the body to 128
+// registers (a few spilled bytes); left free it takes ~130, and only three
+// blocks fit. The one-warp blocks are bounded by shared memory instead.
+template <int HD, int NW>
+constexpr int kMinBlocksPerSm = (NW == 4 && HD <= 64) ? 4 : 1;
+
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32, kMinBlocksPerSm<HD, NW>)
+attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                          bf16* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
+                          int n_qt, long long q_sb, long long q_sr, long long q_sh,
+                          long long k_sb, long long k_sr, long long k_sh, long long v_sb,
+                          long long v_sr, long long v_sh, long long valid_sb, float scale) {
+  constexpr int kRows = 16 * NW, kThreads = 32 * NW, kLd = HD + 8, kUnits = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* ks = qs + kRows * kLd;          // 2 stages of kKeyTile rows
+  bf16* vs = ks + 2 * kKeyTile * kLd;   // 2 stages of kKeyTile rows
+  uint64_t* tile_bits = reinterpret_cast<uint64_t*>(vs + 2 * kKeyTile * kLd);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt;
+  const int bh = blockIdx.x / n_qt;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows;
+  const int n_tiles = (s + kKeyTile - 1) / kKeyTile;
+
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  auto load_kv = [&](int t, int stage) {
+    bf16* kd = ks + stage * kKeyTile * kLd;
+    bf16* vd = vs + stage * kKeyTile * kLd;
+    for (int u = tid; u < kKeyTile * kUnits; u += kThreads) {
+      const int r = u / kUnits, c = u % kUnits;
+      const int key = t * kKeyTile + r;
+      const bool ok = key < s;
+      cp_async_16(smem_addr(kd + r * kLd + c * 8), ok ? kb + key * k_sr + c * 8 : kb, ok ? 16 : 0);
+      cp_async_16(smem_addr(vd + r * kLd + c * 8), ok ? vb + key * v_sr + c * 8 : vb, ok ? 16 : 0);
+    }
+  };
+
+  // the Q tile (rows >= g zero) and key tile 0, which always runs
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  for (int u = tid; u < kRows * kUnits; u += kThreads) {
+    const int r = u / kUnits, c = u % kUnits;
+    const bool ok = row0 + r < g;
+    cp_async_16(smem_addr(qs + r * kLd + c * 8), ok ? qb + (row0 + r) * q_sr + c * 8 : qb,
+                ok ? 16 : 0);
+  }
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // one word of valid-key bits per key tile, while those are in flight
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  bool any_local = false;
+  for (int t = warp; t < n_tiles; t += NW) {
+    const int j0 = t * kKeyTile + lane, j1 = j0 + 32;
+    const uint32_t lo = __ballot_sync(0xffffffffu, j0 < s && vrow[j0]);
+    const uint32_t hi = __ballot_sync(0xffffffffu, j1 < s && vrow[j1]);
+    if (lane == 0) tile_bits[t] = (static_cast<uint64_t>(hi) << 32) | lo;
+    any_local |= (lo | hi) != 0;
+  }
+  const bool any_valid = __syncthreads_or(any_local);  // also publishes tile_bits
+  auto next_tile = [&](int t) {
+    while (any_valid && t < n_tiles && tile_bits[t] == 0) ++t;
+    return t;
+  };
+  int t = 0;
+
+  const int wrow = warp * 16;   // this warp's first row in the tile
+  const int kq = 2 * (lane & 3);  // this lane's first column of a C fragment
+  uint32_t qf[HD / 16][4];
+  float o[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};  // rows lane/4 and lane/4 + 8
+  float l[2] = {0.0f, 0.0f};            // this lane's share of each row's sum
+  int stage = 0;
+  bool first = true;
+
+  while (t < n_tiles) {
+    const int tn = next_tile(t + 1);
+    if (tn < n_tiles) load_kv(tn, stage ^ 1);
+    cp_async_commit();  // possibly empty: keeps the wait count uniform
+    cp_async_wait<1>();
+    __syncthreads();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk)
+        ldmatrix_x4(qf[kk], smem_addr(qs + (wrow + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8));
+      first = false;
+    }
+    const bf16* kd = ks + stage * kKeyTile * kLd;
+    const bf16* vd = vs + stage * kKeyTile * kLd;
+
+    // S = Q K^T: 8 n-tiles of 8 keys
+    float sc[kKeyTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+#pragma unroll
+      for (int np = 0; np < kKeyTile / 16; ++np) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, smem_addr(kd + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * kLd +
+                                  kk * 16 + ((lane >> 3) & 1) * 8));
+        mma_bf16_16816(sc[2 * np], qf[kk], kf[0], kf[1]);
+        mma_bf16_16816(sc[2 * np + 1], qf[kk], kf[2], kf[3]);
+      }
+    }
+
+    // S * scale + bias and the tile's row max; a tile of valid keys only
+    // (every full tile of a prefix mask but its last) adds no bias
+    const uint64_t bits = tile_bits[t];
+    const int key0 = t * kKeyTile;
+    float tmax[2];
+    if (bits == ~0ull && key0 + kKeyTile <= s)
+      scale_and_bias<true>(sc, tmax, scale, bits, s - key0, kq);
+    else
+      scale_and_bias<false>(sc, tmax, scale, bits, s - key0, kq);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      // finite: a tile that runs holds a key < s. alpha is 0 on the first
+      // tile (m = -inf). Subtract before scaling: at m ~ -1e9 (no valid
+      // key) a folded log2(e) would lose the difference.
+      const float m_new = fmaxf(m[i], tmax[i]);
+      alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int d = 0; d < HD / 8; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        sc[j][e] = exp2f((sc[j][e] - m[i]) * kLog2e);
+        l[i] += sc[j][e];
+      }
+    }
+
+    // O += P V, P rounded to bf16 straight from the score fragments
+#pragma unroll
+    for (int kstep = 0; kstep < kKeyTile / 16; ++kstep) {
+      const uint32_t pa[4] = {
+          pack_bf16x2(sc[2 * kstep][0], sc[2 * kstep][1]),
+          pack_bf16x2(sc[2 * kstep][2], sc[2 * kstep][3]),
+          pack_bf16x2(sc[2 * kstep + 1][0], sc[2 * kstep + 1][1]),
+          pack_bf16x2(sc[2 * kstep + 1][2], sc[2 * kstep + 1][3]),
+      };
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, smem_addr(vd + (kstep * 16 + (lane & 15)) * kLd + dp * 16 +
+                                        (lane >> 4) * 8));
+        mma_bf16_16816(o[2 * dp], pa, vf[0], vf[1]);
+        mma_bf16_16816(o[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+    t = tn;
+    stage ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+
+  // O / l in bf16 through this warp's own rows of the Q tile
+  bf16* os = qs + wrow * kLd;
+  const int r = lane >> 2;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(os + r * kLd + 8 * d + kq) =
+        pack_bf16x2(o[d][0] * inv[0], o[d][1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(os + (r + 8) * kLd + 8 * d + kq) =
+        pack_bf16x2(o[d][2] * inv[1], o[d][3] * inv[1]);
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * kUnits; u += 32) {
+    const int rr = u / kUnits, c = u % kUnits;
+    const int row = row0 + wrow + rr;
+    if (row < g)
+      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * g + row) * nh + h) * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(os + rr * kLd + c * 8);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + wrow + r + 8 * i;
+      if (row < g) lse[(static_cast<size_t>(b) * nh + h) * g + row] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// ----------------------------------------------------------------- f32
+
+constexpr int kF32Threads = 128;
 constexpr int kKeyChunk = 16;
 
 __device__ __forceinline__ void load8(const float* p, float* dst) {
@@ -49,67 +329,48 @@ __device__ __forceinline__ void load8(const float* p, float* dst) {
   dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
 }
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void store8(float* p, const float* src) {
   *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
   *reinterpret_cast<float4*>(p + 4) = make_float4(src[4], src[5], src[6], src[7]);
 }
 
-__device__ __forceinline__ void store8(__nv_bfloat16* p, const float* src) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                     T* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
-                     long long q_sb, long long q_sr, long long q_sh,
-                     long long k_sb, long long k_sr, long long k_sh,
-                     long long v_sb, long long v_sr, long long v_sh,
-                     long long valid_sb, float scale) {
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                         float* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
+                         long long q_sb, long long q_sr, long long q_sh,
+                         long long k_sb, long long k_sr, long long k_sh,
+                         long long v_sb, long long v_sr, long long v_sh,
+                         long long valid_sb, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + static_cast<size_t>(s) * HD;
-  float* bias = reinterpret_cast<float*>(vs + static_cast<size_t>(s) * HD);
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + static_cast<size_t>(s) * HD;
+  float* bias = vs + static_cast<size_t>(s) * HD;
 
   const int b = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
 
   // cooperative copy of this head's K and V rows, 16 bytes per thread-step
-  constexpr int kUnits = HD * static_cast<int>(sizeof(T)) / 16;
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
-  for (int u = threadIdx.x; u < s * kUnits; u += kThreads) {
+  constexpr int kUnits = HD / 4;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  for (int u = threadIdx.x; u < s * kUnits; u += kF32Threads) {
     const int r = u / kUnits, c = u % kUnits;
-    reinterpret_cast<uint4*>(ks + static_cast<size_t>(r) * HD)[c] =
-        reinterpret_cast<const uint4*>(kb + r * k_sr)[c];
-    reinterpret_cast<uint4*>(vs + static_cast<size_t>(r) * HD)[c] =
-        reinterpret_cast<const uint4*>(vb + r * v_sr)[c];
+    reinterpret_cast<float4*>(ks + static_cast<size_t>(r) * HD)[c] =
+        reinterpret_cast<const float4*>(kb + r * k_sr)[c];
+    reinterpret_cast<float4*>(vs + static_cast<size_t>(r) * HD)[c] =
+        reinterpret_cast<const float4*>(vb + r * v_sr)[c];
   }
-  for (int j = threadIdx.x; j < s; j += kThreads)
-    bias[j] = key_valid[b * valid_sb + j] ? 0.0f : -1e9f;
+  for (int j = threadIdx.x; j < s; j += kF32Threads)
+    bias[j] = key_valid[b * valid_sb + j] ? 0.0f : kMaskBias;
   __syncthreads();
 
-  const int row = blockIdx.y * kThreads + threadIdx.x;
+  const int row = blockIdx.y * kF32Threads + threadIdx.x;
   if (row >= g) return;
 
   float qf[HD], acc[HD];
-  const T* qp = q + b * q_sb + row * q_sr + h * q_sh;
+  const float* qp = q + b * q_sb + row * q_sr + h * q_sh;
 #pragma unroll
   for (int d = 0; d < HD; d += 8) load8(qp + d, qf + d);
 #pragma unroll
@@ -123,7 +384,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < kKeyChunk; ++j) {
       sc[j] = -INFINITY;
       if (j0 + j < s) {
-        const T* kr = ks + static_cast<size_t>(j0 + j) * HD;
+        const float* kr = ks + static_cast<size_t>(j0 + j) * HD;
         float dot = 0.0f;
 #pragma unroll
         for (int d = 0; d < HD; d += 8) {
@@ -147,7 +408,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (j0 + j < s) {
         const float p = expf(sc[j] - m_new);
         l += p;
-        const T* vr = vs + static_cast<size_t>(j0 + j) * HD;
+        const float* vr = vs + static_cast<size_t>(j0 + j) * HD;
 #pragma unroll
         for (int d = 0; d < HD; d += 8) {
           float vv[8];
@@ -161,7 +422,7 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const float inv = 1.0f / l;
-  T* op = out + ((static_cast<size_t>(b) * g + row) * nh + h) * HD;
+  float* op = out + ((static_cast<size_t>(b) * g + row) * nh + h) * HD;
 #pragma unroll
   for (int d = 0; d < HD; d += 8) {
     float o[8];
@@ -172,34 +433,53 @@ attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (lse != nullptr) lse[(static_cast<size_t>(b) * nh + h) * g + row] = m + logf(l);
 }
 
-template <typename T, int HD>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid,
-                   void* out, float* lse, int b, int g, int s, int nh, const long long* st,
-                   float scale, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(s) * HD * sizeof(T) + s * sizeof(float);
-  auto kern = attention_fwd_kernel<T, HD>;
+// ----------------------------------------------------------------- launch
+
+template <int HD, int NW>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* key_valid,
+                        void* out, float* lse, int b, int g, int s, int nh, const long long* st,
+                        float scale, cudaStream_t stream) {
+  const int n_tiles = (s + kKeyTile - 1) / kKeyTile;
+  const size_t smem = bf16_smem_bytes<HD, NW>(n_tiles);
+  auto kern = attention_fwd_bf16_kernel<HD, NW>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * nh, (g + kThreads - 1) / kThreads);
-  kern<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), lse, g, s, nh,
+  const int n_qt = (g + 16 * NW - 1) / (16 * NW);
+  const long long blocks = static_cast<long long>(b) * nh * n_qt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), NW * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const uint8_t*>(key_valid), static_cast<bf16*>(out), lse, g, s, nh, n_qt,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_hd(int hd, const void* q, const void* k, const void* v,
-                        const void* key_valid, void* out, float* lse, int b, int g, int s, int nh,
-                        const long long* st, float scale, cudaStream_t stream) {
-  switch (hd) {
-    case 16: return launch<T, 16>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
-    default: return cudaErrorInvalidValue;
-  }
+template <int HD>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* key_valid,
+                       void* out, float* lse, int b, int g, int s, int nh, const long long* st,
+                       float scale, cudaStream_t stream) {
+  const size_t smem = 2 * static_cast<size_t>(s) * HD * sizeof(float) + s * sizeof(float);
+  auto kern = attention_fwd_f32_kernel<HD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid(b * nh, (g + kF32Threads - 1) / kF32Threads);
+  kern<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(key_valid), static_cast<float*>(out), lse, g, s, nh,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v,
+                   const void* key_valid, void* out, float* lse, int b, int g, int s, int nh,
+                   const long long* st, float scale, cudaStream_t stream) {
+  if (!is_bf16) return launch_f32<HD>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
+  if (g <= 16)
+    return launch_bf16<HD, 1>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
+  return launch_bf16<HD, 4>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
 }
 
 }  // namespace
@@ -218,11 +498,14 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   if (err != cudaSuccess) return err;
   const long long st[10] = {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
-    return dispatch_hd<__nv_bfloat16>(hd, q, k, v, key_valid, out, static_cast<float*>(lse), b, g,
-                                      s, nh, st, scale, cs);
-  return dispatch_hd<float>(hd, q, k, v, key_valid, out, static_cast<float*>(lse), b, g, s, nh, st,
-                            scale, cs);
+  float* lse_f = static_cast<float*>(lse);
+  switch (hd) {
+    case 16: return launch<16>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
+    case 32: return launch<32>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
+    case 64: return launch<64>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
+    case 128: return launch<128>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``anncur_tpu_torch/build/lib<name>-<hash>.so``
-at first use (the hash covers the source and the flags, so an edited
-source rebuilds) and loaded with ``ctypes``. Nothing is compiled or
-loaded at import: the CPU tests import every module without ``nvcc``.
+at first use (the hash covers the source, every local header it
+includes and the flags, so an edited source or header rebuilds) and
+loaded with ``ctypes``. Nothing is compiled or loaded at import: the
+CPU tests import every module without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
 def _nvcc() -> str:
@@ -39,11 +42,27 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernels")
 
 
+def _sources(name: str) -> Dict[str, bytes]:
+    """``<name>.cu`` and every header it includes with quotes, transitively:
+    their contents by path relative to ``CSRC_DIR``."""
+    found: Dict[str, bytes] = {}
+    todo = [f"{name}.cu"]
+    while todo:
+        rel = todo.pop()
+        if rel in found:
+            continue
+        with open(os.path.join(CSRC_DIR, rel), "rb") as fin:
+            found[rel] = fin.read()
+        for inc in _LOCAL_INCLUDE.findall(found[rel]):
+            todo.append(os.path.normpath(os.path.join(os.path.dirname(rel), inc.decode())))
+    return found
+
+
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as fin:
-        digest = hashlib.sha1(fin.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for rel, text in sorted(_sources(name).items()):
+        h.update(rel.encode() + b"\0" + text)
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES) -> float:

@@ -11,8 +11,10 @@ Phases, in order; any failure exits non-zero before the result line:
    at the main path's shapes, with its time, the plain version's, a
    PyTorch library call's (a yardstick the port never calls) and the
    least time the card could take (``bound_ms``): kernel A (attention
-   forward, with its row log-sum-exp), kernels C and D (attention
-   backward, dK/dV and dQ) and kernel B (MIPS top-k);
+   forward, with its row log-sum-exp; timed at the build's full layer,
+   its CLS-only final layer and the train layer, and the HMMA count of
+   its bf16 body's SASS), kernels C and D (attention backward, dK/dV and
+   dQ) and kernel B (MIPS top-k);
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -32,6 +34,8 @@ Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -106,60 +110,96 @@ def check_attention(dev, flush):
     from anncur_tpu_torch.ops.attention import attention, attention_plain
 
     gen = torch.Generator(device=dev).manual_seed(1)
-    s, nh, hd = 256, 12, 64
-    max_err = 0.0
-    for g in (256, 1, 3):
-        q, k, v, key_valid, lengths = attention_inputs(gen, 64, g, s, nh, hd, dev)
+    nh, hd = 12, 64
+    max_err, timed = 0.0, []
+    # (b, g, s, timed reps): the CE's full layer, final 1-row and 3-row
+    # slices at 64 pairs; then, timed, the build's full layer (2048 pairs
+    # per CE forward), its CLS-only final layer and the train layer
+    for b, g, s, reps in ((64, 256, 256, 0), (64, 1, 256, 0), (64, 3, 256, 0),
+                          (2048, 256, 256, 10), (2048, 1, 256, 20), (64, 255, 255, 50)):
+        q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
         got = attention(q, k, v, key_valid).float()
         want = attention_plain(q, k, v, key_valid).float()
-        torch.cuda.synchronize()
         # real query rows: all of a 1- or 3-row slice, rows < length of a full layer
         rows = torch.arange(g, device=dev)[None, :] < (lengths[:, None] if g == s else g)
-        rows = rows.expand(q.shape[0], g)
-        err = float((got - want).abs().amax(dim=(2, 3))[rows].max())
-        log(f"  kernel A b=64 g={g}: max |kernel - plain| = {err:.3e} (tol {ATTN_ATOL})")
+        err = float((got - want).abs().amax(dim=(2, 3))[rows.expand(b, g)].max())
+        del got, want
+        log(f"  kernel A b={b} g={g} s={s}: max |kernel - plain| = {err:.3e} (tol {ATTN_ATOL})")
         if not err <= ATTN_ATOL:
-            fail(f"attention g={g} disagrees with its plain version: {err}")
+            fail(f"attention at b={b} g={g} s={s} disagrees with its plain version: {err}")
         max_err = max(max_err, err)
-
-    # the build's full-layer shape: 2048 pairs per CE forward
-    b = 2048
-    q, k, v, key_valid, lengths = attention_inputs(gen, b, s, s, nh, hd, dev)
-    got = attention(q, k, v, key_valid).float()
-    want = attention_plain(q, k, v, key_valid).float()
-    rows = torch.arange(s, device=dev)[None, :] < lengths[:, None]
-    err = float((got - want).abs().amax(dim=(2, 3))[rows].max())
-    del got, want
-    log(f"  kernel A b={b} g={s}: max |kernel - plain| = {err:.3e}")
-    if not err <= ATTN_ATOL:
-        fail(f"attention at b={b} disagrees with its plain version: {err}")
-    max_err = max(max_err, err)
-
-    mask = key_valid[:, None, None, :]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    ms = time_ms(lambda: attention(q, k, v, key_valid), 10, flush)
-    plain_ms = time_ms(lambda: attention_plain(q, k, v, key_valid), 3, flush)
-    library_ms = time_ms(
-        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), 10, flush
-    )
-    # what these inputs need: q and out whole, k and v at valid keys only,
-    # the mask; QK^T and PV over valid keys (multiply-add = 2 ops)
-    n_keys = int(lengths.sum())
-    row_bytes = nh * hd * q.element_size()
-    nbytes = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + key_valid.numel()
-    ops = 4 * nh * s * n_keys * hd
+        if reps:
+            timed.append(time_attention(q, k, v, key_valid, lengths, reps, flush))
+    main_shape = timed[0]
     return {
         "name": "attention_fwd",
         "route": "cuda",
         "source": "anncur_tpu_torch/csrc/attention.cu",
         "replaces": "anncur_tpu/models/bert.py:278",
         "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        **bound(nbytes, ops, "bf16"),
-        "library_ms": library_ms,
-        "shape": f"b={b} g={s} s={s} nh={nh} hd={hd} bf16",
+        **{key: main_shape[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "shapes": timed,
+        "hmma_in_sass": attention_sass_hmma(),
     }
+
+
+def time_attention(q, k, v, key_valid, lengths, reps, flush):
+    """Kernel A, its plain version and SDPA (masked) on one input, with
+    the bound of what these inputs need: q and out whole, k and v at valid
+    keys only, the mask; QK^T and PV over valid keys (multiply-add = 2 ops)."""
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+
+    b, g, nh, hd = q.shape
+    s = k.shape[1]
+    mask = key_valid[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    ms = time_ms(lambda: attention(q, k, v, key_valid), reps, flush)
+    plain_ms = time_ms(lambda: attention_plain(q, k, v, key_valid), max(3, reps // 4), flush)
+    library_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask), reps, flush
+    )
+    n_keys = int(lengths.sum())
+    row_bytes = nh * hd * q.element_size()
+    nbytes = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + key_valid.numel()
+    ops = 4 * nh * g * n_keys * hd
+    rec = {
+        "shape": f"b={b} g={g} s={s} nh={nh} hd={hd} bf16, random key lengths",
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, ops, "bf16"),
+        "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / PEAK_OPS["bf16"] * 1e3,
+    }
+    rec["x_bound"] = ms / rec["bound_ms"]
+    log(f"  kernel A {rec['shape']}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}; "
+        f"bytes {rec['bytes_ms']:.4f}, ops {rec['ops_ms']:.4f}), {rec['x_bound']:.2f}x bound; "
+        f"plain {plain_ms:.4f} ms; SDPA {library_ms:.4f} ms ({ms / library_ms:.2f}x SDPA)")
+    return rec
+
+
+def attention_sass_hmma():
+    """HMMA (tensor-core) instructions in the built kernel A library's SASS,
+    by instantiation (head dim, warps) of the bf16 body, as ``cuobjdump
+    -sass`` lists them; None where the toolkit has no cuobjdump. Fails if
+    a bf16 instantiation has none."""
+    from anncur_tpu_torch.ops import cuda_build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("  kernel A SASS: cuobjdump not found, HMMA count not measured")
+        return None
+    sass = subprocess.run([tool, "-sass", cuda_build.library_path("attention")],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = re.search(r"attention_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
+            fn = f"hd={found.group(1)} warps={found.group(2)}" if found else None
+            if fn:
+                counts[fn] = 0
+        elif fn and "HMMA" in line:
+            counts[fn] += 1
+    log(f"  kernel A bf16 SASS, HMMA instructions by instantiation: {counts}")
+    if len(counts) != 8 or not all(counts.values()):
+        fail(f"kernel A's bf16 body is not on the tensor cores in every instantiation: {counts}")
+    return counts
 
 
 def time_grad_ms(out, inputs, dout, reps, flush):

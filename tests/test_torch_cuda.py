@@ -62,6 +62,68 @@ def test_attention_kernel_matches_plain(dev, b, g, s, nh, hd, dtype, atol):
     assert err <= atol, err
 
 
+def _edge_case(dev, g, hd, seed, s=255, nh=3):
+    """bf16 pairs of a ragged s=255 keys: prefix lengths at the 64-key tile
+    boundaries, a pair with no valid key, a mask with holes inside tiles
+    and a whole masked tile between valid keys, and a pair whose first
+    tile is all masked."""
+    q, k, v, _, _ = _attn_case(dev, 8, g, s, nh, hd, torch.bfloat16, seed)
+    valid = torch.zeros(8, s, dtype=torch.bool, device=dev)
+    for r, n in enumerate((1, 63, 64, 65, s)):
+        valid[r, :n] = True
+    # row 5: no valid key
+    valid[6, 0:5] = valid[6, 20:30] = valid[6, 130:140] = True
+    valid[6, 200::3] = True
+    valid[7, 100:150] = True
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize(
+    "g,hd", [(1, 64), (3, 64), (16, 64), (17, 64), (255, 64), (255, 16), (255, 32), (255, 128)]
+)
+def test_attention_bf16_tensor_core_path_at_tile_edges(dev, g, hd):
+    """Kernel A's bf16 body (one-warp tiles for g <= 16, four-warp tiles
+    above) against the plain attention at 2e-2 (bf16 output, bf16 P), at
+    every row: padded query rows and the no-valid-key pair included."""
+    q, k, v, valid = _edge_case(dev, g, hd, seed=g * 1000 + hd)
+    got = attention(q, k, v, valid).float()
+    want = attention_plain(q, k, v, valid).float()
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    assert err <= 2e-2, err
+
+
+def test_attention_bf16_lse_at_ragged_s(dev):
+    """The row log-sum-exp of the bf16 body at s=255 within 1e-5 relative
+    (f32 sums in another order); out is the same bits without it."""
+    q, k, v, valid = _edge_case(dev, 255, 64, seed=7)
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / 8.0
+    want = torch.logsumexp(scores + torch.where(valid, 0.0, -1e9)[:, None, None, :], dim=-1)
+    torch.cuda.synchronize()
+    assert torch.allclose(lse, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, attention_fwd(q, k, v, valid)[0])
+
+
+def test_attention_backward_kernels_through_bf16_forward_at_ragged_s(dev):
+    """Kernels C and D read the bf16 body's lse: the autograd through
+    kernels A, C and D against the plain autograd at b=4, g=s=255."""
+    s = 255
+    q, k, v, valid, lengths = _attn_case(dev, 4, s, s, 12, 64, torch.bfloat16, seed=255)
+    rows = _real_rows(s, s, lengths)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16) * rows[:, :, None, None]
+    want = attention_bwd_plain(q, k, v, valid, dout)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    got = torch.autograd.grad(attention(*leaves, valid), leaves, dout)
+    torch.cuda.synchronize()
+    for name, a, b, sel in (("dq", got[0], want[0], rows), ("dk", got[1], want[1], valid), ("dv", got[2], want[2], valid)):
+        err = (a.float() - b.float()).abs().amax(dim=(2, 3))[sel].max().item()
+        scale = b.float().abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+    assert not got[1][~valid].any() and not got[2][~valid].any()
+
+
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
     q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
     with pytest.raises(ValueError, match="head dim"):

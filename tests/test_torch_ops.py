@@ -1,8 +1,9 @@
 """Port parity, ops: the plain MIPS top-k (kernel B's plain version and
 the CPU path of its wrapper) against the JAX package's ``mips_topk`` and
 both Pallas MIPS kernels in interpret mode, with padding and ties; the
-pseudoinverse and its cutoffs (CPU)."""
+pseudoinverse and its cutoffs; the kernel build's source hash (CPU)."""
 
+import shutil
 import sys
 
 import jax.numpy as jnp
@@ -94,3 +95,20 @@ def test_pinv_and_cutoffs_match_jax(rng, shape, rank):
         np.testing.assert_allclose(got, want, atol=1e-4 * max(1.0, np.abs(want).max()), rtol=0)
     zero = np.zeros((4, 3), np.float32)
     assert tpinv.noise_rcond(zero) == jpinv.noise_rcond(zero) == 0.0
+
+
+def test_library_path_covers_local_headers(tmp_path, monkeypatch):
+    """An edited header that a kernel includes names another library, so it
+    is rebuilt; a header it does not include does not. No nvcc needed."""
+    from anncur_tpu_torch.ops import cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", str(csrc))
+    before = cuda_build.library_path("attention")
+    assert cuda_build.library_path("attention") == before
+    (csrc / "unused.cuh").write_text("// included by no kernel\n")
+    assert cuda_build.library_path("attention") == before
+    header = csrc / "mma_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert cuda_build.library_path("attention") != before
