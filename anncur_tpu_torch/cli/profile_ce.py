@@ -32,9 +32,9 @@ import torch
 def _group(name: str) -> str:
     if "attention_fwd_" in name:
         return "kernel_A_attention"
-    if "attention_bwd_dkv_kernel" in name:
+    if "attention_bwd_dkv_" in name:
         return "kernel_C_attention_bwd_dkv"
-    if "attention_bwd_dq_kernel" in name:
+    if "attention_bwd_dq_" in name:
         return "kernel_D_attention_bwd_dq"
     if name.startswith("mips_") or "mips_split_topk" in name or "mips_merge" in name:
         return "kernel_B_mips_topk"

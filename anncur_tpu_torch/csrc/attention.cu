@@ -58,8 +58,11 @@
 // aligned; out (b, g, nh, hd) contiguous. For the backward
 // (csrc/attention_bwd.cu) a launch may also write each row's natural-log
 // log-sum-exp of its scaled, biased scores, lse = m + log(l) in f32, shape
-// (b, nh, g); a null lse pointer writes nothing extra, and out is the same
-// either way. The kernels allocate nothing and run on the caller's stream.
+// (b, nh, g). In a pair with no valid key it is taken without the -1e9
+// every score then carries, (m + 1e9) + log(l), exact since m is -1e9 plus
+// a multiple of 64: -1e9 + log(l) would round to -1e9 and lose l. A null
+// lse pointer writes nothing extra, and out is the same either way. The
+// kernels allocate nothing and run on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -309,10 +312,11 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           *reinterpret_cast<const uint4*>(os + rr * kLd + c * 8);
   }
   if (lse != nullptr && (lane & 3) == 0) {
+    const float shift = any_valid ? 0.0f : kMaskBias;  // exact: m is -1e9 + a multiple of 64
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int row = row0 + wrow + r + 8 * i;
-      if (row < g) lse[(static_cast<size_t>(b) * nh + h) * g + row] = m[i] + logf(l[i]);
+      if (row < g) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m[i] - shift) + logf(l[i]);
     }
   }
 }
@@ -362,9 +366,13 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     reinterpret_cast<float4*>(vs + static_cast<size_t>(r) * HD)[c] =
         reinterpret_cast<const float4*>(vb + r * v_sr)[c];
   }
-  for (int j = threadIdx.x; j < s; j += kF32Threads)
-    bias[j] = key_valid[b * valid_sb + j] ? 0.0f : kMaskBias;
-  __syncthreads();
+  bool any_local = false;
+  for (int j = threadIdx.x; j < s; j += kF32Threads) {
+    const bool ok = key_valid[b * valid_sb + j];
+    bias[j] = ok ? 0.0f : kMaskBias;
+    any_local |= ok;
+  }
+  const float shift = __syncthreads_or(any_local) ? 0.0f : kMaskBias;  // for the lse
 
   const int row = blockIdx.y * kF32Threads + threadIdx.x;
   if (row >= g) return;
@@ -430,7 +438,7 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
     for (int e = 0; e < 8; ++e) o[e] = acc[d + e] * inv;
     store8(op + d, o);
   }
-  if (lse != nullptr) lse[(static_cast<size_t>(b) * nh + h) * g + row] = m + logf(l);
+  if (lse != nullptr) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m - shift) + logf(l);
 }
 
 // ----------------------------------------------------------------- launch

@@ -6,25 +6,63 @@
 // (kernel D), jax/experimental/pallas/ops/tpu/flash_attention.py. With the
 // forward's row log-sum-exp lse (csrc/attention.cu) and D = rowsum(dO * O)
 // (a plain torch reduction beforehand, as JAX computes it outside Pallas):
-//     P  = exp(Q K^T * scale + bias - lse)          (recomputed, never stored)
+//     P  = exp(Q K^T * scale + bias - shift - lse)   (recomputed, never stored)
 //     dV = P^T dO
 //     dS = P * (dO V^T - D)
 //     dK = scale * dS^T Q
 //     dQ = scale * dS K
 // bias = 0 at valid keys and -1e9 at padding, as in the forward, so a masked
-// key's P is exactly 0 in f32 and it gets dK = dV = 0 exactly. Scores,
-// exponentials and sums are f32; dQ, dK, dV are written in q's dtype.
+// key's P is exactly 0 in f32 and it gets dK = dV = 0 exactly. shift is 0,
+// or -1e9 in a pair with no valid key, whose lse the forward writes without
+// the -1e9 (csrc/attention.cu): -1e9 + log(l) rounds to -1e9 in f32, and P
+// would come out as 1 instead of 1/l. Scores, exponentials and sums are f32;
+// dQ, dK, dV are written in q's dtype.
 //
-// Bound on the H100: at s=256, hd=64, nh=12 one pair-layer reads Q, K, V,
-// dO (1.57 MB of bf16) and writes dQ, dK, dV (1.18 MB), and does ~0.5 GFLOP
-// (4 products of s x s x hd for C, 3 for D): ~180 FLOP/B, below the bf16
-// tensor-core ridge (~295 FLOP/B), so memory bounds it. This first version,
-// like kernel A, does its arithmetic in f32 FFMA on the CUDA cores
-// (67 TFLOP/s), so in practice operations bound it; mma/wgmma tiles are
-// later work.
+// Bound on the H100: at the train step's shape (63 pairs, g = s = 255,
+// nh = 12, hd = 64, bf16, every key valid) kernel C reads Q, K, V, dO, lse
+// and D and writes dK and dV, 150 MB: 0.045 ms at 3.35 TB/s. Its four
+// products (S^T, dP^T, dV, dK) are 25 GFLOP, 0.025 ms on the bf16 tensor
+// cores. Kernel D moves 125 MB (0.037 ms) for three products (0.019 ms).
+// Both lie below the bf16 ridge (~295 FLOP/B), so bytes bound them; with
+// mma.sync short of the tensor-core peak the two times come close.
 //
-// Design. One thread would hold k, v, dK and dV rows (4 x hd f32 = 256
-// registers at hd=64), too many, so the head dim is split across SPLIT
+// bf16 design (hd in {16, 32, 64, 128}, templated on HD): mma.sync m16n8k16
+// (bf16 in, f32 accumulate), ldmatrix and cp.async from csrc/mma_sm90.cuh.
+// - Kernel C: one block per (pair, head, tile of 64 keys), the tile index
+//   fastest, so the tiles of one head run together and share its Q and dO
+//   in L2. Four warps own 16 keys each and keep their K and V rows in
+//   registers as A fragments. The block streams Q, dO, lse and D in tiles
+//   of QT query rows (64; 16 when g <= 16), double-buffered with cp.async;
+//   rows >= g are zero-filled and get lse = +inf, so their P is 0. Each
+//   16-query step makes S^T = K Q^T and dP^T = V dO^T (Q and dO as B
+//   through plain ldmatrix), then in f32 P^T and dS^T = P^T * (dP^T - D),
+//   then dV += P^T dO and dK += dS^T Q: P^T and dS^T go to the tensor cores
+//   as bf16 A fragments straight from the accumulators, dO and Q as B
+//   through ldmatrix.trans. A block whose 64 keys are all masked, in a pair
+//   that has a valid key, writes zeros and returns.
+// - Kernel D: one block per (pair, head, tile of 16 * NW query rows), NW = 4
+//   (1 when g <= 16, so no warp computes only padding). Each warp keeps its
+//   16 rows of Q and dO as A fragments and their lse and D in registers. K
+//   and V stream in 64-key tiles, double-buffered; a tile without a valid
+//   key is skipped when the pair has one (one 64-bit ballot word per tile,
+//   as in kernel A; tile 0 always runs, and adds exact zeros if masked).
+//   Each 16-key step makes S = Q K^T and dP = dO V^T (K and V as B through
+//   plain ldmatrix), dS in f32, and dQ += dS K (dS in bf16 from the
+//   accumulators, K through ldmatrix.trans).
+// - P and dS are rounded to bf16 before the dV, dK and dQ products, as the
+//   TPU kernel rounds them (p.astype(do.dtype), ds.astype(q.dtype)); scores,
+//   exponentials, dP - D and every sum stay f32. The exponent is the
+//   difference S * scale + bias - shift - lse, taken before the log2(e)
+//   scaling: at lse ~ -1e9 a folded FMA would lose it.
+// - Shared rows are padded by 16 bytes, so the eight row addresses of each
+//   8x8 ldmatrix fall in distinct banks. The epilogues stage the bf16
+//   results in the warp's own shared rows for 16-byte coalesced stores.
+// - Every output row is written by one block and no atomics are used, so
+//   two launches on the same inputs give the same bits.
+//
+// f32 (no main-path caller; the card tests use it): the first version's
+// CUDA-core bodies. One thread would hold k, v, dK and dV rows (4 x hd f32 =
+// 256 registers at hd=64), too many, so the head dim is split across SPLIT
 // neighbouring lanes (32 dims each: SPLIT = 2 at hd=64). Each lane holds its
 // dims in registers and the two dot products of a (query, key) pair are
 // summed across the SPLIT lanes with warp shuffles. The lanes of a group
@@ -39,58 +77,448 @@
 //   of 64 rows of K and V. It skips masked keys (P = 0 there) whenever the
 //   pair has a valid key; a pair with none attends every key, as forward.
 // Kernel C likewise returns zeros at once from a block whose keys are all
-// masked. Layout is the JAX one: q (b, g, nh, hd), k and v (b, s, nh, hd)
-// with any strides on the batch, row and head axes and hd contiguous; dO,
-// dQ (b, g, nh, hd) and dK, dV (b, s, nh, hd) contiguous; lse and D
-// (b, nh, g) f32. The kernels allocate nothing and run on the caller's
-// stream.
+// masked.
+//
+// Layout is the JAX one: q (b, g, nh, hd), k and v (b, s, nh, hd) with any
+// strides on the batch, row and head axes, hd contiguous and rows 16-byte
+// aligned; dO, dQ (b, g, nh, hd) and dK, dV (b, s, nh, hd) contiguous; lse
+// and D (b, nh, g) f32. The kernels allocate nothing and run on the
+// caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTile = 64;  // rows of the other side staged in shared memory at a time
+using bf16 = __nv_bfloat16;
+using namespace mma_sm90;
 
-// one 16-byte unit: 4 f32 or 8 bf16 values, to or from f32
+constexpr int kTile = 64;  // keys of a kernel C block; keys of a kernel D tile
+constexpr float kMaskBias = -1e9f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// ------------------------------------------------------------ kernel C, bf16
+
+template <int HD, int QT>
+constexpr size_t dkv_smem_bytes() {
+  // the block's K and V rows, two stages of QT rows of Q and dO (rows padded
+  // by 8 elements), two stages of QT lse and D values
+  return static_cast<size_t>(2 * kTile + 4 * QT) * (HD + 8) * sizeof(bf16) +
+         static_cast<size_t>(4 * QT) * sizeof(float);
+}
+
+// Three kernel C blocks per SM at hd <= 64: ptxas then keeps the body to
+// 168 registers (a few spilled bytes); left free it takes 174, and only
+// two fit. The cap timed faster at the train step's shape.
+template <int HD>
+constexpr int kDkvMinBlocksPerSm = HD <= 64 ? 3 : 1;
+
+template <int HD, int QT>
+__global__ void __launch_bounds__(128, kDkvMinBlocksPerSm<HD>)
+attention_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                              const bf16* __restrict__ dout, const float* __restrict__ lse,
+                              const float* __restrict__ delta, bf16* __restrict__ dk_out,
+                              bf16* __restrict__ dv_out, int g, int s, int nh, int n_kt,
+                              long long q_sb, long long q_sr, long long q_sh,
+                              long long k_sb, long long k_sr, long long k_sh,
+                              long long v_sb, long long v_sr, long long v_sh,
+                              long long valid_sb, float scale) {
+  constexpr int kThreads = 128, kLd = HD + 8, kUnits = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's kTile keys
+  bf16* vs = ks + kTile * kLd;
+  bf16* qs = vs + kTile * kLd;    // 2 stages of QT rows
+  bf16* dos = qs + 2 * QT * kLd;  // 2 stages of QT rows
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * QT * kLd);  // 2 stages of QT
+  float* delta_s = lse_s + 2 * QT;                              // 2 stages of QT
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kt = blockIdx.x % n_kt;
+  const int bh = blockIdx.x / n_kt;
+  const int h = bh % nh, b = bh / nh;
+  const int key0 = kt * kTile;
+  const int n_qt = (g + QT - 1) / QT;
+
+  // the block's K and V rows (keys >= s zero) and query tile 0
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  for (int u = tid; u < kTile * kUnits; u += kThreads) {
+    const int r = u / kUnits, c = u % kUnits;
+    const int key = key0 + r;
+    const bool ok = key < s;
+    cp_async_16(smem_addr(ks + r * kLd + c * 8), ok ? kb + key * k_sr + c * 8 : kb, ok ? 16 : 0);
+    cp_async_16(smem_addr(vs + r * kLd + c * 8), ok ? vb + key * v_sr + c * 8 : vb, ok ? 16 : 0);
+  }
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
+  const long long do_sr = static_cast<long long>(nh) * HD;
+  const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
+  const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
+  auto load_q = [&](int t, int stage) {
+    bf16* qd = qs + stage * QT * kLd;
+    bf16* dd = dos + stage * QT * kLd;
+    for (int u = tid; u < QT * kUnits; u += kThreads) {
+      const int r = u / kUnits, c = u % kUnits;
+      const int row = t * QT + r;
+      const bool ok = row < g;
+      cp_async_16(smem_addr(qd + r * kLd + c * 8), ok ? qb + row * q_sr + c * 8 : qb, ok ? 16 : 0);
+      cp_async_16(smem_addr(dd + r * kLd + c * 8), ok ? dob + row * do_sr + c * 8 : dob, ok ? 16 : 0);
+    }
+    for (int r = tid; r < QT; r += kThreads) {
+      const int row = t * QT + r;
+      float* ls = lse_s + stage * QT + r;
+      float* ds = delta_s + stage * QT + r;
+      if (row < g) {
+        cp_async_4(smem_addr(ls), lse_b + row);
+        cp_async_4(smem_addr(ds), delta_b + row);
+      } else {  // P = exp(... - inf) = 0: the row adds nothing
+        *ls = INFINITY;
+        *ds = 0.0f;
+      }
+    }
+  };
+  load_q(0, 0);
+  cp_async_commit();
+
+  // while those are in flight: does the pair have a valid key, and this tile?
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  int any = 0;
+  for (int j = tid; j < s; j += kThreads) any |= vrow[j];
+  const bool pair_any = __syncthreads_or(any);
+  const bool tile_any = __syncthreads_or(tid < kTile && key0 + tid < s && vrow[key0 + tid]);
+  if (pair_any && !tile_any) {
+    // every P of the tile is exp(-1e9 + ...) = 0 in f32: dK = dV = 0 exactly
+    cp_async_wait<0>();
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int u = tid; u < kTile * kUnits; u += kThreads) {
+      const int key = key0 + u / kUnits;
+      if (key < s) {
+        const size_t o = ((static_cast<size_t>(b) * s + key) * nh + h) * HD + (u % kUnits) * 8;
+        *reinterpret_cast<uint4*>(dk_out + o) = zero;
+        *reinterpret_cast<uint4*>(dv_out + o) = zero;
+      }
+    }
+    return;
+  }
+  const float shift = pair_any ? 0.0f : kMaskBias;
+
+  const int wrow = warp * 16;     // this warp's first key in the tile
+  const int r = lane >> 2;        // this lane's keys: wrow + r and wrow + r + 8
+  const int kq = 2 * (lane & 3);  // this lane's first query column of a C fragment
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + wrow + r + 8 * i;
+    bias[i] = key >= s ? -INFINITY : (vrow[key] ? 0.0f : kMaskBias);
+  }
+  uint32_t kf[HD / 16][4], vf[HD / 16][4];
+  float dk[HD / 8][4], dv[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.0f;
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_qt) load_q(t + 1, stage ^ 1);
+    cp_async_commit();  // possibly empty: keeps the wait count uniform
+    cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (wrow + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(kf[kk], smem_addr(ks + off));
+        ldmatrix_x4(vf[kk], smem_addr(vs + off));
+      }
+    }
+    const bf16* qd = qs + stage * QT * kLd;
+    const bf16* dd = dos + stage * QT * kLd;
+    const float* ls = lse_s + stage * QT;
+    const float* ds = delta_s + stage * QT;
+#pragma unroll
+    for (int i0 = 0; i0 < QT; i0 += 16) {
+      // S^T = K Q^T and dP^T = V dO^T over 16 queries: two n-tiles of 8
+      float st[2][4], dpt[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (i0 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bq[4], bd[4];
+        ldmatrix_x4(bq, smem_addr(qd + off));
+        ldmatrix_x4(bd, smem_addr(dd + off));
+        mma_bf16_16816(st[0], kf[kk], bq[0], bq[1]);
+        mma_bf16_16816(st[1], kf[kk], bq[2], bq[3]);
+        mma_bf16_16816(dpt[0], vf[kk], bd[0], bd[1]);
+        mma_bf16_16816(dpt[1], vf[kk], bd[2], bd[3]);
+      }
+      // P^T and dS^T in f32: rows are this lane's two keys, columns queries
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 lq = *reinterpret_cast<const float2*>(ls + i0 + 8 * j + kq);
+        const float2 dq = *reinterpret_cast<const float2*>(ds + i0 + 8 * j + kq);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = st[j][e] * scale + bias[e >> 1];
+          const float p = exp2f((x - shift - ((e & 1) ? lq.y : lq.x)) * kLog2e);
+          st[j][e] = p;
+          dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? dq.y : dq.x));
+        }
+      }
+      const uint32_t pa[4] = {pack_bf16x2(st[0][0], st[0][1]), pack_bf16x2(st[0][2], st[0][3]),
+                              pack_bf16x2(st[1][0], st[1][1]), pack_bf16x2(st[1][2], st[1][3])};
+      const uint32_t sa[4] = {pack_bf16x2(dpt[0][0], dpt[0][1]), pack_bf16x2(dpt[0][2], dpt[0][3]),
+                              pack_bf16x2(dpt[1][0], dpt[1][1]), pack_bf16x2(dpt[1][2], dpt[1][3])};
+      // dV += P^T dO and dK += dS^T Q, the 16 queries as the reduced axis
+#pragma unroll
+      for (int dp = 0; dp < HD / 16; ++dp) {
+        const int off = (i0 + (lane & 15)) * kLd + dp * 16 + (lane >> 4) * 8;
+        uint32_t bd[4], bq[4];
+        ldmatrix_x4_trans(bd, smem_addr(dd + off));
+        mma_bf16_16816(dv[2 * dp], pa, bd[0], bd[1]);
+        mma_bf16_16816(dv[2 * dp + 1], pa, bd[2], bd[3]);
+        ldmatrix_x4_trans(bq, smem_addr(qd + off));
+        mma_bf16_16816(dk[2 * dp], sa, bq[0], bq[1]);
+        mma_bf16_16816(dk[2 * dp + 1], sa, bq[2], bq[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+  }
+
+  // dK * scale and dV in bf16 through this warp's own rows of the K and V tiles
+  bf16* kd = ks + wrow * kLd;
+  bf16* vd = vs + wrow * kLd;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(kd + r * kLd + 8 * d + kq) = pack_bf16x2(dk[d][0] * scale, dk[d][1] * scale);
+    *reinterpret_cast<uint32_t*>(kd + (r + 8) * kLd + 8 * d + kq) = pack_bf16x2(dk[d][2] * scale, dk[d][3] * scale);
+    *reinterpret_cast<uint32_t*>(vd + r * kLd + 8 * d + kq) = pack_bf16x2(dv[d][0], dv[d][1]);
+    *reinterpret_cast<uint32_t*>(vd + (r + 8) * kLd + 8 * d + kq) = pack_bf16x2(dv[d][2], dv[d][3]);
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * kUnits; u += 32) {
+    const int rr = u / kUnits, c = u % kUnits;
+    const int key = key0 + wrow + rr;
+    if (key < s) {
+      const size_t o = ((static_cast<size_t>(b) * s + key) * nh + h) * HD + c * 8;
+      *reinterpret_cast<uint4*>(dk_out + o) = *reinterpret_cast<const uint4*>(kd + rr * kLd + c * 8);
+      *reinterpret_cast<uint4*>(dv_out + o) = *reinterpret_cast<const uint4*>(vd + rr * kLd + c * 8);
+    }
+  }
+}
+
+// ------------------------------------------------------------ kernel D, bf16
+
+template <int HD, int NW>
+constexpr size_t dq_smem_bytes(int n_tiles) {
+  // Q and dO tiles, two stages of K and V tiles (rows padded by 8 elements),
+  // one mask word per key tile
+  return static_cast<size_t>(2 * 16 * NW + 4 * kTile) * (HD + 8) * sizeof(bf16) +
+         static_cast<size_t>(n_tiles) * sizeof(uint64_t);
+}
+
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32)
+attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                             const bf16* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ delta, bf16* __restrict__ dq_out, int g,
+                             int s, int nh, int n_qt, long long q_sb, long long q_sr,
+                             long long q_sh, long long k_sb, long long k_sr, long long k_sh,
+                             long long v_sb, long long v_sr, long long v_sh,
+                             long long valid_sb, float scale) {
+  constexpr int kRows = 16 * NW, kThreads = 32 * NW, kLd = HD + 8, kUnits = HD / 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* dos = qs + kRows * kLd;
+  bf16* ks = dos + kRows * kLd;         // 2 stages of kTile rows
+  bf16* vs = ks + 2 * kTile * kLd;      // 2 stages of kTile rows
+  uint64_t* tile_bits = reinterpret_cast<uint64_t*>(vs + 2 * kTile * kLd);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt;
+  const int bh = blockIdx.x / n_qt;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows;
+  const int n_tiles = (s + kTile - 1) / kTile;
+
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  auto load_kv = [&](int t, int stage) {
+    bf16* kd = ks + stage * kTile * kLd;
+    bf16* vd = vs + stage * kTile * kLd;
+    for (int u = tid; u < kTile * kUnits; u += kThreads) {
+      const int r = u / kUnits, c = u % kUnits;
+      const int key = t * kTile + r;
+      const bool ok = key < s;
+      cp_async_16(smem_addr(kd + r * kLd + c * 8), ok ? kb + key * k_sr + c * 8 : kb, ok ? 16 : 0);
+      cp_async_16(smem_addr(vd + r * kLd + c * 8), ok ? vb + key * v_sr + c * 8 : vb, ok ? 16 : 0);
+    }
+  };
+
+  // the Q and dO tiles (rows >= g zero) and key tile 0, which always runs
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
+  const long long do_sr = static_cast<long long>(nh) * HD;
+  for (int u = tid; u < kRows * kUnits; u += kThreads) {
+    const int r = u / kUnits, c = u % kUnits;
+    const int row = row0 + r;
+    const bool ok = row < g;
+    cp_async_16(smem_addr(qs + r * kLd + c * 8), ok ? qb + row * q_sr + c * 8 : qb, ok ? 16 : 0);
+    cp_async_16(smem_addr(dos + r * kLd + c * 8), ok ? dob + row * do_sr + c * 8 : dob, ok ? 16 : 0);
+  }
+  load_kv(0, 0);
+  cp_async_commit();
+
+  // one word of valid-key bits per key tile, while those are in flight
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  bool any_local = false;
+  for (int t = warp; t < n_tiles; t += NW) {
+    const int j0 = t * kTile + lane, j1 = j0 + 32;
+    const uint32_t lo = __ballot_sync(0xffffffffu, j0 < s && vrow[j0]);
+    const uint32_t hi = __ballot_sync(0xffffffffu, j1 < s && vrow[j1]);
+    if (lane == 0) tile_bits[t] = (static_cast<uint64_t>(hi) << 32) | lo;
+    any_local |= (lo | hi) != 0;
+  }
+  const bool any_valid = __syncthreads_or(any_local);  // also publishes tile_bits
+  auto next_tile = [&](int t) {
+    while (any_valid && t < n_tiles && tile_bits[t] == 0) ++t;
+    return t;
+  };
+  const float shift = any_valid ? 0.0f : kMaskBias;
+
+  const int wrow = warp * 16;     // this warp's first row in the tile
+  const int r = lane >> 2;        // this lane's rows: wrow + r and wrow + r + 8
+  const int kq = 2 * (lane & 3);  // this lane's first key column of a C fragment
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wrow + r + 8 * i;
+    const size_t at = (static_cast<size_t>(b) * nh + h) * g + row;
+    lse_r[i] = row < g ? lse[at] : INFINITY;  // P = 0 on padding rows
+    delta_r[i] = row < g ? delta[at] : 0.0f;
+  }
+  uint32_t qf[HD / 16][4], df[HD / 16][4];
+  float dq[HD / 8][4];
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.0f;
+  int t = 0, stage = 0;
+  bool first = true;
+
+  while (t < n_tiles) {
+    const int tn = next_tile(t + 1);
+    if (tn < n_tiles) load_kv(tn, stage ^ 1);
+    cp_async_commit();  // possibly empty: keeps the wait count uniform
+    cp_async_wait<1>();
+    __syncthreads();
+    if (first) {
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (wrow + (lane & 15)) * kLd + kk * 16 + (lane >> 4) * 8;
+        ldmatrix_x4(qf[kk], smem_addr(qs + off));
+        ldmatrix_x4(df[kk], smem_addr(dos + off));
+      }
+      first = false;
+    }
+    const bf16* kd = ks + stage * kTile * kLd;
+    const bf16* vd = vs + stage * kTile * kLd;
+    const uint64_t bits = tile_bits[t];
+    const int n_keys = s - t * kTile;  // keys of the tile below s
+
+#pragma unroll 1  // unrolled, the body holds more registers and timed slower
+    for (int j0 = 0; j0 < kTile; j0 += 16) {
+      // S = Q K^T and dP = dO V^T over 16 keys: two n-tiles of 8
+      float sc[2][4], dp[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const int off = (j0 + (lane & 7) + ((lane >> 4) << 3)) * kLd + kk * 16 + ((lane >> 3) & 1) * 8;
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, smem_addr(kd + off));
+        ldmatrix_x4(bv, smem_addr(vd + off));
+        mma_bf16_16816(sc[0], qf[kk], bk[0], bk[1]);
+        mma_bf16_16816(sc[1], qf[kk], bk[2], bk[3]);
+        mma_bf16_16816(dp[0], df[kk], bv[0], bv[1]);
+        mma_bf16_16816(dp[1], df[kk], bv[2], bv[3]);
+      }
+      // dS = P * (dP - D) in f32; keys past s get bias -inf, so P = 0
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j0 + 8 * j + kq + (e & 1);
+          const float bias = col >= n_keys ? -INFINITY : (((bits >> col) & 1) ? 0.0f : kMaskBias);
+          const float x = sc[j][e] * scale + bias;
+          const float p = exp2f((x - shift - lse_r[e >> 1]) * kLog2e);
+          dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+        }
+      }
+      const uint32_t sa[4] = {pack_bf16x2(dp[0][0], dp[0][1]), pack_bf16x2(dp[0][2], dp[0][3]),
+                              pack_bf16x2(dp[1][0], dp[1][1]), pack_bf16x2(dp[1][2], dp[1][3])};
+      // dQ += dS K, the 16 keys as the reduced axis
+#pragma unroll
+      for (int d = 0; d < HD / 16; ++d) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, smem_addr(kd + (j0 + (lane & 15)) * kLd + d * 16 + (lane >> 4) * 8));
+        mma_bf16_16816(dq[2 * d], sa, bk[0], bk[1]);
+        mma_bf16_16816(dq[2 * d + 1], sa, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+    t = tn;
+    stage ^= 1;
+  }
+
+  // dQ * scale in bf16 through this warp's own rows of the Q tile
+  bf16* os = qs + wrow * kLd;
+#pragma unroll
+  for (int d = 0; d < HD / 8; ++d) {
+    *reinterpret_cast<uint32_t*>(os + r * kLd + 8 * d + kq) = pack_bf16x2(dq[d][0] * scale, dq[d][1] * scale);
+    *reinterpret_cast<uint32_t*>(os + (r + 8) * kLd + 8 * d + kq) = pack_bf16x2(dq[d][2] * scale, dq[d][3] * scale);
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * kUnits; u += 32) {
+    const int rr = u / kUnits, c = u % kUnits;
+    const int row = row0 + wrow + rr;
+    if (row < g)
+      *reinterpret_cast<uint4*>(dq_out + ((static_cast<size_t>(b) * g + row) * nh + h) * HD + c * 8) =
+          *reinterpret_cast<const uint4*>(os + rr * kLd + c * 8);
+  }
+}
+
+// ----------------------------------------------------------------- f32
+
+constexpr int kF32Threads = 128;
+
+// one 16-byte unit: 4 f32 values
 __device__ __forceinline__ void load_unit(const float* p, float* dst) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-}
-
-__device__ __forceinline__ void load_unit(const __nv_bfloat16* p, float* dst) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    dst[2 * i] = f.x;
-    dst[2 * i + 1] = f.y;
-  }
 }
 
 __device__ __forceinline__ void store_unit(float* p, const float* src) {
   *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
 }
 
-__device__ __forceinline__ void store_unit(__nv_bfloat16* p, const float* src) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-template <typename T, int HD>
+template <int HD>
 struct Split {
-  static constexpr int kDims = HD < 32 ? HD : 32;               // dims per lane
-  static constexpr int kLanes = HD / kDims;                     // lanes per row
-  static constexpr int kUnit = 16 / static_cast<int>(sizeof(T));  // values per 16 B
-  static constexpr int kUnits = kDims / kUnit;                  // units per lane
-  static constexpr int kRowUnits = HD / kUnit;                  // units per row
+  static constexpr int kDims = HD < 32 ? HD : 32;  // dims per lane
+  static constexpr int kLanes = HD / kDims;        // lanes per row
+  static constexpr int kUnit = 4;                  // f32 values per 16 B
+  static constexpr int kUnits = kDims / kUnit;     // units per lane
+  static constexpr int kRowUnits = HD / kUnit;     // units per row
   // element offset of this lane's t-th unit: units part, part + lanes, ...
   __device__ static int offset(int part, int t) { return (part + kLanes * t) * kUnit; }
   // sum over the lanes of one row (neighbouring lanes, xor partners)
@@ -102,10 +530,10 @@ struct Split {
 };
 
 // copy rows [r0, r0 + n) of a (row stride rs) head slice into dense shared rows
-template <typename T, int HD>
-__device__ __forceinline__ void stage_rows(T* dst, const T* src, long long rs, int r0, int n) {
-  constexpr int kRowUnits = Split<T, HD>::kRowUnits;
-  for (int u = threadIdx.x; u < n * kRowUnits; u += kThreads) {
+template <int HD>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long rs, int r0, int n) {
+  constexpr int kRowUnits = Split<HD>::kRowUnits;
+  for (int u = threadIdx.x; u < n * kRowUnits; u += kF32Threads) {
     const int r = u / kRowUnits, c = u % kRowUnits;
     reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * HD)[c] =
         reinterpret_cast<const uint4*>(src + (r0 + r) * rs)[c];
@@ -115,29 +543,27 @@ __device__ __forceinline__ void stage_rows(T* dst, const T* src, long long rs, i
 // whether the pair's key row holds a valid key (block-wide)
 __device__ __forceinline__ int pair_has_valid_key(const uint8_t* valid_row, int s) {
   int any = 0;
-  for (int j = threadIdx.x; j < s; j += kThreads) any |= valid_row[j];
+  for (int j = threadIdx.x; j < s; j += kF32Threads) any |= valid_row[j];
   return __syncthreads_or(any);
 }
 
-// ---------------------------------------------------------------- kernel C
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                         const T* __restrict__ dout, const float* __restrict__ lse,
-                         const float* __restrict__ delta, T* __restrict__ dk_out,
-                         T* __restrict__ dv_out, int g, int s, int nh,
-                         long long q_sb, long long q_sr, long long q_sh,
-                         long long k_sb, long long k_sr, long long k_sh,
-                         long long v_sb, long long v_sr, long long v_sh,
-                         long long valid_sb, float scale) {
-  using S = Split<T, HD>;
-  constexpr int kKeys = kThreads / S::kLanes;
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                             const float* __restrict__ dout, const float* __restrict__ lse,
+                             const float* __restrict__ delta, float* __restrict__ dk_out,
+                             float* __restrict__ dv_out, int g, int s, int nh,
+                             long long q_sb, long long q_sr, long long q_sh,
+                             long long k_sb, long long k_sr, long long k_sh,
+                             long long v_sb, long long v_sr, long long v_sh,
+                             long long valid_sb, float scale) {
+  using S = Split<HD>;
+  constexpr int kKeys = kF32Threads / S::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + kTile * HD;
-  float* lse_s = reinterpret_cast<float*>(dos + kTile * HD);
+  float* qs = reinterpret_cast<float*>(smem);
+  float* dos = qs + kTile * HD;
+  float* lse_s = dos + kTile * HD;
   float* delta_s = lse_s + kTile;
 
   const int b = blockIdx.x / nh;
@@ -147,7 +573,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool in_range = key < s;
   const int key_c = in_range ? key : s - 1;
   const uint8_t* valid_row = key_valid + b * valid_sb;
-  const float bias = valid_row[key_c] ? 0.0f : -1e9f;
+  const float bias = valid_row[key_c] ? 0.0f : kMaskBias;
   const size_t out_row = ((static_cast<size_t>(b) * s + key_c) * nh + h) * HD;
 
   // a masked key's P is exactly 0 when its pair has a valid key: a block of
@@ -164,10 +590,11 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     return;
   }
+  const float shift = has_valid ? 0.0f : kMaskBias;
 
   float kr[S::kDims], vr[S::kDims], dk[S::kDims], dv[S::kDims];
-  const T* kp = k + b * k_sb + key_c * k_sr + h * k_sh;
-  const T* vp = v + b * v_sb + key_c * v_sr + h * v_sh;
+  const float* kp = k + b * k_sb + key_c * k_sr + h * k_sh;
+  const float* vp = v + b * v_sb + key_c * v_sr + h * v_sh;
 #pragma unroll
   for (int t = 0; t < S::kUnits; ++t) {
     load_unit(kp + S::offset(part, t), kr + t * S::kUnit);
@@ -176,23 +603,23 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int d = 0; d < S::kDims; ++d) dk[d] = dv[d] = 0.0f;
 
-  const T* qb = q + b * q_sb + h * q_sh;
-  const T* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
   const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
   const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
   for (int i0 = 0; i0 < g; i0 += kTile) {
     const int n = min(kTile, g - i0);
     __syncthreads();  // the previous tile is consumed
-    stage_rows<T, HD>(qs, qb, q_sr, i0, n);
-    stage_rows<T, HD>(dos, dob, static_cast<long long>(nh) * HD, i0, n);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
+    stage_rows<HD>(qs, qb, q_sr, i0, n);
+    stage_rows<HD>(dos, dob, static_cast<long long>(nh) * HD, i0, n);
+    for (int i = threadIdx.x; i < n; i += kF32Threads) {
       lse_s[i] = lse_b[i0 + i];
       delta_s[i] = delta_b[i0 + i];
     }
     __syncthreads();
     for (int i = 0; i < n; ++i) {
-      const T* qi = qs + i * HD;
-      const T* doi = dos + i * HD;
+      const float* qi = qs + i * HD;
+      const float* doi = dos + i * HD;
       float sdot = 0.0f, pdot = 0.0f;
 #pragma unroll
       for (int t = 0; t < S::kUnits; ++t) {
@@ -207,7 +634,7 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       sdot = S::reduce(sdot);
       pdot = S::reduce(pdot);
-      const float p = expf(sdot * scale + bias - lse_s[i]);
+      const float p = expf(sdot * scale + bias - shift - lse_s[i]);
       const float ds = p * (pdot - delta_s[i]);
 #pragma unroll
       for (int t = 0; t < S::kUnits; ++t) {
@@ -234,24 +661,22 @@ attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ---------------------------------------------------------------- kernel D
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(kThreads)
-attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq_out, int g, int s,
-                        int nh, long long q_sb, long long q_sr, long long q_sh,
-                        long long k_sb, long long k_sr, long long k_sh,
-                        long long v_sb, long long v_sr, long long v_sh,
-                        long long valid_sb, float scale) {
-  using S = Split<T, HD>;
-  constexpr int kRows = kThreads / S::kLanes;
+template <int HD>
+__global__ void __launch_bounds__(kF32Threads)
+attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                            const float* __restrict__ dout, const float* __restrict__ lse,
+                            const float* __restrict__ delta, float* __restrict__ dq_out, int g,
+                            int s, int nh, long long q_sb, long long q_sr, long long q_sh,
+                            long long k_sb, long long k_sr, long long k_sh,
+                            long long v_sb, long long v_sr, long long v_sh,
+                            long long valid_sb, float scale) {
+  using S = Split<HD>;
+  constexpr int kRows = kF32Threads / S::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + kTile * HD;
-  float* bias_s = reinterpret_cast<float*>(vs + kTile * HD);
+  float* ks = reinterpret_cast<float*>(smem);
+  float* vs = ks + kTile * HD;
+  float* bias_s = vs + kTile * HD;
 
   const int b = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
@@ -261,9 +686,10 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int row_c = in_range ? row : g - 1;
   const uint8_t* valid_row = key_valid + b * valid_sb;
   const int has_valid = pair_has_valid_key(valid_row, s);
+  const float shift = has_valid ? 0.0f : kMaskBias;
 
   float qr[S::kDims], dor[S::kDims], dq[S::kDims];
-  const T* qp = q + b * q_sb + row_c * q_sr + h * q_sh;
+  const float* qp = q + b * q_sb + row_c * q_sr + h * q_sh;
   const size_t io_row = ((static_cast<size_t>(b) * g + row_c) * nh + h) * HD;
 #pragma unroll
   for (int t = 0; t < S::kUnits; ++t) {
@@ -276,20 +702,20 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float lse_i = lse[stat];
   const float delta_i = delta[stat];
 
-  const T* kb = k + b * k_sb + h * k_sh;
-  const T* vb = v + b * v_sb + h * v_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
   for (int j0 = 0; j0 < s; j0 += kTile) {
     const int n = min(kTile, s - j0);
     __syncthreads();  // the previous tile is consumed
-    stage_rows<T, HD>(ks, kb, k_sr, j0, n);
-    stage_rows<T, HD>(vs, vb, v_sr, j0, n);
-    for (int j = threadIdx.x; j < n; j += kThreads) bias_s[j] = valid_row[j0 + j] ? 0.0f : -1e9f;
+    stage_rows<HD>(ks, kb, k_sr, j0, n);
+    stage_rows<HD>(vs, vb, v_sr, j0, n);
+    for (int j = threadIdx.x; j < n; j += kF32Threads) bias_s[j] = valid_row[j0 + j] ? 0.0f : kMaskBias;
     __syncthreads();
     for (int j = 0; j < n; ++j) {
       const float bias = bias_s[j];
       if (bias != 0.0f && has_valid) continue;  // P = 0 exactly; uniform across the block
-      const T* kj = ks + j * HD;
-      const T* vj = vs + j * HD;
+      const float* kj = ks + j * HD;
+      const float* vj = vs + j * HD;
       float sdot = 0.0f, pdot = 0.0f;
 #pragma unroll
       for (int t = 0; t < S::kUnits; ++t) {
@@ -304,7 +730,7 @@ attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
       sdot = S::reduce(sdot);
       pdot = S::reduce(pdot);
-      const float ds = expf(sdot * scale + bias - lse_i) * (pdot - delta_i);
+      const float ds = expf(sdot * scale + bias - shift - lse_i) * (pdot - delta_i);
 #pragma unroll
       for (int t = 0; t < S::kUnits; ++t) {
         float kv[S::kUnit];
@@ -336,53 +762,92 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int HD>
-cudaError_t launch_dkv(const Args& a) {
-  const size_t smem = 2 * static_cast<size_t>(kTile) * HD * sizeof(T) + 2 * kTile * sizeof(float);
-  auto kern = attention_bwd_dkv_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <typename Kern>
+cudaError_t set_smem(Kern kern, size_t smem) {
+  return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+template <int HD, int QT>
+cudaError_t launch_dkv_bf16(const Args& a) {
+  auto kern = attention_bwd_dkv_bf16_kernel<HD, QT>;
+  const size_t smem = dkv_smem_bytes<HD, QT>();
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  constexpr int kKeys = kThreads / Split<T, HD>::kLanes;
+  const int n_kt = (a.s + kTile - 1) / kTile;
+  const long long blocks = static_cast<long long>(a.b) * a.nh * n_kt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const long long* st = a.st;
+  kern<<<static_cast<unsigned>(blocks), 128, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.g, a.s, a.nh, n_kt,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+  return cudaGetLastError();
+}
+
+template <int HD, int NW>
+cudaError_t launch_dq_bf16(const Args& a) {
+  auto kern = attention_bwd_dq_bf16_kernel<HD, NW>;
+  const size_t smem = dq_smem_bytes<HD, NW>((a.s + kTile - 1) / kTile);
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.g + 16 * NW - 1) / (16 * NW);
+  const long long blocks = static_cast<long long>(a.b) * a.nh * n_qt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const long long* st = a.st;
+  kern<<<static_cast<unsigned>(blocks), NW * 32, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+      static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.g, a.s, a.nh, n_qt,
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+  return cudaGetLastError();
+}
+
+template <int HD>
+cudaError_t launch_dkv_f32(const Args& a) {
+  auto kern = attention_bwd_dkv_f32_kernel<HD>;
+  const size_t smem = 2 * static_cast<size_t>(kTile) * HD * sizeof(float) + 2 * kTile * sizeof(float);
+  cudaError_t err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  constexpr int kKeys = kF32Threads / Split<HD>::kLanes;
   const dim3 grid(a.b * a.nh, (a.s + kKeys - 1) / kKeys);
   const long long* st = a.st;
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.key_valid), static_cast<const T*>(a.dout),
+  kern<<<grid, kF32Threads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.g, a.s, a.nh,
+      static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.g, a.s, a.nh,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, int HD>
-cudaError_t launch_dq(const Args& a) {
-  const size_t smem = 2 * static_cast<size_t>(kTile) * HD * sizeof(T) + kTile * sizeof(float);
-  auto kern = attention_bwd_dq_kernel<T, HD>;
-  cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
+template <int HD>
+cudaError_t launch_dq_f32(const Args& a) {
+  auto kern = attention_bwd_dq_f32_kernel<HD>;
+  const size_t smem = 2 * static_cast<size_t>(kTile) * HD * sizeof(float) + kTile * sizeof(float);
+  cudaError_t err = set_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  constexpr int kRows = kThreads / Split<T, HD>::kLanes;
+  constexpr int kRows = kF32Threads / Split<HD>::kLanes;
   const dim3 grid(a.b * a.nh, (a.g + kRows - 1) / kRows);
   const long long* st = a.st;
-  kern<<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const uint8_t*>(a.key_valid), static_cast<const T*>(a.dout),
+  kern<<<grid, kF32Threads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+      static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.out0), a.g, a.s, a.nh,
+      static_cast<float*>(a.out0), a.g, a.s, a.nh,
       st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
   return cudaGetLastError();
 }
 
-template <typename T, bool kDkv>
-cudaError_t dispatch_hd(int hd, const Args& a) {
-  switch (hd) {
-    case 16: return kDkv ? launch_dkv<T, 16>(a) : launch_dq<T, 16>(a);
-    case 32: return kDkv ? launch_dkv<T, 32>(a) : launch_dq<T, 32>(a);
-    case 64: return kDkv ? launch_dkv<T, 64>(a) : launch_dq<T, 64>(a);
-    case 128: return kDkv ? launch_dkv<T, 128>(a) : launch_dq<T, 128>(a);
-    default: return cudaErrorInvalidValue;
-  }
+// bf16 tiles of 16 query rows (one warp in D) when g <= 16: the CLS-only
+// final layer, so no warp computes only padding
+template <int HD, bool kDkv>
+cudaError_t launch(int is_bf16, const Args& a) {
+  if (!is_bf16) return kDkv ? launch_dkv_f32<HD>(a) : launch_dq_f32<HD>(a);
+  if (kDkv) return a.g <= 16 ? launch_dkv_bf16<HD, 16>(a) : launch_dkv_bf16<HD, 64>(a);
+  return a.g <= 16 ? launch_dq_bf16<HD, 1>(a) : launch_dq_bf16<HD, 4>(a);
 }
 
 template <bool kDkv>
@@ -396,7 +861,13 @@ int run(const void* q, const void* k, const void* v, const void* key_valid, cons
   const Args a{q, k, v, key_valid, dout, lse, delta, out0, out1, b, g, s, nh,
                {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb},
                scale, static_cast<cudaStream_t>(stream)};
-  return is_bf16 ? dispatch_hd<__nv_bfloat16, kDkv>(hd, a) : dispatch_hd<float, kDkv>(hd, a);
+  switch (hd) {
+    case 16: return launch<16, kDkv>(is_bf16, a);
+    case 32: return launch<32, kDkv>(is_bf16, a);
+    case 64: return launch<64, kDkv>(is_bf16, a);
+    case 128: return launch<128, kDkv>(is_bf16, a);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

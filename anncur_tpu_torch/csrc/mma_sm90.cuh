@@ -1,7 +1,7 @@
 // Warp-level tensor-core and async-copy helpers for the port's kernels
 // (sm_80 instructions that Hopper runs as they are): 16-byte cp.async with
-// zero fill, ldmatrix (plain and transposed) and the bf16 m16n8k16 mma.sync
-// with f32 accumulation.
+// zero fill and 4-byte cp.async, ldmatrix (plain and transposed) and the
+// bf16 m16n8k16 mma.sync with f32 accumulation.
 //
 // Fragment layouts of mma.sync.m16n8k16 (lane = threadIdx.x % 32,
 // r = lane / 4, c = 2 * (lane % 4)):
@@ -30,6 +30,11 @@ __device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int s
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes)
                : "memory");
+}
+
+// 4 bytes global -> shared (through L1: the 4-byte form has no .cg)
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {

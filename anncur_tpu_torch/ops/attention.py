@@ -79,7 +79,9 @@ class AttentionFunction(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, key_valid, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()  # (b, nh, g)
+        # (b, nh, g): one f32 copy of dout times out, products exact in f32
+        # (dout.float() is dout itself when it is f32, so nothing in place)
+        delta = (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
         dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
         dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
         return dq, dk, dv, None

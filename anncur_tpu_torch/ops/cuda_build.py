@@ -4,8 +4,10 @@ Each ``csrc/<name>.cu`` has a plain C interface. It is compiled by
 ``nvcc`` for ``sm_90a`` into ``anncur_tpu_torch/build/lib<name>-<hash>.so``
 at first use (the hash covers the source, every local header it
 includes and the flags, so an edited source or header rebuilds) and
-loaded with ``ctypes``. Nothing is compiled or loaded at import: the
-CPU tests import every module without ``nvcc``.
+loaded with ``ctypes``. The compiler's report (``ptxas -v``: registers,
+spills and shared memory of each kernel) is kept beside the library as
+``<library>.log``. Nothing is compiled or loaded at import: the CPU tests
+import every module without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "build")
 KERNEL_SOURCES = ("attention", "attention_bwd", "mips_topk")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -86,6 +88,8 @@ def build(names: Iterable[str] = KERNEL_SOURCES) -> float:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exit {proc.returncode}\n{log}")
         else:
+            with open(f"{out}.log", "w") as fout:
+                fout.write(log)
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

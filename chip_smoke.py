@@ -12,9 +12,13 @@ Phases, in order; any failure exits non-zero before the result line:
    PyTorch library call's (a yardstick the port never calls) and the
    least time the card could take (``bound_ms``): kernel A (attention
    forward, with its row log-sum-exp; timed at the build's full layer,
-   its CLS-only final layer and the train layer, and the HMMA count of
-   its bf16 body's SASS), kernels C and D (attention backward, dK/dV and
-   dQ) and kernel B (MIPS top-k);
+   its CLS-only final layer and the train layer), kernels C and D
+   (attention backward, dK/dV and dQ; timed at 64 pairs of random key
+   lengths and at the train step's own inputs, 63 and 1 pairs with every
+   key valid, beside the port's whole backward and SDPA's) and kernel B
+   (MIPS top-k). For every bf16 instantiation of kernels A, C and D: its
+   HMMA count in the SASS (it fails on none) and ptxas' registers and
+   spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -31,11 +35,13 @@ Phases, in order; any failure exits non-zero before the result line:
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
 
+import functools
 import json
 import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -58,6 +64,8 @@ GRAD_RTOL = 2e-2  # kernels C/D grads vs plain autograd, x the plain grad's max 
 LSE_RTOL = 1e-5  # kernel A's f32 log-sum-exp vs torch.logsumexp, sums in another order
 TRAIN_LOSS_ATOL = 2e-2  # bf16 CE loss through 12 layers, kernels vs plain attention
 TRAIN_GNORM_RTOL = 2e-2  # global gradient norm, the same
+# ~10 ms of device clock that the card spins before each timed call
+SLEEP_CYCLES = 20_000_000
 # gradients that are 0 in exact arithmetic (a shift under a softmax), so
 # a step may leave them, and their parameters, unchanged
 ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
@@ -72,23 +80,27 @@ def fail(msg):
 
 
 def time_ms(fn, reps, flush):
-    """Mean device ms of ``fn`` over ``reps`` calls, CUDA events around
+    """Median device ms of ``fn`` over ``reps`` calls, CUDA events around
     each call. ``flush`` (512 MB) is rewritten before each call: every
-    call finds the 50 MB L2 cache cold, as the main path does, and the
-    card stays busy (~0.2 ms) while the host enqueues the call, so the
-    events time the device's work and not the host's launch overhead."""
+    call finds the 50 MB L2 cache cold, as the main path does. Then the
+    card spins for ~10 ms (``torch.cuda._sleep``) while the host enqueues
+    the call, so a call of several launches (an autograd backward, a
+    matmul and a top-k) runs back to back and the events time the
+    device's work, not the host's pace between its launches; the median
+    drops a call that a stall of the shared host still reached."""
     fn()
     torch.cuda.synchronize()
     pairs = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         fn()
         end.record()
         pairs.append((start, end))
     torch.cuda.synchronize()
-    return sum(s.elapsed_time(e) for s, e in pairs) / reps
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
 
 
 # --------------------------------------------------------------------- #
@@ -139,7 +151,7 @@ def check_attention(dev, flush):
         "max_abs_err": max_err,
         **{key: main_shape[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "shapes": timed,
-        "hmma_in_sass": attention_sass_hmma(),
+        "instantiations": instantiations("attention", "attention_fwd_bf16_kernel", "warps", 8),
     }
 
 
@@ -174,32 +186,64 @@ def time_attention(q, k, v, key_valid, lengths, reps, flush):
     return rec
 
 
-def attention_sass_hmma():
-    """HMMA (tensor-core) instructions in the built kernel A library's SASS,
-    by instantiation (head dim, warps) of the bf16 body, as ``cuobjdump
-    -sass`` lists them; None where the toolkit has no cuobjdump. Fails if
-    a bf16 instantiation has none."""
+@functools.lru_cache(maxsize=None)
+def _sass(source):
+    """``cuobjdump -sass`` of the built library of ``csrc/<source>.cu``, or
+    None where the toolkit has no cuobjdump."""
     from anncur_tpu_torch.ops import cuda_build
 
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("  kernel A SASS: cuobjdump not found, HMMA count not measured")
         return None
-    sass = subprocess.run([tool, "-sass", cuda_build.library_path("attention")],
+    return subprocess.run([tool, "-sass", cuda_build.library_path(source)],
                           capture_output=True, text=True, timeout=300, check=True).stdout
-    counts, fn = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            found = re.search(r"attention_fwd_bf16_kernelILi(\d+)ELi(\d+)E", line)
-            fn = f"hd={found.group(1)} warps={found.group(2)}" if found else None
-            if fn:
-                counts[fn] = 0
-        elif fn and "HMMA" in line:
-            counts[fn] += 1
-    log(f"  kernel A bf16 SASS, HMMA instructions by instantiation: {counts}")
-    if len(counts) != 8 or not all(counts.values()):
-        fail(f"kernel A's bf16 body is not on the tensor cores in every instantiation: {counts}")
-    return counts
+
+
+def instantiations(source, kernel, param, expected):
+    """Each instantiation (head dim, ``param``) of the bf16 body ``kernel``
+    in the built library of ``csrc/<source>.cu``: its HMMA (tensor-core)
+    instructions as ``cuobjdump -sass`` lists them, and its registers and
+    spilled bytes from the build's ``ptxas -v`` report. Fails unless there
+    are ``expected`` instantiations, each with HMMA."""
+    from anncur_tpu_torch.ops import cuda_build
+
+    pattern = re.compile(kernel + r"ILi(\d+)ELi(\d+)E")
+
+    def label(name):
+        found = pattern.search(name)
+        return f"hd={found.group(1)} {param}={found.group(2)}" if found else None
+
+    found, fn = {}, None
+    with open(cuda_build.library_path(source) + ".log") as fin:
+        for line in fin:
+            entry = re.search(r"Compiling entry function '(\S+)'", line)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            regs = re.search(r"Used (\d+) registers", line)
+            if entry:
+                fn = label(entry.group(1))
+                if fn:
+                    found[fn] = {}
+            elif fn and spills:
+                found[fn].setdefault("spill_stores", int(spills.group(1)))
+                found[fn].setdefault("spill_loads", int(spills.group(2)))
+            elif fn and regs:
+                found[fn].setdefault("registers", int(regs.group(1)))
+    sass = _sass(source)
+    if sass is None:
+        log(f"  {kernel}: cuobjdump not found, HMMA count not measured")
+    else:
+        fn = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                fn = label(line)
+                if fn:
+                    found.setdefault(fn, {})["hmma"] = 0
+            elif fn and "HMMA" in line:
+                found[fn]["hmma"] += 1
+    log(f"  {kernel} by instantiation (HMMA in SASS, ptxas registers and spill bytes): {found}")
+    if len(found) != expected or (sass is not None and not all(rec.get("hmma") for rec in found.values())):
+        fail(f"{kernel} is not on the tensor cores in every one of its {expected} instantiations: {found}")
+    return found
 
 
 def time_grad_ms(out, inputs, dout, reps, flush):
@@ -207,53 +251,68 @@ def time_grad_ms(out, inputs, dout, reps, flush):
     return time_ms(lambda: torch.autograd.grad(out, inputs, dout, retain_graph=True), reps, flush)
 
 
-def check_attention_bwd(dev, flush):
-    """Kernels C and D (and kernel A's lse) against the plain autograd at
-    the training shape: 64 pairs of 255 tokens, random key lengths."""
-    from anncur_tpu_torch.ops.attention import (
-        attention_bwd_dkv, attention_bwd_dq, attention_bwd_plain, attention_fwd, attention_plain,
-    )
-
-    gen = torch.Generator(device=dev).manual_seed(3)
-    b, s, nh, hd = 64, 255, 12, 64
-    errs = {"dkv": 0.0, "dq": 0.0, "lse": 0.0}
-    for g in (s, 1):
-        q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
-        rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]) if g == s else torch.ones(b, g, dtype=torch.bool, device=dev)
-        # rows past a pair's length never reach a loss: their dO is 0, as in the CE
-        dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(q.dtype)
-        out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-        dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
-        dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
-        want = attention_bwd_plain(q, k, v, key_valid, dout)
-        scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
-        want_lse = torch.logsumexp(scores + torch.where(key_valid, 0.0, -1e9)[:, None, None, :], dim=-1)
-        torch.cuda.synchronize()
-        lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).transpose(1, 2)[rows].max())
-        for name, got, ref, sel in (("dq", dq, want[0], rows), ("dkv", dk, want[1], key_valid), ("dkv", dv, want[2], key_valid)):
-            err = float((got.float() - ref.float()).abs().amax(dim=(2, 3))[sel].max() / ref.float().abs().max())
-            errs[name] = max(errs[name], err)
-        zero = bool((dk[~key_valid] == 0).all() and (dv[~key_valid] == 0).all())
-        log(f"  kernels C/D b={b} g={g} s={s}: max |kernel - plain| / max|plain| dQ {errs['dq']:.3e}, dK/dV {errs['dkv']:.3e} (tol {GRAD_RTOL}); masked keys zero: {zero}; lse rel err {lse_err:.2e}")
-        if not (errs["dq"] <= GRAD_RTOL and errs["dkv"] <= GRAD_RTOL and zero):
-            fail(f"attention backward kernels disagree with the plain autograd at g={g}: {errs}, masked keys zero {zero}")
-        if not lse_err <= LSE_RTOL:
-            fail(f"kernel A's lse disagrees with logsumexp at g={g}: {lse_err}")
-        errs["lse"] = max(errs["lse"], lse_err)
-
-    # times at the full-layer shape (the last g = s case is rebuilt)
-    q, k, v, key_valid, lengths = attention_inputs(gen, b, s, s, nh, hd, dev)
-    rows = torch.arange(s, device=dev)[None, :] < lengths[:, None]
+def bwd_inputs(gen, b, g, s, nh, hd, dev, all_valid):
+    """(q, k, v, key_valid, lengths, rows, dout) for the backward: random
+    key lengths, or every key valid (``all_valid``: the train step's
+    random token ids pad nothing); ``rows`` are the rows that reach a loss
+    (those below a pair's length in a full layer, all of a 1-row slice),
+    and dO is 0 at the others, as in the CE."""
+    q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
+    if all_valid:
+        key_valid, lengths = torch.ones_like(key_valid), torch.full_like(lengths, s)
+    rows = (torch.arange(g, device=dev)[None, :] < (lengths[:, None] if g == s else g)).expand(b, g)
     dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(q.dtype)
+    return q, k, v, key_valid, lengths, rows, dout
+
+
+def check_bwd_case(case, errs, what):
+    """Kernels C and D (and kernel A's lse) against the plain autograd on
+    one input, at the rows that reach a loss and the valid keys; masked
+    keys must get exactly zero dK and dV. Raises ``errs`` to the errors."""
+    from anncur_tpu_torch.ops.attention import attention_bwd_dkv, attention_bwd_dq, attention_bwd_plain, attention_fwd
+
+    q, k, v, key_valid, _, rows, dout = case
+    hd = q.shape[-1]
+    out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
+    dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
+    want = attention_bwd_plain(q, k, v, key_valid, dout)
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
+    want_lse = torch.logsumexp(scores + torch.where(key_valid, 0.0, -1e9)[:, None, None, :], dim=-1)
+    torch.cuda.synchronize()
+    lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).transpose(1, 2)[rows].max())
+    for name, got, ref, sel in (("dq", dq, want[0], rows), ("dkv", dk, want[1], key_valid), ("dkv", dv, want[2], key_valid)):
+        err = float((got.float() - ref.float()).abs().amax(dim=(2, 3))[sel].max() / ref.float().abs().max())
+        errs[name] = max(errs[name], err)
+    zero = bool((dk[~key_valid] == 0).all() and (dv[~key_valid] == 0).all())
+    log(f"  kernels C/D {what}: max |kernel - plain| / max|plain| dQ {errs['dq']:.3e}, dK/dV {errs['dkv']:.3e} (tol {GRAD_RTOL}); masked keys zero: {zero}; lse rel err {lse_err:.2e}")
+    if not (errs["dq"] <= GRAD_RTOL and errs["dkv"] <= GRAD_RTOL and zero):
+        fail(f"attention backward kernels disagree with the plain autograd at {what}: {errs}, masked keys zero {zero}")
+    if not lse_err <= LSE_RTOL:
+        fail(f"kernel A's lse disagrees with logsumexp at {what}: {lse_err}")
+    errs["lse"] = max(errs["lse"], lse_err)
+
+
+def time_bwd_case(case, what, flush):
+    """Kernels C and D on one input, each beside its bound, with the
+    port's whole attention backward (autograd through kernel A's graph:
+    D = rowsum(dO * O), then C and D), the plain autograd and SDPA's
+    backward (masked where a key is masked) beside both."""
+    from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq, attention_fwd, attention_plain
+
+    q, k, v, key_valid, lengths, _, dout = case
+    b, g, nh, hd = q.shape
     out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
     delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
     dkv_ms = time_ms(lambda: attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta), 20, flush)
     dq_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, lse, delta), 20, flush)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    whole_ms = time_grad_ms(attention(*leaves, key_valid), leaves, dout, 20, flush)
     plain_ms = time_grad_ms(attention_plain(*leaves, key_valid), leaves, dout, 5, flush)
     lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
-    lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_leaves, attn_mask=key_valid[:, None, None, :])
+    mask = None if bool(key_valid.all()) else key_valid[:, None, None, :]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_leaves, attn_mask=mask)
     library_ms = time_grad_ms(lib_out, lib_leaves, dout.transpose(1, 2), 20, flush)
     # what these inputs need: q, dO (all rows), k and v at valid keys, lse
     # and D read; dK, dV at valid keys or dQ written. Operations over the
@@ -261,16 +320,52 @@ def check_attention_bwd(dev, flush):
     n_keys = int(lengths.sum())
     row_bytes = nh * hd * q.element_size()
     common = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + 2 * lse.numel() * 4 + key_valid.numel()
-    pair_ops = 2 * nh * s * n_keys * hd  # one product of (s x valid keys x hd)
-    shape = f"b={b} g={s} s={s} nh={nh} hd={hd} bf16, random key lengths"
-    both = {"route": "cuda", "source": "anncur_tpu_torch/csrc/attention_bwd.cu", "plain_ms": plain_ms,
-            "library_ms": library_ms, "shape": shape}
-    return errs["lse"], [
-        {"name": "attention_bwd_dkv", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1121",
-         "max_abs_err": errs["dkv"], "ms": dkv_ms, **bound(common + 2 * n_keys * row_bytes, 4 * pair_ops, "bf16"), **both},
-        {"name": "attention_bwd_dq", "replaces": "jax/experimental/pallas/ops/tpu/flash_attention.py:1456",
-         "max_abs_err": errs["dq"], "ms": dq_ms, **bound(common + q.numel() * q.element_size(), 3 * pair_ops, "bf16"), **both},
-    ]
+    pair_ops = 2 * nh * g * n_keys * hd  # one product of (g x valid keys x hd)
+    both = {"shape": what, "plain_ms": plain_ms, "library_ms": library_ms, "whole_backward_ms": whole_ms}
+    recs = (
+        {"ms": dkv_ms, **bound(common + 2 * n_keys * row_bytes, 4 * pair_ops, "bf16"), **both},
+        {"ms": dq_ms, **bound(common + q.numel() * q.element_size(), 3 * pair_ops, "bf16"), **both},
+    )
+    for rec in recs:
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    log(f"  kernels C/D {what}: C {dkv_ms:.4f} ms (bound {recs[0]['bound_ms']:.4f}, {recs[0]['bound_by']}, "
+        f"{recs[0]['x_bound']:.2f}x), D {dq_ms:.4f} ms (bound {recs[1]['bound_ms']:.4f}, {recs[1]['bound_by']}, "
+        f"{recs[1]['x_bound']:.2f}x), C + D {dkv_ms + dq_ms:.4f} ms; whole backward {whole_ms:.4f} ms; "
+        f"SDPA backward {library_ms:.4f} ms (whole / SDPA {whole_ms / library_ms:.2f}x); plain {plain_ms:.4f} ms")
+    return recs
+
+
+def check_attention_bwd(dev, flush):
+    """Kernels C and D (and kernel A's lse) against the plain autograd at
+    the training shape, 64 pairs of 255 tokens of random key lengths (full
+    layer and CLS-only final layer), then timed there and at the train
+    step's own inputs: the 63 negative pairs and the 1 positive pair of a
+    micro-batch, every key valid."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    s, nh, hd = 255, 12, 64
+    errs = {"dkv": 0.0, "dq": 0.0, "lse": 0.0}
+    check_bwd_case(bwd_inputs(gen, 64, 1, s, nh, hd, dev, False), errs, f"b=64 g=1 s={s}")
+    timed = []
+    for b, all_valid in ((64, False), (63, True), (1, True)):
+        what = f"b={b} g={s} s={s} nh={nh} hd={hd} bf16, " + ("every key valid" if all_valid else "random key lengths")
+        case = bwd_inputs(gen, b, s, s, nh, hd, dev, all_valid)
+        check_bwd_case(case, errs, what)
+        timed.append(time_bwd_case(case, what, flush))
+    common = {"route": "cuda", "source": "anncur_tpu_torch/csrc/attention_bwd.cu"}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "whole_backward_ms", "shape")
+    kernels = []
+    for i, (name, replaces, kernel, param) in enumerate((
+        ("attention_bwd_dkv", "jax/experimental/pallas/ops/tpu/flash_attention.py:1121", "attention_bwd_dkv_bf16_kernel", "query_tile"),
+        ("attention_bwd_dq", "jax/experimental/pallas/ops/tpu/flash_attention.py:1456", "attention_bwd_dq_bf16_kernel", "warps"),
+    )):
+        shapes = [recs[i] for recs in timed]
+        kernels.append({
+            "name": name, "replaces": replaces, **common,
+            "max_abs_err": errs["dkv" if i == 0 else "dq"],
+            **{key: shapes[0][key] for key in keys}, "shapes": shapes,
+            "instantiations": instantiations("attention_bwd", kernel, param, 8),
+        })
+    return errs["lse"], kernels
 
 
 def mips_inputs(gen, dev):

@@ -29,7 +29,8 @@ JAX_ATOL = 3e-2  # JAX also rounds its normalised probabilities and its output t
 
 def emulate_kernel_a(q, k, v, key_valid, skip=True, first_tile_runs=True):
     """(out, lse, tiles skipped) as kernel A's bf16 body computes them: out
-    (b, g, nh, hd) bf16, lse (b, nh, g) f32. ``skip`` leaves a pair's state
+    (b, g, nh, hd) bf16, lse (b, nh, g) f32, without the -1e9 that every
+    score of a pair with no valid key carries. ``skip`` leaves a pair's state
     untouched on a tile without a valid key, when the pair has a valid
     key; the kernel runs tile 0 all the same (``first_tile_runs``)."""
     b, g, nh, hd = q.shape
@@ -58,7 +59,8 @@ def emulate_kernel_a(q, k, v, key_valid, skip=True, first_tile_runs=True):
         m, l = torch.where(sel, m_new, m), torch.where(sel, l_new, l)
         acc = torch.where(sel[..., None], acc_new, acc)
     out = (acc * (1.0 / l)[..., None]).to(torch.bfloat16).transpose(1, 2)
-    return out, m + torch.log(l), skipped
+    shift = torch.where(any_valid, 0.0, -1e9)[:, None, None]
+    return out, (m - shift) + torch.log(l), skipped
 
 
 def _inputs(hd, seed=0):
@@ -92,7 +94,9 @@ def test_emulated_kernel_a_matches_plain_attention(hd):
     # every row, padded query rows and the no-valid-key pair included
     np.testing.assert_allclose(got.float().numpy(), want.float().numpy(), atol=PLAIN_ATOL, rtol=0)
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
-    want_lse = torch.logsumexp(scores + torch.where(valid, 0.0, -1e9)[:, None, None, :], dim=-1)
+    scores = scores + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    shift = torch.where(valid.any(dim=1), 0.0, -1e9)[:, None, None, None]
+    want_lse = torch.logsumexp(scores - shift, dim=-1)
     np.testing.assert_allclose(lse.numpy(), want_lse.numpy(), rtol=1e-5, atol=1e-5)
 
 

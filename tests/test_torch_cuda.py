@@ -95,11 +95,14 @@ def test_attention_bf16_tensor_core_path_at_tile_edges(dev, g, hd):
 
 def test_attention_bf16_lse_at_ragged_s(dev):
     """The row log-sum-exp of the bf16 body at s=255 within 1e-5 relative
-    (f32 sums in another order); out is the same bits without it."""
+    (f32 sums in another order), without the -1e9 that every score of the
+    pair with no valid key carries; out is the same bits without it."""
     q, k, v, valid = _edge_case(dev, 255, 64, seed=7)
     out, lse = attention_fwd(q, k, v, valid, with_lse=True)
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / 8.0
-    want = torch.logsumexp(scores + torch.where(valid, 0.0, -1e9)[:, None, None, :], dim=-1)
+    scores = scores + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    shift = torch.where(valid.any(dim=1), 0.0, -1e9)[:, None, None, None]
+    want = torch.logsumexp(scores - shift, dim=-1)
     torch.cuda.synchronize()
     assert torch.allclose(lse, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(out, attention_fwd(q, k, v, valid)[0])
@@ -122,6 +125,44 @@ def test_attention_backward_kernels_through_bf16_forward_at_ragged_s(dev):
         scale = b.float().abs().max().item()
         assert err <= 2e-2 * scale, (name, err, scale)
     assert not got[1][~valid].any() and not got[2][~valid].any()
+
+
+@pytest.mark.parametrize(
+    "b,g,hd",
+    [(8, 1, 64), (8, 3, 64), (8, 16, 64), (8, 17, 64), (8, 255, 64), (8, 255, 16), (8, 255, 32),
+     (8, 255, 128), (1, 255, 64), (1, 1, 64)],
+)
+def test_attention_backward_bf16_tensor_core_path_at_tile_edges(dev, b, g, hd):
+    """Kernels C and D's bf16 bodies (16-row query tiles for g <= 16,
+    64-row above) against the plain autograd at 2e-2 x the plain gradient's
+    max, at every row and key: b = 8 with the ``_edge_case`` masks (the pair
+    with no valid key included), b = 1 with every key valid, as the train
+    step's positive pair. Masked keys of pairs with a valid key get exactly
+    zero dK and dV; two launches give the same bits (no atomics)."""
+    if b == 1:
+        q, k, v, valid, _ = _attn_case(dev, 1, g, 255, 12, hd, torch.bfloat16, seed=g + hd)
+        valid = torch.ones_like(valid)
+    else:
+        q, k, v, valid = _edge_case(dev, g, hd, seed=g * 100 + hd)
+    gen = torch.Generator(device=dev).manual_seed(g * 10 + hd)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    want = attention_bwd_plain(q, k, v, valid, dout)
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [
+        (*attention_bwd_dkv(q, k, v, valid, dout, lse, delta), attention_bwd_dq(q, k, v, valid, dout, lse, delta))
+        for _ in range(2)
+    ]
+    torch.cuda.synchronize()
+    dk, dv, dq = runs[0]
+    for name, a, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        err = (a.float() - w.float()).abs().max().item()
+        scale = w.float().abs().max().item()
+        assert err <= 2e-2 * scale, (name, err, scale)
+    masked = ~valid & valid.any(dim=1, keepdim=True)
+    assert not dk[masked].any() and not dv[masked].any()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
@@ -176,10 +217,12 @@ def test_attention_backward_kernels_match_plain_autograd(dev, g, dtype, tol):
     before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     out = attention(*leaves, valid)
+    dout_before = dout.clone()
     got = torch.autograd.grad(out, leaves, dout)
     torch.cuda.synchronize()
     after = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
     assert after == tuple(n + 1 for n in before)
+    assert torch.equal(dout, dout_before)  # the backward leaves its cotangent as it was
     for name, a, b, sel in (
         ("dq", got[0], want[0], rows),
         ("dk", got[1], want[1], valid),
