@@ -36,7 +36,7 @@ def _group(name: str) -> str:
         return "kernel_C_attention_bwd_dkv"
     if "attention_bwd_dq_" in name:
         return "kernel_D_attention_bwd_dq"
-    if name.startswith("mips_") or "mips_split_topk" in name or "mips_merge" in name:
+    if "mips_" in name:  # score, select and sort kernels
         return "kernel_B_mips_topk"
     low = name.lower()
     if any(t in low for t in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):

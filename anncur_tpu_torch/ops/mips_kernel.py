@@ -1,22 +1,28 @@
-"""Fused f32 matmul + top-k: kernel B (``csrc/mips_topk.cu``).
+"""Exact MIPS top-k: kernel B (``csrc/mips_topk.cu``).
 
 Replaces ``anncur_tpu/ops/mips_pallas.py::_mips_kernel`` and
 ``::_maxmask_kernel``. The fixed-anchor query runs its latent projection
 + top-k_retvr stage through :func:`mips_topk_fused`. Its plain version is
 ``ops/mips.py::mips_topk``.
+
+On the card it is a register-tiled f32 FFMA GEMM into a score scratch,
+then an exact radix select, one thread-block cluster per query; any
+``1 <= k <= n_valid``, as ``lax.top_k`` takes.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Set, Tuple
 
 import torch
 
 from anncur_tpu_torch.ops import cuda_build
 from anncur_tpu_torch.ops.mips import mips_topk
 
-MAX_K = 256  # k is rounded up to a power of two that one 256-item split holds
+# score scratch by (device index, stream): one allocation, grown as needed
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+_INIT_DEVICES: Set[int] = set()
 
 
 def mips_topk_fused(
@@ -38,18 +44,16 @@ def mips_topk_fused(
     _check(queries, items, k, n_valid)
     q, d = queries.shape
     dev = queries.device
-    lib = _lib()
-    scratch = int(lib.mips_topk_scratch_entries(q, n, k))
-    scratch_s = torch.empty(scratch, dtype=torch.float32, device=dev)
-    scratch_i = torch.empty(scratch, dtype=torch.int32, device=dev)
-    out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
-    rc = lib.mips_topk_fused(
-        queries.data_ptr(), items.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
-        scratch_s.data_ptr(), scratch_i.data_ptr(), q, n, d, k, n_valid,
-        dev.index if dev.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    with torch.cuda.device(dev):
+        lib = _lib(dev.index)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        scratch = _scratch(dev, stream, int(lib.mips_topk_scratch_bytes(q, n_valid, k)))
+        out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
+        out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
+        rc = lib.mips_topk_fused(
+            queries.data_ptr(), items.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            scratch.data_ptr(), scratch.numel(), q, n, d, k, n_valid, stream,
+        )
     cuda_build.check(lib, rc, "mips_topk kernel")
     mips_topk_fused.launches += 1
     return out_s, out_i
@@ -68,16 +72,32 @@ def _check(queries, items, k, n_valid) -> None:
     if not (queries.is_contiguous() and items.is_contiguous()):
         raise ValueError("mips_topk_fused: queries and items must be contiguous")
     n = items.shape[0]
-    if not 1 <= k <= min(n_valid, MAX_K) or n_valid > n or queries.shape[0] < 1:
-        raise ValueError(f"mips_topk_fused needs 1 <= k <= min(n_valid, {MAX_K}), n_valid <= n; got k={k} n_valid={n_valid} n={n}")
+    if not 1 <= k <= n_valid <= n or queries.shape[0] < 1 or queries.shape[1] < 1:
+        raise ValueError(f"mips_topk_fused needs 1 <= k <= n_valid <= n; got k={k} n_valid={n_valid} n={n}")
 
 
-def _lib() -> ctypes.CDLL:
+def _scratch(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
+    """The cached scratch of this device and stream, at least ``nbytes``."""
+    key = (dev.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        _SCRATCH.pop(key, None)
+        buf = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    return buf
+
+
+def _lib(device: int) -> ctypes.CDLL:
+    """The kernel library, its attributes set on ``device`` (current)."""
     lib = cuda_build.load("mips_topk")
     if lib.mips_topk_fused.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mips_topk_fused.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
+        lib.mips_topk_fused.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i32] * 5 + [ptr]
         lib.mips_topk_fused.restype = i32
-        lib.mips_topk_scratch_entries.argtypes = [i32] * 3
-        lib.mips_topk_scratch_entries.restype = ctypes.c_longlong
+        lib.mips_topk_scratch_bytes.argtypes = [i32] * 3
+        lib.mips_topk_scratch_bytes.restype = ctypes.c_longlong
+        lib.mips_topk_init.argtypes = []
+        lib.mips_topk_init.restype = i32
+    if device not in _INIT_DEVICES:
+        cuda_build.check(lib, lib.mips_topk_init(), "mips_topk kernel attributes")
+        _INIT_DEVICES.add(device)
     return lib

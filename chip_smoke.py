@@ -16,9 +16,12 @@ Phases, in order; any failure exits non-zero before the result line:
    (attention backward, dK/dV and dQ; timed at 64 pairs of random key
    lengths and at the train step's own inputs, 63 and 1 pairs with every
    key valid, beside the port's whole backward and SDPA's) and kernel B
-   (MIPS top-k). For every bf16 instantiation of kernels A, C and D: its
+   (MIPS top-k: score GEMM + cluster radix select; timed at a cost-600
+   batch, q=32 over 10,000 items, at one text, q=1, and at an eval batch
+   of 256 over ZeShEL-military's 104,520 entities, and checked once more
+   at k=500). For every bf16 instantiation of kernels A, C and D: its
    HMMA count in the SASS (it fails on none) and ptxas' registers and
-   spills;
+   spills; for kernel B's kernels, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -199,19 +202,10 @@ def _sass(source):
                           capture_output=True, text=True, timeout=300, check=True).stdout
 
 
-def instantiations(source, kernel, param, expected):
-    """Each instantiation (head dim, ``param``) of the bf16 body ``kernel``
-    in the built library of ``csrc/<source>.cu``: its HMMA (tensor-core)
-    instructions as ``cuobjdump -sass`` lists them, and its registers and
-    spilled bytes from the build's ``ptxas -v`` report. Fails unless there
-    are ``expected`` instantiations, each with HMMA."""
+def ptxas_report(source):
+    """Registers and spilled bytes of every entry function in the build's
+    ``ptxas -v`` report of ``csrc/<source>.cu``, by mangled name."""
     from anncur_tpu_torch.ops import cuda_build
-
-    pattern = re.compile(kernel + r"ILi(\d+)ELi(\d+)E")
-
-    def label(name):
-        found = pattern.search(name)
-        return f"hd={found.group(1)} {param}={found.group(2)}" if found else None
 
     found, fn = {}, None
     with open(cuda_build.library_path(source) + ".log") as fin:
@@ -220,14 +214,28 @@ def instantiations(source, kernel, param, expected):
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             regs = re.search(r"Used (\d+) registers", line)
             if entry:
-                fn = label(entry.group(1))
-                if fn:
-                    found[fn] = {}
-            elif fn and spills:
-                found[fn].setdefault("spill_stores", int(spills.group(1)))
-                found[fn].setdefault("spill_loads", int(spills.group(2)))
-            elif fn and regs:
-                found[fn].setdefault("registers", int(regs.group(1)))
+                fn = found.setdefault(entry.group(1), {})
+            elif fn is not None and spills:
+                fn.setdefault("spill_stores", int(spills.group(1)))
+                fn.setdefault("spill_loads", int(spills.group(2)))
+            elif fn is not None and regs:
+                fn.setdefault("registers", int(regs.group(1)))
+    return found
+
+
+def instantiations(source, kernel, param, expected):
+    """Each instantiation (head dim, ``param``) of the bf16 body ``kernel``
+    in the built library of ``csrc/<source>.cu``: its HMMA (tensor-core)
+    instructions as ``cuobjdump -sass`` lists them, and its registers and
+    spilled bytes from the build's ``ptxas -v`` report. Fails unless there
+    are ``expected`` instantiations, each with HMMA."""
+    pattern = re.compile(kernel + r"ILi(\d+)ELi(\d+)E")
+
+    def label(name):
+        found = pattern.search(name)
+        return f"hd={found.group(1)} {param}={found.group(2)}" if found else None
+
+    found = {label(name): dict(rec) for name, rec in ptxas_report(source).items() if label(name)}
     sass = _sass(source)
     if sass is None:
         log(f"  {kernel}: cuobjdump not found, HMMA count not measured")
@@ -368,8 +376,14 @@ def check_attention_bwd(dev, flush):
     return errs["lse"], kernels
 
 
-def mips_inputs(gen, dev):
-    q, d, n, n_valid, k = 32, 500, 10240, 10000, 100
+# kernel B's timed shapes (q, d, n, n_valid, k): a cost-600 serve batch
+# (phase 4's), one text (CurRetriever.query), and an eval batch at
+# ZeShEL-military's entity count (anncur_tpu/ops/mips_pallas.py:25-30)
+MIPS_SHAPES = ((32, 500, 10240, 10000, 100), (1, 500, 10240, 10000, 100), (256, 500, 104520, 104520, 100))
+MIPS_KERNELS = ("mips_score_kernel", "mips_select_kernel", "mips_sort_chunk_kernel", "mips_sort_step_kernel")
+
+
+def mips_inputs(gen, dev, q, d, n, n_valid):
     queries = torch.randn(q, d, generator=gen, device=dev)
     items = torch.randn(n, d, generator=gen, device=dev)
     # ties: each query's best item duplicated at another valid position,
@@ -377,8 +391,9 @@ def mips_inputs(gen, dev):
     best = (queries @ items[:n_valid].T).argmax(dim=1)
     dup_at = torch.randperm(n_valid, generator=gen, device=dev)[:q]
     items[dup_at] = items[best]
-    items[n_valid + 7] = items[best[0]]
-    return queries, items.contiguous(), k, n_valid
+    if n_valid < n:
+        items[n_valid + (n - n_valid) // 2] = items[best[0]]
+    return queries, items.contiguous()
 
 
 def check_mips(queries, items, k, n_valid, what):
@@ -414,32 +429,69 @@ def check_mips(queries, items, k, n_valid, what):
     return err
 
 
+def time_mips(fused, plain, queries, items, k, n_valid, flush):
+    """Kernel B (``fused``), its plain version and ``torch.topk(queries @
+    items.T, k)`` on one input, with the bound of what the call needs: the
+    queries and the n_valid real item rows read, the outputs written; 2 q
+    n_valid d f32 operations."""
+    q, d = queries.shape
+    ms = time_ms(lambda: fused(queries, items, k, n_valid), 30, flush)
+    plain_ms = time_ms(lambda: plain(queries, items, k, n_valid), 5 if q * n_valid > 1e7 else 20, flush)
+    library_ms = time_ms(lambda: torch.topk(queries @ items[:n_valid].T, k), 30, flush)
+    nbytes = 4 * (q * d + n_valid * d) + q * k * (4 + 8)
+    rec = {"shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} f32", "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, 2 * q * n_valid * d, "f32")}
+    rec["x_bound"] = ms / rec["bound_ms"]
+    log(f"  kernel B {rec['shape']}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        f"{rec['x_bound']:.2f}x bound; plain {plain_ms:.4f} ms; matmul + topk {library_ms:.4f} ms "
+        f"({ms / library_ms:.2f}x library)")
+    return rec
+
+
+def mips_ptxas():
+    """Registers and spills of each of kernel B's kernels (the score GEMM
+    by tiling: VEC, BM x BN, TM x TN, BK, stages)."""
+    tiling = re.compile(r"ScoreTileILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+    out = {}
+    for name, rec in ptxas_report("mips_topk").items():
+        kernel = next((kern for kern in MIPS_KERNELS if kern in name), None)
+        found = tiling.search(name)
+        if kernel and found:
+            vec, bm, bn, tm, tn, bk, st = found.groups()
+            kernel += f" {'16B' if vec == '1' else '4B'} {bm}x{bn} {tm}x{tn} bk{bk} s{st}"
+        if kernel:
+            out[kernel] = rec
+    log(f"  kernel B's kernels (ptxas registers and spill bytes): {out}")
+    if not all(any(name.startswith(kern) for name in out) for kern in MIPS_KERNELS):
+        fail(f"kernel B's build lacks one of {MIPS_KERNELS}: {sorted(out)}")
+    return out
+
+
 def check_mips_kernel(dev, flush):
     from anncur_tpu_torch.ops.mips import mips_topk
     from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 
     gen = torch.Generator(device=dev).manual_seed(2)
-    queries, items, k, n_valid = mips_inputs(gen, dev)
-    err = check_mips(queries, items, k, n_valid, "kernel B q=32 d=500 n=10240 k=100")
-    ms = time_ms(lambda: mips_topk_fused(queries, items, k, n_valid), 50, flush)
-    plain_ms = time_ms(lambda: mips_topk(queries, items, k, n_valid), 50, flush)
-    library_ms = time_ms(lambda: torch.topk(queries @ items[:n_valid].T, k), 50, flush)
-    q, d = queries.shape
-    # what this call needs: the queries, the n_valid real item rows, outputs
-    nbytes = 4 * (q * d + n_valid * d) + q * k * (4 + 8)
-    ops = 2 * q * n_valid * d
+    err, timed = 0.0, []
+    for q, d, n, n_valid, k in MIPS_SHAPES:
+        queries, items = mips_inputs(gen, dev, q, d, n, n_valid)
+        err = max(err, check_mips(queries, items, k, n_valid, f"kernel B q={q} d={d} n={n} k={k}"))
+        if q == 32:  # the transductive eval's top_k_retvr, past the old k <= 256 cap
+            err = max(err, check_mips(queries, items, 500, n_valid, f"kernel B q={q} d={d} n={n} k=500"))
+        timed.append(time_mips(mips_topk_fused, mips_topk, queries, items, k, n_valid, flush))
+        del queries, items
+    main_shape = timed[0]
     return {
         "name": "mips_topk_fused",
         "route": "cuda",
         "source": "anncur_tpu_torch/csrc/mips_topk.cu",
         "replaces": "anncur_tpu/ops/mips_pallas.py:116",  # _mips_kernel
         "also_replaces": "anncur_tpu/ops/mips_pallas.py:149",  # _maxmask_kernel
+        "kernels": list(MIPS_KERNELS),
         "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        **bound(nbytes, ops, "f32"),
-        "library_ms": library_ms,
-        "shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} f32",
+        **{key: main_shape[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "shapes": timed,
+        "ptxas": mips_ptxas(),
     }
 
 

@@ -253,20 +253,33 @@ def test_attention_backward_kernels_reject_what_they_cannot_take(dev):
             fn(q[..., :8], k[..., :8], v[..., :8], valid, dout[..., :8].contiguous(), lse, delta)
 
 
+def _int_mips_inputs(dev, q, d, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    # small integers: exact f32 products, so many exact ties to order
+    queries = torch.randint(-2, 3, (q, d), generator=gen, device=dev).float()
+    items = torch.randint(-2, 3, (n, d), generator=gen, device=dev).float()
+    return queries, items
+
+
 @pytest.mark.parametrize(
     "q,d,n,n_valid,k",
     [
         (32, 500, 10240, 10000, 100),  # the query path's shape
-        (5, 7, 100, 100, 1),  # one split, k = 1
-        (9, 33, 1000, 700, 256),  # k at its cap
-        (3, 64, 70000, 69999, 100),  # 274 splits: two merge levels
+        (5, 7, 100, 100, 1),  # one block per row, k = 1
+        (9, 33, 1000, 700, 256),
+        (3, 64, 70000, 69999, 100),  # clusters of 8 blocks of 8750 keys
+        (4, 40, 3000, 2000, 500),  # k = 500, the transductive eval's top_k_retvr
+        (3, 16, 5000, 5000, 5000),  # k = n_valid: survivors sorted in global memory
+        (2, 8, 20000, 20000, 20000),  # k = n_valid > 8192: sort strides across chunks
+        (1, 500, 10240, 10000, 100),  # q = 1: one text
+        (70, 24, 3000, 3000, 10),  # 64-query tiles and a ragged one
+        (256, 500, 104520, 104520, 100),  # an eval batch at ZeShEL-military's entity count
+        (700, 8, 104520, 100000, 50),  # score scratch over its budget: two query chunks
+        (2, 4, 400000, 400000, 50),  # slices of 50,000 keys, re-read from the score scratch
     ],
 )
 def test_mips_kernel_matches_plain(dev, q, d, n, n_valid, k):
-    gen = torch.Generator(device=dev).manual_seed(n + k)
-    # small integers: exact f32 products, so many exact ties to order
-    queries = torch.randint(-2, 3, (q, d), generator=gen, device=dev).float()
-    items = torch.randint(-2, 3, (n, d), generator=gen, device=dev).float()
+    queries, items = _int_mips_inputs(dev, q, d, n, seed=n + k)
     before = mips_topk_fused.launches
     s_k, i_k = mips_topk_fused(queries, items, k, n_valid)
     s_p, i_p = mips_topk(queries, items, k, n_valid)
@@ -278,14 +291,93 @@ def test_mips_kernel_matches_plain(dev, q, d, n, n_valid, k):
     assert torch.equal(i_k, i_p)
 
 
+@pytest.mark.parametrize("k", [10, 2000])
+def test_mips_kernel_never_selects_padding(dev, k):
+    """Each query's best item copied into every padded row (ids >= n_valid)."""
+    queries, items = _int_mips_inputs(dev, 6, 48, 6000, seed=k)
+    n_valid = 5000
+    best = (queries @ items[:n_valid].T).argmax(dim=1)
+    items[n_valid:] = items[best[0]]
+    items[n_valid + 1 : n_valid + 7] = items[best]
+    s_k, i_k = mips_topk_fused(queries, items, k, n_valid)
+    s_p, i_p = mips_topk(queries, items, k, n_valid)
+    torch.cuda.synchronize()
+    assert int(i_k.max()) < n_valid
+    assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+
+
+def test_mips_kernel_same_bits_twice(dev):
+    queries = torch.randn(40, 100, device=dev)
+    items = torch.randn(5000, 100, device=dev)
+    first = mips_topk_fused(queries, items, 300)
+    second = mips_topk_fused(queries, items, 300)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
 def test_mips_kernel_rejects_what_it_cannot_take(dev):
     queries = torch.randn(4, 8, device=dev)
     items = torch.randn(300, 8, device=dev)
     with pytest.raises(ValueError):
-        mips_topk_fused(queries, items, 257)
+        mips_topk_fused(queries, items, 11, n_valid=10)  # k > n_valid, as lax.top_k
     with pytest.raises(ValueError):
-        mips_topk_fused(queries, items, 10, n_valid=5)
+        mips_topk_fused(queries, items, 301)
+    with pytest.raises(ValueError):
+        mips_topk_fused(queries, items, 0)
+    with pytest.raises(ValueError):
+        mips_topk_fused(queries, items, 10, n_valid=301)
     with pytest.raises(ValueError):
         mips_topk_fused(queries.double(), items.double(), 10)
     with pytest.raises(ValueError):
         mips_topk_fused(queries, items.T.contiguous().T, 10)
+    # every k up to n_valid is taken: k = n_valid = 300
+    s, i = mips_topk_fused(queries, items, 300)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.sort(i, dim=1).values, torch.arange(300, device=dev).expand(4, 300))
+
+
+def _serving_world(device, n_items=1200, n_anchors=48, n_train=64, seed=0):
+    """A tiny CE (weights from ``seed``, init widened so rankings exist)
+    and a CUR index over a seeded low-rank train matrix, on ``device``."""
+    import numpy as np
+
+    from anncur_tpu_torch.core.cur import build_cur
+    from anncur_tpu_torch.core.retriever import CurRetriever
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+    from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer, make_test_vocab
+
+    rng = np.random.default_rng(seed)
+    spec = BertSpec.tiny(initializer_range=0.3)
+    ce = CrossEncoder(spec, compute_dtype=torch.float32, device=device, seed=seed)
+    item_toks = rng.integers(1, spec.vocab_size, size=(n_items, 16)).astype(np.int32)
+    train = (rng.standard_normal((n_train, 8)) @ rng.standard_normal((8, n_items))).astype(np.float32)
+    anchors = np.asarray(sorted(rng.choice(n_items, n_anchors, replace=False)))
+    index = build_cur(rows=train, cols=train[:, anchors], row_idxs=np.arange(n_train), col_idxs=anchors,
+                      approx_preference="rows", validate=False, device=device)
+    retriever = CurRetriever(encoder=ce, tokenizer=WordPieceTokenizer(make_test_vocab()), item_tokens=item_toks,
+                             index=index, anchor_item_ids=anchors, max_query_len=16, device=device)
+    qtoks = rng.integers(1, spec.vocab_size, size=(6, 16)).astype(np.int32)
+    return retriever, qtoks
+
+
+def test_retriever_top_k_retvr_500_matches_cpu(dev):
+    """The transductive eval's top_k_retvr=500 through kernel B on the card
+    (k = 500) against the port's CPU answer on the same world."""
+    import numpy as np
+
+    on_card, qtoks = _serving_world(dev)
+    on_cpu, _ = _serving_world("cpu")
+    for kw in (dict(top_k=500, rerank=False), dict(top_k=10)):
+        s_c, i_c = on_card.query_tokens_batch(qtoks, top_k_retvr=500, **kw)
+        s_h, i_h = on_cpu.query_tokens_batch(qtoks, top_k_retvr=500, **kw)
+        assert s_c.shape == s_h.shape == i_c.shape == (6, kw["top_k"])
+        # CE scores in f32 on both, summed in other orders
+        scale = float(np.abs(s_h).max())
+        np.testing.assert_allclose(s_c, s_h, rtol=0, atol=1e-5 * scale)
+        gaps = -np.diff(s_h, axis=1)
+        sep = np.ones(s_h.shape, bool)
+        sep[:, :-1] &= gaps > 1e-4 * scale
+        sep[:, 1:] &= gaps > 1e-4 * scale
+        assert sep.mean() > 0.5
+        np.testing.assert_array_equal(i_c[sep], i_h[sep])
