@@ -1,8 +1,9 @@
 """Where the time goes on the card: device time by kernel for one
-bert-base CE forward of a build step, for one cost-600 query batch and
-for one cross-encoder train step.
+bert-base CE forward of a build step, for one cost-600 query batch, for
+one adaptive query batch (budget 210 over 8 rounds) and for one
+cross-encoder train step.
 
-    python -m anncur_tpu_torch.cli.profile_ce [--pairs 2048] [--queries 32]
+    python -m anncur_tpu_torch.cli.profile_ce [--pairs 2048] [--queries 32] [--adaptive_queries 128]
 
 Random weights from seed 0, bf16, the shapes of ``chip_smoke.py``:
 256-token pairs for the forward and the query batch; for the train step
@@ -115,6 +116,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=2048, help="pairs in the profiled CE forward")
     ap.add_argument("--queries", type=int, default=32, help="queries in the profiled batch")
+    ap.add_argument("--adaptive_queries", type=int, default=128, help="queries in the profiled adaptive batch")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_ce: needs a CUDA card")
@@ -155,6 +157,16 @@ def main(argv=None):
         profile(
             lambda: retriever.query_tokens_batch(qtoks, top_k=10, top_k_retvr=100),
             f"query_batch_{args.queries}_cost600",
+        )
+    )
+    # the headline adaptive configuration (bench.py line 3), the train
+    # matrix on the device as chip_smoke.py's phase 6 passes it
+    aq = rng.integers(1, spec.vocab_size, size=(args.adaptive_queries, lm)).astype(np.int32)
+    train_dev = torch.as_tensor(train, device=dev)
+    out.append(
+        profile(
+            lambda: retriever.query_tokens_adaptive_fused(aq, total_budget=210, n_rounds=8, top_k=10, train_scores=train_dev),
+            f"adaptive_batch_{args.adaptive_queries}_b210r8",
         )
     )
     del retriever, ce

@@ -1,17 +1,22 @@
-"""Fixed-anchor CUR retriever: the serving API, on one GPU.
+"""CUR retriever: the serving API, on one GPU.
 
-Counterpart of the fixed-anchor path of ``anncur_tpu/core/retriever.py``:
+Counterpart of ``anncur_tpu/core/retriever.py`` on one device:
 
 offline:  exact CE scores of train queries vs all items
           (ScoreMatrixBuilder) -> CurIndex (latent item embeddings U@R)
-online:   query tokens -> CE-score against the k_i anchor items only ->
-          project through the latent factors and take the top-k_retvr
-          candidates (kernel B, ``ops/mips_kernel.py``) -> exact CE rerank
-          -> top-k results.
+fixed-anchor (``query_tokens_batch``): query tokens -> CE-score against
+          the k_i anchor items only -> project through the latent factors
+          and take the top-k_retvr candidates (kernel B,
+          ``ops/mips_kernel.py``) -> exact CE rerank -> top-k results.
+          Cost per query = n_anchor_items + top_k_retvr CE calls (the
+          reference's cost axis, run_retrieval_eval_wrt_exact_crossenc.py:
+          480-481).
+adaptive (``query_tokens_adaptive_fused``): the budget is spent in rounds
+          that pick each query's own candidates (``core/adaptive_fused.py``,
+          kernel B with the scored ids excluded), optionally with per-query
+          early stopping. Cost per query = the budget.
 
-Cost per query = n_anchor_items + top_k_retvr CE calls (the reference's
-cost axis, run_retrieval_eval_wrt_exact_crossenc.py:480-481). The
-adaptive engine is not ported yet.
+Multi-device serving (the JAX package's mesh and shard_map) is not ported.
 """
 
 from __future__ import annotations
@@ -26,6 +31,14 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from anncur_tpu_torch.core.adaptive_fused import (
+    _bucket_size,
+    _check_method,
+    _true_f32,
+    adaptive_continue,
+    adaptive_rounds,
+    split_rounds,
+)
 from anncur_tpu_torch.core.cur import CurIndex, build_cur
 from anncur_tpu_torch.data.tokenization import get_context_representation_ids
 from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, padded_pair_len
@@ -104,6 +117,7 @@ class CurRetriever:
                 f"'rows'; got {self.index.approx_preference!r}"
             )
         self._dev_consts = None
+        self._train_t = None
         if self.item_ids is None:
             self.item_ids = np.arange(self.item_tokens.shape[0], dtype=np.int64)
         if self.next_item_id is None:
@@ -217,7 +231,7 @@ class CurRetriever:
         new_ids = np.arange(self.next_item_id, self.next_item_id + new_item_tokens.shape[0], dtype=np.int64)
         self.next_item_id += new_item_tokens.shape[0]
         self.item_ids = np.concatenate([self.item_ids, new_ids])
-        self._dev_consts = None
+        self._dev_consts = self._train_t = None
         return new_ids
 
     def remove_items(self, ids: np.ndarray) -> int:
@@ -251,7 +265,7 @@ class CurRetriever:
             latent_cols=self.index.latent_cols[:, torch.as_tensor(keep, device=dev)],
             col_idxs=torch.as_tensor(self.anchor_item_ids, dtype=torch.long, device=dev),
         )
-        self._dev_consts = None
+        self._dev_consts = self._train_t = None
         return int(positions.size)
 
     # ---------------- persistence -------------------------------------- #
@@ -398,3 +412,133 @@ class CurRetriever:
             np.asarray([ids], np.int32), top_k=top_k, top_k_retvr=top_k_retvr
         )
         return list(zip(idx[0].tolist(), scores[0].tolist()))
+
+    # ------------- adaptive query (multi-round, per-query candidates) ---- #
+
+    def _train_matrix(self) -> torch.Tensor:
+        """(n_pad, n_train) f32 contiguous on the device: the train matrix
+        the index was built from (latent_rows @ latent_cols restores the
+        anchor rows exactly), zero-padded on the item axis and held
+        transposed, as the latent items are, so kernel B reads item rows.
+        Cached; cleared by add_items and remove_items."""
+        if self._train_t is None:
+            with _true_f32():
+                mat = self.index.reconstruct().to(self.device, torch.float32)  # (n_train, n)
+            train_t = torch.zeros((self._padded_n_items(), mat.shape[0]), dtype=torch.float32, device=self.device)
+            train_t[: mat.shape[1]] = mat.T
+            self._train_t = train_t
+        return self._train_t
+
+    def _adaptive_scorer(self, qtoks: torch.Tensor, items: torch.Tensor):
+        """ids (q, width) -> (q, width) exact CE scores of each query row of
+        ``qtoks`` against its own candidates' tokens ``items[ids]``, in
+        query chunks of about target_pairs_per_step pairs."""
+        q_pad, lm = qtoks.shape
+        score_pairs = _make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
+
+        def score_fn(ids: torch.Tensor) -> torch.Tensor:
+            chunk = _largest_divisor_leq(q_pad, self._stage_batch(ids.shape[1]))
+            return torch.cat([score_pairs(m_blk, items[c_blk]) for m_blk, c_blk in zip(qtoks.split(chunk), ids.split(chunk))])
+
+        return score_fn
+
+    @torch.no_grad()
+    def query_tokens_adaptive_fused(
+        self,
+        query_tokens: np.ndarray,  # (q, Lm)
+        total_budget: int = 200,
+        n_rounds: int = 3,
+        top_k: int = 10,
+        train_scores=None,  # (n_train, n_items) numpy array or tensor
+        seed: int = 0,
+        ridge_rel: float = 1e-6,
+        method: str = "cur",
+        escalate_budget: Optional[int] = None,
+        escalate_rounds: int = 3,
+        stability_overlap: float = 1.0,
+        return_stats: bool = False,
+        shortlist: Optional[int] = None,
+    ):
+        """Adaptive multi-round retrieval: (scores (q, top_k), stable item
+        ids (q, top_k)), plus {'avg_budget', 'frac_escalated',
+        'stable_frac'} when ``return_stats``. Exactly ``total_budget`` CE
+        calls per query, each query scoring its own candidates.
+
+        ``train_scores``: the (n_train, n_items) matrix to complete through
+        (default: the index's own train matrix), on the host or the device.
+        ``ridge_rel`` plays the fixed path's pinv-rcond role. ``escalate_budget``
+        (> total_budget) turns on per-query early stopping: queries whose
+        top-k set still changed in the last round resume from their scored
+        state and spend the difference over ``escalate_rounds`` rounds; they
+        are compacted and padded to a power-of-two bucket, and the padded
+        rows count in avg_budget. ``shortlist`` (L) restricts rounds 2+ to
+        a batch-shared pool of L items, and is dropped where L cannot hold
+        every scored id plus the remaining picks. ``method='axn'`` is not
+        ported yet (ROADMAP.md Queue 1 item 3). Per batch the host reads
+        the device once, for the early-stop flags."""
+        _check_method(method)
+        query_tokens = np.asarray(query_tokens, np.int32)
+        q, lm = query_tokens.shape
+        n_items = self.item_tokens.shape[0]
+        total_budget = min(total_budget, n_items)
+        first, per, n_rounds = split_rounds(total_budget, n_rounds)
+        # balanced chunking: round the chunk down to ceil(q / n_chunks)
+        # instead of padding q up to a multiple of the widest stage's chunk
+        chunk0 = max(1, min(self._stage_batch(max(first, per)), q))
+        n_chunks = -(-q // chunk0)
+        q_pad = -(-q // n_chunks) * n_chunks
+        qtoks = torch.zeros((q_pad, lm), dtype=torch.int32, device=self.device)
+        qtoks[:q] = torch.as_tensor(query_tokens, device=self.device)
+        if train_scores is not None and train_scores.shape[1] != n_items:
+            # candidate ids come from train columns: another item set would
+            # make the CE stage score other items' tokens
+            raise ValueError(
+                f"train_scores has {train_scores.shape[1]} item columns but the corpus has "
+                f"{n_items} items; pass a train matrix over the same item set"
+            )
+        if train_scores is not None:
+            train = torch.as_tensor(train_scores, dtype=torch.float32, device=self.device)
+            train_t = torch.zeros((self._padded_n_items(), train.shape[0]), dtype=torch.float32, device=self.device)
+            train_t[:n_items] = train.T
+        else:
+            train_t = self._train_matrix()
+        rng = np.random.default_rng(seed)
+        anchors0 = torch.as_tensor(np.asarray(sorted(rng.choice(n_items, size=first, replace=False)), np.int64))
+        items = self._device_consts()[0]
+        extra = 0 if escalate_budget is None else max(0, min(escalate_budget, n_items) - total_budget)
+        if shortlist and (shortlist < first + q_pad * per + per * max(1, n_rounds - 2) or shortlist >= n_items):
+            # the pool must hold the round-0 anchors, every query's first
+            # picks and room for the remaining rounds
+            shortlist = None
+        out = adaptive_rounds(
+            self._adaptive_scorer(qtoks, items), train_t, anchors0, q_pad, total_budget, n_rounds, top_k,
+            n_items, ridge_rel, with_state=extra > 0, stability_overlap=stability_overlap, shortlist=shortlist,
+        )
+        s, i = out[0][:q], out[1][:q]
+        stats = {"avg_budget": float(total_budget), "frac_escalated": 0.0, "stable_frac": 1.0}
+        if extra > 0:
+            _, _, st_ids, st_vals, stable = out
+            # only real rows escalate: padded rows would inflate the bucket
+            stable_h = stable[:q].cpu().numpy()
+            unstable = np.flatnonzero(~stable_h)
+            stats["stable_frac"] = float(stable_h.mean())
+            if unstable.size:
+                b_pad = _bucket_size(int(unstable.size), q_pad)
+                sel = torch.as_tensor(
+                    np.concatenate([unstable, np.full(b_pad - unstable.size, unstable[0])]), device=self.device
+                )
+                s2, i2, _, _, _ = adaptive_continue(
+                    self._adaptive_scorer(qtoks[sel], items), train_t, st_ids[sel], st_vals[sel], extra,
+                    escalate_rounds, top_k, n_items, ridge_rel,
+                )
+                rows = sel[: unstable.size]
+                s, i = s.clone(), i.clone()
+                s[rows], i[rows] = s2[: unstable.size], i2[: unstable.size]
+                # padded escalation rows pay real CE calls, so they count
+                stats["avg_budget"] = total_budget + extra * b_pad / q
+                stats["frac_escalated"] = unstable.size / q
+        scores_out = s.cpu().numpy()
+        ids_out = self.item_ids[i.cpu().numpy()]
+        if return_stats:
+            return scores_out, ids_out, stats
+        return scores_out, ids_out

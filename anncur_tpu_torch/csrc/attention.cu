@@ -18,7 +18,7 @@
 // the arithmetic under the byte time, so this design needs neither wgmma,
 // TMA nor warp specialisation.
 //
-// bf16 design (hd in {16, 32, 64, 128}, templated on HD):
+// bf16 design (hd any multiple of 16 up to 256, templated on HD):
 // - One block per (pair, head, tile of query rows), the tile index fastest,
 //   so the tiles of one head run together and re-read its K/V from L2. Four
 //   warps own 16 query rows each. 64 rows rather than 128: an 8-warp block
@@ -47,11 +47,12 @@
 // - Epilogue: O / l rounded to bf16, staged in the warp's rows of the Q
 //   tile, written in 16-byte coalesced stores; rows >= g are not stored.
 //
-// f32 (no main-path caller on the card; the card tests use it): the first
-// version's CUDA-core body. One block per (pair, head, tile of 128 query
-// rows) copies the head's K, V and key bias to shared memory; each thread
-// owns one query row and runs an online softmax over chunks of 16 keys in
-// f32 FFMA.
+// f32 (no main-path caller on the card; the card tests use it): a CUDA-core
+// body. One block per (pair, head, tile of 128 / SPLIT query rows) streams
+// K, V and the key bias through shared memory in 64-key tiles, so s is not
+// bounded by shared memory; SPLIT neighbouring lanes share a row's head dims
+// (csrc/attention_common.cuh) and run an online softmax over chunks of 16
+// keys in f32 FFMA.
 //
 // Layout is the JAX one: q (b, g, nh, hd), k and v (b, s, nh, hd), any
 // strides on the batch, row and head axes, hd contiguous and rows 16-byte
@@ -70,12 +71,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace mma_sm90;
+using namespace attn_f32;
 
 constexpr int kKeyTile = 64;  // keys per K/V tile of the bf16 kernel
 constexpr float kLog2e = 1.4426950408889634f;
@@ -323,20 +326,11 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 
 // ----------------------------------------------------------------- f32
 
-constexpr int kF32Threads = 128;
+// Kernel D's f32 loop run forward: one block per (pair, head, tile of
+// 128 / SPLIT query rows); SPLIT lanes share a row's dims (Split). The block
+// streams K, V and the key bias through shared memory in 64-key tiles, and
+// each row runs an online softmax over chunks of 16 keys.
 constexpr int kKeyChunk = 16;
-
-__device__ __forceinline__ void load8(const float* p, float* dst) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float* src) {
-  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(src[4], src[5], src[6], src[7]);
-}
 
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads)
@@ -347,98 +341,95 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
                          long long k_sb, long long k_sr, long long k_sh,
                          long long v_sb, long long v_sr, long long v_sh,
                          long long valid_sb, float scale) {
+  using S = Split<HD>;
+  constexpr int kRows = kF32Threads / S::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
   float* ks = reinterpret_cast<float*>(smem);
-  float* vs = ks + static_cast<size_t>(s) * HD;
-  float* bias = vs + static_cast<size_t>(s) * HD;
+  float* vs = ks + kF32Tile * HD;
+  float* bias_s = vs + kF32Tile * HD;
 
   const int b = blockIdx.x / nh;
   const int h = blockIdx.x % nh;
+  const int part = threadIdx.x % S::kLanes;
+  const int row = blockIdx.y * kRows + threadIdx.x / S::kLanes;
+  const bool in_range = row < g;
+  const int row_c = in_range ? row : g - 1;
+  const uint8_t* valid_row = key_valid + b * valid_sb;
+  const float shift = pair_has_valid_key(valid_row, s) ? 0.0f : kMaskBias;  // for the lse
 
-  // cooperative copy of this head's K and V rows, 16 bytes per thread-step
-  constexpr int kUnits = HD / 4;
-  const float* kb = k + b * k_sb + h * k_sh;
-  const float* vb = v + b * v_sb + h * v_sh;
-  for (int u = threadIdx.x; u < s * kUnits; u += kF32Threads) {
-    const int r = u / kUnits, c = u % kUnits;
-    reinterpret_cast<float4*>(ks + static_cast<size_t>(r) * HD)[c] =
-        reinterpret_cast<const float4*>(kb + r * k_sr)[c];
-    reinterpret_cast<float4*>(vs + static_cast<size_t>(r) * HD)[c] =
-        reinterpret_cast<const float4*>(vb + r * v_sr)[c];
-  }
-  bool any_local = false;
-  for (int j = threadIdx.x; j < s; j += kF32Threads) {
-    const bool ok = key_valid[b * valid_sb + j];
-    bias[j] = ok ? 0.0f : kMaskBias;
-    any_local |= ok;
-  }
-  const float shift = __syncthreads_or(any_local) ? 0.0f : kMaskBias;  // for the lse
-
-  const int row = blockIdx.y * kF32Threads + threadIdx.x;
-  if (row >= g) return;
-
-  float qf[HD], acc[HD];
-  const float* qp = q + b * q_sb + row * q_sr + h * q_sh;
+  float qr[S::kDims], acc[S::kDims];
+  const float* qp = q + b * q_sb + row_c * q_sr + h * q_sh;
 #pragma unroll
-  for (int d = 0; d < HD; d += 8) load8(qp + d, qf + d);
+  for (int t = 0; t < S::kUnits; ++t) load_unit(qp + S::offset(part, t), qr + t * S::kUnit);
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.0f;
+  for (int d = 0; d < S::kDims; ++d) acc[d] = 0.0f;
   float m = -INFINITY, l = 0.0f;
 
-  for (int j0 = 0; j0 < s; j0 += kKeyChunk) {
-    float sc[kKeyChunk];
-    float cmax = -INFINITY;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  for (int j0 = 0; j0 < s; j0 += kF32Tile) {
+    const int n = min(kF32Tile, s - j0);
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<HD>(ks, kb, k_sr, j0, n);
+    stage_rows<HD>(vs, vb, v_sr, j0, n);
+    for (int j = threadIdx.x; j < n; j += kF32Threads) bias_s[j] = valid_row[j0 + j] ? 0.0f : kMaskBias;
+    __syncthreads();
+    for (int c0 = 0; c0 < n; c0 += kKeyChunk) {
+      float sc[kKeyChunk];
+      float cmax = -INFINITY;
 #pragma unroll
-    for (int j = 0; j < kKeyChunk; ++j) {
-      sc[j] = -INFINITY;
-      if (j0 + j < s) {
-        const float* kr = ks + static_cast<size_t>(j0 + j) * HD;
-        float dot = 0.0f;
+      for (int j = 0; j < kKeyChunk; ++j) {
+        sc[j] = -INFINITY;
+        if (c0 + j < n) {  // uniform across the block: the shuffles are safe
+          const float* kj = ks + (c0 + j) * HD;
+          float dot = 0.0f;
 #pragma unroll
-        for (int d = 0; d < HD; d += 8) {
-          float kv[8];
-          load8(kr + d, kv);
+          for (int t = 0; t < S::kUnits; ++t) {
+            float kv[S::kUnit];
+            load_unit(kj + S::offset(part, t), kv);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) dot = fmaf(qf[d + e], kv[e], dot);
+            for (int e = 0; e < S::kUnit; ++e) dot = fmaf(qr[t * S::kUnit + e], kv[e], dot);
+          }
+          sc[j] = S::reduce(dot) * scale + bias_s[c0 + j];
         }
-        sc[j] = dot * scale + bias[j0 + j];
+        cmax = fmaxf(cmax, sc[j]);
       }
-      cmax = fmaxf(cmax, sc[j]);
-    }
-    // the first chunk always holds a key, so m_new is finite from here on
-    const float m_new = fmaxf(m, cmax);
-    const float alpha = expf(m - m_new);  // 0 on the first chunk (m = -inf)
-    l *= alpha;
+      // the first chunk always holds a key, so m_new is finite from here on
+      const float m_new = fmaxf(m, cmax);
+      const float alpha = expf(m - m_new);  // 0 on the first chunk (m = -inf)
+      l *= alpha;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+      for (int d = 0; d < S::kDims; ++d) acc[d] *= alpha;
 #pragma unroll
-    for (int j = 0; j < kKeyChunk; ++j) {
-      if (j0 + j < s) {
-        const float p = expf(sc[j] - m_new);
-        l += p;
-        const float* vr = vs + static_cast<size_t>(j0 + j) * HD;
+      for (int j = 0; j < kKeyChunk; ++j) {
+        if (c0 + j < n) {
+          const float p = expf(sc[j] - m_new);
+          l += p;
+          const float* vj = vs + (c0 + j) * HD;
 #pragma unroll
-        for (int d = 0; d < HD; d += 8) {
-          float vv[8];
-          load8(vr + d, vv);
+          for (int t = 0; t < S::kUnits; ++t) {
+            float vv[S::kUnit];
+            load_unit(vj + S::offset(part, t), vv);
 #pragma unroll
-          for (int e = 0; e < 8; ++e) acc[d + e] = fmaf(p, vv[e], acc[d + e]);
+            for (int e = 0; e < S::kUnit; ++e) acc[t * S::kUnit + e] = fmaf(p, vv[e], acc[t * S::kUnit + e]);
+          }
         }
       }
+      m = m_new;
     }
-    m = m_new;
   }
 
+  if (!in_range) return;
   const float inv = 1.0f / l;
   float* op = out + ((static_cast<size_t>(b) * g + row) * nh + h) * HD;
 #pragma unroll
-  for (int d = 0; d < HD; d += 8) {
-    float o[8];
+  for (int t = 0; t < S::kUnits; ++t) {
+    float o[S::kUnit];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) o[e] = acc[d + e] * inv;
-    store8(op + d, o);
+    for (int e = 0; e < S::kUnit; ++e) o[e] = acc[t * S::kUnit + e] * inv;
+    store_unit(op + S::offset(part, t), o);
   }
-  if (lse != nullptr) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m - shift) + logf(l);
+  if (lse != nullptr && part == 0) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m - shift) + logf(l);
 }
 
 // ----------------------------------------------------------------- launch
@@ -467,12 +458,13 @@ template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* key_valid,
                        void* out, float* lse, int b, int g, int s, int nh, const long long* st,
                        float scale, cudaStream_t stream) {
-  const size_t smem = 2 * static_cast<size_t>(s) * HD * sizeof(float) + s * sizeof(float);
+  const size_t smem = (2 * static_cast<size_t>(kF32Tile) * HD + kF32Tile) * sizeof(float);
   auto kern = attention_fwd_f32_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  const dim3 grid(b * nh, (g + kF32Threads - 1) / kF32Threads);
+  constexpr int kRows = kF32Threads / Split<HD>::kLanes;
+  const dim3 grid(b * nh, (g + kRows - 1) / kRows);
   kern<<<grid, kF32Threads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const uint8_t*>(key_valid), static_cast<float*>(out), lse, g, s, nh,
@@ -508,10 +500,10 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
   switch (hd) {
-    case 16: return launch<16>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
-    case 32: return launch<32>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
-    case 64: return launch<64>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
-    case 128: return launch<128>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
+#define ATTN_CASE(H) \
+    case H: return launch<H>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
+    ATTN_HEAD_DIMS(ATTN_CASE)
+#undef ATTN_CASE
     default: return cudaErrorInvalidValue;
   }
 }

@@ -26,7 +26,7 @@
 // Both lie below the bf16 ridge (~295 FLOP/B), so bytes bound them; with
 // mma.sync short of the tensor-core peak the two times come close.
 //
-// bf16 design (hd in {16, 32, 64, 128}, templated on HD): mma.sync m16n8k16
+// bf16 design (hd any multiple of 16 up to 256, templated on HD): mma.sync m16n8k16
 // (bf16 in, f32 accumulate), ldmatrix and cp.async from csrc/mma_sm90.cuh.
 // - Kernel C: one block per (pair, head, tile of 64 keys), the tile index
 //   fastest, so the tiles of one head run together and share its Q and dO
@@ -63,7 +63,8 @@
 // f32 (no main-path caller; the card tests use it): the first version's
 // CUDA-core bodies. One thread would hold k, v, dK and dV rows (4 x hd f32 =
 // 256 registers at hd=64), too many, so the head dim is split across SPLIT
-// neighbouring lanes (32 dims each: SPLIT = 2 at hd=64). Each lane holds its
+// neighbouring lanes (csrc/attention_common.cuh: at most 32 dims each where
+// the row's 16-byte units allow, SPLIT = 2 at hd=64). Each lane holds its
 // dims in registers and the two dot products of a (query, key) pair are
 // summed across the SPLIT lanes with warp shuffles. The lanes of a group
 // own interleaved 16-byte units of the row, so the SPLIT distinct shared-
@@ -91,12 +92,14 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
 using namespace mma_sm90;
+using namespace attn_f32;
 
 constexpr int kTile = 64;  // keys of a kernel C block; keys of a kernel D tile
 constexpr float kMaskBias = -1e9f;
@@ -500,53 +503,6 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
 // ----------------------------------------------------------------- f32
 
-constexpr int kF32Threads = 128;
-
-// one 16-byte unit: 4 f32 values
-__device__ __forceinline__ void load_unit(const float* p, float* dst) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
-}
-
-__device__ __forceinline__ void store_unit(float* p, const float* src) {
-  *reinterpret_cast<float4*>(p) = make_float4(src[0], src[1], src[2], src[3]);
-}
-
-template <int HD>
-struct Split {
-  static constexpr int kDims = HD < 32 ? HD : 32;  // dims per lane
-  static constexpr int kLanes = HD / kDims;        // lanes per row
-  static constexpr int kUnit = 4;                  // f32 values per 16 B
-  static constexpr int kUnits = kDims / kUnit;     // units per lane
-  static constexpr int kRowUnits = HD / kUnit;     // units per row
-  // element offset of this lane's t-th unit: units part, part + lanes, ...
-  __device__ static int offset(int part, int t) { return (part + kLanes * t) * kUnit; }
-  // sum over the lanes of one row (neighbouring lanes, xor partners)
-  __device__ static float reduce(float x) {
-#pragma unroll
-    for (int o = 1; o < kLanes; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-    return x;
-  }
-};
-
-// copy rows [r0, r0 + n) of a (row stride rs) head slice into dense shared rows
-template <int HD>
-__device__ __forceinline__ void stage_rows(float* dst, const float* src, long long rs, int r0, int n) {
-  constexpr int kRowUnits = Split<HD>::kRowUnits;
-  for (int u = threadIdx.x; u < n * kRowUnits; u += kF32Threads) {
-    const int r = u / kRowUnits, c = u % kRowUnits;
-    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * HD)[c] =
-        reinterpret_cast<const uint4*>(src + (r0 + r) * rs)[c];
-  }
-}
-
-// whether the pair's key row holds a valid key (block-wide)
-__device__ __forceinline__ int pair_has_valid_key(const uint8_t* valid_row, int s) {
-  int any = 0;
-  for (int j = threadIdx.x; j < s; j += kF32Threads) any |= valid_row[j];
-  return __syncthreads_or(any);
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kF32Threads)
 attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -862,10 +818,10 @@ int run(const void* q, const void* k, const void* v, const void* key_valid, cons
                {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb},
                scale, static_cast<cudaStream_t>(stream)};
   switch (hd) {
-    case 16: return launch<16, kDkv>(is_bf16, a);
-    case 32: return launch<32, kDkv>(is_bf16, a);
-    case 64: return launch<64, kDkv>(is_bf16, a);
-    case 128: return launch<128, kDkv>(is_bf16, a);
+#define ATTN_CASE(H) \
+    case H: return launch<H, kDkv>(is_bf16, a);
+    ATTN_HEAD_DIMS(ATTN_CASE)
+#undef ATTN_CASE
     default: return cudaErrorInvalidValue;
   }
 }

@@ -3,10 +3,14 @@
 // Replaces anncur_tpu/ops/mips_pallas.py::_mips_kernel and ::_maxmask_kernel,
 // and computes the latent projection + top-k_retvr stage of the fixed-anchor
 // query (anncur_tpu/core/retriever.py, `approx = anchor_scores @ latent_cols`
-// masked at padded columns, then lax.top_k):
+// masked at padded columns, then lax.top_k) and every candidate pick of the
+// adaptive engine (anncur_tpu/core/adaptive_fused.py, `approx.at[rows,
+// ids].set(-inf)` then lax.top_k):
 //     scores = queries @ items^T   (IEEE f32, FFMA, no TF32 tensor cores)
-//     top-k per query over columns < n_valid, scores descending, ties to the
-//     smallest item id; any 1 <= k <= n_valid.
+//     top-k per query over columns < n_valid that are not on the query's
+//     row of an optional exclusion list, scores descending, ties to the
+//     smallest item id, +0.0 above -0.0 (lax.top_k's order); any
+//     1 <= k <= n_valid - S for a list of S ids per row.
 //
 // Bound on the H100: the f32 FMA work, 2*q*n*d operations at 67 TFLOP/s,
 // against the bytes of the queries and items read once. At q=32, d=500,
@@ -30,7 +34,7 @@
 //     per query row, launched behind the score kernel (programmatic
 //     dependent launch) and waiting for its stores. Each block keeps its
 //     slice of the row in shared memory as order-preserving 32-bit keys
-//     (-0.0 folded onto +0.0, as the plain stable sort ranks them). Four
+//     (+0.0 above -0.0, as lax.top_k and the plain sort rank them). Four
 //     8-bit digit rounds build 256-bin block histograms (shared-memory
 //     atomics: integer counts, order-free); every block sums bin `tid` over
 //     the cluster through distributed shared memory, and a suffix scan finds
@@ -50,6 +54,12 @@
 //     them (mips_sort_chunk_kernel sorts or finishes 8192-word chunks in
 //     shared memory, mips_sort_step_kernel runs the strides that span
 //     chunks); its last pass writes the output.
+// Exclusions: after the score kernel, each select block writes the bits
+// 0xFFFFFFFF (a NaN whose key is 0) over the excluded ids of its own slice of
+// the scratch row, then loads its keys. The score kernel never writes those
+// bits (it stores that one NaN as 0xFFFFFFFE), so every real key is >= 1 and
+// an excluded id ranks below every real score, -inf included, and is never
+// taken while k <= n_valid - S. No launch is added.
 // Output scores are read back from the score scratch at the selected ids, so
 // they carry the kernel's own bits. Every kernel runs on the caller's stream
 // and device; the wrapper owns outputs and scratch; nothing is allocated here.
@@ -82,6 +92,8 @@ constexpr int kCandCap = 256;           // candidates a warp lists after the fir
 constexpr int kSortThreads = 512;
 constexpr int kSortChunk = 8192;        // 64 KB of 64-bit words
 constexpr size_t kScratchBudget = size_t(256) << 20;
+// an excluded id's score bits in the scratch: the key-0 NaN
+constexpr uint32_t kExcludedBits = 0xFFFFFFFFu;
 
 // -------------------------------------------------------------------------
 // stage 1: scores
@@ -216,6 +228,12 @@ mips_score_kernel(const float* __restrict__ qry, const float* __restrict__ items
 
   // the select may launch now; it waits for this grid's stores
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  // the exclusion mark's bits are never a score
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      if (__float_as_uint(acc[i][j]) == kExcludedBits) acc[i][j] = __uint_as_float(kExcludedBits - 1);
   // columns in [n_valid, ld) hold zeros (their item rows were zero-filled)
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
@@ -249,10 +267,9 @@ using ScoreSW = ScoreTile<false, 8, 64, 1, 4, 32, 4>;
 // stage 2: select
 // -------------------------------------------------------------------------
 
-// f32 -> u32 with the same order; -0.0 ranks with +0.0
+// f32 -> u32 in lax.top_k's order (+0.0 above -0.0); kExcludedBits -> 0
 __device__ __forceinline__ uint32_t order_key(float f) {
-  uint32_t u = __float_as_uint(f);
-  if (u == 0x80000000u) u = 0;
+  const uint32_t u = __float_as_uint(f);
   return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
 }
 
@@ -286,17 +303,20 @@ __device__ void bitonic_smem(u64* a, int n, int base, int size) {
 // survivors == nullptr: k <= kClusterSortMax; every block receives all k
 // survivors, ranks its share of them and writes the output. Else the k
 // survivors (+ kp - k zero words) go to survivors[row * kp ...] for the
-// global sort.
+// global sort. exclude: n_ex ids per row at a row stride of ex_ld (int64;
+// entries outside [0, n_valid) ignored), marked in the scratch first. The
+// scratch is written here, so it is read through plain (coherent) loads.
 __global__ void __launch_bounds__(kSelThreads)
-mips_select_kernel(const float* __restrict__ scores, int ld, int n_valid, int k, int kp,
-                   int slice, int keys_in_smem, u64* __restrict__ survivors,
+mips_select_kernel(float* scores, int ld, int n_valid, int k, int kp,
+                   int slice, int keys_in_smem, const long long* __restrict__ exclude, int n_ex,
+                   long long ex_ld, u64* __restrict__ survivors,
                    float* __restrict__ out_s, long long* __restrict__ out_i) {
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int n_blocks = static_cast<int>(cluster.num_blocks());
   const int row = blockIdx.x / n_blocks;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* srow = scores + static_cast<size_t>(row) * ld;
+  float* srow = scores + static_cast<size_t>(row) * ld;
   const int lo = rank * slice;
   const int m = max(0, min(n_valid, lo + slice) - lo);  // this block's keys
 
@@ -326,6 +346,15 @@ mips_select_kernel(const float* __restrict__ scores, int ld, int n_valid, int k,
   __syncthreads();
   // launched early behind the score kernel: wait for its scores
   asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (n_ex > 0) {
+    // mark this block's excluded ids; only this block reads its slice
+    const long long* ex = exclude + static_cast<size_t>(row) * ex_ld;
+    for (int j = tid; j < n_ex; j += kSelThreads) {
+      const long long id = ex[j];
+      if (id >= lo && id < lo + m) srow[id] = __uint_as_float(kExcludedBits);
+    }
+    __syncthreads();
+  }
 #pragma unroll 4
   for (int i = tid; i < m; i += kSelThreads) {
     const uint32_t key = order_key(srow[lo + i]);
@@ -592,12 +621,17 @@ extern "C" long long mips_topk_scratch_bytes(int q, int n_valid, int k) {
 
 // queries (q, d) f32, items (n, d) f32, both row-major; out_s (q, k) f32,
 // out_i (q, k) int64; scratch of mips_topk_scratch_bytes(q, n_valid, k)
-// bytes, 256-byte aligned. Needs 1 <= k <= n_valid <= n. Launches on
-// `stream` of the current device. Returns the first CUDA error.
+// bytes, 256-byte aligned; exclude: null (n_ex = 0) or n_ex int64 ids per
+// query at a row stride of ex_ld elements. Needs 1 <= k <= n_valid - n_ex
+// and n_valid <= n. Launches on `stream` of the current device. Returns the
+// first CUDA error.
 extern "C" int mips_topk_fused(const void* queries, const void* items, void* out_s, void* out_i,
-                               void* scratch, long long scratch_bytes, int q, int n, int d, int k,
-                               int n_valid, void* stream) {
-  if (q < 1 || d < 1 || k < 1 || n_valid < k || n_valid > n) return cudaErrorInvalidValue;
+                               const void* exclude, int n_ex, long long ex_ld, void* scratch,
+                               long long scratch_bytes, int q, int n, int d, int k, int n_valid,
+                               void* stream) {
+  if (q < 1 || d < 1 || k < 1 || n_valid > n || n_ex < 0 || k > n_valid - n_ex ||
+      (n_ex > 0 && exclude == nullptr))
+    return cudaErrorInvalidValue;
   const Plan p = make_plan(q, n_valid, k);
   if (scratch_bytes < static_cast<long long>(p.score_bytes + p.surv_bytes)) return cudaErrorInvalidValue;
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
@@ -613,6 +647,7 @@ extern "C" int mips_topk_fused(const void* queries, const void* items, void* out
     const float* itm = static_cast<const float*>(items);
     float* os = static_cast<float*>(out_s) + static_cast<size_t>(q0) * k;
     long long* oi = static_cast<long long*>(out_i) + static_cast<size_t>(q0) * k;
+    const long long* ex = n_ex > 0 ? static_cast<const long long*>(exclude) + q0 * ex_ld : nullptr;
 
     cudaError_t err;
     if (vec)
@@ -639,8 +674,8 @@ extern "C" int mips_topk_fused(const void* queries, const void* items, void* out
     attr[1].val.programmaticStreamSerializationAllowed = 1;
     cfg.attrs = attr;
     cfg.numAttrs = 2;
-    err = cudaLaunchKernelEx(&cfg, mips_select_kernel, static_cast<const float*>(scores), p.ld,
-                             n_valid, k, p.kp, p.slice, p.keys_in_smem, surv, os, oi);
+    err = cudaLaunchKernelEx(&cfg, mips_select_kernel, scores, p.ld, n_valid, k, p.kp, p.slice,
+                             p.keys_in_smem, ex, n_ex, ex_ld, surv, os, oi);
     if (err != cudaSuccess) return err;
     if (!p.large) continue;
 

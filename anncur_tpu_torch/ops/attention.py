@@ -25,8 +25,8 @@ import torch
 
 from anncur_tpu_torch.ops import cuda_build
 
-_HEAD_DIMS = (16, 32, 64, 128)
-_MAX_SMEM = 232448  # bytes of shared memory one H100 block may use
+# every multiple of 16 from 16 to 256 (csrc/attention_common.cuh)
+_HEAD_DIMS = tuple(range(16, 257, 16))
 
 
 def attention_plain(q, k, v, key_valid):
@@ -181,25 +181,20 @@ def _check(q, k, v, key_valid) -> None:
     if tuple(key_valid.shape) != (b, s) or key_valid.stride(1) != 1:
         raise ValueError(f"attention: key_valid must be a row-contiguous ({b}, {s}) tensor")
     if hd not in _HEAD_DIMS:
-        raise ValueError(f"attention: head dim {hd} not in {_HEAD_DIMS}")
+        raise ValueError(f"attention: head dim {hd} is not a multiple of 16 from 16 to 256")
     es = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:
             raise ValueError(f"attention: {name} must be contiguous along the head dim")
         if t.data_ptr() % 16 or any((t.stride(i) * es) % 16 for i in range(3)):
             raise ValueError(f"attention: {name} rows must be 16-byte aligned")
-    # the f32 body keeps a head's whole K and V in shared memory; the bf16
-    # body streams them in 64-key tiles, so s does not bound it
-    smem = 2 * s * hd * es + 4 * s
-    if q.dtype == torch.float32 and smem > _MAX_SMEM:
-        raise ValueError(f"attention: s={s}, hd={hd} needs {smem} B of shared memory")
+    # both bodies stream K and V in 64-key tiles, so s is not bounded here
 
 
 def _check_bwd(q, k, v, key_valid, dout, lse, delta) -> None:
     """What kernels C and D take beyond the forward's inputs: a contiguous
     ``dout`` shaped and typed like q, and contiguous (b, nh, g) f32 ``lse``
-    and ``delta``, all on q's device. (They stage 64 rows at a time, so s
-    is not bounded by shared memory.)"""
+    and ``delta``, all on q's device."""
     _check(q, k, v, key_valid)
     b, g, nh, _ = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device or not dout.is_contiguous():

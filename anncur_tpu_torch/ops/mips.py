@@ -1,9 +1,11 @@
 """Exact maximum-inner-product search (MIPS), plain PyTorch.
 
 Counterpart of ``anncur_tpu/ops/mips.py``. The top-k is a STABLE
-descending sort: ``torch.topk`` does not promise the lowest-index
-tie-break that ``lax.top_k`` gives, and the port keeps that order. This
-module is also the plain version of kernel B (``ops/mips_kernel.py``).
+descending sort of an order-preserving integer key of the scores:
+``torch.topk`` does not promise the lowest-index tie-break that
+``lax.top_k`` gives, and a float sort ties -0.0 with +0.0 where
+``lax.top_k`` ranks +0.0 above -0.0. This module is also the plain
+version of kernel B (``ops/mips_kernel.py``).
 """
 
 from __future__ import annotations
@@ -16,12 +18,38 @@ import torch
 # by a top-k over real scores, and representable in float32.
 NEG_INF = -1e30
 
+# float dtype -> (integer view of its bits, mask of every bit but the sign)
+_KEY_VIEW = {
+    torch.float32: (torch.int32, 0x7FFFFFFF),
+    torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF),
+    torch.float16: (torch.int16, 0x7FFF),
+    torch.bfloat16: (torch.int16, 0x7FFF),
+}
+
+
+def order_key(scores: torch.Tensor) -> torch.Tensor:
+    """Signed integer keys in the order ``lax.top_k`` ranks floats: the
+    IEEE bits, with the magnitude bits of negative values flipped. So
+    +0.0 ranks above -0.0, and -inf below every finite value."""
+    view = _KEY_VIEW.get(scores.dtype)
+    if view is None:  # integer scores order as they are
+        return scores
+    itype, mag = view
+    bits = scores.contiguous().view(itype)
+    return torch.where(bits < 0, bits ^ mag, bits)
+
+
+def _topk_of_keys(scores, keys, k):
+    _, idx = torch.sort(keys, dim=-1, descending=True, stable=True)
+    idx = idx[..., :k]
+    return torch.gather(scores, -1, idx), idx
+
 
 def topk_stable(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(values, int64 indices) of the k largest entries along the last
-    axis, descending, ties to the lowest index (``lax.top_k``'s order)."""
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    axis, descending, ties to the lowest index, +0.0 above -0.0
+    (``lax.top_k``'s order)."""
+    return _topk_of_keys(scores, order_key(scores), k)
 
 
 def masked_topk(
@@ -29,10 +57,25 @@ def masked_topk(
     k: int,
     valid: Optional[torch.Tensor] = None,  # (n,) or (q, n) bool
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """top-k over scores with invalid positions excluded."""
+    """top-k over scores with invalid positions filled with ``NEG_INF``,
+    as ``anncur_tpu.ops.mips.masked_topk``."""
     if valid is not None:
         scores = torch.where(valid, scores, torch.tensor(NEG_INF, dtype=scores.dtype, device=scores.device))
     return topk_stable(scores, k)
+
+
+def check_exclude(exclude: Optional[torch.Tensor], q: int, k: int, n_valid: int) -> int:
+    """Entries per row of an exclusion list (0 for None); raises unless it
+    is an integer (q, S) tensor with k <= n_valid - S, which leaves every
+    row k candidates whatever the list holds."""
+    if exclude is None:
+        return 0
+    if exclude.dim() != 2 or exclude.shape[0] != q or exclude.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"exclude must be an int32/int64 ({q}, S) tensor, got {exclude.dtype} {tuple(exclude.shape)}")
+    n_ex = exclude.shape[1]
+    if k > n_valid - n_ex:
+        raise ValueError(f"exclusions leave fewer than k candidates: k={k} > n_valid - S = {n_valid} - {n_ex}")
+    return n_ex
 
 
 def mips_topk(
@@ -40,15 +83,30 @@ def mips_topk(
     items: torch.Tensor,  # (n, d) f32
     k: int,
     n_valid: Optional[int] = None,
+    exclude: Optional[torch.Tensor] = None,  # (q, S) int ids per query
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact MIPS: scores = Q @ Iᵀ in f32, top-k per query over the first
-    ``n_valid`` items (default: all)."""
+    ``n_valid`` items (default: all), never an id of that query's row of
+    ``exclude``. Entries of ``exclude`` outside [0, n_valid) are ignored
+    and duplicates are allowed; the caller keeps k <= n_valid - S. Padded
+    and excluded items rank below every real score, so this equals JAX's
+    ``approx.at[rows, ids].set(-inf)`` + ``lax.top_k`` whenever that one
+    does not run out of candidates."""
     n = items.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
     if not 1 <= k <= n_valid <= n:
         raise ValueError(f"mips_topk needs 1 <= k <= n_valid <= n, got k={k} n_valid={n_valid} n={n}")
+    check_exclude(exclude, queries.shape[0], k, n_valid)
     scores = queries.float() @ items.float().T
-    valid = None
-    if n_valid < n:
-        valid = torch.arange(n, device=scores.device) < n_valid
-    return masked_topk(scores, k, valid)
+    if n_valid == n and exclude is None:
+        return topk_stable(scores, k)
+    # below every int32 key: never selected while k real candidates remain
+    keys = order_key(scores).long()
+    keys[:, n_valid:] = -(1 << 32)
+    if exclude is not None:
+        ex = exclude.to(device=scores.device, dtype=torch.long)
+        ex = torch.where((ex >= 0) & (ex < n_valid), ex, n)  # ignored -> a spare column
+        keys = torch.cat([keys, keys.new_zeros((keys.shape[0], 1))], dim=1)
+        keys.scatter_(1, ex, -(1 << 32))
+        keys = keys[:, :n]
+    return _topk_of_keys(scores, keys, k)

@@ -2,12 +2,13 @@
 
 Replaces ``anncur_tpu/ops/mips_pallas.py::_mips_kernel`` and
 ``::_maxmask_kernel``. The fixed-anchor query runs its latent projection
-+ top-k_retvr stage through :func:`mips_topk_fused`. Its plain version is
-``ops/mips.py::mips_topk``.
++ top-k_retvr stage through :func:`mips_topk_fused`, and the adaptive
+engine every candidate pick, with the query's scored ids excluded. Its
+plain version is ``ops/mips.py::mips_topk``.
 
 On the card it is a register-tiled f32 FFMA GEMM into a score scratch,
 then an exact radix select, one thread-block cluster per query; any
-``1 <= k <= n_valid``, as ``lax.top_k`` takes.
+``1 <= k <= n_valid - S``, as ``lax.top_k`` takes.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ from typing import Dict, Optional, Set, Tuple
 import torch
 
 from anncur_tpu_torch.ops import cuda_build
-from anncur_tpu_torch.ops.mips import mips_topk
+from anncur_tpu_torch.ops.mips import check_exclude, mips_topk
 
 # score scratch by (device index, stream): one allocation, grown as needed
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -30,18 +31,29 @@ def mips_topk_fused(
     items: torch.Tensor,  # (n, d) f32
     k: int,
     n_valid: Optional[int] = None,
+    exclude: Optional[torch.Tensor] = None,  # (q, S) int ids per query
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(scores (q, k) f32, ids (q, k) int64): the k best items per query
-    by IEEE f32 inner product among the first ``n_valid`` items, scores
-    descending, ties to the smallest id.
+    by IEEE f32 inner product among the first ``n_valid`` items, never an
+    id on the query's row of ``exclude``, scores descending, ties to the
+    smallest id, +0.0 above -0.0. ``exclude`` entries outside [0, n_valid)
+    are ignored, duplicates are allowed, and k <= n_valid - S; its rows
+    need unit stride along S only (a column slice of a wider buffer does).
 
     CPU tensors take the plain :func:`mips_topk`; CUDA tensors launch
     kernel B or raise."""
     n = items.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
     if queries.device.type == "cpu" and items.device.type == "cpu":
-        return mips_topk(queries, items, k, n_valid)
+        return mips_topk(queries, items, k, n_valid, exclude)
     _check(queries, items, k, n_valid)
+    n_ex = check_exclude(exclude, queries.shape[0], k, n_valid)
+    if n_ex:
+        if exclude.device != queries.device:
+            raise ValueError("mips_topk_fused: exclude must lie on the queries' device")
+        exclude = exclude.long()  # the same tensor when it is int64
+        if exclude.stride(1) != 1:
+            exclude = exclude.contiguous()
     q, d = queries.shape
     dev = queries.device
     with torch.cuda.device(dev):
@@ -52,6 +64,7 @@ def mips_topk_fused(
         out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
         rc = lib.mips_topk_fused(
             queries.data_ptr(), items.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+            exclude.data_ptr() if n_ex else None, n_ex, exclude.stride(0) if n_ex else 0,
             scratch.data_ptr(), scratch.numel(), q, n, d, k, n_valid, stream,
         )
     cuda_build.check(lib, rc, "mips_topk kernel")
@@ -91,7 +104,8 @@ def _lib(device: int) -> ctypes.CDLL:
     lib = cuda_build.load("mips_topk")
     if lib.mips_topk_fused.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.mips_topk_fused.argtypes = [ptr] * 5 + [ctypes.c_longlong] + [i32] * 5 + [ptr]
+        i64 = ctypes.c_longlong
+        lib.mips_topk_fused.argtypes = [ptr] * 5 + [i32, i64, ptr, i64] + [i32] * 5 + [ptr]
         lib.mips_topk_fused.restype = i32
         lib.mips_topk_scratch_bytes.argtypes = [i32] * 3
         lib.mips_topk_scratch_bytes.restype = ctypes.c_longlong

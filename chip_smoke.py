@@ -17,9 +17,11 @@ Phases, in order; any failure exits non-zero before the result line:
    lengths and at the train step's own inputs, 63 and 1 pairs with every
    key valid, beside the port's whole backward and SDPA's) and kernel B
    (MIPS top-k: score GEMM + cluster radix select; timed at a cost-600
-   batch, q=32 over 10,000 items, at one text, q=1, and at an eval batch
-   of 256 over ZeShEL-military's 104,520 entities, and checked once more
-   at k=500). For every bf16 instantiation of kernels A, C and D: its
+   batch, q=32 over 10,000 items, at one text, q=1, at an eval batch
+   of 256 over ZeShEL-military's 104,520 entities, and at an adaptive
+   growth round, 512 queries picking 26 past 184 excluded ids each, and
+   checked once more at k=500). For every bf16 instantiation of kernels
+   A, C and D (every head dim that is a multiple of 16 up to 256): its
    HMMA count in the SASS (it fails on none) and ptxas' registers and
    spills; for kernel B's kernels, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
@@ -31,9 +33,19 @@ Phases, in order; any failure exits non-zero before the result line:
    ``configs/el_zeshel_cross_enc.json`` (4 micro-batches of one mention x
    64 pairs of 255 tokens per step), then one micro-batch's loss and
    gradient norm are held against the plain attention's;
-6. the ``kernels`` line: each kernel's launches on phases 3-5 (counts set
+6. adaptive serve: on phase 4's retriever and train matrix (on the
+   device), CurRetriever.query_tokens_adaptive_fused answers 128 token
+   queries at budget 210 over 8 rounds, top-10 (one warm call, then the
+   median of 3), and the early-stop worst case (base 100 over 5 rounds,
+   every query escalating to 210 over 8 more); it checks 210 distinct
+   scored ids per query, the returned scores against the plain-attention
+   CE, kernel B's launches per batch, one growth round's pick against the
+   plain version, and, on the committed trained-CE matrices with no CE,
+   the adaptive oracle's recall against the fixed-anchor path's at cost
+   600;
+7. the ``kernels`` line: each kernel's launches on phases 3-6 (counts set
    to 0 just before each phase and read just after), error and times;
-7. the last line, ``{"ok": true, "device": {...}}``.
+8. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -72,6 +84,8 @@ SLEEP_CYCLES = 20_000_000
 # gradients that are 0 in exact arithmetic (a shift under a softmax), so
 # a step may leave them, and their parameters, unchanged
 ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
+# bf16 instantiations of kernels A, C and D: 16 head dims x 2 tilings
+BF16_INSTANTIATIONS = 32
 
 
 def log(msg):
@@ -154,7 +168,7 @@ def check_attention(dev, flush):
         "max_abs_err": max_err,
         **{key: main_shape[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "shapes": timed,
-        "instantiations": instantiations("attention", "attention_fwd_bf16_kernel", "warps", 8),
+        "instantiations": instantiations("attention", "attention_fwd_bf16_kernel", "warps", BF16_INSTANTIATIONS),
     }
 
 
@@ -371,15 +385,20 @@ def check_attention_bwd(dev, flush):
             "name": name, "replaces": replaces, **common,
             "max_abs_err": errs["dkv" if i == 0 else "dq"],
             **{key: shapes[0][key] for key in keys}, "shapes": shapes,
-            "instantiations": instantiations("attention_bwd", kernel, param, 8),
+            "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS),
         })
     return errs["lse"], kernels
 
 
-# kernel B's timed shapes (q, d, n, n_valid, k): a cost-600 serve batch
-# (phase 4's), one text (CurRetriever.query), and an eval batch at
-# ZeShEL-military's entity count (anncur_tpu/ops/mips_pallas.py:25-30)
-MIPS_SHAPES = ((32, 500, 10240, 10000, 100), (1, 500, 10240, 10000, 100), (256, 500, 104520, 104520, 100))
+# kernel B's timed shapes (q, d, n, n_valid, k, S excluded ids per row): a
+# cost-600 serve batch (phase 4's), one text (CurRetriever.query), an eval
+# batch at ZeShEL-military's entity count (anncur_tpu/ops/mips_pallas.py:
+# 25-30), and the last growth round of 210 over 8 at the bench's adaptive
+# batch of 512 (phase 6's widths: weights over 500 train rows)
+MIPS_SHAPES = (
+    (32, 500, 10240, 10000, 100, 0), (1, 500, 10240, 10000, 100, 0), (256, 500, 104520, 104520, 100, 0),
+    (512, 500, 10240, 10000, 26, 184),
+)
 MIPS_KERNELS = ("mips_score_kernel", "mips_select_kernel", "mips_sort_chunk_kernel", "mips_sort_step_kernel")
 
 
@@ -396,13 +415,15 @@ def mips_inputs(gen, dev, q, d, n, n_valid):
     return queries, items.contiguous()
 
 
-def check_mips(queries, items, k, n_valid, what):
+def check_mips(queries, items, k, n_valid, what, exclude=None):
     from anncur_tpu_torch.ops.mips import mips_topk
     from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 
-    s_k, i_k = mips_topk_fused(queries, items, k, n_valid)
-    s_p, i_p = mips_topk(queries, items, k, n_valid)
+    s_k, i_k = mips_topk_fused(queries, items, k, n_valid, exclude)
+    s_p, i_p = mips_topk(queries, items, k, n_valid, exclude)
     torch.cuda.synchronize()
+    if exclude is not None and bool((i_k[:, :, None] == exclude[:, None, :]).any()):
+        fail(f"{what}: kernel B selected an excluded id")
     scale = float(s_p.abs().max())
     err = float((s_k - s_p).abs().max())
     if not err <= MIPS_RTOL * scale:
@@ -429,21 +450,28 @@ def check_mips(queries, items, k, n_valid, what):
     return err
 
 
-def time_mips(fused, plain, queries, items, k, n_valid, flush):
+def time_mips(fused, plain, queries, items, k, n_valid, flush, exclude=None):
     """Kernel B (``fused``), its plain version and ``torch.topk(queries @
-    items.T, k)`` on one input, with the bound of what the call needs: the
-    queries and the n_valid real item rows read, the outputs written; 2 q
-    n_valid d f32 operations."""
+    items.T, k)`` (with exclusions, ``scatter_`` of -inf between the two)
+    on one input, with the bound of what the call needs: the queries, the
+    n_valid real item rows and the exclusion lists read, the outputs
+    written; 2 q n_valid d f32 operations."""
     q, d = queries.shape
-    ms = time_ms(lambda: fused(queries, items, k, n_valid), 30, flush)
-    plain_ms = time_ms(lambda: plain(queries, items, k, n_valid), 5 if q * n_valid > 1e7 else 20, flush)
-    library_ms = time_ms(lambda: torch.topk(queries @ items[:n_valid].T, k), 30, flush)
-    nbytes = 4 * (q * d + n_valid * d) + q * k * (4 + 8)
-    rec = {"shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} f32", "ms": ms,
+    n_ex = 0 if exclude is None else exclude.shape[1]
+    ms = time_ms(lambda: fused(queries, items, k, n_valid, exclude), 30, flush)
+    plain_ms = time_ms(lambda: plain(queries, items, k, n_valid, exclude), 5 if q * n_valid > 1e7 else 20, flush)
+    if exclude is None:
+        library = lambda: torch.topk(queries @ items[:n_valid].T, k)  # noqa: E731
+    else:
+        library = lambda: torch.topk((queries @ items[:n_valid].T).scatter_(1, exclude, -torch.inf), k)  # noqa: E731
+    library_ms = time_ms(library, 30, flush)
+    nbytes = 4 * (q * d + n_valid * d) + 8 * q * n_ex + q * k * (4 + 8)
+    rec = {"shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} S={n_ex} f32", "ms": ms,
            "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, 2 * q * n_valid * d, "f32")}
     rec["x_bound"] = ms / rec["bound_ms"]
+    lib_name = "matmul + topk" if exclude is None else "matmul + scatter_ + topk"
     log(f"  kernel B {rec['shape']}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
-        f"{rec['x_bound']:.2f}x bound; plain {plain_ms:.4f} ms; matmul + topk {library_ms:.4f} ms "
+        f"{rec['x_bound']:.2f}x bound; plain {plain_ms:.4f} ms; {lib_name} {library_ms:.4f} ms "
         f"({ms / library_ms:.2f}x library)")
     return rec
 
@@ -473,13 +501,17 @@ def check_mips_kernel(dev, flush):
 
     gen = torch.Generator(device=dev).manual_seed(2)
     err, timed = 0.0, []
-    for q, d, n, n_valid, k in MIPS_SHAPES:
+    for q, d, n, n_valid, k, n_ex in MIPS_SHAPES:
         queries, items = mips_inputs(gen, dev, q, d, n, n_valid)
-        err = max(err, check_mips(queries, items, k, n_valid, f"kernel B q={q} d={d} n={n} k={k}"))
+        # a growth round's exclusions: the ids the query scored, here its
+        # best ones, so the pick must reach past them
+        exclude = mips_topk(queries, items, n_ex, n_valid)[1] if n_ex else None
+        what = f"kernel B q={q} d={d} n={n} k={k} S={n_ex}"
+        err = max(err, check_mips(queries, items, k, n_valid, what, exclude))
         if q == 32:  # the transductive eval's top_k_retvr, past the old k <= 256 cap
             err = max(err, check_mips(queries, items, 500, n_valid, f"kernel B q={q} d={d} n={n} k=500"))
-        timed.append(time_mips(mips_topk_fused, mips_topk, queries, items, k, n_valid, flush))
-        del queries, items
+        timed.append(time_mips(mips_topk_fused, mips_topk, queries, items, k, n_valid, flush, exclude))
+        del queries, items, exclude
     main_shape = timed[0]
     return {
         "name": "mips_topk_fused",
@@ -633,7 +665,8 @@ def phase_serve(ce, spec, dev, rng):
     if len(res) != 3 or not all(0 <= i < n_items and math.isfinite(s) for i, s in res):
         fail(f"text query returned {res}")
     log(f"  text query -> {res}")
-    return {"qps": qps, "ce_pairs_per_s": ce_pairs_per_s, "seconds": dt, "launches": counts, "mips_err": mips_err}
+    return {"qps": qps, "ce_pairs_per_s": ce_pairs_per_s, "seconds": dt, "launches": counts, "mips_err": mips_err,
+            "retriever": retriever, "train": train}
 
 
 def phase_train(dev, rng):
@@ -731,6 +764,150 @@ def phase_train(dev, rng):
             "loss_vs_plain": [loss_k, loss_p], "grad_norm_vs_plain": [norm_k, norm_p]}
 
 
+ADAPTIVE_QUERIES = 128  # cut this, never the widths, if the run nears its limit
+ADAPTIVE = dict(total_budget=210, n_rounds=8)  # bench.py line 3
+EARLY_STOP = dict(total_budget=100, n_rounds=5, escalate_budget=210, escalate_rounds=8,
+                  stability_overlap=1.01)  # bench.py line 4's worst case: every query escalates
+TRAINED_CE = ("trained_ce_matrix.npz", "trained_ce_matrix_hard.npz")
+
+
+def timed_calls(fn, n):
+    """Seconds of each of ``n`` calls of ``fn``, each ending in a synchronize."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(time.perf_counter() - t0)
+    return out
+
+
+def oracle_recalls(dev):
+    """The adaptive engine at 210 over 8 rounds and the fixed-anchor path at
+    500 anchors + 100 reranked, recall@10 on the committed trained-CE
+    matrices (eval rows scored by the CE itself: no CE runs here), the
+    mean over seeds 0-2 as benchmarks/adaptive_matched_recall.json takes it."""
+    from anncur_tpu_torch.core.adaptive_fused import adaptive_recall_oracle, fixed_anchor_recall
+
+    out = {}
+    for name in TRAINED_CE:
+        d = np.load(os.path.join(ROOT, "benchmarks", name))
+        scores = np.asarray(d["scores"], np.float32)
+        n_train, n_q = int(d["n_train"]), int(d["n_q"])
+        full, train = scores[n_train:n_train + n_q], scores[:n_train]
+        adaptive = float(np.mean([adaptive_recall_oracle(full, train, 210, 8, seed=s, device=dev) for s in (0, 1, 2)]))
+        fixed = float(np.mean([fixed_anchor_recall(full, train, 500, 100, 10, seed=s, device=dev) for s in (0, 1, 2)]))
+        log(f"  {name} ({n_q} queries x {full.shape[1]} items): adaptive 210 over 8 recall@10 {adaptive:.4f}, "
+            f"fixed-anchor at cost 600 {fixed:.4f}")
+        if not adaptive >= fixed:
+            fail(f"adaptive recall {adaptive} below the fixed-anchor recall {fixed} on {name}")
+        out[name] = {"adaptive_210r8": adaptive, "fixed_600": fixed}
+    return out
+
+
+def phase_adaptive(retriever, train, spec, dev, rng):
+    from anncur_tpu_torch.core.adaptive_fused import ridge_weights, split_rounds
+    from anncur_tpu_torch.indexer.score_matrix import padded_pair_len
+
+    lm, n_items = retriever.max_query_len, retriever.item_tokens.shape[0]
+    top_k, n_q = 10, ADAPTIVE_QUERIES
+    qtoks = rng.integers(1, spec.vocab_size, size=(n_q, lm)).astype(np.int32)
+    train_dev = torch.as_tensor(train, device=dev)  # device-resident, as a server keeps it
+
+    def call(kw):
+        return retriever.query_tokens_adaptive_fused(qtoks, top_k=top_k, train_scores=train_dev, return_stats=True, **kw)
+
+    # warm call, recording every CE call the engine makes
+    seen, make_scorer = [], retriever._adaptive_scorer
+
+    def recording(qt, items):
+        score_fn = make_scorer(qt, items)
+
+        def fn(ids):
+            out = score_fn(ids)
+            seen.append((ids, out))
+            return out
+
+        return fn
+
+    retriever._adaptive_scorer = recording
+    try:
+        scores, ids, _ = call(ADAPTIVE)
+    finally:
+        del retriever._adaptive_scorer  # the class's method again
+    torch.cuda.synchronize()
+    scored = torch.cat([i for i, _ in seen], dim=1)[:n_q]
+    vals = torch.cat([v for _, v in seen], dim=1)[:n_q].float()
+    distinct = [len(set(row)) for row in scored.tolist()]
+    log(f"  warm call: {len(seen)} CE stages of widths {[i.shape[1] for i, _ in seen]}; scored ids per query "
+        f"{scored.shape[1]}, distinct {min(distinct)}-{max(distinct)}, max id {int(scored.max())}")
+    if scored.shape[1] != ADAPTIVE["total_budget"] or min(distinct) != ADAPTIVE["total_budget"] or int(scored.max()) >= n_items:
+        fail("the adaptive engine did not score exactly 210 distinct real items per query")
+    if scores.shape != (n_q, top_k) or not np.isfinite(scores).all() or not (np.diff(scores, axis=1) <= 0).all():
+        fail("adaptive result has the wrong shape, non-finite or unsorted scores")
+    # the answer is the top-10 of the exact scores of everything scored
+    want_s, order = torch.sort(vals, dim=1, descending=True, stable=True)
+    if not (np.array_equal(want_s[:, :top_k].cpu().numpy(), scores)
+            and np.array_equal(torch.gather(scored, 1, order[:, :top_k]).cpu().numpy(), ids)):
+        fail("the adaptive answer is not the top-10 of the exact scores it paid for")
+
+    reset_counts()
+    base_s = timed_calls(lambda: call(ADAPTIVE), 3)
+    base_counts = read_counts()
+    reset_counts()
+    call(EARLY_STOP)  # warm
+    reset_counts()
+    es_s = timed_calls(lambda: call(EARLY_STOP), 3)
+    es_counts = read_counts()
+    _, _, es_stats = call(EARLY_STOP)
+    torch.cuda.synchronize()
+    rounds = split_rounds(ADAPTIVE["total_budget"], ADAPTIVE["n_rounds"])[2]
+    base_dt, es_dt = statistics.median(base_s), statistics.median(es_s)
+    qps = n_q / base_dt
+    es_qps = n_q / es_dt
+    log(f"  adaptive {n_q} queries at 210 over 8 rounds: {', '.join(f'{t:.3f}' for t in base_s)} s by call, "
+        f"median {base_dt:.3f} s, {qps:.2f} q/s, {n_q * 210 / base_dt:.1f} CE pairs/s; launches of 3 calls {base_counts}")
+    log(f"  early-stop worst case (b100r5_e210r8, every query escalating): {', '.join(f'{t:.3f}' for t in es_s)} s, "
+        f"median {es_dt:.3f} s, {es_qps:.2f} q/s; avg_budget {es_stats['avg_budget']}, frac_escalated "
+        f"{es_stats['frac_escalated']}; launches of 3 calls {es_counts}")
+    if base_counts["mips_topk_fused"] != 3 * (rounds - 1) or base_counts["attention_fwd"] == 0:
+        fail(f"an adaptive batch did not launch kernel B once per growth round ({rounds - 1}): {base_counts}")
+    es_rounds = (split_rounds(100, 5)[2] - 1) + 8  # base growth rounds, then every escalation round
+    if es_counts["mips_topk_fused"] != 3 * es_rounds or es_counts["attention_fwd"] == 0:
+        fail(f"an early-stop batch did not launch kernel B {es_rounds} times: {es_counts}")
+    if es_stats["avg_budget"] != 210.0 or es_stats["frac_escalated"] != 1.0:
+        fail(f"the early-stop worst case did not escalate every query: {es_stats}")
+
+    # the returned scores are the plain-attention CE's scores of the returned ids
+    items = retriever._device_consts()[0]
+    pairs = torch.cat(
+        [torch.as_tensor(qtoks[:2], device=dev)[:, None, :].expand(2, top_k, lm),
+         items[torch.as_tensor(ids[:2], device=dev)][:, :, 1:]], dim=-1,
+    ).reshape(2 * top_k, lm + items.shape[1] - 1)
+    pair_len = padded_pair_len(lm, items.shape[1], retriever.pair_pad_multiple, spec.max_position_embeddings)
+    pairs = torch.nn.functional.pad(pairs, (0, pair_len - pairs.shape[1]))
+    plain = rescore_with_plain_attention(retriever.encoder, pairs, lm).reshape(2, top_k).float().cpu().numpy()
+    ce_err = float(np.abs(plain - scores[:2]).max())
+    log(f"  adaptive top-10 scores vs the plain-attention CE: max |diff| = {ce_err:.3e} (tol {CE_ATOL})")
+    if not ce_err <= CE_ATOL:
+        fail(f"adaptive scores differ from the plain-attention CE's: {ce_err}")
+
+    # the last growth round's pick (S = 184 scored) through kernel B vs plain
+    per = split_rounds(ADAPTIVE["total_budget"], ADAPTIVE["n_rounds"])[1]
+    n_s = ADAPTIVE["total_budget"] - per
+    train_t = torch.zeros((retriever._padded_n_items(), train_dev.shape[0]), device=dev)
+    train_t[:n_items] = train_dev.T
+    w = ridge_weights(train_t, scored[:, :n_s], vals[:, :n_s])
+    mips_err = check_mips(w, train_t, per, n_items, f"kernel B on a growth round (q={n_q}, S={n_s}, k={per})",
+                          exclude=scored[:, :n_s])
+    recalls = oracle_recalls(dev)
+    counts = {name: base_counts[name] + es_counts[name] for name in base_counts}
+    return {"qps": qps, "ce_pairs_per_s": n_q * 210 / base_dt, "seconds": base_s, "early_stop_qps": es_qps,
+            "early_stop_seconds": es_s, "early_stop_avg_budget": es_stats["avg_budget"], "launches": counts,
+            "launches_base_calls": base_counts, "launches_early_stop_calls": es_counts, "mips_err": mips_err,
+            "ce_err": ce_err, "recall": recalls}
+
+
 # --------------------------------------------------------------------- #
 
 
@@ -771,18 +948,22 @@ def main():
 
     log("phase 4: serve (10,000 items, 500 anchors, top-100 rerank, top-10)")
     serve = phase_serve(ce, spec, dev, rng)
+    retriever, train_mat = serve.pop("retriever"), serve.pop("train")
 
     log("phase 5: train (bert-base CE, bf16, 4 x 64 pairs of 255 tokens per step)")
-    del ce
+    del ce  # phase 6 serves through phase 4's retriever, which keeps its CE
     torch.cuda.empty_cache()
     train = phase_train(dev, rng)
 
-    phases = (build, serve, train)
+    log(f"phase 6: adaptive serve ({ADAPTIVE_QUERIES} queries, budget 210 over 8 rounds, top-10; early stop)")
+    adaptive = phase_adaptive(retriever, train_mat, spec, dev, rng)
+
+    phases = (build, serve, train, adaptive)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
         fail("a kernel of the main path was never launched")
-    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], serve["mips_err"])
+    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], serve["mips_err"], adaptive["mips_err"])
     summary = {
         "build_pairs_per_s": build["pairs_per_s"],
         "query_qps_cost600": serve["qps"],
@@ -795,6 +976,16 @@ def main():
         "launches_build": build["launches"],
         "launches_query_batch": serve["launches"],
         "launches_train": train["launches"],
+        "adaptive_qps_b210r8": adaptive["qps"],
+        "adaptive_ce_pairs_per_s": adaptive["ce_pairs_per_s"],
+        "adaptive_call_s": adaptive["seconds"],
+        "early_stop_worst_qps": adaptive["early_stop_qps"],
+        "early_stop_call_s": adaptive["early_stop_seconds"],
+        "early_stop_avg_budget": adaptive["early_stop_avg_budget"],
+        "adaptive_scores_vs_plain_attention": adaptive["ce_err"],
+        "oracle_recall": adaptive["recall"],
+        "launches_adaptive_3_calls": adaptive["launches_base_calls"],
+        "launches_early_stop_3_calls": adaptive["launches_early_stop_calls"],
         "card": smi,
     }
     log(json.dumps({"summary": summary}))

@@ -165,10 +165,70 @@ def test_attention_backward_bf16_tensor_core_path_at_tile_edges(dev, b, g, hd):
     assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
+def _check_fwd_bwd(q, k, v, valid, lengths, dtype, tol):
+    """Kernel A, then C and D through the autograd, against the plain
+    attention and its autograd at the real rows and valid keys: forward
+    within ``tol`` abs, gradients within ``tol`` x the plain gradient's max."""
+    g, s = q.shape[1], k.shape[1]
+    rows = _real_rows(g, s, lengths)
+    gen = torch.Generator(device=q.device).manual_seed(g + s)
+    dout = torch.randn(q.shape, generator=gen, device=q.device).to(dtype) * rows[:, :, None, None]
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves, valid)
+    got = torch.autograd.grad(out, leaves, dout)
+    want_out = attention_plain(q, k, v, valid)
+    want = attention_bwd_plain(q, k, v, valid, dout)
+    torch.cuda.synchronize()
+    err = (out.float() - want_out.float()).abs().amax(dim=(2, 3))[rows].max().item()
+    assert err <= tol, ("out", err)
+    for name, a, b, sel in (("dq", got[0], want[0], rows), ("dk", got[1], want[1], valid), ("dv", got[2], want[2], valid)):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        err = (a.float() - b.float()).abs().amax(dim=(2, 3))[sel].max().item()
+        scale = b.float().abs().max().item()
+        assert err <= tol * scale, (name, err, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", list(range(16, 257, 16)))
+def test_attention_kernels_take_every_head_dim(dev, hd, dtype):
+    """Kernels A, C and D at every head dim that is a multiple of 16 up to
+    256, in bf16 and f32, against the plain versions at chip_smoke.py's
+    tolerance (2e-2: bf16 outputs, bf16 P and dS), with a ragged s of 130
+    keys (three 64-key tiles), a full layer and a 1-row slice."""
+    for g in (130, 1):
+        q, k, v, valid, lengths = _attn_case(dev, 3, g, 130, 2, hd, dtype, seed=hd + g)
+        _check_fwd_bwd(q, k, v, valid, lengths, dtype, 2e-2)
+
+
+@pytest.mark.parametrize(
+    "b,s,nh,hd,dtype",
+    [
+        (4, 512, 12, 64, torch.float32),  # past the old f32 limit of s <= 450 at hd=64
+        (2, 512, 4, 128, torch.float32),
+        (4, 256, 8, 48, torch.bfloat16),
+        (4, 256, 8, 96, torch.bfloat16),
+        (4, 256, 4, 256, torch.bfloat16),
+    ],
+)
+def test_attention_kernels_at_long_s_and_wide_heads(dev, b, s, nh, hd, dtype):
+    """The shapes JAX's default attention takes and the port's kernels
+    refused before: f32 at s = 512 (bert-base's max_position_embeddings;
+    the f32 body now streams K and V in tiles) and bf16 at hd 48, 96 and
+    256. Tolerance 2e-2 abs forward and 2e-2 x max for the gradients, as
+    chip_smoke.py states; no launch falls back to the plain version."""
+    q, k, v, valid, lengths = _attn_case(dev, b, s, s, nh, hd, dtype, seed=s + hd)
+    before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    _check_fwd_bwd(q, k, v, valid, lengths, dtype, 2e-2)
+    assert (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+
+
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
     q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
     with pytest.raises(ValueError, match="head dim"):
         attention(q[..., :8], k[..., :8], v[..., :8], valid)
+    big = torch.zeros(2, 8, 2, 272, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        attention(big, big, big, valid)
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention(q.half(), k.half(), v.half(), valid)
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -336,9 +396,84 @@ def test_mips_kernel_rejects_what_it_cannot_take(dev):
     assert torch.equal(torch.sort(i, dim=1).values, torch.arange(300, device=dev).expand(4, 300))
 
 
-def _serving_world(device, n_items=1200, n_anchors=48, n_train=64, seed=0):
+@pytest.mark.parametrize("n_ex", [0, 26, 210])
+@pytest.mark.parametrize("q", [1, 128, 700])
+def test_mips_kernel_exclusions_match_plain(dev, q, n_ex):
+    """Kernel B with a per-row exclusion list exactly equal to the plain
+    ``mips_topk(..., exclude=)`` on small-integer inputs: the excluded ids
+    are each row's best (so the pick must reach past them), with a
+    duplicate, a -1 and an id past n_valid among them (ignored), the list
+    a column slice of a wider buffer; at the adaptive engine's k = 26 and
+    at k = n_valid - S, every candidate that is left."""
+    d, n, n_valid = 24, 10240, 10000
+    queries, items = _int_mips_inputs(dev, q, d, n, seed=q * 1000 + n_ex)
+    buf = torch.full((q, 256), -1, dtype=torch.int64, device=dev)
+    if n_ex:
+        buf[:, :n_ex] = mips_topk(queries, items, n_ex, n_valid)[1]
+        buf[:, 1] = buf[:, 0]  # a duplicate
+        buf[:, 2] = -1
+        buf[:, 3] = n_valid + 7  # a padded id: ignored
+    exclude = buf[:, :n_ex]
+    before = mips_topk_fused.launches
+    for k in (26, n_valid - n_ex):
+        s_k, i_k = mips_topk_fused(queries, items, k, n_valid, exclude)
+        s_p, i_p = mips_topk(queries, items, k, n_valid, exclude)
+        torch.cuda.synchronize()
+        assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p), k
+        hit = (i_k[:, :, None] == exclude[:, None, :]).any()
+        assert not bool(hit)
+    assert mips_topk_fused.launches == before + 2
+    # the int32 list gives the same answer
+    _, i_32 = mips_topk_fused(queries, items, 26, n_valid, exclude.int())
+    assert torch.equal(i_32, mips_topk(queries, items, 26, n_valid, exclude)[1])
+
+
+@pytest.mark.parametrize("fill", [float("-inf"), -1e30])
+def test_mips_kernel_exclusions_where_every_score_is_the_sentinel(dev, fill):
+    """Every real score of every row equals -inf (the value JAX writes over
+    excluded ids) or the plain version's -1e30 fill: the excluded ids must
+    still never appear, and the others come in id order."""
+    q, d, n, n_valid = 3, 8, 600, 500
+    queries = torch.zeros(q, d, device=dev)
+    queries[:, 0] = fill
+    items = torch.randint(0, 3, (n, d), device=dev).float()
+    items[:, 0] = 1.0  # fill * 1 + 0 * x: every score is the fill
+    exclude = torch.tensor([[0, 5, 17], [499, 0, 1], [2, 2, 600]], device=dev)
+    k = n_valid - 3
+    s_k, i_k = mips_topk_fused(queries, items, k, n_valid, exclude)
+    _, i_p = mips_topk(queries, items, k, n_valid, exclude)
+    torch.cuda.synchronize()
+    assert bool((s_k == fill).all())
+    assert torch.equal(i_k, i_p)
+    for r in range(q):
+        left = [i for i in range(n_valid) if i not in set(exclude[r].tolist())]
+        assert i_k[r].tolist() == left[:k]
+
+
+def test_mips_kernel_signed_zero_order_matches_topk_stable(dev):
+    """Kernel B ranks +0.0 above -0.0, as ``topk_stable`` and ``lax.top_k``
+    do. The score GEMM makes -0.0 only from products that all round to
+    -0.0 (fmaf from +0.0): 32 terms of -1e-30 x 1e-30; +0.0 from -1e-30 x
+    -1e-30; +-1 from 32 terms of -1e-30 x -+3.125e28."""
+    from anncur_tpu_torch.ops.mips import topk_stable
+
+    col = torch.tensor([0.0, -0.0, 1.0, -0.0, 0.0, -1.0, -0.0, 0.0])
+    per_term = torch.where(col > 0, -3.125e28, torch.where(col < 0, 3.125e28,
+                           torch.where(torch.signbit(col), 1e-30, -1e-30)))
+    items = per_term[:, None].expand(8, 32).contiguous().to(dev)
+    queries = torch.full((1, 32), -1e-30, device=dev)
+    s_k, i_k = mips_topk_fused(queries, items, 8)
+    torch.cuda.synchronize()
+    assert i_k[0].tolist() == [2, 0, 4, 7, 1, 3, 6, 5]
+    assert torch.signbit(s_k[0]).tolist() == torch.signbit(col[i_k[0].cpu()]).tolist()
+    row = torch.empty(8)
+    row[i_k[0].cpu()] = s_k[0].cpu()
+    assert topk_stable(row, 8)[1].tolist() == i_k[0].tolist()
+
+
+def _serving_world(device, n_items=1200, n_anchors=48, n_train=64, seed=0, rank=8):
     """A tiny CE (weights from ``seed``, init widened so rankings exist)
-    and a CUR index over a seeded low-rank train matrix, on ``device``."""
+    and a CUR index over a seeded rank-``rank`` train matrix, on ``device``."""
     import numpy as np
 
     from anncur_tpu_torch.core.cur import build_cur
@@ -351,7 +486,7 @@ def _serving_world(device, n_items=1200, n_anchors=48, n_train=64, seed=0):
     spec = BertSpec.tiny(initializer_range=0.3)
     ce = CrossEncoder(spec, compute_dtype=torch.float32, device=device, seed=seed)
     item_toks = rng.integers(1, spec.vocab_size, size=(n_items, 16)).astype(np.int32)
-    train = (rng.standard_normal((n_train, 8)) @ rng.standard_normal((8, n_items))).astype(np.float32)
+    train = (rng.standard_normal((n_train, rank)) @ rng.standard_normal((rank, n_items))).astype(np.float32)
     anchors = np.asarray(sorted(rng.choice(n_items, n_anchors, replace=False)))
     index = build_cur(rows=train, cols=train[:, anchors], row_idxs=np.arange(n_train), col_idxs=anchors,
                       approx_preference="rows", validate=False, device=device)
@@ -373,6 +508,35 @@ def test_retriever_top_k_retvr_500_matches_cpu(dev):
         s_h, i_h = on_cpu.query_tokens_batch(qtoks, top_k_retvr=500, **kw)
         assert s_c.shape == s_h.shape == i_c.shape == (6, kw["top_k"])
         # CE scores in f32 on both, summed in other orders
+        scale = float(np.abs(s_h).max())
+        np.testing.assert_allclose(s_c, s_h, rtol=0, atol=1e-5 * scale)
+        gaps = -np.diff(s_h, axis=1)
+        sep = np.ones(s_h.shape, bool)
+        sep[:, :-1] &= gaps > 1e-4 * scale
+        sep[:, 1:] &= gaps > 1e-4 * scale
+        assert sep.mean() > 0.5
+        np.testing.assert_array_equal(i_c[sep], i_h[sep])
+
+
+def test_retriever_adaptive_matches_cpu(dev):
+    """query_tokens_adaptive_fused on the card (kernel B with the scored ids
+    excluded, once per growth round) against the port's CPU answer on the
+    same world, base rounds and with every query escalating. The train
+    matrix has full rank (64) and every ridge solve has S <= 45 ids, so the
+    solves are well conditioned and the two devices' roundings pick the
+    same items (rank-deficient solves amplify rounding into the picks)."""
+    import numpy as np
+
+    on_card, qtoks = _serving_world(dev, rank=64)
+    on_cpu, _ = _serving_world("cpu", rank=64)
+    for kw, picks in ((dict(total_budget=60, n_rounds=4), 3),
+                      (dict(total_budget=30, n_rounds=3, escalate_budget=50, escalate_rounds=2, stability_overlap=1.01), 4)):
+        before = mips_topk_fused.launches
+        s_c, i_c, st_c = on_card.query_tokens_adaptive_fused(qtoks, top_k=10, return_stats=True, **kw)
+        torch.cuda.synchronize()
+        assert mips_topk_fused.launches == before + picks
+        s_h, i_h, st_h = on_cpu.query_tokens_adaptive_fused(qtoks, top_k=10, return_stats=True, **kw)
+        assert st_c == st_h
         scale = float(np.abs(s_h).max())
         np.testing.assert_allclose(s_c, s_h, rtol=0, atol=1e-5 * scale)
         gaps = -np.diff(s_h, axis=1)

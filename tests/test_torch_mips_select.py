@@ -2,7 +2,8 @@
 
 ``csrc/mips_topk.cu`` cannot run here, so this test-local emulation does
 what its select stage does to one score row, in numpy: the order-preserving
-32-bit key map (-0.0 folded onto +0.0), the cluster's slices, four 8-bit
+32-bit key map (+0.0 above -0.0, as lax.top_k), the exclusion mark (key
+0), the cluster's slices, four 8-bit
 digit rounds of per-block histograms summed over the cluster, the
 compaction of the survivors in id order through block and warp prefix
 counts over each warp's candidates (the keys whose top byte reaches the
@@ -33,11 +34,29 @@ CAND_CAP = 256
 SORT_CHUNK = 8192
 
 
+EXCLUDED_BITS = 0xFFFFFFFF  # the select's mark over excluded ids: key 0
+
+
 def order_key(scores):
-    """f32 -> uint32 of the same order; -0.0 and +0.0 share a key."""
-    u = np.asarray(scores, np.float32).view(np.uint32).copy()
-    u[u == 0x80000000] = 0
+    """f32 -> uint32 in lax.top_k's order (+0.0 above -0.0)."""
+    u = np.asarray(scores, np.float32).view(np.uint32)
     return np.where(u & 0x80000000, ~u, u | 0x80000000).astype(np.uint32)
+
+
+def score_store(scores):
+    """The score kernel's store: the mark's bits become 0xFFFFFFFE."""
+    u = np.asarray(scores, np.float32).view(np.uint32).copy()
+    u[u == EXCLUDED_BITS] = EXCLUDED_BITS - 1
+    return u.view(np.float32)
+
+
+def mark_excluded(row, exclude):
+    """The select's first step: the mark over the row's excluded ids that
+    lie in [0, len(row))."""
+    u = np.asarray(row, np.float32).view(np.uint32).copy()
+    ex = np.asarray(exclude, np.int64)
+    u[ex[(ex >= 0) & (ex < len(row))]] = EXCLUDED_BITS
+    return u.view(np.float32)
 
 
 def pack(keys, ids):
@@ -167,9 +186,10 @@ def bitonic_desc(words, chunk=SORT_CHUNK):
     return a[:len(words)]
 
 
-def emulate_select(row, k, chunk=SORT_CHUNK):
-    """(scores, ids) of one row's k best, as the select stage makes them."""
-    keys = order_key(row)
+def emulate_select(row, k, chunk=SORT_CHUNK, exclude=()):
+    """(scores, ids) of one row's k best, as the select stage makes them,
+    after marking the ``exclude`` ids."""
+    keys = order_key(mark_excluded(row, exclude))
     blocks, slice_ = cluster_plan(len(row))
     T, c, d0 = radix_select(keys, k, blocks, slice_)
     words = compact(keys, T, c, k, d0, blocks, slice_)
@@ -183,9 +203,10 @@ def emulate_select(row, k, chunk=SORT_CHUNK):
     return row[ids], ids
 
 
-def emulate(scores, k, n_valid=None):
+def emulate(scores, k, n_valid=None, exclude=None):
     n_valid = scores.shape[1] if n_valid is None else n_valid
-    rows = [emulate_select(r[:n_valid], k) for r in scores]
+    scores = score_store(scores)
+    rows = [emulate_select(r[:n_valid], k, exclude=() if exclude is None else exclude[i]) for i, r in enumerate(scores)]
     return np.stack([s for s, _ in rows]), np.stack([i for _, i in rows])
 
 
@@ -252,26 +273,49 @@ def test_select_random_f32_matches_lax_top_k(k):
 
 
 def test_signed_zeros_rank_as_topk_stable_orders_them():
-    """-0.0 and +0.0 tie and go to the smaller id, as ``topk_stable`` (and
-    the Pallas ``_maxmask_kernel``'s equality test) order them. ``lax.top_k``
-    ranks +0.0 above -0.0; the score stage never makes -0.0 (its fmaf chain
-    starts at +0.0, and +0.0 + -0.0 is +0.0), so on kernel B's path the two
-    orders agree."""
+    """+0.0 ranks above -0.0, then ties go to the smaller id: the select's
+    key map, ``topk_stable`` and ``lax.top_k`` give one order. (The score
+    stage makes -0.0 only when every product rounds to -0.0: its fmaf chain
+    starts at +0.0, and +0.0 + -0.0 is +0.0.)"""
     row = np.array([0.0, -0.0, 1.0, -0.0, 0.0, -1.0, -0.0, 0.0], np.float32)
-    assert order_key(row)[0] == order_key(row)[1]
+    assert order_key(row)[0] == order_key(row)[1] + 1
     s_e, i_e = emulate_select(row, 8)
     _, i_t = topk_stable(torch.as_tensor(row), 8)
-    np.testing.assert_array_equal(i_e, i_t.numpy())
-    assert i_e.tolist() == [2, 0, 1, 3, 4, 6, 7, 5]
-    np.testing.assert_array_equal(np.signbit(s_e), np.signbit(row[i_e]))  # scores keep their bits
-    # pinned: lax.top_k orders the zeros by sign first
     _, i_j = lax.top_k(jnp.asarray(row), 8)
-    assert np.asarray(i_j).tolist() == [2, 0, 4, 7, 1, 3, 6, 5]
+    want = [2, 0, 4, 7, 1, 3, 6, 5]
+    assert i_e.tolist() == i_t.tolist() == np.asarray(i_j).tolist() == want
+    np.testing.assert_array_equal(np.signbit(s_e), np.signbit(row[i_e]))  # scores keep their bits
     # a sum of products that are all -0.0, accumulated from +0.0, is +0.0
     acc = np.float32(0.0)
     for p in np.float32([-1.0, -2.0]) * np.float32(0.0):
         acc = np.float32(acc + p)
     assert not np.signbit(acc)
+
+
+@pytest.mark.parametrize("fill", [0.0, -np.inf, -1e30, "nan_mark"])
+def test_exclusion_mark_ranks_below_every_score(fill):
+    """Excluded ids get key 0; every stored score's key is at least 1 (the
+    score store turns the mark's own bits into 0xFFFFFFFE), so excluded ids
+    come after every real score, -inf included, and are never among the k
+    <= n_valid - S selected: equal to the plain ``mips_topk(exclude=)``."""
+    rng = np.random.default_rng(7)
+    scores = rng.integers(-3, 4, size=(3, 3000)).astype(np.float32)
+    if fill == "nan_mark":  # a real score with the mark's bits
+        scores.view(np.uint32)[:, ::7] = EXCLUDED_BITS
+    else:
+        scores[:, ::2] = fill
+    exclude = np.stack([rng.choice(3000, size=40, replace=False) for _ in range(3)])
+    exclude[:, 0] = exclude[:, 1]  # a duplicate
+    exclude[:, 2] = -1
+    keys = order_key(score_store(scores))
+    assert keys.min() >= 1
+    for k in (5, 3000 - 40):
+        _, i_e = emulate(scores, k, exclude=exclude)
+        for r in range(3):
+            # the stable top-k of the row with its excluded ids taken out
+            keep = np.setdiff1d(np.arange(3000), exclude[r])
+            want = keep[topk_stable(torch.as_tensor(scores[r, keep]), k)[1].numpy()]
+            np.testing.assert_array_equal(i_e[r], want)
 
 
 def test_order_key_is_monotone():
