@@ -4,12 +4,16 @@ NVIDIA H100.
 The JAX package stays the reference; this package keeps its module
 layout and names so each file has an obvious counterpart:
 
-- ``models``  : BERT encoder, cross-encoder, tokenizer copies, weight
-                conversion from the JAX param pytree.
-- ``ops``     : the hand-written CUDA kernels (attention forward, fused
-                f32 MIPS top-k) beside their plain PyTorch versions, pinv.
+- ``models``  : BERT encoder, cross-encoder, bi-encoder, tokenizer
+                copies, weight conversion from the JAX param pytree.
+- ``ops``     : the hand-written CUDA kernels (attention forward and
+                backward, fused MIPS top-k over f32 or int8 items) beside
+                their plain PyTorch versions, the dense index, pinv.
 - ``indexer`` : exact score-matrix build.
-- ``core``    : CUR index and the fixed-anchor retriever.
+- ``core``    : CUR index, the retriever (fixed-anchor, adaptive, host
+                ADACUR), the adaptive engines, AXN.
+- ``evalx``   : bi-encoder retrieve-and-rerank evaluation.
+- ``train``   : cross-encoder training.
 - ``data``    : token representation builders (copies).
 
 Nothing here imports ``jax`` or ``anncur_tpu``. Entry points default to

@@ -1,7 +1,9 @@
 """Where the time goes on the card: device time by kernel for one
 bert-base CE forward of a build step, for one cost-600 query batch, for
-one adaptive query batch (budget 210 over 8 rounds) and for one
-cross-encoder train step.
+one adaptive query batch (budget 210 over 8 rounds, CUR and AXN), for one
+retrieve-and-rerank batch (a bert-base bi-encoder embeds the mentions and
+the corpus, DenseIndex retrieves the top 64, the CE reranks them) and for
+one cross-encoder train step.
 
     python -m anncur_tpu_torch.cli.profile_ce [--pairs 2048] [--queries 32] [--adaptive_queries 128]
 
@@ -112,6 +114,22 @@ def train_step_section(dev, rng) -> dict:
         return profile(lambda: trainer.train_step(state, next(steps)), f"train_step_{pairs}_pairs")
 
 
+def rerank_section(dev, ce, item_toks, rng, n_ments) -> dict:
+    """One retrieve-and-rerank eval at chip_smoke.py's phase 7 widths: a
+    bert-base separate cls_w_lin bi-encoder (seed 1, bf16), ``n_ments``
+    128-token mentions over the 10,000 items, top 64, the CE reranking."""
+    from anncur_tpu_torch.evalx.retrieve_rerank import run_retrieve_rerank_eval
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.biencoder import BiEncoder
+
+    spec = BertSpec()
+    bienc = BiEncoder(spec, "cls_w_lin", "separate", 768, compute_dtype=torch.bfloat16, device=dev, seed=1)
+    ments = rng.integers(1, spec.vocab_size, size=(n_ments, item_toks.shape[1])).astype(np.int32)
+    gt = rng.integers(0, item_toks.shape[0], size=n_ments)
+    return profile(lambda: run_retrieve_rerank_eval(bienc, ce, ments, item_toks, gt, top_k=64, batch_size=64),
+                   f"retrieve_rerank_{n_ments}_mentions_{item_toks.shape[0]}_entities_top64")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--pairs", type=int, default=2048, help="pairs in the profiled CE forward")
@@ -169,6 +187,14 @@ def main(argv=None):
             f"adaptive_batch_{args.adaptive_queries}_b210r8",
         )
     )
+    out.append(
+        profile(
+            lambda: retriever.query_tokens_adaptive_fused(aq, total_budget=210, n_rounds=8, top_k=10, train_scores=train_dev,
+                                                          method="axn"),
+            f"axn_adaptive_batch_{args.adaptive_queries}_b210r8",
+        )
+    )
+    out.append(rerank_section(dev, ce, item_toks, rng, 256))
     del retriever, ce
     torch.cuda.empty_cache()
     out.append(train_step_section(dev, rng))

@@ -6,7 +6,8 @@ Imports ``anncur_tpu_torch`` from ``--root`` (default: this checkout), so
 that another commit's kernel B (a ``git archive`` of it) runs on the same
 card in the same call, and times ``mips_topk_fused`` with
 ``chip_smoke.py``'s ``time_mips`` (this checkout's: the same yardstick for
-both) at its ``MIPS_SHAPES`` and at q=32 k=500. A shape the checkout's
+both) at its ``MIPS_SHAPES`` (exclusions where a shape has them) and at
+q=32 k=500. A shape the checkout's
 wrapper rejects is reported as such. Prints one JSON line per shape with
 the card and the root. Needs a CUDA card.
 """
@@ -49,16 +50,18 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     gen = torch.Generator(device=dev).manual_seed(2)
-    shapes = [*smoke.MIPS_SHAPES, (32, 500, 10240, 10000, 500)]
-    for q, d, n, n_valid, k in shapes:
+    shapes = [*smoke.MIPS_SHAPES, (32, 500, 10240, 10000, 500, 0)]
+    for q, d, n, n_valid, k, n_ex in shapes:
         queries, items = smoke.mips_inputs(gen, dev, q, d, n, n_valid)
+        # as chip_smoke.py: a growth round's exclusions are each query's best ids
+        exclude = mips_topk(queries, items, n_ex, n_valid)[1] if n_ex else None
         rec = {"root": root, "card": card}
         try:
-            rec.update(smoke.time_mips(mips_topk_fused, mips_topk, queries, items, k, n_valid, flush))
-        except ValueError as exc:
-            rec.update(shape=f"q={q} d={d} n={n} n_valid={n_valid} k={k} f32", rejected=str(exc))
+            rec.update(smoke.time_mips(mips_topk_fused, mips_topk, queries, items, k, n_valid, flush, exclude))
+        except (ValueError, TypeError) as exc:  # a checkout that predates a shape's argument
+            rec.update(shape=f"q={q} d={d} n={n} n_valid={n_valid} k={k} S={n_ex} f32", rejected=str(exc))
         print(json.dumps(rec), flush=True)
-        del queries, items
+        del queries, items, exclude
 
 
 if __name__ == "__main__":

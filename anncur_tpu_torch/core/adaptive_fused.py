@@ -22,34 +22,41 @@ Kernel B never picks an id >= n_valid and refuses k > n_valid - S, which
 stands in for the JAX engine's masking of padded columns: a query cannot
 run out of real candidates while the budget is clamped to the item count.
 
-The Gram, the solve and ``w`` run in true f32 (TF32 off: it collapses
-recall, as reduced matmul precision did on the TPU). Entry points take
-``device="cuda"`` and raise without it; tests pass ``device="cpu"``.
-``method="axn"`` is not ported yet (ROADMAP.md Queue 1 item 3).
+``method="axn"`` completes through factorized item embeddings instead
+(``core/axn.py``): a query's latent embedding solves an (r x r) ridge
+system on its own scored items, and its completion is ``q_emb Eᵀ +
+mean``. Kernel B gets that product too, never the (q, n) completion: the
+queries ``[q_emb, 1]`` (q, r+1) against the items ``[E, mean]`` (n_pad,
+r+1), built once per call, so the mean comes last in each fmaf chain, as
+JAX adds it after the sum. Both completers hand ``_grow_rounds`` the same
+thing, kernel B's (queries, items) pair (:class:`CurCompleter`,
+:class:`AxnCompleter`).
+
+The Grams, the solves and the query side run in true f32 (TF32 off: it
+collapses recall, as reduced matmul precision did on the TPU); the solves
+check nothing on the host. Entry points take ``device="cuda"`` and raise
+without it; tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from anncur_tpu_torch.core.axn import AxnIndex, fit_item_embeddings_cached
 from anncur_tpu_torch.core.metrics import topk_overlap_frac
 from anncur_tpu_torch.ops.mips import topk_stable
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+from anncur_tpu_torch.utils.device import true_f32 as _true_f32
 
 ScoreFn = Callable[[torch.Tensor], torch.Tensor]  # ids (q, w) int64 -> (q, w) f32 exact scores
 
 
 def _check_method(method: str) -> None:
-    if method == "axn":
-        raise NotImplementedError(
-            "method='axn' (AXN completion, axn_complete_batched) is not ported yet: ROADMAP.md Queue 1 item 3"
-        )
-    if method != "cur":
+    if method not in ("cur", "axn"):
         raise ValueError(f"method={method!r} not in ('cur', 'axn')")
 
 
@@ -67,17 +74,6 @@ def take_per_row(mat: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``mat[q, ids[q]]``: a ``torch.gather`` on int64 indices, so the
     JAX version's int32 flat-index overflow guard has nothing to guard."""
     return torch.gather(mat, 1, ids.long())
-
-
-@contextlib.contextmanager
-def _true_f32():
-    """cuBLAS f32 matmuls without TF32 inside, whatever the caller set."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def ridge_weights(
@@ -117,16 +113,102 @@ def ridge_complete(
         return w @ out.T
 
 
+def axn_query_side(
+    item_embeds: torch.Tensor,  # (m, r) factorized item embeddings (core/axn.py)
+    mean: torch.Tensor,  # (m,) per-item train-score mean
+    ids: torch.Tensor,  # (q, S) per-query scored item ids
+    vals: torch.Tensor,  # (q, S) exact scores at those ids
+    lam_rel: float = 1e-2,
+    dim_cap_frac: Optional[float] = None,
+) -> torch.Tensor:
+    """(q, r+1) f32 ``[q_emb, 1]``: each query's latent embedding solves
+    (E_Sᵀ E_S + λI) q_emb = E_Sᵀ (vals - mean_S) on its own scored items,
+    λ = lam_rel · trace/r, in true f32 with no host check. Against the
+    items ``[E, mean]`` it gives the AXN completion.
+
+    ``dim_cap_frac`` (JAX's closed probe, kept as a knob, default None):
+    solve in the first d = min(r, max(1, int(S · frac))) dims only; the
+    other entries of q_emb are 0."""
+    r = item_embeds.shape[1]
+    d = r if dim_cap_frac is None else min(r, max(1, int(ids.shape[1] * dim_cap_frac)))
+    e_s = item_embeds[ids][:, :, :d]  # (q, S, d)
+    y = vals.float() - mean[ids]
+    with _true_f32():
+        gram = torch.bmm(e_s.transpose(1, 2), e_s)  # (q, d, d)
+        lam = lam_rel * (gram.diagonal(dim1=1, dim2=2).sum(-1) / d)
+        gram = gram + lam[:, None, None] * torch.eye(d, dtype=gram.dtype, device=gram.device)
+        rhs = torch.bmm(e_s.transpose(1, 2), y[..., None])  # (q, d, 1)
+        q_emb = torch.linalg.solve_ex(gram, rhs)[0][..., 0]
+    out = q_emb.new_zeros((ids.shape[0], r + 1))
+    out[:, :d] = q_emb
+    out[:, r] = 1.0
+    return out
+
+
+def axn_item_side(index: AxnIndex, n_pad: int) -> torch.Tensor:
+    """(n_pad, r+1) f32 contiguous ``[E, mean]``, rows past the index's
+    items zero: kernel B's items for an AXN pick."""
+    n, r = index.item_embeds.shape
+    items = index.item_embeds.new_zeros((n_pad, r + 1))
+    items[:n, :r] = index.item_embeds
+    items[:n, r] = index.mean
+    return items
+
+
+def axn_complete_batched(
+    item_embeds: torch.Tensor,  # (m, r)
+    mean: torch.Tensor,  # (m,)
+    ids: torch.Tensor,  # (q, S) per-query scored item ids
+    vals: torch.Tensor,  # (q, S)
+    lam_rel: float = 1e-2,
+    dim_cap_frac: Optional[float] = None,
+    cols: Optional[torch.Tensor] = None,  # (L,) complete only these columns
+) -> torch.Tensor:
+    """(q, m) AXN completion with per-query scored sets, or (q, L) at
+    ``cols``: ``q_emb Eᵀ + mean`` in true f32, the counterpart of JAX's
+    ``axn_complete_batched``. The engine forms it only where it needs every
+    column (a shortlist's pool)."""
+    w = axn_query_side(item_embeds, mean, ids, vals, lam_rel, dim_cap_frac)
+    items = torch.cat([item_embeds, mean[:, None]], dim=1)
+    items = items if cols is None else items[cols]
+    with _true_f32():
+        return w @ items.T
+
+
+class CurCompleter:
+    """CUR completion for the engine: kernel B's items are the train
+    matrix held transposed (n_pad, n_train), its queries each query's ridge
+    weights ``w`` (:func:`ridge_weights`)."""
+
+    def __init__(self, train_t: torch.Tensor, ridge_rel: float = 1e-6):
+        self.items, self.ridge_rel = train_t, ridge_rel
+
+    def queries(self, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        return ridge_weights(self.items, ids, vals, self.ridge_rel)
+
+
+class AxnCompleter:
+    """AXN completion for the engine: kernel B's items are ``[E, mean]``
+    (:func:`axn_item_side`), its queries ``[q_emb, 1]``
+    (:func:`axn_query_side`)."""
+
+    def __init__(self, index: AxnIndex, n_pad: int, lam_rel: float = 1e-2):
+        self.index, self.lam_rel = index, lam_rel
+        self.items = axn_item_side(index, n_pad)
+
+    def queries(self, ids: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+        return axn_query_side(self.index.item_embeds, self.index.mean, ids, vals, self.lam_rel)
+
+
 def _grow_rounds(
     score_fn: ScoreFn,
-    train_t: torch.Tensor,  # (n_pad, n_train) f32 contiguous
+    completer,  # CurCompleter | AxnCompleter: kernel B's (queries, items)
     ids: torch.Tensor,  # (q, width) int64 buffer; columns [0, filled) are scored
     vals: torch.Tensor,  # (q, width) f32 buffer
     filled: int,
     n_new_rounds: int,
     per: int,
     n_valid: int,
-    ridge_rel: float,
     shortlist: Optional[int] = None,
 ) -> int:
     """Extend each query's scored state, in place, by ``n_new_rounds``
@@ -136,19 +218,23 @@ def _grow_rounds(
     early-stop continuation (the state is the resume point).
 
     ``shortlist`` (L) bounds the per-round work at large corpora: the first
-    round here forms the full completion (a plain f32 matmul, as JAX forms
-    it outside any kernel), picks from it and freezes the batch's pool to
+    round here forms the full completion (a plain f32 matmul of the
+    completer's queries and items, as JAX forms it outside any kernel),
+    picks from it and freezes the batch's pool to
     the top-L columns of its max over queries, every scored id forced in
     (an id-unique pool: a per-query union could repeat a column); later
-    rounds run kernel B over the pool's train rows, gathered once, with
+    rounds run kernel B over the pool's item rows, gathered once, with
     the exclusions mapped to pool slots (-1 outside it). Callers keep L >=
     every scored id plus the remaining picks (the retriever clamps)."""
     use_shortlist = shortlist is not None and n_new_rounds >= 2 and shortlist < n_valid
     sl_ids = sl_items = loc = None
+    items = completer.items
     for _ in range(n_new_rounds):
         scored = ids[:, :filled]
+        w = completer.queries(scored, vals[:, :filled])
         if use_shortlist and sl_ids is None:
-            approx = ridge_complete(train_t, scored, vals[:, :filled], ridge_rel)  # (q, n_pad)
+            with _true_f32():
+                approx = w @ items.T  # (q, n_pad)
             approx[:, n_valid:] = -torch.inf
             approx.scatter_(1, scored, -torch.inf)
             _, nid = topk_stable(approx, per)
@@ -159,14 +245,12 @@ def _grow_rounds(
             # sorted descending, so every real column (all > -inf) precedes
             # the padded ones, and L < n_valid keeps the pool real
             sl_ids = topk_stable(pooled, shortlist)[1]
-            sl_items = train_t[sl_ids].contiguous()
-            loc = torch.full((train_t.shape[0],), -1, dtype=torch.long, device=ids.device)
+            sl_items = items[sl_ids].contiguous()
+            loc = torch.full((items.shape[0],), -1, dtype=torch.long, device=ids.device)
             loc[sl_ids] = torch.arange(shortlist, device=ids.device)
         elif sl_ids is None:
-            w = ridge_weights(train_t, scored, vals[:, :filled], ridge_rel)
-            nid = mips_topk_fused(w, train_t, per, n_valid, exclude=scored)[1]
+            nid = mips_topk_fused(w, items, per, n_valid, exclude=scored)[1]
         else:
-            w = ridge_weights(train_t, scored, vals[:, :filled], ridge_rel)
             local = mips_topk_fused(w, sl_items, per, shortlist, exclude=loc[scored])[1]
             nid = sl_ids[local]
         ids[:, filled:filled + per] = nid
@@ -198,14 +282,13 @@ def stable_topk_flag(
 
 def adaptive_rounds(
     score_fn: ScoreFn,
-    train_t: torch.Tensor,  # (n_pad, n_train) f32 contiguous
+    completer,  # CurCompleter (train matrix, ridge_rel) | AxnCompleter (item embeddings)
     anchors0: torch.Tensor,  # (first_round,) shared round-0 anchors
     q: int,
     total_budget: int,
     n_rounds: int,
     top_k: int,
     n_valid: int,
-    ridge_rel: float = 1e-6,
     with_state: bool = False,
     stability_overlap: float = 1.0,
     shortlist: Optional[int] = None,
@@ -217,12 +300,12 @@ def adaptive_rounds(
     is the top-k of the exact scores of everything scored."""
     total_budget = min(total_budget, n_valid)
     first, per, n_rounds = split_rounds(total_budget, n_rounds)
-    dev = train_t.device
+    dev = completer.items.device
     ids = torch.empty((q, total_budget), dtype=torch.long, device=dev)
     vals = torch.empty((q, total_budget), dtype=torch.float32, device=dev)
     ids[:, :first] = anchors0[:first].to(dev)[None, :]
     vals[:, :first] = score_fn(ids[:, :first])
-    _grow_rounds(score_fn, train_t, ids, vals, first, n_rounds - 1, per, n_valid, ridge_rel, shortlist)
+    _grow_rounds(score_fn, completer, ids, vals, first, n_rounds - 1, per, n_valid, shortlist)
     top_scores, top_ids = _topk_state(ids, vals, top_k)
     if not with_state:
         return top_scores, top_ids, ids
@@ -235,14 +318,13 @@ def adaptive_rounds(
 
 def adaptive_continue(
     score_fn: ScoreFn,
-    train_t: torch.Tensor,
+    completer,  # as adaptive_rounds'
     ids: torch.Tensor,  # (q, S) resume state from adaptive_rounds(with_state)
     vals: torch.Tensor,  # (q, S)
     extra_budget: int,
     extra_rounds: int,
     top_k: int,
     n_valid: int,
-    ridge_rel: float = 1e-6,
     stability_overlap: float = 1.0,
     shortlist: Optional[int] = None,
 ):
@@ -258,8 +340,8 @@ def adaptive_continue(
     ids_b = torch.empty((q, s + extra_budget), dtype=torch.long, device=ids.device)
     vals_b = torch.empty((q, s + extra_budget), dtype=torch.float32, device=ids.device)
     ids_b[:, :s], vals_b[:, :s] = ids, vals
-    filled = _grow_rounds(score_fn, train_t, ids_b, vals_b, s, 1, first, n_valid, ridge_rel)
-    _grow_rounds(score_fn, train_t, ids_b, vals_b, filled, extra_rounds - 1, per, n_valid, ridge_rel, shortlist)
+    filled = _grow_rounds(score_fn, completer, ids_b, vals_b, s, 1, first, n_valid)
+    _grow_rounds(score_fn, completer, ids_b, vals_b, filled, extra_rounds - 1, per, n_valid, shortlist)
     top_scores, top_ids = _topk_state(ids_b, vals_b, top_k)
     stable = stable_topk_flag(ids_b, vals_b, per, top_k, stability_overlap)
     return top_scores, top_ids, ids_b, vals_b, stable
@@ -281,6 +363,17 @@ def _oracle_inputs(full_scores, train_scores, device):
     return full, train_t
 
 
+def _oracle_completer(method, train_scores, train_t, ridge_rel, axn_rank, axn_lam_rel):
+    """The engine's completer for an oracle run: the CUR ridge over
+    ``train_t``, or AXN over a content-cached fit of rank ``axn_rank``
+    (default: full) of the train matrix."""
+    _check_method(method)
+    if method == "cur":
+        return CurCompleter(train_t, ridge_rel)
+    index = fit_item_embeddings_cached(train_scores, axn_rank or min(np.shape(train_scores)), device=train_t.device)
+    return AxnCompleter(index, train_t.shape[0], axn_lam_rel)
+
+
 def _anchors0(m: int, first: int, seed: int) -> torch.Tensor:
     rng = np.random.default_rng(seed)
     return torch.as_tensor(np.asarray(sorted(rng.choice(m, size=first, replace=False)), np.int64))
@@ -298,17 +391,21 @@ def adaptive_topk_oracle(
     method: str = "cur",
     shortlist: Optional[int] = None,
     device: DeviceLike = "cuda",
+    axn_rank: Optional[int] = None,
+    axn_lam_rel: float = 1e-2,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The engine against a precomputed score matrix (recall evaluation,
-    budget search): (top scores, top ids, scored ids) as numpy."""
-    _check_method(method)
+    budget search): (top scores, top ids, scored ids) as numpy.
+    ``method='axn'`` completes through rank-``axn_rank`` item embeddings
+    fitted from the train matrix (``core/axn.py``)."""
     full, train_t = _oracle_inputs(full_scores, train_scores, device)
+    completer = _oracle_completer(method, train_scores, train_t, ridge_rel, axn_rank, axn_lam_rel)
     q, m = full.shape
     budget = min(total_budget, m)
     first, _, _ = split_rounds(budget, n_rounds)
     s, i, scored = adaptive_rounds(
-        lambda ids: take_per_row(full, ids), train_t, _anchors0(m, first, seed), q, budget,
-        n_rounds, top_k, m, ridge_rel, shortlist=shortlist,
+        lambda ids: take_per_row(full, ids), completer, _anchors0(m, first, seed), q, budget,
+        n_rounds, top_k, m, shortlist=shortlist,
     )
     return s.cpu().numpy(), i.cpu().numpy(), scored.cpu().numpy()
 
@@ -327,6 +424,8 @@ def adaptive_topk_oracle_early_stop(
     method: str = "cur",
     stability_overlap: float = 1.0,
     device: DeviceLike = "cuda",
+    axn_rank: Optional[int] = None,
+    axn_lam_rel: float = 1e-2,
 ) -> dict:
     """Per-query early stopping: every query runs the base engine; those
     whose top-k set still changed in the last base round resume from their
@@ -334,16 +433,16 @@ def adaptive_topk_oracle_early_stop(
     Escalated rows are padded to a power-of-two bucket and the padded rows
     count: avg_budget = base + (padded/q) * extra. Returns {'top_ids',
     'top_scores', 'avg_budget', 'frac_escalated', 'stable_frac'}."""
-    _check_method(method)
     full, train_t = _oracle_inputs(full_scores, train_scores, device)
+    completer = _oracle_completer(method, train_scores, train_t, ridge_rel, axn_rank, axn_lam_rel)
     q, m = full.shape
     base_budget = min(base_budget, m)
     escalate_budget = min(escalate_budget, m)
     extra = max(0, escalate_budget - base_budget)
     first, _, _ = split_rounds(base_budget, base_rounds)
     s, i, ids, vals, stable = adaptive_rounds(
-        lambda x: take_per_row(full, x), train_t, _anchors0(m, first, seed), q, base_budget,
-        base_rounds, top_k, m, ridge_rel, with_state=True, stability_overlap=stability_overlap,
+        lambda x: take_per_row(full, x), completer, _anchors0(m, first, seed), q, base_budget,
+        base_rounds, top_k, m, with_state=True, stability_overlap=stability_overlap,
     )
     stable_h = stable.cpu().numpy()
     out_s, out_i = s.cpu().numpy(), i.cpu().numpy()
@@ -357,8 +456,7 @@ def adaptive_topk_oracle_early_stop(
         )
         sub = full[sel]
         s2, i2, _, _, _ = adaptive_continue(
-            lambda x: take_per_row(sub, x), train_t, ids[sel], vals[sel], extra, escalate_rounds,
-            top_k, m, ridge_rel,
+            lambda x: take_per_row(sub, x), completer, ids[sel], vals[sel], extra, escalate_rounds, top_k, m,
         )
         out_s[unstable] = s2.cpu().numpy()[: unstable.size]
         out_i[unstable] = i2.cpu().numpy()[: unstable.size]
@@ -389,12 +487,15 @@ def adaptive_recall_oracle_early_stop(
     method: str = "cur",
     stability_overlap: float = 1.0,
     device: DeviceLike = "cuda",
+    axn_rank: Optional[int] = None,
+    axn_lam_rel: float = 1e-2,
 ) -> Tuple[float, float, float]:
     """(recall@top_k, avg_budget, frac_escalated) of the early-stop engine."""
     full = np.asarray(full_scores, np.float32)
     r = adaptive_topk_oracle_early_stop(
         full, train_scores, base_budget, base_rounds, escalate_budget, escalate_rounds, top_k,
         seed, ridge_rel, method, stability_overlap=stability_overlap, device=device,
+        axn_rank=axn_rank, axn_lam_rel=axn_lam_rel,
     )
     return _recall(r["top_ids"], full, top_k), r["avg_budget"], r["frac_escalated"]
 
@@ -441,12 +542,14 @@ def adaptive_recall_oracle(
     method: str = "cur",
     shortlist: Optional[int] = None,
     device: DeviceLike = "cuda",
+    axn_rank: Optional[int] = None,
+    axn_lam_rel: float = 1e-2,
 ) -> float:
     """recall@top_k of the adaptive engine at the given budget."""
     full = np.asarray(full_scores, np.float32)
     _, ids, _ = adaptive_topk_oracle(
         full, train_scores, total_budget, n_rounds, top_k, seed, ridge_rel, method=method,
-        shortlist=shortlist, device=device,
+        shortlist=shortlist, device=device, axn_rank=axn_rank, axn_lam_rel=axn_lam_rel,
     )
     return _recall(ids, full, top_k)
 
@@ -463,6 +566,7 @@ def matched_recall_budget(
     ridge_rel: float = 1e-6,
     method: str = "cur",
     device: DeviceLike = "cuda",
+    axn_rank: Optional[int] = None,
 ) -> dict:
     """The smallest adaptive budget whose mean recall@top_k matches (>=)
     the fixed-anchor path at cost fixed_n_anchors + fixed_top_k_retvr,
@@ -475,7 +579,7 @@ def matched_recall_budget(
     for b in sorted(budgets):
         r = float(np.mean([
             adaptive_recall_oracle(full_scores, train_scores, b, n_rounds, top_k, s, ridge_rel,
-                                   method=method, device=device)
+                                   method=method, device=device, axn_rank=axn_rank)
             for s in seeds
         ]))
         sweep[b] = r
@@ -490,4 +594,5 @@ def matched_recall_budget(
         "n_rounds": n_rounds,
         "seeds": list(seeds),
         "method": method,
+        "axn_rank": axn_rank,
     }

@@ -13,8 +13,12 @@ fixed-anchor (``query_tokens_batch``): query tokens -> CE-score against
           480-481).
 adaptive (``query_tokens_adaptive_fused``): the budget is spent in rounds
           that pick each query's own candidates (``core/adaptive_fused.py``,
-          kernel B with the scored ids excluded), optionally with per-query
-          early stopping. Cost per query = the budget.
+          kernel B with the scored ids excluded), completing through the
+          train matrix (CUR) or factorized item embeddings (AXN,
+          ``core/axn.py``), optionally with per-query early stopping. Cost
+          per query = the budget.
+host adaptive (``query_tokens_adaptive``): the same method with the round
+          loop, f64 pinv and picks on the host (``core/adaptive.py``).
 
 Multi-device serving (the JAX package's mesh and shard_map) is not ported.
 """
@@ -29,9 +33,11 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.nn import functional as F
 
+from anncur_tpu_torch.core.adaptive import adaptive_cur_query, cur_complete_fn
 from anncur_tpu_torch.core.adaptive_fused import (
+    AxnCompleter,
+    CurCompleter,
     _bucket_size,
     _check_method,
     _true_f32,
@@ -39,9 +45,10 @@ from anncur_tpu_torch.core.adaptive_fused import (
     adaptive_rounds,
     split_rounds,
 )
+from anncur_tpu_torch.core.axn import AxnIndex, fit_item_embeddings, fit_item_embeddings_cached
 from anncur_tpu_torch.core.cur import CurIndex, build_cur
 from anncur_tpu_torch.data.tokenization import get_context_representation_ids
-from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, padded_pair_len
+from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, crossenc_rerank_scores, make_pair_scorer
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
 from anncur_tpu_torch.ops.mips import topk_stable
@@ -57,25 +64,6 @@ def _largest_divisor_leq(n: int, target: int) -> int:
         if n % d == 0:
             return d
     return 1
-
-
-def _make_pair_scorer(ce: CrossEncoder, lm: int, le: int, pair_pad_multiple: int):
-    """(c, Lm) query block + (c, width, Le) candidate tokens -> (c, width)
-    CE scores. The pair layout (mention ⧺ candidate[1:], padded to the
-    builder's pair length) stays in lockstep with
-    ``indexer/score_matrix.py::build_pairs``: the train matrix and the
-    online scores must come from one pair shape."""
-    raw_len = lm + le - 1
-    pair_len = padded_pair_len(lm, le, pair_pad_multiple, ce.spec.max_position_embeddings)
-
-    def score_pairs(m_blk: torch.Tensor, cand_toks: torch.Tensor) -> torch.Tensor:
-        c, width, _ = cand_toks.shape
-        left = m_blk[:, None, :].expand(c, width, lm)
-        pairs = torch.cat([left, cand_toks[:, :, 1:]], dim=-1).reshape(c * width, raw_len)
-        pairs = F.pad(pairs, (0, pair_len - raw_len))
-        return ce.score(pairs, first_segment_end=lm).reshape(c, width)
-
-    return score_pairs
 
 
 @dataclasses.dataclass
@@ -118,6 +106,8 @@ class CurRetriever:
             )
         self._dev_consts = None
         self._train_t = None
+        self._host_complete = None  # host ADACUR's completion over the index's own train matrix
+        self._axn_cache = {}  # (rank, train shape) -> AxnIndex of the index's own train matrix
         if self.item_ids is None:
             self.item_ids = np.arange(self.item_tokens.shape[0], dtype=np.int64)
         if self.next_item_id is None:
@@ -231,7 +221,8 @@ class CurRetriever:
         new_ids = np.arange(self.next_item_id, self.next_item_id + new_item_tokens.shape[0], dtype=np.int64)
         self.next_item_id += new_item_tokens.shape[0]
         self.item_ids = np.concatenate([self.item_ids, new_ids])
-        self._dev_consts = self._train_t = None
+        self._dev_consts = self._train_t = self._host_complete = None
+        self._axn_cache = {}
         return new_ids
 
     def remove_items(self, ids: np.ndarray) -> int:
@@ -265,7 +256,8 @@ class CurRetriever:
             latent_cols=self.index.latent_cols[:, torch.as_tensor(keep, device=dev)],
             col_idxs=torch.as_tensor(self.anchor_item_ids, dtype=torch.long, device=dev),
         )
-        self._dev_consts = self._train_t = None
+        self._dev_consts = self._train_t = self._host_complete = None
+        self._axn_cache = {}
         return int(positions.size)
 
     # ---------------- persistence -------------------------------------- #
@@ -339,7 +331,7 @@ class CurRetriever:
         """(q, k_i) f32 exact CE scores of query tokens against the
         anchor items, ``chunk`` queries per CE forward."""
         items, anchor_ids, _ = self._device_consts()
-        score_pairs = _make_pair_scorer(self.encoder, qtoks.shape[1], items.shape[1], self.pair_pad_multiple)
+        score_pairs = make_pair_scorer(self.encoder, qtoks.shape[1], items.shape[1], self.pair_pad_multiple)
         anchor_toks = items[anchor_ids][None]  # (1, k_i, Le)
         return torch.cat(
             [score_pairs(blk, anchor_toks.expand(blk.shape[0], -1, -1)) for blk in qtoks.split(chunk)]
@@ -376,7 +368,7 @@ class CurRetriever:
         _, cand = mips_topk_fused(anchor_scores, latent_items, top_k_retvr, n_items)
 
         # rerank stage: bigger query chunks (only top_k_retvr candidates each)
-        score_pairs = _make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
+        score_pairs = make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
         r_chunk = _largest_divisor_leq(q_pad, self._stage_batch(top_k_retvr))
         exact = torch.cat(
             [score_pairs(blk, items[c]) for blk, c in zip(qtoks.split(r_chunk), cand.split(r_chunk))]
@@ -415,6 +407,42 @@ class CurRetriever:
 
     # ------------- adaptive query (multi-round, per-query candidates) ---- #
 
+    @torch.no_grad()
+    def query_tokens_adaptive(
+        self,
+        query_tokens: np.ndarray,  # (q, Lm)
+        total_budget: int = 200,
+        n_rounds: int = 3,
+        top_k: int = 10,
+        train_scores: Optional[np.ndarray] = None,
+        seed: int = 0,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """Host ADACUR (``core/adaptive.py``): (scores (q, top_k), stable item
+        ids (q, top_k)). Each round's picks are scored as one union batch
+        through the retriever's pair scorer (``crossenc_rerank_scores``);
+        slots left unfilled (budget < top_k) are id -1, score -inf.
+        ``train_scores``: the (n_train, n_items) matrix the index was built
+        from; default its exact reconstruction, copied to the host once per
+        cache fill."""
+        n_items = self.item_tokens.shape[0]
+        complete_fn = self._host_completion() if train_scores is None else cur_complete_fn(train_scores)
+        query_tokens = np.asarray(query_tokens, np.int32)
+        items = self._device_consts()[0]
+
+        def score_items_fn(item_ids):
+            cand = np.broadcast_to(np.asarray(item_ids)[None, :], (query_tokens.shape[0], len(item_ids)))
+            return crossenc_rerank_scores(
+                self.encoder, query_tokens, items, cand,
+                batch_ments=self._stage_batch(len(item_ids)), pair_pad_multiple=self.pair_pad_multiple,
+            )
+
+        scores, ids, _ = adaptive_cur_query(
+            None, score_items_fn, n_items=n_items, total_budget=total_budget,
+            n_rounds=n_rounds, top_k=top_k, seed=seed, complete_fn=complete_fn,
+        )
+        # -1 stays -1 in external-id space (not item_ids[-1])
+        return scores, np.where(ids >= 0, self.item_ids[np.clip(ids, 0, None)], -1)
+
     def _train_matrix(self) -> torch.Tensor:
         """(n_pad, n_train) f32 contiguous on the device: the train matrix
         the index was built from (latent_rows @ latent_cols restores the
@@ -429,12 +457,32 @@ class CurRetriever:
             self._train_t = train_t
         return self._train_t
 
+    def _axn_index(self, rank: Optional[int]) -> AxnIndex:
+        """The AXN item embeddings of the index's own train matrix, fitted
+        once per (rank, shape) and dropped by add_items and remove_items;
+        the one copy of the matrix to the host happens at the fit."""
+        n_items = self.item_tokens.shape[0]
+        shape = (self.index.latent_rows.shape[0], n_items)
+        rank = rank or min(shape)
+        if (rank, shape) not in self._axn_cache:
+            train = self._train_matrix()[:n_items].T
+            self._axn_cache[(rank, shape)] = fit_item_embeddings(train, rank, device=self.device)
+        return self._axn_cache[(rank, shape)]
+
+    def _host_completion(self):
+        """Host ADACUR's CUR completion over the index's own train matrix
+        (``core/adaptive.py::cur_complete_fn``), its host copies made once
+        and dropped with the train matrix by add_items and remove_items."""
+        if self._host_complete is None:
+            self._host_complete = cur_complete_fn(self._train_matrix()[: self.item_tokens.shape[0]].T.cpu().numpy())
+        return self._host_complete
+
     def _adaptive_scorer(self, qtoks: torch.Tensor, items: torch.Tensor):
         """ids (q, width) -> (q, width) exact CE scores of each query row of
         ``qtoks`` against its own candidates' tokens ``items[ids]``, in
         query chunks of about target_pairs_per_step pairs."""
         q_pad, lm = qtoks.shape
-        score_pairs = _make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
+        score_pairs = make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
 
         def score_fn(ids: torch.Tensor) -> torch.Tensor:
             chunk = _largest_divisor_leq(q_pad, self._stage_batch(ids.shape[1]))
@@ -453,6 +501,8 @@ class CurRetriever:
         seed: int = 0,
         ridge_rel: float = 1e-6,
         method: str = "cur",
+        axn_rank: Optional[int] = None,
+        axn_lam_rel: float = 1e-2,
         escalate_budget: Optional[int] = None,
         escalate_rounds: int = 3,
         stability_overlap: float = 1.0,
@@ -473,9 +523,11 @@ class CurRetriever:
         are compacted and padded to a power-of-two bucket, and the padded
         rows count in avg_budget. ``shortlist`` (L) restricts rounds 2+ to
         a batch-shared pool of L items, and is dropped where L cannot hold
-        every scored id plus the remaining picks. ``method='axn'`` is not
-        ported yet (ROADMAP.md Queue 1 item 3). Per batch the host reads
-        the device once, for the early-stop flags."""
+        every scored id plus the remaining picks. ``method='axn'`` completes
+        through rank-``axn_rank`` item embeddings of the train matrix
+        (default: full rank; ``core/axn.py``), fitted once and cached, with
+        ridge ``axn_lam_rel``. Per batch the host reads the device once,
+        for the early-stop flags."""
         _check_method(method)
         query_tokens = np.asarray(query_tokens, np.int32)
         q, lm = query_tokens.shape
@@ -496,12 +548,20 @@ class CurRetriever:
                 f"train_scores has {train_scores.shape[1]} item columns but the corpus has "
                 f"{n_items} items; pass a train matrix over the same item set"
             )
-        if train_scores is not None:
-            train = torch.as_tensor(train_scores, dtype=torch.float32, device=self.device)
-            train_t = torch.zeros((self._padded_n_items(), train.shape[0]), dtype=torch.float32, device=self.device)
-            train_t[:n_items] = train.T
+        if method == "axn":
+            if train_scores is None:
+                index = self._axn_index(axn_rank)
+            else:  # a caller's matrix: fitted once while unchanged (core/axn.py)
+                index = fit_item_embeddings_cached(train_scores, axn_rank or min(train_scores.shape), device=self.device)
+            completer = AxnCompleter(index, self._padded_n_items(), axn_lam_rel)
         else:
-            train_t = self._train_matrix()
+            if train_scores is not None:
+                train = torch.as_tensor(train_scores, dtype=torch.float32, device=self.device)
+                train_t = torch.zeros((self._padded_n_items(), train.shape[0]), dtype=torch.float32, device=self.device)
+                train_t[:n_items] = train.T
+            else:
+                train_t = self._train_matrix()
+            completer = CurCompleter(train_t, ridge_rel)
         rng = np.random.default_rng(seed)
         anchors0 = torch.as_tensor(np.asarray(sorted(rng.choice(n_items, size=first, replace=False)), np.int64))
         items = self._device_consts()[0]
@@ -511,8 +571,8 @@ class CurRetriever:
             # picks and room for the remaining rounds
             shortlist = None
         out = adaptive_rounds(
-            self._adaptive_scorer(qtoks, items), train_t, anchors0, q_pad, total_budget, n_rounds, top_k,
-            n_items, ridge_rel, with_state=extra > 0, stability_overlap=stability_overlap, shortlist=shortlist,
+            self._adaptive_scorer(qtoks, items), completer, anchors0, q_pad, total_budget, n_rounds, top_k,
+            n_items, with_state=extra > 0, stability_overlap=stability_overlap, shortlist=shortlist,
         )
         s, i = out[0][:q], out[1][:q]
         stats = {"avg_budget": float(total_budget), "frac_escalated": 0.0, "stable_frac": 1.0}
@@ -528,8 +588,8 @@ class CurRetriever:
                     np.concatenate([unstable, np.full(b_pad - unstable.size, unstable[0])]), device=self.device
                 )
                 s2, i2, _, _, _ = adaptive_continue(
-                    self._adaptive_scorer(qtoks[sel], items), train_t, st_ids[sel], st_vals[sel], extra,
-                    escalate_rounds, top_k, n_items, ridge_rel,
+                    self._adaptive_scorer(qtoks[sel], items), completer, st_ids[sel], st_vals[sel], extra,
+                    escalate_rounds, top_k, n_items,
                 )
                 rows = sel[: unstable.size]
                 s, i = s.clone(), i.clone()

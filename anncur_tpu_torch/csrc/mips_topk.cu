@@ -12,10 +12,17 @@
 //     smallest item id, +0.0 above -0.0 (lax.top_k's order); any
 //     1 <= k <= n_valid - S for a list of S ids per row.
 //
+// Int8 items (mips_topk_int8_fused; anncur_tpu/ops/quantized.py::
+// mips_topk_int8, an XLA scan there): item rows of int8 values with one f32
+// scale each; score = (the same in-order fmaf chain over float(value)) *
+// scale, the scale applied once to the finished sum, as JAX applies it.
+//
 // Bound on the H100: the f32 FMA work, 2*q*n*d operations at 67 TFLOP/s,
 // against the bytes of the queries and items read once. At q=32, d=500,
 // n=10,000 the items' 20 MB (6 us) bound it; from q ~ 40 on the operations
-// do (q=256, n=104,520: 0.40 ms of FFMA against 0.06 ms of bytes).
+// do (q=256, n=104,520: 0.40 ms of FFMA against 0.06 ms of bytes). Int8
+// items cut the item bytes 4x, which moves the bound only where bytes set
+// it: one text (q=1) over a large corpus.
 //
 // Design. The TPU kernels carry a running top-k from one sequential grid step
 // to the next; Hopper runs blocks in parallel and in no order. So two stages,
@@ -26,7 +33,13 @@
 //     depth is staged through shared memory in a 2-4 deep cp.async ring:
 //     16-byte copies into row-major tiles read as float4 along the depth
 //     when d % 4 == 0, else 4-byte copies into transposed tiles. Each score
-//     is one in-order fmaf chain over d from +0.0f (so never -0.0). Query
+//     is one in-order fmaf chain over d from +0.0f (so never -0.0). Int8
+//     items, when d % 16 == 0: 16-byte cp.async of the int8 tile (a quarter
+//     of the f32 tile's bytes), converted exactly to f32 into one shared
+//     f32 tile per step (one more barrier), which the f32 loop then reads
+//     unchanged; otherwise plain int8 loads converted as they are stored
+//     into the transposed f32 tile. The f32 item tile in shared memory is
+//     kept so the inner loop, and its register tiling, is the f32 one. Query
 //     tiles are the fastest grid axis, so the blocks that share an item tile
 //     run together and the items come from HBM about once per chunk. Scores
 //     go to an f32 scratch (chunk, ld).
@@ -105,16 +118,23 @@ constexpr uint32_t kExcludedBits = 0xFFFFFFFFu;
 // tiles [row][BK + 4], read as float4 along the depth. Else 4-byte cp.async
 // into transposed tiles [BK][rows + 4], read as float4 along the rows.
 // Either padding keeps the stores and reads free of bank conflicts.
-template <bool VEC_, int BM_, int BN_, int TM_, int TN_, int BK_, int STAGES_>
+// I8 (int8 items): VEC (d % 16 == 0) stages the items as int8 [BN][BK] and
+// converts each step's tile into one f32 [BN][BK + 4] tile after the ring;
+// not VEC, they are converted as they load into the transposed f32 tile.
+template <bool VEC_, bool I8_, int BM_, int BN_, int TM_, int TN_, int BK_, int STAGES_>
 struct ScoreTile {
-  static constexpr bool VEC = VEC_;
+  static constexpr bool VEC = VEC_, I8 = I8_;
   static constexpr int BM = BM_, BN = BN_, TM = TM_, TN = TN_, BK = BK_, STAGES = STAGES_;
   static constexpr int kRows = BM / TM, kCols = BN / TN;  // threads along queries, items
   static_assert(kRows * kCols == kScoreThreads, "one thread per TM x TN outputs");
   static_assert(TN % 4 == 0 && BK % 8 == 0 && BM % 4 == 0 && BN % 4 == 0, "tile shape");
+  static_assert(!(VEC && I8) || BK % 16 == 0, "int8 rows move in 16-byte copies");
   static constexpr int kQFloats = VEC ? BM * (BK + 4) : BK * (BM + 4);
-  static constexpr int kStageFloats = VEC ? (BM + BN) * (BK + 4) : BK * (BM + BN + 8);
-  static constexpr size_t kSmemBytes = sizeof(float) * kStageFloats * STAGES;
+  static constexpr int kStageFloats = !VEC ? BK * (BM + BN + 8)
+                                      : I8 ? BM * (BK + 4) + BN * BK / 4
+                                           : (BM + BN) * (BK + 4);
+  static constexpr int kConvFloats = VEC && I8 ? BN * (BK + 4) : 0;  // the converted item tile
+  static constexpr size_t kSmemBytes = sizeof(float) * (kStageFloats * STAGES + kConvFloats);
 };
 
 // ROWS x BK floats of a row-major (n_rows, d) matrix from row r0, column k0,
@@ -149,12 +169,43 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* __restrict__
   }
 }
 
+// ROWS x BK of a row-major (n_rows, d) int8 matrix from row r0, column k0,
+// out-of-range entries zero: VEC, 16-byte cp.async into int8 [ROWS][BK] at
+// dst (d % 16 == 0, so a copy never straddles the row's end); else plain
+// loads converted to f32 into the transposed tile [BK][ROWS + 4].
+template <class T, int ROWS>
+__device__ __forceinline__ void stage_tile_i8(float* dst, const int8_t* __restrict__ src, int r0,
+                                              int n_rows, int k0, int d) {
+  constexpr int BK = T::BK;
+  if constexpr (T::VEC) {
+    int8_t* dst8 = reinterpret_cast<int8_t*>(dst);
+    for (int e = threadIdx.x; e < ROWS * (BK / 16); e += kScoreThreads) {
+      const int r = e / (BK / 16), c = (e % (BK / 16)) * 16;
+      const int gr = r0 + r, gk = k0 + c;
+      const bool ok = gr < n_rows && gk < d;
+      mma_sm90::cp_async_16(mma_sm90::smem_addr(dst8 + r * BK + c),
+                            ok ? src + static_cast<size_t>(gr) * d + gk : src, ok ? 16 : 0);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * BK; e += kScoreThreads) {
+      const int grp = e >> 5, sub = e & 31;
+      const int c = (grp % (BK / 8)) * 8 + (sub & 7);
+      const int r = (grp / (BK / 8)) * 4 + (sub >> 3);
+      const int gr = r0 + r, gk = k0 + c;
+      dst[c * (ROWS + 4) + r] =
+          gr < n_rows && gk < d ? static_cast<float>(src[static_cast<size_t>(gr) * d + gk]) : 0.0f;
+    }
+  }
+}
+
 // grid: 1-D, query tiles fastest. Thread (ty, tx) owns queries ty + kRows*i
 // and, VEC, items tx + kCols*j; else items in float4 groups g*BN/(TN/4) + 4*tx.
+// items: f32, or int8 with one f32 scale per row (T::I8).
 template <class T>
 __global__ void __launch_bounds__(kScoreThreads)
-mips_score_kernel(const float* __restrict__ qry, const float* __restrict__ items, int q,
-                  int n_valid, int d, int ld, float* __restrict__ scores) {
+mips_score_kernel(const float* __restrict__ qry, const void* __restrict__ items,
+                  const float* __restrict__ scales, int q, int n_valid, int d, int ld,
+                  float* __restrict__ scores) {
   constexpr int BM = T::BM, BN = T::BN, TM = T::TM, TN = T::TN, BK = T::BK, STAGES = T::STAGES;
   constexpr int kGroupStride = BN / (TN / 4);
   extern __shared__ __align__(16) float smem_f[];
@@ -166,7 +217,10 @@ mips_score_kernel(const float* __restrict__ qry, const float* __restrict__ items
   auto load = [&](int tile) {
     float* st = smem_f + (tile % STAGES) * T::kStageFloats;
     stage_tile<T, BM>(st, qry, q0, q, tile * BK, d);
-    stage_tile<T, BN>(st + T::kQFloats, items, i0, n_valid, tile * BK, d);
+    if constexpr (T::I8)
+      stage_tile_i8<T, BN>(st + T::kQFloats, static_cast<const int8_t*>(items), i0, n_valid, tile * BK, d);
+    else
+      stage_tile<T, BN>(st + T::kQFloats, static_cast<const float*>(items), i0, n_valid, tile * BK, d);
   };
 
   float acc[TM][TN];
@@ -187,6 +241,21 @@ mips_score_kernel(const float* __restrict__ qry, const float* __restrict__ items
     mma_sm90::cp_async_commit();
     const float* qs = smem_f + (t % STAGES) * T::kStageFloats;
     const float* is = qs + T::kQFloats;
+    if constexpr (T::VEC && T::I8) {
+      // tile t's int8 items -> the f32 tile (exact); the barrier at the top of
+      // the next step keeps it until every thread has read it
+      float* conv = smem_f + STAGES * T::kStageFloats;
+      const int8_t* i8 = reinterpret_cast<const int8_t*>(is);
+      for (int e = tid; e < BN * (BK / 4); e += kScoreThreads) {
+        const int r = e / (BK / 4), c = (e % (BK / 4)) * 4;
+        const char4 v = *reinterpret_cast<const char4*>(i8 + r * BK + c);
+        *reinterpret_cast<float4*>(conv + r * (BK + 4) + c) =
+            make_float4(static_cast<float>(v.x), static_cast<float>(v.y), static_cast<float>(v.z),
+                        static_cast<float>(v.w));
+      }
+      __syncthreads();
+      is = conv;
+    }
     if constexpr (T::VEC) {
 #pragma unroll
       for (int k4 = 0; k4 < BK; k4 += 4) {
@@ -228,6 +297,16 @@ mips_score_kernel(const float* __restrict__ qry, const float* __restrict__ items
 
   // the select may launch now; it waits for this grid's stores
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if constexpr (T::I8) {
+    // each item's scale, once, on the finished sum (columns past n_valid: 0)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = i0 + (T::VEC ? tx + T::kCols * j : (j / 4) * kGroupStride + tx * 4 + j % 4);
+      const float sc = col < n_valid ? scales[col] : 0.0f;
+#pragma unroll
+      for (int i = 0; i < TM; ++i) acc[i][j] *= sc;
+    }
+  }
   // the exclusion mark's bits are never a score
 #pragma unroll
   for (int i = 0; i < TM; ++i)
@@ -254,14 +333,14 @@ mips_score_kernel(const float* __restrict__ qry, const float* __restrict__ items
   }
 }
 
-// the tilings, by queries per chunk (L: > 32, M: 9-32, S: <= 8) and by
-// whether rows take 16-byte copies (V) or not (W)
-using ScoreLV = ScoreTile<true, 64, 128, 8, 8, 32, 2>;
-using ScoreMV = ScoreTile<true, 32, 64, 4, 4, 32, 4>;
-using ScoreSV = ScoreTile<true, 8, 64, 1, 4, 32, 4>;
-using ScoreLW = ScoreTile<false, 64, 128, 8, 8, 16, 3>;
-using ScoreMW = ScoreTile<false, 32, 64, 4, 4, 32, 4>;
-using ScoreSW = ScoreTile<false, 8, 64, 1, 4, 32, 4>;
+// the tilings, by queries per chunk (L: > 32, M: 9-32, S: <= 8), by whether
+// rows take 16-byte copies (V) or not (W), and by the item type
+template <bool I8> using ScoreLV = ScoreTile<true, I8, 64, 128, 8, 8, 32, 2>;
+template <bool I8> using ScoreMV = ScoreTile<true, I8, 32, 64, 4, 4, 32, 4>;
+template <bool I8> using ScoreSV = ScoreTile<true, I8, 8, 64, 1, 4, 32, 4>;
+template <bool I8> using ScoreLW = ScoreTile<false, I8, 64, 128, 8, 8, 16, 3>;
+template <bool I8> using ScoreMW = ScoreTile<false, I8, 32, 64, 4, 4, 32, 4>;
+template <bool I8> using ScoreSW = ScoreTile<false, I8, 8, 64, 1, 4, 32, 4>;
 
 // -------------------------------------------------------------------------
 // stage 2: select
@@ -581,11 +660,25 @@ Plan make_plan(int q, int n_valid, int k) {
 }
 
 template <class T>
-cudaError_t launch_score(const float* qry, const float* items, int rows, int n_valid, int d, int ld,
-                         float* scores, cudaStream_t cs) {
+cudaError_t launch_score(const float* qry, const void* items, const float* scales, int rows, int n_valid,
+                         int d, int ld, float* scores, cudaStream_t cs) {
   const int blocks = ((rows + T::BM - 1) / T::BM) * ((n_valid + T::BN - 1) / T::BN);
-  mips_score_kernel<T><<<blocks, kScoreThreads, T::kSmemBytes, cs>>>(qry, items, rows, n_valid, d, ld, scores);
+  mips_score_kernel<T><<<blocks, kScoreThreads, T::kSmemBytes, cs>>>(qry, items, scales, rows, n_valid, d,
+                                                                      ld, scores);
   return cudaGetLastError();
+}
+
+// the score stage of one chunk of rows, by tiling
+template <bool I8>
+cudaError_t launch_score_chunk(bool vec, const float* qry, const void* items, const float* scales, int rows,
+                               int n_valid, int d, int ld, float* scores, cudaStream_t cs) {
+  if (vec)
+    return rows > 32 ? launch_score<ScoreLV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
+           : rows > 8 ? launch_score<ScoreMV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
+                      : launch_score<ScoreSV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs);
+  return rows > 32 ? launch_score<ScoreLW<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
+         : rows > 8 ? launch_score<ScoreMW<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
+                    : launch_score<ScoreSW<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs);
 }
 
 template <class T>
@@ -600,8 +693,12 @@ cudaError_t allow_score_smem() {
 // with that device current. Returns the first CUDA error.
 extern "C" int mips_topk_init() {
   cudaError_t err = cudaSuccess;
-  for (cudaError_t e : {allow_score_smem<ScoreLV>(), allow_score_smem<ScoreMV>(), allow_score_smem<ScoreSV>(),
-                        allow_score_smem<ScoreLW>(), allow_score_smem<ScoreMW>(), allow_score_smem<ScoreSW>()})
+  for (cudaError_t e : {allow_score_smem<ScoreLV<false>>(), allow_score_smem<ScoreMV<false>>(),
+                        allow_score_smem<ScoreSV<false>>(), allow_score_smem<ScoreLW<false>>(),
+                        allow_score_smem<ScoreMW<false>>(), allow_score_smem<ScoreSW<false>>(),
+                        allow_score_smem<ScoreLV<true>>(), allow_score_smem<ScoreMV<true>>(),
+                        allow_score_smem<ScoreSV<true>>(), allow_score_smem<ScoreLW<true>>(),
+                        allow_score_smem<ScoreMW<true>>(), allow_score_smem<ScoreSW<true>>()})
     if (err == cudaSuccess) err = e;
   const int sel_max = static_cast<int>(sizeof(uint32_t) * (2 * kBins + kMaxSmemKeys) +
                                        sizeof(u64) * kClusterSortMax);
@@ -619,18 +716,16 @@ extern "C" long long mips_topk_scratch_bytes(int q, int n_valid, int k) {
   return static_cast<long long>(p.score_bytes + p.surv_bytes);
 }
 
-// queries (q, d) f32, items (n, d) f32, both row-major; out_s (q, k) f32,
-// out_i (q, k) int64; scratch of mips_topk_scratch_bytes(q, n_valid, k)
-// bytes, 256-byte aligned; exclude: null (n_ex = 0) or n_ex int64 ids per
-// query at a row stride of ex_ld elements. Needs 1 <= k <= n_valid - n_ex
-// and n_valid <= n. Launches on `stream` of the current device. Returns the
-// first CUDA error.
-extern "C" int mips_topk_fused(const void* queries, const void* items, void* out_s, void* out_i,
-                               const void* exclude, int n_ex, long long ex_ld, void* scratch,
-                               long long scratch_bytes, int q, int n, int d, int k, int n_valid,
-                               void* stream) {
+namespace {
+
+// Both entries: the score stage of each chunk of queries (f32 or int8
+// items), then the select and, for k > kClusterSortMax, the global sort.
+template <bool I8>
+int run_mips_topk(const void* queries, const void* items, const float* scales, void* out_s, void* out_i,
+                  const void* exclude, int n_ex, long long ex_ld, void* scratch, long long scratch_bytes,
+                  int q, int n, int d, int k, int n_valid, void* stream) {
   if (q < 1 || d < 1 || k < 1 || n_valid > n || n_ex < 0 || k > n_valid - n_ex ||
-      (n_ex > 0 && exclude == nullptr))
+      (n_ex > 0 && exclude == nullptr) || (I8 && scales == nullptr))
     return cudaErrorInvalidValue;
   const Plan p = make_plan(q, n_valid, k);
   if (scratch_bytes < static_cast<long long>(p.score_bytes + p.surv_bytes)) return cudaErrorInvalidValue;
@@ -638,26 +733,19 @@ extern "C" int mips_topk_fused(const void* queries, const void* items, void* out
   float* scores = static_cast<float*>(scratch);
   u64* surv = p.large ? reinterpret_cast<u64*>(static_cast<unsigned char*>(scratch) + p.score_bytes) : nullptr;
   const int chunk = p.kp < kSortChunk ? p.kp : kSortChunk;
-  const bool vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0 &&
+  // 16-byte rows: every f32 row starts 16-byte aligned when d % 4 == 0, an
+  // int8 row when d % 16 == 0
+  const bool vec = d % (I8 ? 16 : 4) == 0 && reinterpret_cast<uintptr_t>(queries) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(items) % 16 == 0;
 
   for (int q0 = 0; q0 < q; q0 += p.qc) {
     const int rows = q - q0 < p.qc ? q - q0 : p.qc;
     const float* qry = static_cast<const float*>(queries) + static_cast<size_t>(q0) * d;
-    const float* itm = static_cast<const float*>(items);
     float* os = static_cast<float*>(out_s) + static_cast<size_t>(q0) * k;
     long long* oi = static_cast<long long*>(out_i) + static_cast<size_t>(q0) * k;
     const long long* ex = n_ex > 0 ? static_cast<const long long*>(exclude) + q0 * ex_ld : nullptr;
 
-    cudaError_t err;
-    if (vec)
-      err = rows > 32 ? launch_score<ScoreLV>(qry, itm, rows, n_valid, d, p.ld, scores, cs)
-            : rows > 8 ? launch_score<ScoreMV>(qry, itm, rows, n_valid, d, p.ld, scores, cs)
-                       : launch_score<ScoreSV>(qry, itm, rows, n_valid, d, p.ld, scores, cs);
-    else
-      err = rows > 32 ? launch_score<ScoreLW>(qry, itm, rows, n_valid, d, p.ld, scores, cs)
-            : rows > 8 ? launch_score<ScoreMW>(qry, itm, rows, n_valid, d, p.ld, scores, cs)
-                       : launch_score<ScoreSW>(qry, itm, rows, n_valid, d, p.ld, scores, cs);
+    cudaError_t err = launch_score_chunk<I8>(vec, qry, items, scales, rows, n_valid, d, p.ld, scores, cs);
     if (err != cudaSuccess) return err;
 
     cudaLaunchConfig_t cfg = {};
@@ -696,6 +784,32 @@ extern "C" int mips_topk_fused(const void* queries, const void* items, void* out
     }
   }
   return cudaSuccess;
+}
+
+}  // namespace
+
+// queries (q, d) f32, items (n, d) f32, both row-major; out_s (q, k) f32,
+// out_i (q, k) int64; scratch of mips_topk_scratch_bytes(q, n_valid, k)
+// bytes, 256-byte aligned; exclude: null (n_ex = 0) or n_ex int64 ids per
+// query at a row stride of ex_ld elements. Needs 1 <= k <= n_valid - n_ex
+// and n_valid <= n. Launches on `stream` of the current device. Returns the
+// first CUDA error.
+extern "C" int mips_topk_fused(const void* queries, const void* items, void* out_s, void* out_i,
+                               const void* exclude, int n_ex, long long ex_ld, void* scratch,
+                               long long scratch_bytes, int q, int n, int d, int k, int n_valid,
+                               void* stream) {
+  return run_mips_topk<false>(queries, items, nullptr, out_s, out_i, exclude, n_ex, ex_ld, scratch,
+                              scratch_bytes, q, n, d, k, n_valid, stream);
+}
+
+// The same over int8 items (n, d) row-major with f32 scales (n,): score =
+// the f32 dot of the query and the int8 row, times the row's scale.
+extern "C" int mips_topk_int8_fused(const void* queries, const void* items, const void* scales,
+                                    void* out_s, void* out_i, const void* exclude, int n_ex,
+                                    long long ex_ld, void* scratch, long long scratch_bytes, int q, int n,
+                                    int d, int k, int n_valid, void* stream) {
+  return run_mips_topk<true>(queries, items, static_cast<const float*>(scales), out_s, out_i, exclude, n_ex,
+                             ex_ld, scratch, scratch_bytes, q, n, d, k, n_valid, stream);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -158,6 +158,60 @@ def padded_pair_len(lm: int, le: int, pair_pad_multiple: int, max_positions: int
     return pair_len + (-pair_len) % min(pair_pad_multiple, max_positions)
 
 
+def make_pair_scorer(ce: CrossEncoder, lm: int, le: int, pair_pad_multiple: int):
+    """(c, Lm) query block + (c, width, Le) candidate tokens -> (c, width)
+    CE scores: the serving side's one pair scorer (the retriever's anchor,
+    rerank and adaptive stages, :func:`crossenc_rerank_scores`). Its
+    pair layout (mention ⧺ candidate[1:], padded to :func:`padded_pair_len`)
+    is :func:`build_pairs`'s: the train matrix and the online scores must
+    come from one pair shape."""
+    raw_len = lm + le - 1
+    pair_len = padded_pair_len(lm, le, pair_pad_multiple, ce.spec.max_position_embeddings)
+
+    def score_pairs(m_blk: torch.Tensor, cand_toks: torch.Tensor) -> torch.Tensor:
+        c, width, _ = cand_toks.shape
+        left = m_blk[:, None, :].expand(c, width, lm)
+        pairs = torch.cat([left, cand_toks[:, :, 1:]], dim=-1).reshape(c * width, raw_len)
+        pairs = torch.nn.functional.pad(pairs, (0, pair_len - raw_len))
+        return ce.score(pairs, first_segment_end=lm).reshape(c, width)
+
+    return score_pairs
+
+
+def tokens_on(device: torch.device, tokens) -> torch.Tensor:
+    """int32 token ids (an array or a tensor) on ``device``."""
+    if torch.is_tensor(tokens):
+        return tokens.to(device=device, dtype=torch.int32)
+    return torch.as_tensor(np.asarray(tokens, np.int32), device=device)
+
+
+@torch.no_grad()
+def crossenc_rerank_scores(
+    ce: CrossEncoder,
+    ment_tokens,  # (n_m, Lm)
+    ent_tokens,  # (n_e, Le)
+    cand_idx,  # (n_m, k) candidate entity ids per mention
+    batch_ments: Optional[int] = None,
+    pair_pad_multiple: int = 128,
+) -> np.ndarray:
+    """Exact CE scores of each mention's candidates, (n_m, k) f32 numpy,
+    through :func:`make_pair_scorer` (the retrieve-and-rerank eval's rerank
+    and the retriever's host ADACUR rounds). Candidate tokens are gathered
+    on the device; ``batch_ments`` mentions per CE forward, by default
+    ~4096 pairs."""
+    dev = ce.device
+    ments, ents = tokens_on(dev, ment_tokens), tokens_on(dev, ent_tokens)
+    cidx = torch.as_tensor(np.ascontiguousarray(cand_idx, np.int64), device=dev)
+    n_m, lm = ments.shape
+    k = cidx.shape[1]
+    if batch_ments is None:
+        batch_ments = max(1, 4096 // max(1, k))
+    bm = max(1, min(batch_ments, n_m))
+    score_pairs = make_pair_scorer(ce, lm, ents.shape[1], pair_pad_multiple)
+    out = torch.cat([score_pairs(m_blk, ents[c_blk]) for m_blk, c_blk in zip(ments.split(bm), cidx.split(bm))])
+    return out.float().cpu().numpy()
+
+
 @dataclasses.dataclass
 class ScoreMatrixBuilder:
     """Exact score matrix on one device.

@@ -2,8 +2,10 @@
 
 The JAX ``CrossEncoder.init`` / ``train/checkpoint.py`` param pytree
 (``bert.embeddings.*``, ``bert.layers[i].attn|mlp.*``, ``bert.pooler.*``,
-``score_linear.*``), with numpy leaves, maps one to one onto the port's
-module: same keys, same ``(in, out)`` kernel layout.
+``score_linear.*``) and the JAX ``BiEncoder.init`` one (``input_bert`` and
+``label_bert`` or ``bert``, then ``input_linear`` and ``label_linear`` or
+``linear``), with numpy leaves, map one to one onto the port's modules:
+same keys, same ``(in, out)`` kernel layout.
 """
 
 from __future__ import annotations
@@ -14,12 +16,12 @@ import numpy as np
 import torch
 
 from anncur_tpu_torch.models.bert import BertSpec
+from anncur_tpu_torch.models.biencoder import HEADS, TOWERS, BiEncoder
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
 from anncur_tpu_torch.utils.device import DeviceLike
 
 
-def _check_tree(tree: Dict[str, Any], spec: BertSpec, cross_enc_type: str) -> None:
-    bert = tree["bert"]
+def _check_bert(bert: Dict[str, Any], spec: BertSpec, where: str = "bert") -> None:
     h = spec.hidden_size
     want = {
         "embeddings.word": (spec.vocab_size, h),
@@ -33,11 +35,29 @@ def _check_tree(tree: Dict[str, Any], spec: BertSpec, cross_enc_type: str) -> No
     }
     if got != want or len(bert["layers"]) != spec.num_layers:
         raise ValueError(
-            f"param tree does not match spec: shapes {got} vs {want}, "
+            f"param tree does not match spec at {where}: shapes {got} vs {want}, "
             f"{len(bert['layers'])} layers vs {spec.num_layers}"
         )
+
+
+def _check_tree(tree: Dict[str, Any], spec: BertSpec, cross_enc_type: str) -> None:
+    _check_bert(tree["bert"], spec)
     if (cross_enc_type == "default") != ("score_linear" in tree):
         raise ValueError(f"cross_enc_type={cross_enc_type!r} vs tree keys {sorted(tree)}")
+
+
+def _check_biencoder_tree(tree: Dict[str, Any], spec: BertSpec, bi_enc_type: str, embed_dim: int) -> None:
+    towers, heads = TOWERS.get(bi_enc_type, ()), HEADS.get(bi_enc_type, ())
+    keys = set(tree)
+    if not towers or not set(towers) <= keys or keys - set(towers) not in (set(), set(heads)):
+        raise ValueError(f"bi_enc_type={bi_enc_type!r} vs tree keys {sorted(tree)}")
+    for name in towers:
+        _check_bert(tree[name], spec, name)
+    for name in sorted(keys - set(towers)):
+        want = ((spec.hidden_size, embed_dim), (embed_dim,))
+        got = (np.shape(tree[name]["kernel"]), np.shape(tree[name]["bias"]))
+        if got != want:
+            raise ValueError(f"param tree does not match at {name}: shapes {got} vs {want}")
 
 
 def crossencoder_from_jax_params(
@@ -69,4 +89,32 @@ def crossencoder_to_jax_params(ce: CrossEncoder) -> Dict[str, Any]:
     as a checkpoint's ``params``."""
     tree = ce.params_tree()
     _check_tree(tree, ce.spec, ce.cross_enc_type)
+    return tree
+
+
+def biencoder_from_jax_params(
+    tree: Dict[str, Any],
+    spec: BertSpec,
+    pooling_type: str = "cls_w_lin",
+    bi_enc_type: str = "separate",
+    embed_dim: int = 768,
+    device: DeviceLike = "cuda",
+    dtype: torch.dtype = torch.bfloat16,
+) -> BiEncoder:
+    """The port's BiEncoder holding the weights of a JAX ``BiEncoder`` param
+    tree (numpy leaves), computing in ``dtype`` on ``device``; the linear
+    heads are taken when the tree has them (``add_linear_layer``)."""
+    _check_biencoder_tree(tree, spec, bi_enc_type, embed_dim)
+    return BiEncoder(
+        spec=spec, pooling_type=pooling_type, bi_enc_type=bi_enc_type, embed_dim=embed_dim,
+        add_linear_layer=bool(set(tree) - set(TOWERS[bi_enc_type])), compute_dtype=dtype, device=device,
+        params=tree,
+    )
+
+
+def biencoder_to_jax_params(be: BiEncoder) -> Dict[str, Any]:
+    """The port's BiEncoder parameters as a JAX ``BiEncoder`` param tree
+    with f32 numpy leaves (``jnp.asarray`` of it is ``params`` there)."""
+    tree = be.params_tree()
+    _check_biencoder_tree(tree, be.spec, be.bi_enc_type, be.embed_dim)
     return tree

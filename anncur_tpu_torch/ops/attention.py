@@ -14,6 +14,12 @@ On CUDA tensors, a call that needs a gradient goes through
 the backward launches kernels C (dK, dV) and D (dQ). A call without one
 launches kernel A alone. CPU tensors take the plain versions, and autograd
 differentiates :func:`attention_plain`.
+
+The kernels take head dims that are multiples of 16 up to 256. Below 256
+:func:`attention` zero-pads q, k and v to the next multiple of 16 (zero
+columns add nothing to QKᵀ and give zero output columns), keeps the
+softmax scale at 1/√(real hd), and slices the output and the gradients
+back; above 256 it raises.
 """
 
 from __future__ import annotations
@@ -58,38 +64,56 @@ def attention(q, k, v, key_valid):
         return attention_plain(q, k, v, key_valid)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return AttentionFunction.apply(q, k, v, key_valid)
-    return attention_fwd(q, k, v, key_valid)[0]
+    hd = q.shape[-1]
+    return attention_fwd(*_pad_head_dim(q, k, v), key_valid, scale=1.0 / math.sqrt(hd))[0][..., :hd]
 
 
 attention.launches = 0  # kernel A launches; chip_smoke reads and resets it
 
 
+def _pad_head_dim(q, k, v):
+    """q, k, v zero-padded along the head dim to the next multiple of 16
+    when it is below 256 (themselves otherwise)."""
+    pad = -q.shape[-1] % 16 if q.shape[-1] < 256 else 0
+    if not pad:
+        return q, k, v
+    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+
+
 class AttentionFunction(torch.autograd.Function):
     """Kernel A forward with the row log-sum-exp saved; kernels C and D
     backward. ``D = rowsum(dO * O)`` is a plain reduction beforehand, as
-    JAX computes it outside Pallas (``flash_attention.py:273-275``)."""
+    JAX computes it outside Pallas (``flash_attention.py:273-275``). A
+    head dim that is not a multiple of 16 runs zero-padded (the padded
+    output and dO columns are zero, so D is unchanged); the outputs and
+    gradients are sliced back."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid):
-        out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+        hd = q.shape[-1]
+        q, k, v = _pad_head_dim(q, k, v)
+        ctx.hd, ctx.scale = hd, 1.0 / math.sqrt(hd)
+        out, lse = attention_fwd(q, k, v, key_valid, with_lse=True, scale=ctx.scale)
         ctx.save_for_backward(q, k, v, key_valid, out, lse)
-        return out
+        return out[..., :hd]
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, key_valid, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
+        hd = ctx.hd
+        dout = torch.nn.functional.pad(dout, (0, q.shape[-1] - hd)) if q.shape[-1] != hd else dout.contiguous()
         # (b, nh, g): one f32 copy of dout times out, products exact in f32
         # (dout.float() is dout itself when it is f32, so nothing in place)
         delta = (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
-        dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
-        dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
-        return dq, dk, dv, None
+        dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta, scale=ctx.scale)
+        dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta, scale=ctx.scale)
+        return dq[..., :hd], dk[..., :hd], dv[..., :hd], None
 
 
-def attention_fwd(q, k, v, key_valid, with_lse: bool = False):
+def attention_fwd(q, k, v, key_valid, with_lse: bool = False, scale=None):
     """Kernel A: ``(out, lse)``; ``lse`` is the (b, nh, g) f32 row
-    log-sum-exp when ``with_lse``, else None."""
+    log-sum-exp when ``with_lse``, else None. ``scale`` multiplies QKᵀ
+    (default 1/√hd of q's head dim)."""
     _check(q, k, v, key_valid)
     b, g, nh, hd = q.shape
     s = k.shape[1]
@@ -98,18 +122,18 @@ def attention_fwd(q, k, v, key_valid, with_lse: bool = False):
     lib = _lib("attention", "attention_fwd", 6)
     rc = lib.attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
-        None if lse is None else lse.data_ptr(), *_geometry(q, k, v, key_valid),
+        None if lse is None else lse.data_ptr(), *_geometry(q, k, v, key_valid, scale),
     )
     cuda_build.check(lib, rc, "attention kernel")
     attention.launches += 1
     return out, lse
 
 
-def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta):
+def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta, scale=None):
     """Kernel C: ``(dK, dV)``, each (b, s, nh, hd) in q's dtype, from the
     forward's inputs, ``dout`` (b, g, nh, hd) contiguous, and the (b, nh, g)
-    f32 ``lse`` and ``delta = rowsum(dout * out)``. CPU tensors take
-    :func:`attention_bwd_plain`."""
+    f32 ``lse`` and ``delta = rowsum(dout * out)``; ``scale`` as the
+    forward's. CPU tensors take :func:`attention_bwd_plain`."""
     if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
         return attention_bwd_plain(q, k, v, key_valid, dout)[1:]
     _check_bwd(q, k, v, key_valid, dout, lse, delta)
@@ -119,7 +143,7 @@ def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta):
     rc = lib.attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_geometry(q, k, v, key_valid),
+        *_geometry(q, k, v, key_valid, scale),
     )
     cuda_build.check(lib, rc, "attention dK/dV kernel")
     attention_bwd_dkv.launches += 1
@@ -129,7 +153,7 @@ def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta):
 attention_bwd_dkv.launches = 0  # kernel C launches
 
 
-def attention_bwd_dq(q, k, v, key_valid, dout, lse, delta):
+def attention_bwd_dq(q, k, v, key_valid, dout, lse, delta, scale=None):
     """Kernel D: dQ, (b, g, nh, hd) in q's dtype; arguments as
     :func:`attention_bwd_dkv`. CPU tensors take :func:`attention_bwd_plain`."""
     if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
@@ -139,7 +163,7 @@ def attention_bwd_dq(q, k, v, key_valid, dout, lse, delta):
     lib = _lib("attention_bwd", "attention_bwd_dq", 8)
     rc = lib.attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_geometry(q, k, v, key_valid),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_geometry(q, k, v, key_valid, scale),
     )
     cuda_build.check(lib, rc, "attention dQ kernel")
     attention_bwd_dq.launches += 1
@@ -149,16 +173,16 @@ def attention_bwd_dq(q, k, v, key_valid, dout, lse, delta):
 attention_bwd_dq.launches = 0  # kernel D launches
 
 
-def _geometry(q, k, v, key_valid):
+def _geometry(q, k, v, key_valid, scale=None):
     """The C entries' arguments after the pointers: dtype flag, sizes,
-    strides (in elements), scale, device, stream."""
+    strides (in elements), scale (default 1/√hd), device, stream."""
     b, g, nh, hd = q.shape
     return (
         int(q.dtype == torch.bfloat16), b, g, k.shape[1], nh, hd,
         q.stride(0), q.stride(1), q.stride(2),
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
-        key_valid.stride(0), 1.0 / math.sqrt(hd),
+        key_valid.stride(0), 1.0 / math.sqrt(hd) if scale is None else scale,
         q.device.index if q.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -181,7 +205,10 @@ def _check(q, k, v, key_valid) -> None:
     if tuple(key_valid.shape) != (b, s) or key_valid.stride(1) != 1:
         raise ValueError(f"attention: key_valid must be a row-contiguous ({b}, {s}) tensor")
     if hd not in _HEAD_DIMS:
-        raise ValueError(f"attention: head dim {hd} is not a multiple of 16 from 16 to 256")
+        raise ValueError(
+            f"attention: head dim {hd} is not a multiple of 16 from 16 to 256 "
+            "(attention() pads head dims below 256; above 256 is not supported)"
+        )
     es = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1:

@@ -5,7 +5,7 @@ descending sort of an order-preserving integer key of the scores:
 ``torch.topk`` does not promise the lowest-index tie-break that
 ``lax.top_k`` gives, and a float sort ties -0.0 with +0.0 where
 ``lax.top_k`` ranks +0.0 above -0.0. This module is also the plain
-version of kernel B (``ops/mips_kernel.py``).
+version of kernel B (``ops/mips_kernel.py``), of its int8 entry too.
 """
 
 from __future__ import annotations
@@ -78,6 +78,16 @@ def check_exclude(exclude: Optional[torch.Tensor], q: int, k: int, n_valid: int)
     return n_ex
 
 
+def pad_items(items: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, int]:
+    """(items zero-padded on the row axis to a multiple of ``multiple``,
+    n_valid = the original row count), as ``anncur_tpu.ops.mips.pad_items``."""
+    n = items.shape[0]
+    rem = (-n) % multiple
+    if rem:
+        items = torch.cat([items, items.new_zeros((rem,) + tuple(items.shape[1:]))])
+    return items, n
+
+
 def mips_topk(
     queries: torch.Tensor,  # (q, d) f32
     items: torch.Tensor,  # (n, d) f32
@@ -87,17 +97,41 @@ def mips_topk(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact MIPS: scores = Q @ Iᵀ in f32, top-k per query over the first
     ``n_valid`` items (default: all), never an id of that query's row of
-    ``exclude``. Entries of ``exclude`` outside [0, n_valid) are ignored
-    and duplicates are allowed; the caller keeps k <= n_valid - S. Padded
-    and excluded items rank below every real score, so this equals JAX's
-    ``approx.at[rows, ids].set(-inf)`` + ``lax.top_k`` whenever that one
-    does not run out of candidates."""
-    n = items.shape[0]
+    ``exclude``: :func:`select_topk` of the scores."""
+    return select_topk(queries.float() @ items.float().T, k, n_valid, exclude)
+
+
+def mips_topk_int8_plain(
+    queries: torch.Tensor,  # (q, d) f32
+    items,  # ops/quantized.py::QuantizedItems: values (n, d) int8, scales (n, 1) f32
+    k: int,
+    n_valid: Optional[int] = None,
+    exclude: Optional[torch.Tensor] = None,  # (q, S) int ids per query
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of kernel B's int8 entry: (queries @ values^T in
+    f32) x scale, then :func:`select_topk` (lax.top_k's order, padded and
+    excluded columns never taken)."""
+    scores = (queries.float() @ items.values.float().T) * items.scales[:, 0].float()
+    return select_topk(scores, k, n_valid, exclude)
+
+
+def select_topk(
+    scores: torch.Tensor,  # (q, n) f32
+    k: int,
+    n_valid: Optional[int] = None,
+    exclude: Optional[torch.Tensor] = None,  # (q, S) int ids per query
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k per row over the first ``n_valid`` columns (default: all),
+    never an id of that row's ``exclude`` list. Entries of ``exclude``
+    outside [0, n_valid) are ignored and duplicates are allowed; the caller
+    keeps k <= n_valid - S. Padded and excluded columns rank below every
+    real score, so this equals JAX's ``approx.at[rows, ids].set(-inf)`` +
+    ``lax.top_k`` whenever that one does not run out of candidates."""
+    n = scores.shape[1]
     n_valid = n if n_valid is None else int(n_valid)
     if not 1 <= k <= n_valid <= n:
         raise ValueError(f"mips_topk needs 1 <= k <= n_valid <= n, got k={k} n_valid={n_valid} n={n}")
-    check_exclude(exclude, queries.shape[0], k, n_valid)
-    scores = queries.float() @ items.float().T
+    check_exclude(exclude, scores.shape[0], k, n_valid)
     if n_valid == n and exclude is None:
         return topk_stable(scores, k)
     # below every int32 key: never selected while k real candidates remain

@@ -2,9 +2,12 @@
 
 Replaces ``anncur_tpu/ops/mips_pallas.py::_mips_kernel`` and
 ``::_maxmask_kernel``. The fixed-anchor query runs its latent projection
-+ top-k_retvr stage through :func:`mips_topk_fused`, and the adaptive
-engine every candidate pick, with the query's scored ids excluded. Its
-plain version is ``ops/mips.py::mips_topk``.
++ top-k_retvr stage through :func:`mips_topk_fused`, the adaptive engine
+every candidate pick (the query's scored ids excluded), the dense index
+every search and the hard-negative miner every mine. Its plain version
+is ``ops/mips.py::mips_topk``. :func:`mips_topk_int8_fused` is the same
+kernel over int8 items with per-row scales (``ops/quantized.py``); its
+plain version is ``ops/mips.py::mips_topk_int8_plain``.
 
 On the card it is a register-tiled f32 FFMA GEMM into a score scratch,
 then an exact radix select, one thread-block cluster per query; any
@@ -14,12 +17,15 @@ then an exact radix select, one thread-block cluster per query; any
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Set, Tuple
+from typing import TYPE_CHECKING, Dict, Optional, Set, Tuple
 
 import torch
 
 from anncur_tpu_torch.ops import cuda_build
-from anncur_tpu_torch.ops.mips import check_exclude, mips_topk
+from anncur_tpu_torch.ops.mips import check_exclude, mips_topk, mips_topk_int8_plain
+
+if TYPE_CHECKING:  # ops/quantized.py imports this module
+    from anncur_tpu_torch.ops.quantized import QuantizedItems
 
 # score scratch by (device index, stream): one allocation, grown as needed
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -46,7 +52,84 @@ def mips_topk_fused(
     n_valid = n if n_valid is None else int(n_valid)
     if queries.device.type == "cpu" and items.device.type == "cpu":
         return mips_topk(queries, items, k, n_valid, exclude)
-    _check(queries, items, k, n_valid)
+    _check(queries, items, torch.float32, k, n_valid)
+    out = _launch("mips_topk_fused", queries, (items.data_ptr(),), n, k, n_valid, exclude)
+    mips_topk_fused.launches += 1
+    return out
+
+
+mips_topk_fused.launches = 0  # kernel B launches; chip_smoke reads and resets it
+
+
+def mips_topk_int8_fused(
+    queries: torch.Tensor,  # (q, d) f32
+    items: "QuantizedItems",  # values (n, d) int8, scales (n, 1) f32
+    k: int,
+    n_valid: Optional[int] = None,
+    exclude: Optional[torch.Tensor] = None,  # (q, S) int ids per query
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`mips_topk_fused` over int8 items: score = the f32 inner
+    product of the query with ``float(values)``, times the row's scale
+    after the sum (``anncur_tpu/ops/quantized.py::mips_topk_int8``). The
+    int8 rows are streamed as int8 (16-byte copies when d % 16 == 0).
+
+    CPU tensors take :func:`mips_topk_int8_plain`; CUDA tensors launch
+    kernel B's int8 entry or raise."""
+    values, scales = items.values, items.scales
+    n = values.shape[0]
+    n_valid = n if n_valid is None else int(n_valid)
+    if queries.device.type == "cpu" and values.device.type == "cpu":
+        return mips_topk_int8_plain(queries, items, k, n_valid, exclude)
+    _check(queries, values, torch.int8, k, n_valid)
+    if scales.dtype != torch.float32 or scales.device != queries.device or scales.numel() != n or not scales.is_contiguous():
+        raise ValueError(f"mips_topk_int8_fused: scales must be {n} contiguous f32 values on {queries.device}")
+    out = _launch("mips_topk_int8_fused", queries, (values.data_ptr(), scales.data_ptr()), n, k, n_valid, exclude)
+    mips_topk_int8_fused.launches += 1
+    return out
+
+
+mips_topk_int8_fused.launches = 0  # kernel B int8 launches; chip_smoke reads and resets it
+
+
+def fused_mips_topk(queries, items, k, chunk: int = 4096, materialize_bytes: float = 6e9):
+    """``anncur_tpu/ops/mips_pallas.py::fused_mips_topk`` on kernel B. The
+    JAX version picks a materialised (q, n) score matrix or a streaming
+    scan by ``materialize_bytes``; kernel B already scores queries in
+    chunks whose score matrix fits its 256 MB scratch and keeps no (q, n)
+    output, so both sizes take the same call and ``chunk`` and
+    ``materialize_bytes`` are accepted for the signature only. Ids are
+    int64."""
+    return mips_topk_fused(queries, items, k)
+
+
+def mips_topk_streaming(queries, items, k, chunk: int = 4096):
+    """``anncur_tpu/ops/mips_pallas.py::mips_topk_streaming`` on kernel B:
+    live memory is the (query chunk, n) score scratch, whatever ``chunk``
+    (accepted for the signature only). Ids are int64."""
+    return mips_topk_fused(queries, items, k)
+
+
+def _check(queries, items, item_dtype, k, n_valid) -> None:
+    if queries.device.type != "cuda" or items.device != queries.device:
+        raise ValueError("mips_topk_fused: queries and items must lie on one CUDA device")
+    if queries.dtype != torch.float32 or items.dtype != item_dtype:
+        raise ValueError(f"mips_topk_fused: f32 queries and {item_dtype} items only, got {queries.dtype}/{items.dtype}")
+    if queries.dim() != 2 or items.dim() != 2 or queries.shape[1] != items.shape[1]:
+        raise ValueError(f"mips_topk_fused: queries {tuple(queries.shape)} vs items {tuple(items.shape)}")
+    # row-major and contiguous; the kernel takes 16-byte copies where the
+    # rows allow them (d % 4 == 0 for f32, d % 16 == 0 for int8, 16-byte
+    # aligned bases) and narrower ones otherwise, so no alignment is required
+    if not (queries.is_contiguous() and items.is_contiguous()):
+        raise ValueError("mips_topk_fused: queries and items must be contiguous")
+    n = items.shape[0]
+    if not 1 <= k <= n_valid <= n or queries.shape[0] < 1 or queries.shape[1] < 1:
+        raise ValueError(f"mips_topk_fused needs 1 <= k <= n_valid <= n; got k={k} n_valid={n_valid} n={n}")
+
+
+def _launch(entry, queries, item_ptrs, n, k, n_valid, exclude):
+    """One call of the C ``entry`` (``mips_topk_fused`` or its int8 twin,
+    whose item pointers are ``item_ptrs``): outputs and scratch allocated
+    here, on the queries' device and current stream."""
     n_ex = check_exclude(exclude, queries.shape[0], k, n_valid)
     if n_ex:
         if exclude.device != queries.device:
@@ -62,31 +145,13 @@ def mips_topk_fused(
         scratch = _scratch(dev, stream, int(lib.mips_topk_scratch_bytes(q, n_valid, k)))
         out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
-        rc = lib.mips_topk_fused(
-            queries.data_ptr(), items.data_ptr(), out_s.data_ptr(), out_i.data_ptr(),
+        rc = getattr(lib, entry)(
+            queries.data_ptr(), *item_ptrs, out_s.data_ptr(), out_i.data_ptr(),
             exclude.data_ptr() if n_ex else None, n_ex, exclude.stride(0) if n_ex else 0,
             scratch.data_ptr(), scratch.numel(), q, n, d, k, n_valid, stream,
         )
-    cuda_build.check(lib, rc, "mips_topk kernel")
-    mips_topk_fused.launches += 1
+    cuda_build.check(lib, rc, f"{entry} kernel")
     return out_s, out_i
-
-
-mips_topk_fused.launches = 0  # kernel B launches; chip_smoke reads and resets it
-
-
-def _check(queries, items, k, n_valid) -> None:
-    if queries.device.type != "cuda" or items.device != queries.device:
-        raise ValueError("mips_topk_fused: queries and items must lie on one CUDA device")
-    if queries.dtype != torch.float32 or items.dtype != torch.float32:
-        raise ValueError(f"mips_topk_fused: f32 only, got {queries.dtype}/{items.dtype}")
-    if queries.dim() != 2 or items.dim() != 2 or queries.shape[1] != items.shape[1]:
-        raise ValueError(f"mips_topk_fused: queries {tuple(queries.shape)} vs items {tuple(items.shape)}")
-    if not (queries.is_contiguous() and items.is_contiguous()):
-        raise ValueError("mips_topk_fused: queries and items must be contiguous")
-    n = items.shape[0]
-    if not 1 <= k <= n_valid <= n or queries.shape[0] < 1 or queries.shape[1] < 1:
-        raise ValueError(f"mips_topk_fused needs 1 <= k <= n_valid <= n; got k={k} n_valid={n_valid} n={n}")
 
 
 def _scratch(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
@@ -107,6 +172,8 @@ def _lib(device: int) -> ctypes.CDLL:
         i64 = ctypes.c_longlong
         lib.mips_topk_fused.argtypes = [ptr] * 5 + [i32, i64, ptr, i64] + [i32] * 5 + [ptr]
         lib.mips_topk_fused.restype = i32
+        lib.mips_topk_int8_fused.argtypes = [ptr] * 6 + [i32, i64, ptr, i64] + [i32] * 5 + [ptr]
+        lib.mips_topk_int8_fused.restype = i32
         lib.mips_topk_scratch_bytes.argtypes = [i32] * 3
         lib.mips_topk_scratch_bytes.restype = ctypes.c_longlong
         lib.mips_topk_init.argtypes = []

@@ -3,8 +3,9 @@
 Counterpart of ``anncur_tpu/train/negatives.py`` (parity with reference
 utils/data_process.py:272-463): random negatives (excluding the
 positive), random with blacklist, bi-encoder hard negatives (exact MIPS
-over current tower embeddings through ``ops/mips.py::mips_topk``, whose
-ties go to the lowest index as ``lax.top_k``'s do), and precomputed
+over current tower embeddings: kernel B on the card,
+``ops/mips_kernel.py::mips_topk_fused``, its plain ``mips_topk`` for CPU
+tensors; ties go to the lowest index as ``lax.top_k``'s do), and precomputed
 negatives with scores (for distillation datasets). TF-IDF hard negatives
 wait for a port of ``data/tfidf.py``.
 """
@@ -16,7 +17,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
-from anncur_tpu_torch.ops.mips import mips_topk
+from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -59,9 +60,9 @@ def get_random_negs_w_blacklist(
 
 def _mips_ids(input_embeds, label_embeds, k: int, device: DeviceLike) -> np.ndarray:
     dev = resolve_device(device)
-    queries = torch.as_tensor(np.asarray(input_embeds, np.float32), device=dev)
-    items = torch.as_tensor(np.asarray(label_embeds, np.float32), device=dev)
-    return mips_topk(queries, items, k)[1].cpu().numpy()
+    queries = torch.as_tensor(np.ascontiguousarray(input_embeds, np.float32), device=dev)
+    items = torch.as_tensor(np.ascontiguousarray(label_embeds, np.float32), device=dev)
+    return mips_topk_fused(queries, items, k)[1].cpu().numpy()
 
 
 def get_hard_negs_from_embeds(

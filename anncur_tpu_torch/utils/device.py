@@ -1,7 +1,9 @@
-"""Device resolution for the port's entry points."""
+"""Device resolution for the port's entry points, and the true-f32
+matmul scope."""
 
 from __future__ import annotations
 
+import contextlib
 from typing import Union
 
 import torch
@@ -19,3 +21,14 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+@contextlib.contextmanager
+def true_f32():
+    """cuBLAS f32 matmuls without TF32 inside, whatever the caller set."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev

@@ -20,10 +20,14 @@ Phases, in order; any failure exits non-zero before the result line:
    batch, q=32 over 10,000 items, at one text, q=1, at an eval batch
    of 256 over ZeShEL-military's 104,520 entities, and at an adaptive
    growth round, 512 queries picking 26 past 184 excluded ids each, and
-   checked once more at k=500). For every bf16 instantiation of kernels
-   A, C and D (every head dim that is a multiple of 16 up to 256): its
-   HMMA count in the SASS (it fails on none) and ptxas' registers and
-   spills; for kernel B's kernels, registers and spills;
+   checked once more at k=500), and kernel B at the bi-encoder's width
+   d=768 over f32 rows and, through its int8 entry, over int8 rows with
+   per-row scales (a search batch q=32 over 10,000 entities, k=64; one
+   text and an eval batch of 256 over 104,520 entities, k=100). For every
+   bf16 instantiation of kernels A, C and D (every head dim that is a
+   multiple of 16 up to 256): its HMMA count in the SASS (it fails on
+   none) and ptxas' registers and spills; for kernel B's kernels, f32 and
+   int8, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -43,9 +47,25 @@ Phases, in order; any failure exits non-zero before the result line:
    plain version, and, on the committed trained-CE matrices with no CE,
    the adaptive oracle's recall against the fixed-anchor path's at cost
    600;
-7. the ``kernels`` line: each kernel's launches on phases 3-6 (counts set
+7. retrieve and rerank: a bert-base bi-encoder (``configs/
+   el_zeshel_bi_enc.json``: separate towers, cls_w_lin, 768; random
+   weights from seed 1, bf16) embeds phase 4's 10,000 entities and 1,024
+   mentions of 128 tokens, ``DenseIndex`` retrieves each mention's top 64
+   (kernel B) and phase 4's CE reranks them (``run_retrieve_rerank_eval``,
+   one small warm call, then one timed call), and the same embeddings are
+   searched in an int8 index; it checks the index's ids against the plain
+   MIPS, the rerank scores against the pair scorer's on the same pairs,
+   and the int8 index's top-64 overlap with the f32 one;
+8. AXN and host ADACUR on phase 4's retriever: phase 6's adaptive batch
+   and early-stop worst case with ``method='axn'`` (full rank, so kernel B
+   scores 501-wide rows; the early stop timed in one call after a warm
+   one), one growth round's pick against the plain
+   version, the AXN oracle recall on the trained-CE matrices at 210 over
+   5 rounds (the JAX sweep's ranks), and ``query_tokens_adaptive`` (the
+   host round loop) on 8 queries at 100 over 3 rounds;
+9. the ``kernels`` line: each kernel's launches on phases 3-8 (counts set
    to 0 just before each phase and read just after), error and times;
-8. the last line, ``{"ok": true, "device": {...}}``.
+10. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -75,6 +95,10 @@ ATTN_ATOL = 2e-2  # bf16 output: 8-bit mantissa, f32 sums in other orders
 MIPS_RTOL = 1e-4  # f32 FFMA vs cuBLAS f32: one dot of 500 terms, other order
 MIPS_TIE_GAP = 1e-5  # ids compared where neighbours differ by more (x max|s|)
 CE_ATOL = 2e-2  # bf16 CE scores, kernel A vs plain attention, 12 layers
+# bf16 bi-encoder embeddings, kernel A vs plain attention, row-wise relative
+# L2 distance: at most this many times SDPA's own distance from plain on the
+# same inputs (12 random bf16 layers amplify any change of summation order)
+EMBED_VS_SDPA = 2.0
 GRAD_RTOL = 2e-2  # kernels C/D grads vs plain autograd, x the plain grad's max (bf16 out)
 LSE_RTOL = 1e-5  # kernel A's f32 log-sum-exp vs torch.logsumexp, sums in another order
 TRAIN_LOSS_ATOL = 2e-2  # bf16 CE loss through 12 layers, kernels vs plain attention
@@ -142,9 +166,11 @@ def check_attention(dev, flush):
     nh, hd = 12, 64
     max_err, timed = 0.0, []
     # (b, g, s, timed reps): the CE's full layer, final 1-row and 3-row
-    # slices at 64 pairs; then, timed, the build's full layer (2048 pairs
-    # per CE forward), its CLS-only final layer and the train layer
-    for b, g, s, reps in ((64, 256, 256, 0), (64, 1, 256, 0), (64, 3, 256, 0),
+    # slices at 64 pairs; the bi-encoder towers' full layer and CLS-only
+    # last layer (phase 7: 64 texts of 128 tokens); then, timed, the
+    # build's full layer (2048 pairs per CE forward), its CLS-only final
+    # layer and the train layer
+    for b, g, s, reps in ((64, 256, 256, 0), (64, 1, 256, 0), (64, 3, 256, 0), (64, 128, 128, 0), (64, 1, 128, 0),
                           (2048, 256, 256, 10), (2048, 1, 256, 20), (64, 255, 255, 50)):
         q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
         got = attention(q, k, v, key_valid).float()
@@ -415,12 +441,16 @@ def mips_inputs(gen, dev, q, d, n, n_valid):
     return queries, items.contiguous()
 
 
-def check_mips(queries, items, k, n_valid, what, exclude=None):
+def check_mips(queries, items, k, n_valid, what, exclude=None, int8=False):
+    """Kernel B (its int8 entry when ``int8``, ``items`` then quantised)
+    against its plain version on one input."""
     from anncur_tpu_torch.ops.mips import mips_topk
-    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
+    from anncur_tpu_torch.ops.quantized import mips_topk_int8_plain
 
-    s_k, i_k = mips_topk_fused(queries, items, k, n_valid, exclude)
-    s_p, i_p = mips_topk(queries, items, k, n_valid, exclude)
+    fused, plain = (mips_topk_int8_fused, mips_topk_int8_plain) if int8 else (mips_topk_fused, mips_topk)
+    s_k, i_k = fused(queries, items, k, n_valid, exclude)
+    s_p, i_p = plain(queries, items, k, n_valid, exclude)
     torch.cuda.synchronize()
     if exclude is not None and bool((i_k[:, :, None] == exclude[:, None, :]).any()):
         fail(f"{what}: kernel B selected an excluded id")
@@ -452,24 +482,34 @@ def check_mips(queries, items, k, n_valid, what, exclude=None):
 
 def time_mips(fused, plain, queries, items, k, n_valid, flush, exclude=None):
     """Kernel B (``fused``), its plain version and ``torch.topk(queries @
-    items.T, k)`` (with exclusions, ``scatter_`` of -inf between the two)
-    on one input, with the bound of what the call needs: the queries, the
-    n_valid real item rows and the exclusion lists read, the outputs
-    written; 2 q n_valid d f32 operations."""
+    items.T, k)`` (with exclusions, ``scatter_`` of -inf between the two;
+    for int8 items, ``QuantizedItems``, the dequantising cast, the matmul
+    and the scale before the top-k) on one input, with the bound of what
+    the call needs: the queries, the n_valid real item rows (and scales)
+    and the exclusion lists read, the outputs written; 2 q n_valid d f32
+    operations."""
     q, d = queries.shape
     n_ex = 0 if exclude is None else exclude.shape[1]
+    int8 = hasattr(items, "scales")
     ms = time_ms(lambda: fused(queries, items, k, n_valid, exclude), 30, flush)
     plain_ms = time_ms(lambda: plain(queries, items, k, n_valid, exclude), 5 if q * n_valid > 1e7 else 20, flush)
-    if exclude is None:
+    if int8:
+        values, scales = items.values[:n_valid], items.scales[:n_valid, 0]
+        library = lambda: torch.topk((queries @ values.float().T) * scales, k)  # noqa: E731
+        item_bytes = n_valid * (d + 4)
+    elif exclude is None:
         library = lambda: torch.topk(queries @ items[:n_valid].T, k)  # noqa: E731
+        item_bytes = 4 * n_valid * d
     else:
         library = lambda: torch.topk((queries @ items[:n_valid].T).scatter_(1, exclude, -torch.inf), k)  # noqa: E731
+        item_bytes = 4 * n_valid * d
     library_ms = time_ms(library, 30, flush)
-    nbytes = 4 * (q * d + n_valid * d) + 8 * q * n_ex + q * k * (4 + 8)
-    rec = {"shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} S={n_ex} f32", "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, 2 * q * n_valid * d, "f32")}
+    nbytes = 4 * q * d + item_bytes + 8 * q * n_ex + q * k * (4 + 8)
+    rec = {"shape": f"q={q} d={d} n={items.shape[0]} n_valid={n_valid} k={k} S={n_ex} {'int8' if int8 else 'f32'}",
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, 2 * q * n_valid * d, "f32")}
     rec["x_bound"] = ms / rec["bound_ms"]
-    lib_name = "matmul + topk" if exclude is None else "matmul + scatter_ + topk"
+    lib_name = ("dequantise + matmul x scale + topk" if int8 else
+                "matmul + topk" if exclude is None else "matmul + scatter_ + topk")
     log(f"  kernel B {rec['shape']}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
         f"{rec['x_bound']:.2f}x bound; plain {plain_ms:.4f} ms; {lib_name} {library_ms:.4f} ms "
         f"({ms / library_ms:.2f}x library)")
@@ -478,20 +518,22 @@ def time_mips(fused, plain, queries, items, k, n_valid, flush, exclude=None):
 
 def mips_ptxas():
     """Registers and spills of each of kernel B's kernels (the score GEMM
-    by tiling: VEC, BM x BN, TM x TN, BK, stages)."""
-    tiling = re.compile(r"ScoreTileILb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
+    by tiling: VEC, item type, BM x BN, TM x TN, BK, stages)."""
+    tiling = re.compile(r"ScoreTileILb(\d)ELb(\d)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E")
     out = {}
     for name, rec in ptxas_report("mips_topk").items():
         kernel = next((kern for kern in MIPS_KERNELS if kern in name), None)
         found = tiling.search(name)
         if kernel and found:
-            vec, bm, bn, tm, tn, bk, st = found.groups()
-            kernel += f" {'16B' if vec == '1' else '4B'} {bm}x{bn} {tm}x{tn} bk{bk} s{st}"
+            vec, i8, bm, bn, tm, tn, bk, st = found.groups()
+            kernel += f" {'16B' if vec == '1' else '4B'} {'int8' if i8 == '1' else 'f32'} {bm}x{bn} {tm}x{tn} bk{bk} s{st}"
         if kernel:
             out[kernel] = rec
     log(f"  kernel B's kernels (ptxas registers and spill bytes): {out}")
     if not all(any(name.startswith(kern) for name in out) for kern in MIPS_KERNELS):
         fail(f"kernel B's build lacks one of {MIPS_KERNELS}: {sorted(out)}")
+    if sum(" int8 " in name for name in out) != 6:
+        fail(f"kernel B's build lacks its six int8 score GEMMs: {sorted(out)}")
     return out
 
 
@@ -512,8 +554,13 @@ def check_mips_kernel(dev, flush):
             err = max(err, check_mips(queries, items, 500, n_valid, f"kernel B q={q} d={d} n={n} k=500"))
         timed.append(time_mips(mips_topk_fused, mips_topk, queries, items, k, n_valid, flush, exclude))
         del queries, items, exclude
+    f32_768, err_768, int8_entry = check_mips_768(dev, flush)
+    timed += f32_768
+    err = max(err, err_768)
     main_shape = timed[0]
-    return {
+    ptxas = mips_ptxas()
+    int8_entry["ptxas"] = {name: rec for name, rec in ptxas.items() if " int8 " in name}
+    return [{
         "name": "mips_topk_fused",
         "route": "cuda",
         "source": "anncur_tpu_torch/csrc/mips_topk.cu",
@@ -523,7 +570,48 @@ def check_mips_kernel(dev, flush):
         "max_abs_err": err,
         **{key: main_shape[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "shapes": timed,
-        "ptxas": mips_ptxas(),
+        "ptxas": {name: rec for name, rec in ptxas.items() if " int8 " not in name},
+    }, int8_entry]
+
+
+# kernel B at the bi-encoder's width (phase 7), over f32 rows and int8 rows:
+# (q, d, n, k): the retrieve-and-rerank search batch, one text, and an eval
+# batch of 256 over ZeShEL-military's entity count
+MIPS_768_SHAPES = ((32, 768, 10000, 64), (1, 768, 104520, 100), (256, 768, 104520, 100))
+
+
+def check_mips_768(dev, flush):
+    """Kernel B and its int8 entry at MIPS_768_SHAPES: each against its
+    plain version and timed. The int8 rows are the f32 rows quantised
+    (``quantize_items``). Returns (the f32 timings, the f32 error, the int8
+    entry's kernels-line record without launches)."""
+    from anncur_tpu_torch.ops.mips import mips_topk
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
+    from anncur_tpu_torch.ops.quantized import mips_topk_int8_plain, quantize_items
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    f32_err = i8_err = 0.0
+    f32_recs, i8_recs = [], []
+    for q, d, n, k in MIPS_768_SHAPES:
+        queries, items = mips_inputs(gen, dev, q, d, n, n)
+        f32_err = max(f32_err, check_mips(queries, items, k, n, f"kernel B q={q} d={d} n={n} k={k} f32"))
+        f32_recs.append(time_mips(mips_topk_fused, mips_topk, queries, items, k, n, flush))
+        qitems = quantize_items(items)
+        del items
+        i8_err = max(i8_err, check_mips(queries, qitems, k, n, f"kernel B q={q} d={d} n={n} k={k} int8", int8=True))
+        i8_recs.append(time_mips(mips_topk_int8_fused, mips_topk_int8_plain, queries, qitems, k, n, flush))
+        del queries, qitems
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
+    return f32_recs, f32_err, {
+        "name": "mips_topk_int8_fused",
+        "route": "cuda",
+        "source": "anncur_tpu_torch/csrc/mips_topk.cu",
+        "replaces": "anncur_tpu/ops/mips_pallas.py:116",  # _mips_kernel, whose score GEMM it instantiates for int8
+        "also_replaces": "anncur_tpu/ops/quantized.py:54",  # mips_topk_int8, an XLA scan in the JAX package
+        "kernels": list(MIPS_KERNELS),
+        "max_abs_err": i8_err,
+        **{key: i8_recs[0][key] for key in keys},
+        "shapes": i8_recs,
     }
 
 
@@ -540,10 +628,11 @@ def bound(nbytes, ops, dtype):
 
 def _wrappers():
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq
-    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
 
     return {"attention_fwd": attention, "attention_bwd_dkv": attention_bwd_dkv,
-            "attention_bwd_dq": attention_bwd_dq, "mips_topk_fused": mips_topk_fused}
+            "attention_bwd_dq": attention_bwd_dq, "mips_topk_fused": mips_topk_fused,
+            "mips_topk_int8_fused": mips_topk_int8_fused}
 
 
 def reset_counts():
@@ -805,19 +894,12 @@ def oracle_recalls(dev):
     return out
 
 
-def phase_adaptive(retriever, train, spec, dev, rng):
-    from anncur_tpu_torch.core.adaptive_fused import ridge_weights, split_rounds
-    from anncur_tpu_torch.indexer.score_matrix import padded_pair_len
-
-    lm, n_items = retriever.max_query_len, retriever.item_tokens.shape[0]
-    top_k, n_q = 10, ADAPTIVE_QUERIES
-    qtoks = rng.integers(1, spec.vocab_size, size=(n_q, lm)).astype(np.int32)
-    train_dev = torch.as_tensor(train, device=dev)  # device-resident, as a server keeps it
-
-    def call(kw):
-        return retriever.query_tokens_adaptive_fused(qtoks, top_k=top_k, train_scores=train_dev, return_stats=True, **kw)
-
-    # warm call, recording every CE call the engine makes
+def recorded_adaptive_call(retriever, call, kw, n_q, top_k):
+    """One ``call(kw)`` of query_tokens_adaptive_fused, recording every CE
+    call the engine makes: fails unless each query scored exactly the
+    budget's distinct real items and the answer is the top-k of their exact
+    scores. Returns (scores, ids, scored ids, their exact scores)."""
+    n_items = retriever.item_tokens.shape[0]
     seen, make_scorer = [], retriever._adaptive_scorer
 
     def recording(qt, items):
@@ -832,24 +914,41 @@ def phase_adaptive(retriever, train, spec, dev, rng):
 
     retriever._adaptive_scorer = recording
     try:
-        scores, ids, _ = call(ADAPTIVE)
+        scores, ids, _ = call(kw)
     finally:
         del retriever._adaptive_scorer  # the class's method again
     torch.cuda.synchronize()
     scored = torch.cat([i for i, _ in seen], dim=1)[:n_q]
     vals = torch.cat([v for _, v in seen], dim=1)[:n_q].float()
     distinct = [len(set(row)) for row in scored.tolist()]
+    budget = kw["total_budget"]
     log(f"  warm call: {len(seen)} CE stages of widths {[i.shape[1] for i, _ in seen]}; scored ids per query "
         f"{scored.shape[1]}, distinct {min(distinct)}-{max(distinct)}, max id {int(scored.max())}")
-    if scored.shape[1] != ADAPTIVE["total_budget"] or min(distinct) != ADAPTIVE["total_budget"] or int(scored.max()) >= n_items:
-        fail("the adaptive engine did not score exactly 210 distinct real items per query")
+    if scored.shape[1] != budget or min(distinct) != budget or int(scored.max()) >= n_items:
+        fail(f"the adaptive engine did not score exactly {budget} distinct real items per query")
     if scores.shape != (n_q, top_k) or not np.isfinite(scores).all() or not (np.diff(scores, axis=1) <= 0).all():
         fail("adaptive result has the wrong shape, non-finite or unsorted scores")
     # the answer is the top-10 of the exact scores of everything scored
     want_s, order = torch.sort(vals, dim=1, descending=True, stable=True)
     if not (np.array_equal(want_s[:, :top_k].cpu().numpy(), scores)
             and np.array_equal(torch.gather(scored, 1, order[:, :top_k]).cpu().numpy(), ids)):
-        fail("the adaptive answer is not the top-10 of the exact scores it paid for")
+        fail(f"the adaptive answer is not the top-{top_k} of the exact scores it paid for")
+    return scores, ids, scored, vals
+
+
+def phase_adaptive(retriever, train, spec, dev, rng):
+    from anncur_tpu_torch.core.adaptive_fused import ridge_weights, split_rounds
+    from anncur_tpu_torch.indexer.score_matrix import padded_pair_len
+
+    lm, n_items = retriever.max_query_len, retriever.item_tokens.shape[0]
+    top_k, n_q = 10, ADAPTIVE_QUERIES
+    qtoks = rng.integers(1, spec.vocab_size, size=(n_q, lm)).astype(np.int32)
+    train_dev = torch.as_tensor(train, device=dev)  # device-resident, as a server keeps it
+
+    def call(kw):
+        return retriever.query_tokens_adaptive_fused(qtoks, top_k=top_k, train_scores=train_dev, return_stats=True, **kw)
+
+    scores, ids, scored, vals = recorded_adaptive_call(retriever, call, ADAPTIVE, n_q, top_k)
 
     reset_counts()
     base_s = timed_calls(lambda: call(ADAPTIVE), 3)
@@ -905,7 +1004,247 @@ def phase_adaptive(retriever, train, spec, dev, rng):
     return {"qps": qps, "ce_pairs_per_s": n_q * 210 / base_dt, "seconds": base_s, "early_stop_qps": es_qps,
             "early_stop_seconds": es_s, "early_stop_avg_budget": es_stats["avg_budget"], "launches": counts,
             "launches_base_calls": base_counts, "launches_early_stop_calls": es_counts, "mips_err": mips_err,
-            "ce_err": ce_err, "recall": recalls}
+            "ce_err": ce_err, "recall": recalls, "qtoks": qtoks, "train_dev": train_dev}
+
+
+RERANK_MENTIONS = 1024  # cut this, never the widths, if the run nears its limit
+RERANK = dict(top_k=64, batch_size=64)  # tools/scale_drive_tpu.py's config #4
+
+
+def phase_retrieve_rerank(retriever, spec, dev, rng):
+    """The bi-encoder retrieve-and-rerank baseline on phase 4's corpus and CE."""
+    import tempfile
+
+    from anncur_tpu_torch.core.metrics import topk_overlap_frac
+    from anncur_tpu_torch.evalx.retrieve_rerank import embed_tokenized, run_retrieve_rerank_eval
+    from anncur_tpu_torch.indexer.score_matrix import make_pair_scorer
+    from anncur_tpu_torch.models.biencoder import BiEncoder
+    from anncur_tpu_torch.ops.dense_index import DenseIndex
+    from anncur_tpu_torch.ops.quantized import quantize_items
+
+    with open(os.path.join(ROOT, "configs", "el_zeshel_bi_enc.json")) as fin:
+        cfg = json.load(fin)
+    bienc = BiEncoder(spec, cfg["pooling_type"], cfg["bi_enc_type"], cfg["embed_dim"], cfg["add_linear_layer"],
+                      torch.bfloat16, device=dev, seed=1)
+    ce, ents = retriever.encoder, retriever.item_tokens
+    n_m, n_e, k = RERANK_MENTIONS, ents.shape[0], RERANK["top_k"]
+    ments = rng.integers(1, spec.vocab_size, size=(n_m, cfg["max_input_len"])).astype(np.int32)
+    gt = rng.integers(0, n_e, size=n_m)
+    run_retrieve_rerank_eval(bienc, ce, ments[:64], ents[:512], gt[:64] % 512, **RERANK)  # warm
+    torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as res_dir:
+        reset_counts()
+        t0 = time.perf_counter()
+        res = run_retrieve_rerank_eval(bienc, ce, ments, ents, gt, res_dir=res_dir, **RERANK)
+        dt = time.perf_counter() - t0
+        # the same embeddings, searched in an int8 index as well
+        label_emb = embed_tokenized(bienc, ents, RERANK["batch_size"], "label")
+        ment_emb = embed_tokenized(bienc, ments, RERANK["batch_size"], "input")
+        _, q_ids = DenseIndex(label_emb, quantize=True, device=dev).search(ment_emb, k)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        with open(os.path.join(res_dir, "bienc_topk_preds.txt")) as fin:
+            bi = json.load(fin)
+        with open(os.path.join(res_dir, "crossenc_topk_preds_w_bienc_retrvr.txt")) as fin:
+            reranked = np.asarray(json.load(fin)["scores"], np.float32)
+    bi_ids = np.asarray(bi["indices"])
+    sec = res["seconds"]
+    mps = n_m / dt
+    embed_sps = (n_e + n_m) / (sec["embed_entities"] + sec["embed_mentions"])
+    rerank_pps = n_m * k / sec["rerank"]
+    log(f"  retrieve-and-rerank {n_m} mentions over {n_e} entities, top {k}: {dt:.3f} s, {mps:.2f} mentions/s; "
+        f"embed {embed_sps:.1f} seqs/s ({sec['embed_entities']:.3f} + {sec['embed_mentions']:.3f} s); search "
+        f"{sec['search'] * 1e3:.3f} ms (host clock, copies included); rerank {rerank_pps:.1f} CE pairs/s "
+        f"({sec['rerank']:.3f} s); metrics {res['bienc']} / {res['crossenc']}; launches {counts}")
+    if bi_ids.shape != (n_m, k) or reranked.shape != (n_m, k) or not np.isfinite(reranked).all():
+        fail("retrieve-and-rerank returned the wrong shapes or non-finite scores")
+    if counts["attention_fwd"] == 0 or counts["mips_topk_fused"] != 1 or counts["mips_topk_int8_fused"] != 1:
+        fail(f"retrieve-and-rerank did not run kernel A, kernel B once and its int8 entry once: {counts}")
+
+    # the index's ids against the plain MIPS on the same embeddings, f32
+    # and int8 (the int8 index's own quantisation)
+    ment_t, label_t = torch.as_tensor(ment_emb, device=dev), torch.as_tensor(label_emb, device=dev)
+    mips_err = check_mips(ment_t, label_t, k, n_e, f"kernel B on the bi-encoder's embeddings (q={n_m} d=768 n={n_e})")
+    int8_err = check_mips(ment_t, quantize_items(label_t), k, n_e,
+                          f"kernel B's int8 entry on the bi-encoder's embeddings (q={n_m} d=768 n={n_e})", int8=True)
+    # the towers on the card (kernel A at b=64 s=128, the CLS-only last
+    # layer) against the same towers with the plain attention in every layer
+    embed_err = towers_vs_plain_attention(bienc, ments[:RERANK["batch_size"]], ents[:RERANK["batch_size"]])
+    again = DenseIndex(label_emb, device=dev).search(ment_emb, k)[1]
+    if not np.array_equal(again, bi_ids):
+        fail("the eval's retrieval differs from a search of the same embeddings")
+    overlap = float(topk_overlap_frac(q_ids, bi_ids).mean())
+    log(f"  int8 index top-{k} overlap with the f32 index: {overlap:.4f} (> 0.9)")
+    if not overlap > 0.9:
+        fail(f"the int8 index's top-{k} overlaps the f32 index's by {overlap}")
+    # the rerank scores are the pair scorer's on the same pairs: its first
+    # batch (64 mentions x 64 candidates) again, one code path, the same bits
+    bm = 4096 // k
+    score_pairs = make_pair_scorer(ce, ments.shape[1], ents.shape[1], 128)
+    items = retriever._device_consts()[0]
+    direct = score_pairs(torch.as_tensor(ments[:bm], device=dev), items[torch.as_tensor(bi_ids[:bm], device=dev)])
+    if not np.array_equal(direct.float().cpu().numpy(), reranked[:bm]):
+        fail("the rerank scores differ from the pair scorer's on the same pairs")
+    log(f"  rerank scores of the first {bm} mentions equal the pair scorer's bit for bit")
+    return {"mentions_per_s": mps, "seconds": dt, "stage_seconds": sec, "embed_seqs_per_s": embed_sps,
+            "search_ms": sec["search"] * 1e3, "rerank_pairs_per_s": rerank_pps, "launches": counts,
+            "mips_err": mips_err, "int8_err": int8_err, "embed_err": embed_err, "int8_overlap": overlap,
+            "metrics": {"bienc": res["bienc"], "crossenc": res["crossenc"]}}
+
+
+def towers_vs_plain_attention(bienc, ments, ents):
+    """max over rows of ||kernel - plain|| / ||plain|| of the input tower's
+    embeddings of ``ments`` and the label tower's of ``ents``, the plain
+    ones with the plain attention in every layer; the towers with SDPA in
+    every layer set the yardstick (EMBED_VS_SDPA)."""
+    from anncur_tpu_torch.models import bert
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+
+    dev = bienc.device
+    ments, ents = torch.as_tensor(ments, device=dev), torch.as_tensor(ents, device=dev)
+
+    def embeds(attn):
+        bert.attention = attn
+        try:
+            return bienc.encode_input(ments).float(), bienc.encode_label(ents).float()
+        finally:
+            bert.attention = attention
+
+    def dist(got, want):
+        return max(float(((g - w).norm(dim=1) / w.norm(dim=1)).max()) for g, w in zip(got, want))
+
+    plain = embeds(attention_plain)
+    err, sdpa_err = dist(embeds(attention), plain), dist(embeds(sdpa_attention), plain)
+    log(f"  bi-encoder embeddings of {ments.shape[0]} mentions and entities vs plain attention, max row "
+        f"||diff|| / ||plain||: kernel A {err:.3e}, SDPA {sdpa_err:.3e} (tol {EMBED_VS_SDPA} x SDPA's)")
+    if not err <= EMBED_VS_SDPA * sdpa_err:
+        fail(f"the bi-encoder's embeddings differ from the plain-attention towers' by {err}, SDPA's by {sdpa_err}")
+    return err
+
+
+def sdpa_attention(q, k, v, key_valid):
+    """``ops/attention.py::attention``'s contract on SDPA: (b, g, nh, hd)."""
+    out = torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=key_valid[:, None, None, :]
+    )
+    return out.transpose(1, 2)
+
+
+AXN = dict(ADAPTIVE, method="axn")  # default rank: every train row (500), so kernel B scores 501-wide rows
+AXN_EARLY_STOP = dict(EARLY_STOP, method="axn")
+AXN_ORACLE_RANKS = {"trained_ce_matrix.npz": 30, "trained_ce_matrix_hard.npz": 500}  # the JAX sweep's axn_r5
+HOST_ADAPTIVE = dict(total_budget=100, n_rounds=3)
+HOST_QUERIES = 8
+
+
+def phase_axn(retriever, qtoks, train_dev, dev):
+    """AXN serving and host ADACUR on phase 4's retriever, phase 6's queries."""
+    from anncur_tpu_torch.core import retriever as retriever_mod
+    from anncur_tpu_torch.core.adaptive_fused import adaptive_recall_oracle, axn_item_side, axn_query_side, split_rounds
+    from anncur_tpu_torch.core.axn import fit_item_embeddings_cached
+
+    n_items = retriever.item_tokens.shape[0]
+    top_k, n_q = 10, qtoks.shape[0]
+
+    def call(kw):
+        return retriever.query_tokens_adaptive_fused(qtoks, top_k=top_k, train_scores=train_dev, return_stats=True, **kw)
+
+    t0 = time.perf_counter()
+    _, _, scored, vals = recorded_adaptive_call(retriever, call, AXN, n_q, top_k)  # warm: fits the embeddings
+    log(f"  warm AXN call (the f64 SVD fit of the 500 x {n_items} train matrix included): {time.perf_counter() - t0:.3f} s")
+    reset_counts()
+    base_s = timed_calls(lambda: call(AXN), 3)
+    base_counts = read_counts()
+    # one warm early-stop call (its first run pays ~1 s of first use on the
+    # card), then one timed
+    call(AXN_EARLY_STOP)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, _, es_stats = call(AXN_EARLY_STOP)
+    torch.cuda.synchronize()
+    es_dt = time.perf_counter() - t0
+    es_counts = read_counts()
+    rounds = split_rounds(AXN["total_budget"], AXN["n_rounds"])[2]
+    base_dt = statistics.median(base_s)
+    qps, es_qps = n_q / base_dt, n_q / es_dt
+    log(f"  AXN {n_q} queries at 210 over 8 rounds: {', '.join(f'{t:.3f}' for t in base_s)} s by call, median "
+        f"{base_dt:.3f} s, {qps:.2f} q/s; launches of 3 calls {base_counts}")
+    log(f"  AXN early-stop worst case, one call: {es_dt:.3f} s, {es_qps:.2f} q/s; avg_budget {es_stats['avg_budget']}, "
+        f"frac_escalated {es_stats['frac_escalated']}; launches {es_counts}")
+    if base_counts["mips_topk_fused"] != 3 * (rounds - 1) or base_counts["attention_fwd"] == 0:
+        fail(f"an AXN batch did not launch kernel B once per growth round ({rounds - 1}): {base_counts}")
+    es_rounds = (split_rounds(100, 5)[2] - 1) + 8
+    if es_counts["mips_topk_fused"] != es_rounds or es_stats["avg_budget"] != 210.0 or es_stats["frac_escalated"] != 1.0:
+        fail(f"the AXN early-stop worst case did not escalate every query through kernel B: {es_counts} {es_stats}")
+
+    # host ADACUR: each query's own 100 scored ids, recorded from the loop
+    captured, calls = [], []
+    host_loop, host_scorer = retriever_mod.adaptive_cur_query, retriever_mod.crossenc_rerank_scores
+
+    def loop(*args, **kw):
+        out = host_loop(*args, **kw)
+        captured.append(out)
+        return out
+
+    def scorer(*args, **kw):
+        out = host_scorer(*args, **kw)
+        calls.append((np.asarray(args[3][0]).copy(), out))
+        return out
+
+    retriever_mod.adaptive_cur_query, retriever_mod.crossenc_rerank_scores = loop, scorer
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        h_scores, h_ids = retriever.query_tokens_adaptive(qtoks[:HOST_QUERIES], top_k=top_k, **HOST_ADAPTIVE)
+        host_dt = time.perf_counter() - t0
+        host_counts = read_counts()
+    finally:
+        retriever_mod.adaptive_cur_query, retriever_mod.crossenc_rerank_scores = host_loop, host_scorer
+    h_scored = np.asarray(captured[0][2])
+    first, per, _ = split_rounds(HOST_ADAPTIVE["total_budget"], HOST_ADAPTIVE["n_rounds"])
+    # each query's value of each id: from the call of the round that picked it
+    bounds = [0, first] + [first + per * r for r in range(1, len(calls))]
+    h_vals = np.empty(h_scored.shape, np.float32)
+    for r, (ids_r, out_r) in enumerate(calls):
+        pos = {int(j): c for c, j in enumerate(ids_r)}
+        for i in range(h_scored.shape[0]):
+            h_vals[i, bounds[r]:bounds[r + 1]] = [out_r[i, pos[int(j)]] for j in h_scored[i, bounds[r]:bounds[r + 1]]]
+    order = np.argsort(-h_vals, axis=1, kind="stable")[:, :top_k]
+    distinct = [len(set(row)) for row in h_scored.tolist()]
+    log(f"  host ADACUR {HOST_QUERIES} queries at 100 over 3 rounds: {host_dt:.3f} s, {HOST_QUERIES / host_dt:.2f} q/s; "
+        f"{len(calls)} union scorings of {[len(c[0]) for c in calls]} items; scored ids per query {h_scored.shape[1]}, "
+        f"distinct {min(distinct)}-{max(distinct)}; launches {host_counts}")
+    if h_scored.shape != (HOST_QUERIES, HOST_ADAPTIVE["total_budget"]) or min(distinct) != HOST_ADAPTIVE["total_budget"]:
+        fail("host ADACUR did not score exactly 100 distinct items per query")
+    if not (np.array_equal(np.take_along_axis(h_scored, order, 1), h_ids)
+            and np.array_equal(np.take_along_axis(h_vals, order, 1), h_scores)):
+        fail("the host ADACUR answer is not the top-10 of the exact scores it paid for")
+
+    # the last AXN growth round's pick (S = 184 scored) through kernel B vs plain
+    index = fit_item_embeddings_cached(train_dev, min(train_dev.shape), device=dev)  # the served calls' fit
+    n_s = AXN["total_budget"] - split_rounds(AXN["total_budget"], AXN["n_rounds"])[1]
+    w = axn_query_side(index.item_embeds, index.mean, scored[:, :n_s], vals[:, :n_s])
+    items = axn_item_side(index, retriever._padded_n_items())
+    mips_err = check_mips(w, items, AXN["total_budget"] - n_s, n_items,
+                          f"kernel B on an AXN growth round (q={n_q}, d={items.shape[1]}, S={n_s})", exclude=scored[:, :n_s])
+    recalls = {}
+    for name, rank in AXN_ORACLE_RANKS.items():
+        d = np.load(os.path.join(ROOT, "benchmarks", name))
+        scores = np.asarray(d["scores"], np.float32)
+        n_train, n_qo = int(d["n_train"]), int(d["n_q"])
+        full, train = scores[n_train:n_train + n_qo], scores[:n_train]
+        rec = float(np.mean([adaptive_recall_oracle(full, train, 210, 5, seed=s, method="axn", axn_rank=rank, device=dev)
+                             for s in (0, 1, 2)]))
+        log(f"  {name}: AXN (rank {rank}) 210 over 5 rounds recall@10 {rec:.4f}")
+        if not 0.5 < rec <= 1.0:
+            fail(f"AXN oracle recall {rec} on {name} has collapsed")
+        recalls[name] = {"axn_210r5": rec, "axn_rank": rank}
+    counts = {name: base_counts[name] + es_counts[name] + host_counts[name] for name in base_counts}
+    return {"qps": qps, "seconds": base_s, "early_stop_qps": es_qps, "early_stop_seconds": es_dt,
+            "host_qps": HOST_QUERIES / host_dt, "host_seconds": host_dt, "launches": counts,
+            "launches_base_calls": base_counts, "launches_early_stop_calls": es_counts, "launches_host": host_counts,
+            "mips_err": mips_err, "recall": recalls}
 
 
 # --------------------------------------------------------------------- #
@@ -920,6 +1259,7 @@ def main():
     from anncur_tpu_torch.ops import cuda_build
 
     dev = torch.device("cuda", 0)
+    t_start = time.perf_counter()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
@@ -929,16 +1269,16 @@ def main():
     build_s = cuda_build.build()
     log(f"kernels built from {os.path.relpath(cuda_build.CSRC_DIR, ROOT)} in {build_s:.1f} s")
 
-    log("phase 2: kernels vs plain versions")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 2: kernels vs plain versions")
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
     fwd = check_attention(dev, flush)
     lse_err, bwd = check_attention_bwd(dev, flush)
     fwd["lse_rel_err"] = lse_err
-    kernels = [fwd, *bwd, check_mips_kernel(dev, flush)]
+    kernels = [fwd, *bwd, *check_mips_kernel(dev, flush)]
     del flush
     torch.cuda.empty_cache()
 
-    log("phase 3: build (bert-base CE, bf16, random weights from seed 0)")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 3: build (bert-base CE, bf16, random weights from seed 0)")
     spec = BertSpec()
     t0 = time.perf_counter()
     ce = CrossEncoder(spec, cross_enc_type="default", compute_dtype=torch.bfloat16, device=dev, seed=0)
@@ -946,24 +1286,36 @@ def main():
     rng = np.random.default_rng(0)
     build = phase_build(ce, spec, dev, rng)
 
-    log("phase 4: serve (10,000 items, 500 anchors, top-100 rerank, top-10)")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: serve (10,000 items, 500 anchors, top-100 rerank, top-10)")
     serve = phase_serve(ce, spec, dev, rng)
     retriever, train_mat = serve.pop("retriever"), serve.pop("train")
 
-    log("phase 5: train (bert-base CE, bf16, 4 x 64 pairs of 255 tokens per step)")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: train (bert-base CE, bf16, 4 x 64 pairs of 255 tokens per step)")
     del ce  # phase 6 serves through phase 4's retriever, which keeps its CE
     torch.cuda.empty_cache()
     train = phase_train(dev, rng)
 
-    log(f"phase 6: adaptive serve ({ADAPTIVE_QUERIES} queries, budget 210 over 8 rounds, top-10; early stop)")
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: adaptive serve ({ADAPTIVE_QUERIES} queries, budget 210 over 8 rounds, top-10; early stop)")
     adaptive = phase_adaptive(retriever, train_mat, spec, dev, rng)
+    qtoks, train_dev = adaptive.pop("qtoks"), adaptive.pop("train_dev")
 
-    phases = (build, serve, train, adaptive)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: retrieve and rerank (bert-base bi-encoder, seed 1, bf16; {RERANK_MENTIONS} mentions, top 64, CE rerank)")
+    rerank = phase_retrieve_rerank(retriever, spec, dev, rng)
+
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: AXN serve ({ADAPTIVE_QUERIES} queries, 210 over 8, full rank; early stop), oracle recall, host ADACUR")
+    axn = phase_axn(retriever, qtoks, train_dev, dev)
+
+    phases = (build, serve, train, adaptive, rerank, axn)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
         fail("a kernel of the main path was never launched")
-    kernels[-1]["max_abs_err"] = max(kernels[-1]["max_abs_err"], serve["mips_err"], adaptive["mips_err"])
+    mips = next(kern for kern in kernels if kern["name"] == "mips_topk_fused")
+    mips["max_abs_err"] = max(mips["max_abs_err"], serve["mips_err"], adaptive["mips_err"], rerank["mips_err"], axn["mips_err"])
+    int8 = next(kern for kern in kernels if kern["name"] == "mips_topk_int8_fused")
+    int8["max_abs_err"] = max(int8["max_abs_err"], rerank["int8_err"])
+    attn = next(kern for kern in kernels if kern["name"] == "attention_fwd")
+    attn["tower_embed_rel_err"] = rerank["embed_err"]
     summary = {
         "build_pairs_per_s": build["pairs_per_s"],
         "query_qps_cost600": serve["qps"],
@@ -986,8 +1338,26 @@ def main():
         "oracle_recall": adaptive["recall"],
         "launches_adaptive_3_calls": adaptive["launches_base_calls"],
         "launches_early_stop_3_calls": adaptive["launches_early_stop_calls"],
+        "rerank_mentions_per_s": rerank["mentions_per_s"],
+        "rerank_call_s": rerank["seconds"],
+        "rerank_stage_s": rerank["stage_seconds"],
+        "embed_seqs_per_s": rerank["embed_seqs_per_s"],
+        "search_ms": rerank["search_ms"],
+        "rerank_ce_pairs_per_s": rerank["rerank_pairs_per_s"],
+        "rerank_int8_overlap": rerank["int8_overlap"],
+        "rerank_metrics": rerank["metrics"],
+        "launches_retrieve_rerank": rerank["launches"],
+        "axn_qps_b210r8": axn["qps"],
+        "axn_call_s": axn["seconds"],
+        "axn_early_stop_worst_qps": axn["early_stop_qps"],
+        "axn_early_stop_call_s": axn["early_stop_seconds"],
+        "axn_oracle_recall": axn["recall"],
+        "host_adacur_qps_b100r3": axn["host_qps"],
+        "launches_axn_3_calls": axn["launches_base_calls"],
+        "launches_axn_early_stop_call": axn["launches_early_stop_calls"],
         "card": smi,
     }
+    summary["seconds"] = time.perf_counter() - t_start
     log(json.dumps({"summary": summary}))
     log(smi)
     log(json.dumps({"kernels": kernels}))

@@ -269,9 +269,13 @@ def test_matched_recall_budget_matches_jax():
 
 
 def test_axn_and_cuda_defaults_raise():
+    """method='axn' runs (tests/test_torch_axn.py holds it to JAX's), an
+    unknown method raises, and the default device is CUDA."""
     full, train = _matrix(q=4, m=100, n_train=16)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        taf.adaptive_topk_oracle(full, train, 20, 2, method="axn", device="cpu")
+    s, i, scored = taf.adaptive_topk_oracle(full, train, 20, 2, method="axn", device="cpu")
+    assert i.shape == (4, 10) and scored.shape == (4, 20) and all(len(set(r)) == 20 for r in scored.tolist())
+    with pytest.raises(ValueError, match="method"):
+        taf.adaptive_topk_oracle(full, train, 20, 2, method="svd", device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             taf.adaptive_topk_oracle(full, train, 20, 2)
@@ -352,5 +356,6 @@ def test_adaptive_train_guard_and_cache(world):  # noqa: F811
     assert r_t._train_t is None
     _, ids = r_t.query_tokens_adaptive_fused(ment[16:20], total_budget=8, n_rounds=2, top_k=3)
     assert not set(drop) & set(ids.ravel().tolist())
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        r_t.query_tokens_adaptive_fused(ment[16:20], total_budget=8, method="axn")
+    # AXN serving follows the edited corpus too
+    _, ids = r_t.query_tokens_adaptive_fused(ment[16:20], total_budget=8, method="axn")
+    assert ids.shape == (4, 8) and not set(drop) & set(ids.ravel().tolist())

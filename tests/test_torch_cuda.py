@@ -18,7 +18,8 @@ from anncur_tpu_torch.ops.attention import (
     attention_plain,
 )
 from anncur_tpu_torch.ops.mips import mips_topk
-from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
+from anncur_tpu_torch.ops.quantized import QuantizedItems, mips_topk_int8_plain, quantize_items
 
 pytestmark = pytest.mark.cuda
 
@@ -224,15 +225,36 @@ def test_attention_kernels_at_long_s_and_wide_heads(dev, b, s, nh, hd, dtype):
 
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
     q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
-    with pytest.raises(ValueError, match="head dim"):
-        attention(q[..., :8], k[..., :8], v[..., :8], valid)
-    big = torch.zeros(2, 8, 2, 272, device=dev)
+    with pytest.raises(ValueError, match="head dim"):  # the kernel itself: multiples of 16 only
+        attention_fwd(q[..., :8], k[..., :8], v[..., :8], valid)
+    big = torch.zeros(2, 8, 2, 264, device=dev)  # attention() pads below 256 only
     with pytest.raises(ValueError, match="head dim"):
         attention(big, big, big, valid)
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention(q.half(), k.half(), v.half(), valid)
     with pytest.raises(ValueError, match="one CUDA device"):
         attention(q, k, v, valid.cpu())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [8, 24, 72, 200])
+def test_attention_pads_head_dims_that_are_not_multiples_of_16(dev, hd, dtype):
+    """attention() zero-pads q, k, v to the next multiple of 16 with the
+    softmax scale of the real head dim, and slices the output and dQ, dK,
+    dV back: forward and backward against the plain versions at the
+    tolerance of test_attention_kernels_take_every_head_dim, through one
+    launch of each kernel."""
+    for g in (130, 1):
+        q, k, v, valid, lengths = _attn_case(dev, 3, g, 130, 2, hd, dtype, seed=hd + g)
+        before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+        _check_fwd_bwd(q, k, v, valid, lengths, dtype, 2e-2)
+        assert (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+        with torch.no_grad():
+            out = attention(q, k, v, valid)
+        want = attention_plain(q, k, v, valid)
+        rows = _real_rows(g, 130, lengths)
+        assert out.shape == q.shape
+        assert (out.float() - want.float()).abs().amax(dim=(2, 3))[rows].max().item() <= 2e-2
 
 
 def _real_rows(g, s, lengths):
@@ -537,6 +559,132 @@ def test_retriever_adaptive_matches_cpu(dev):
         assert mips_topk_fused.launches == before + picks
         s_h, i_h, st_h = on_cpu.query_tokens_adaptive_fused(qtoks, top_k=10, return_stats=True, **kw)
         assert st_c == st_h
+        scale = float(np.abs(s_h).max())
+        np.testing.assert_allclose(s_c, s_h, rtol=0, atol=1e-5 * scale)
+        gaps = -np.diff(s_h, axis=1)
+        sep = np.ones(s_h.shape, bool)
+        sep[:, :-1] &= gaps > 1e-4 * scale
+        sep[:, 1:] &= gaps > 1e-4 * scale
+        assert sep.mean() > 0.5
+        np.testing.assert_array_equal(i_c[sep], i_h[sep])
+
+
+def _int8_case(dev, q, d, n, seed):
+    """Small-integer f32 queries, int8 values and power-of-two scales:
+    every product, sum and scaling is exact in f32, so kernel and plain
+    version must agree bit for bit, ties included."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    queries = torch.randint(-3, 4, (q, d), generator=gen, device=dev).float()
+    values = torch.randint(-4, 5, (n, d), generator=gen, device=dev).to(torch.int8)
+    scales = torch.pow(2.0, torch.randint(-3, 3, (n, 1), generator=gen, device=dev).float())
+    return queries, QuantizedItems(values, scales)
+
+
+@pytest.mark.parametrize(
+    "q,d,n,n_valid,k,n_ex",
+    [
+        (32, 768, 10000, 10000, 64, 0),  # the retrieve-and-rerank search: 16-byte int8 rows
+        (1, 768, 20000, 20000, 100, 0),  # one text
+        (70, 768, 3000, 2990, 100, 26),  # 64-query tiles, padding and exclusions
+        (5, 24, 1000, 1000, 1, 0),  # d % 16 != 0: converted as loaded, k = 1
+        (9, 40, 2000, 1500, 500, 10),
+        (3, 16, 5000, 5000, 5000, 0),  # k = n_valid: the global sort
+    ],
+)
+def test_mips_int8_kernel_matches_plain(dev, q, d, n, n_valid, k, n_ex):
+    queries, items = _int8_case(dev, q, d, n, seed=n + k + d)
+    exclude = None
+    if n_ex:
+        exclude = mips_topk_int8_plain(queries, items, n_ex, n_valid)[1]
+        k = min(k, n_valid - n_ex)
+    before = (mips_topk_int8_fused.launches, mips_topk_fused.launches)
+    s_k, i_k = mips_topk_int8_fused(queries, items, k, n_valid, exclude)
+    s_p, i_p = mips_topk_int8_plain(queries, items, k, n_valid, exclude)
+    torch.cuda.synchronize()
+    assert (mips_topk_int8_fused.launches, mips_topk_fused.launches) == (before[0] + 1, before[1])
+    assert torch.equal(s_k, s_p) and torch.equal(i_k, i_p)
+    assert int(i_k.max()) < n_valid
+    if exclude is not None:
+        assert not bool((i_k[:, :, None] == exclude[:, None, :]).any())
+
+
+def test_mips_int8_kernel_on_quantized_normal_rows(dev):
+    """Quantised random rows and random queries: scores within 1e-5 of
+    max|score| of the plain version (f32 sums in other orders), and the
+    wrapper refuses f32 values and bad scales."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    items = quantize_items(torch.randn(30000, 768, generator=gen, device=dev))
+    queries = torch.randn(16, 768, generator=gen, device=dev)
+    s_k, i_k = mips_topk_int8_fused(queries, items, 100)
+    s_p, i_p = mips_topk_int8_plain(queries, items, 100)
+    torch.cuda.synchronize()
+    scale = s_p.abs().max().item()
+    assert (s_k - s_p).abs().max().item() <= 1e-5 * scale
+    assert (i_k == i_p).float().mean().item() > 0.9
+    with pytest.raises(ValueError):
+        mips_topk_int8_fused(queries, QuantizedItems(items.values.float(), items.scales), 10)
+    with pytest.raises(ValueError):
+        mips_topk_int8_fused(queries, QuantizedItems(items.values, items.scales.double()), 10)
+
+
+def test_hard_negative_miner_on_the_card_matches_cpu(dev):
+    """get_hard_negs_from_embeds (and its blacklist form) through kernel B
+    equal the CPU answer on small-integer embeddings (exact ties)."""
+    import numpy as np
+
+    from anncur_tpu_torch.train.negatives import get_hard_negs_from_embeds, get_hard_negs_from_embeds_w_blacklist
+
+    rng = np.random.default_rng(0)
+    ments = rng.integers(-2, 3, size=(40, 32)).astype(np.float32)
+    ents = rng.integers(-2, 3, size=(3000, 32)).astype(np.float32)
+    gt = rng.integers(0, 3000, size=40)
+    before = mips_topk_fused.launches
+    got = get_hard_negs_from_embeds(ments, ents, gt, 63, device=dev)
+    assert mips_topk_fused.launches == before + 1
+    np.testing.assert_array_equal(got, get_hard_negs_from_embeds(ments, ents, gt, 63, device="cpu"))
+    black = [rng.choice(3000, 5, replace=False) for _ in range(40)]
+    np.testing.assert_array_equal(
+        get_hard_negs_from_embeds_w_blacklist(ments, ents, black, 20, device=dev),
+        get_hard_negs_from_embeds_w_blacklist(ments, ents, black, 20, device="cpu"),
+    )
+
+
+@pytest.mark.parametrize("quantize", [False, True])
+def test_dense_index_on_the_card_matches_cpu(dev, quantize):
+    """DenseIndex.search through kernel B (f32 or int8) against the CPU
+    index on the same rows: small-integer rows, so scores and ids agree
+    exactly (quantisation keeps them small integers times scales)."""
+    import numpy as np
+
+    from anncur_tpu_torch.ops.dense_index import DenseIndex
+
+    rng = np.random.default_rng(1)
+    rows = rng.integers(-3, 4, size=(5000, 768)).astype(np.float32)
+    queries = rng.integers(-3, 4, size=(33, 768)).astype(np.float32)
+    launches = mips_topk_int8_fused if quantize else mips_topk_fused
+    before = launches.launches
+    s_c, i_c = DenseIndex(rows, quantize=quantize, device=dev).search(queries, 64)
+    assert launches.launches == before + 1
+    s_h, i_h = DenseIndex(rows, quantize=quantize, device="cpu").search(queries, 64)
+    np.testing.assert_array_equal(i_c, i_h)
+    np.testing.assert_allclose(s_c, s_h, rtol=1e-6)
+
+
+def test_retriever_axn_and_host_adaptive_match_cpu(dev):
+    """query_tokens_adaptive_fused(method='axn') (kernel B over [E, mean]
+    once per growth round) and the host ADACUR query_tokens_adaptive on the
+    card against the port's CPU answer on the same world."""
+    import numpy as np
+
+    on_card, qtoks = _serving_world(dev, rank=64)
+    on_cpu, _ = _serving_world("cpu", rank=64)
+    for fn, kw in (("query_tokens_adaptive_fused", dict(total_budget=60, n_rounds=4, method="axn", axn_rank=16)),
+                   ("query_tokens_adaptive", dict(total_budget=60, n_rounds=3))):
+        before = mips_topk_fused.launches
+        s_c, i_c = getattr(on_card, fn)(qtoks, top_k=10, **kw)
+        torch.cuda.synchronize()
+        assert mips_topk_fused.launches == before + (3 if fn.endswith("fused") else 0)
+        s_h, i_h = getattr(on_cpu, fn)(qtoks, top_k=10, **kw)
         scale = float(np.abs(s_h).max())
         np.testing.assert_allclose(s_c, s_h, rtol=0, atol=1e-5 * scale)
         gaps = -np.diff(s_h, axis=1)
