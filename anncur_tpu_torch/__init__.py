@@ -9,11 +9,16 @@ layout and names so each file has an obvious counterpart:
 - ``ops``     : the hand-written CUDA kernels (attention forward and
                 backward, fused MIPS top-k over f32 or int8 items) beside
                 their plain PyTorch versions, the dense index, pinv.
-- ``indexer`` : exact score-matrix build.
+- ``indexer`` : exact score-matrix build, train/test splits, chunk
+                combiners, entity-to-anchor-entity scores.
 - ``core``    : CUR index, the retriever (fixed-anchor, adaptive, host
                 ADACUR), the adaptive engines, AXN.
-- ``evalx``   : bi-encoder retrieve-and-rerank evaluation.
-- ``train``   : cross-encoder training.
+- ``evalx``   : the paper's CUR eval harnesses (transductive, inductive,
+                rank probes, aggregation; plots apart, they need
+                matplotlib) and bi-encoder retrieve-and-rerank.
+- ``train``   : bi-encoder training (in-batch, hard negatives mined with
+                the current towers, distillation) and cross-encoder
+                training.
 - ``data``    : token representation builders (copies).
 
 Nothing here imports ``jax`` or ``anncur_tpu``. Entry points default to

@@ -2,8 +2,8 @@
 bert-base CE forward of a build step, for one cost-600 query batch, for
 one adaptive query batch (budget 210 over 8 rounds, CUR and AXN), for one
 retrieve-and-rerank batch (a bert-base bi-encoder embeds the mentions and
-the corpus, DenseIndex retrieves the top 64, the CE reranks them) and for
-one cross-encoder train step.
+the corpus, DenseIndex retrieves the top 64, the CE reranks them), for
+one cross-encoder train step and for one bi-encoder train step.
 
     python -m anncur_tpu_torch.cli.profile_ce [--pairs 2048] [--queries 32] [--adaptive_queries 128]
 
@@ -11,7 +11,12 @@ Random weights from seed 0, bf16, the shapes of ``chip_smoke.py``:
 256-token pairs for the forward and the query batch; for the train step
 the Trainer at ``configs/el_zeshel_cross_enc.json``'s widths with random
 negatives, 4 micro-batches of one mention x 64 pairs of 255 tokens,
-attention dropout 0 and hidden dropout 0.1. Each section runs once to
+attention dropout 0 and hidden dropout 0.1; for the bi-encoder step the
+Trainer at ``configs/el_zeshel_bi_enc.json``'s widths (separate
+cls_w_lin towers, 16 mentions in 4 micro-batches) with 63 random
+negatives a mention, the shapes of ``chip_smoke.py`` phase 9's hard-negative
+steps (3 tower forwards a micro-batch: 4 mentions, 4 positives, 252
+negatives). Each section runs once to
 warm up, then once under ``torch.profiler`` (CPU + CUDA activities). It
 prints one JSON line per section: the wall time (host clock around work
 that ends in a synchronize), the summed device time of its kernels, the
@@ -114,6 +119,36 @@ def train_step_section(dev, rng) -> dict:
         return profile(lambda: trainer.train_step(state, next(steps)), f"train_step_{pairs}_pairs")
 
 
+def bienc_train_step_section(dev, rng) -> dict:
+    """One bi-encoder Trainer step with 63 negatives a mention."""
+    from anncur_tpu_torch.config import Config
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.biencoder import BiEncoder
+    from anncur_tpu_torch.train.data import EntLinkDataset
+    from anncur_tpu_torch.train.trainer import Trainer
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    cfg = Config.from_json(os.path.join(repo, "configs", "el_zeshel_bi_enc.json"))
+    spec = BertSpec(attention_dropout=0.0, hidden_dropout=0.1)
+    with tempfile.TemporaryDirectory() as res_dir:
+        cfg.update_from_dict({"neg_strategy": "random", "base_res_dir": res_dir, "seed": 0})
+        n_ments, n_ents = 2 * cfg.train_batch_size, 1000
+        data = EntLinkDataset(
+            rng.integers(1, spec.vocab_size, size=(n_ments, cfg.max_input_len)).astype(np.int32),
+            rng.integers(1, spec.vocab_size, size=(n_ents, cfg.max_label_len)).astype(np.int32),
+            rng.integers(0, n_ents, size=n_ments),
+        )
+        bienc = BiEncoder(spec, cfg.pooling_type, cfg.bi_enc_type, cfg.embed_dim, cfg.add_linear_layer,
+                          torch.bfloat16, device=dev, seed=0)
+        trainer = Trainer(cfg, bienc, total_steps=100)
+        state = trainer.init_state()
+        negs = trainer._epoch_negatives(data, state, 0)
+        batches = [trainer._shard_batch(b) for b in trainer._make_batches(data, negs, cfg.train_batch_size, 0)]
+        steps = iter(batches)
+        return profile(lambda: trainer.train_step(state, next(steps)),
+                       f"bienc_train_step_{cfg.train_batch_size}_mentions_{cfg.num_negs}_negs")
+
+
 def rerank_section(dev, ce, item_toks, rng, n_ments) -> dict:
     """One retrieve-and-rerank eval at chip_smoke.py's phase 7 widths: a
     bert-base separate cls_w_lin bi-encoder (seed 1, bf16), ``n_ments``
@@ -198,6 +233,8 @@ def main(argv=None):
     del retriever, ce
     torch.cuda.empty_cache()
     out.append(train_step_section(dev, rng))
+    torch.cuda.empty_cache()
+    out.append(bienc_train_step_section(dev, rng))
     card = torch.cuda.get_device_name(0)
     for rec in out:
         rec["device"] = card

@@ -6,7 +6,8 @@ all queries against ``k_c`` anchor items (``C``, n x k_c), approximate the
 full score matrix as ``C @ U @ R`` with ``U = pinv(C[row_idxs, :])``
 (reference ``CURApprox``, eval/matrix_approx_zeshel.py:19-126), including
 the 'rows'/'cols' latent factorization and the oracle-U variant. Every
-matmul runs in true f32 (TF32 is off package-wide).
+matmul runs in true f32 (``utils/device.py::true_f32``, whatever the caller
+set).
 """
 
 from __future__ import annotations
@@ -21,7 +22,12 @@ import torch
 
 from anncur_tpu_torch.ops.mips import topk_stable
 from anncur_tpu_torch.ops.pinv import auto_rcond, noise_rcond, pinv, pinv_f64
-from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, true_f32
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    with true_f32():
+        return a @ b
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,18 +56,46 @@ class CurIndex:
 
     def reconstruct(self) -> torch.Tensor:
         """Full (n x m) approximate score matrix."""
-        return self.latent_rows @ self.latent_cols
+        return _mm(self.latent_rows, self.latent_cols)
+
+    def _ids(self, idxs) -> torch.Tensor:
+        return _as_long(idxs, self.latent_rows.device)
+
+    def get_rows(self, row_idxs) -> torch.Tensor:
+        """(len(row_idxs), m) rows of the approximation."""
+        return _mm(self.latent_rows[self._ids(row_idxs), :], self.latent_cols)
+
+    def get_cols(self, col_idxs) -> torch.Tensor:
+        """(n, len(col_idxs)) columns of the approximation."""
+        return _mm(self.latent_rows, self.latent_cols[:, self._ids(col_idxs)])
+
+    def get(self, row_idxs, col_idxs) -> torch.Tensor:
+        """The (len(row_idxs), len(col_idxs)) block of the approximation."""
+        return _mm(self.latent_rows[self._ids(row_idxs), :], self.latent_cols[:, self._ids(col_idxs)])
 
     def get_complete_row(self, sparse_rows: torch.Tensor) -> torch.Tensor:
         """(q, k_c) exact scores of new queries against the anchor items ->
         (q, m) approximate scores against all items ('rows' only)."""
         if self.approx_preference != "rows":
             raise ValueError("get_complete_row requires an index built with approx_preference='rows'")
-        return sparse_rows.float() @ self.latent_cols
+        return _mm(_as_f32(sparse_rows, self.latent_cols.device), self.latent_cols)
+
+    def get_complete_col(self, sparse_cols: torch.Tensor) -> torch.Tensor:
+        """Dual: (k_r, c) exact scores of the anchor queries against new
+        items -> (n, c) approximate scores of every query ('cols' only;
+        reference: matrix_approx_zeshel.py:88-98)."""
+        if self.approx_preference != "cols":
+            raise ValueError("get_complete_col requires an index built with approx_preference='cols'")
+        return _mm(self.latent_rows, _as_f32(sparse_cols, self.latent_rows.device))
 
     def topk_in_row(self, sparse_rows: torch.Tensor, k: int):
         """(scores, indices) of the approximate top-k items for new queries."""
         return topk_stable(self.get_complete_row(sparse_rows), k)
+
+    def topk_in_col(self, sparse_cols: torch.Tensor, k: int):
+        """(scores, indices) of the approximate top-k queries for new items,
+        one row per item."""
+        return topk_stable(self.get_complete_col(sparse_cols).T, k)
 
 
 def _as_f32(x, device) -> torch.Tensor:
@@ -138,14 +172,14 @@ def build_cur(
 
     if full_matrix is not None:
         full_matrix = _as_f32(full_matrix, device)
-        u = (_pinv(cols) @ full_matrix) @ _pinv(rows)  # (k_c, k_r)
+        u = _mm(_mm(_pinv(cols), full_matrix), _pinv(rows))  # (k_c, k_r)
     else:
         u = _pinv(cols[row_idxs, :])  # (k_c, k_r)
 
     if approx_preference == "rows":
-        latent_rows, latent_cols = cols, u @ rows
+        latent_rows, latent_cols = cols, _mm(u, rows)
     elif approx_preference == "cols":
-        latent_rows, latent_cols = cols @ u, rows
+        latent_rows, latent_cols = _mm(cols, u), rows
     else:
         raise ValueError(f"approx_preference={approx_preference!r} not in ('rows','cols')")
     index = CurIndex(latent_rows, latent_cols, row_idxs, col_idxs, approx_preference)
@@ -182,4 +216,38 @@ def load_cur_index(path: str, device: DeviceLike = "cuda") -> CurIndex:
         row_idxs=torch.as_tensor(np.asarray(d["row_idxs"]), device=dev).long(),
         col_idxs=torch.as_tensor(np.asarray(d["col_idxs"]), device=dev).long(),
         approx_preference=d["approx_preference"],
+    )
+
+
+def build_cur_from_matrix(
+    matrix,
+    row_idxs,
+    col_idxs,
+    approx_preference: str = "rows",
+    oracle: bool = False,
+    rcond=None,
+    pinv_impl: str = "auto",
+    device: Optional[DeviceLike] = None,
+) -> CurIndex:
+    """Slice the anchor rows and columns out of a dense matrix and build
+    (``oracle`` passes the whole matrix as ``full_matrix``). The index lives
+    on ``device`` (default: ``matrix``'s device if it is a tensor, else the
+    card)."""
+    if device is None:
+        device = matrix.device if torch.is_tensor(matrix) else "cuda"
+    device = resolve_device(device)
+    matrix = _as_f32(matrix, device)
+    row_idxs = _as_long(row_idxs, device)
+    col_idxs = _as_long(col_idxs, device)
+    return build_cur(
+        rows=matrix[row_idxs, :],
+        cols=matrix[:, col_idxs],
+        row_idxs=row_idxs,
+        col_idxs=col_idxs,
+        approx_preference=approx_preference,
+        full_matrix=matrix if oracle else None,
+        rcond=rcond,
+        validate=False,
+        pinv_impl=pinv_impl,
+        device=device,
     )

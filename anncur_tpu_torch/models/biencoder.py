@@ -7,8 +7,11 @@ parameters in the JAX pytree layout (``input_bert``/``label_bert`` or
 ``(in, out)``) as f32 and computes in ``compute_dtype``; every tower
 forward goes through ``models/bert.py``, so its attention is kernel A on
 the card. For the CLS poolings the last layer runs at CLS only, for
-``spl_tkns`` at the tag positions only (exact). Inference only: the
-encoders run under ``torch.no_grad``.
+``spl_tkns`` at the tag positions only (exact), forward and backward.
+``encode_input``/``encode_label`` serve under ``torch.no_grad``;
+:meth:`BiEncoder._encode` carries gradients for the trainer, with
+dropout when it is given a generator (kernels C and D run the towers'
+attention backward on the card).
 """
 
 from __future__ import annotations
@@ -19,7 +22,16 @@ import numpy as np
 import torch
 from torch import nn
 
-from anncur_tpu_torch.models.bert import BertSpec, bert_encode, init_bert_params, params_module, params_tree
+from anncur_tpu_torch.models.bert import (
+    BertSpec,
+    bert_encode,
+    draw_seeds,
+    dropout,
+    init_bert_params,
+    load_params_,
+    params_module,
+    params_tree,
+)
 from anncur_tpu_torch.models.pooling import _first_position, pool_sequence
 from anncur_tpu_torch.models.special_tokens import ENT_END_ID, ENT_START_ID, ENT_TITLE_ID, NULL_IDX
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, true_f32
@@ -68,7 +80,10 @@ class BiEncoder(nn.Module):
     ``add_linear_layer``: a Linear(hidden -> embed_dim) after pooling.
     ``params``: a JAX-layout tree with numpy leaves (``models/convert.py``
     builds one from a JAX checkpoint); None draws random weights from
-    ``np.random.default_rng(seed)``."""
+    ``np.random.default_rng(seed)``. Each tree key is a submodule of that
+    name, so ``named_parameters`` gives the JAX paths. The parameters do
+    not require grad until a trainer turns them on (``requires_grad_()``).
+    ``remat`` as the CrossEncoder's: False, True (per layer) or 'attn'."""
 
     def __init__(
         self,
@@ -81,6 +96,7 @@ class BiEncoder(nn.Module):
         device: DeviceLike = "cuda",
         params: Optional[Dict[str, Any]] = None,
         seed: int = 0,
+        remat=False,
     ):
         super().__init__()
         if bi_enc_type not in TOWERS:
@@ -97,21 +113,46 @@ class BiEncoder(nn.Module):
         self.embed_dim = embed_dim
         self.add_linear_layer = add_linear_layer
         self.compute_dtype = compute_dtype
+        self.remat = remat
         if params is None:
             params = init_biencoder_params(np.random.default_rng(seed), spec, bi_enc_type, add_linear_layer, embed_dim)
-        heads = HEADS[bi_enc_type] if add_linear_layer else ()
-        if set(params) != set(TOWERS[bi_enc_type] + heads):
-            raise ValueError(f"tree keys {sorted(params)} vs {sorted(TOWERS[bi_enc_type] + heads)}")
-        self.towers = nn.ModuleDict({name: params_module(params[name], self.device) for name in TOWERS[bi_enc_type]})
-        self.heads = nn.ModuleDict({name: params_module(params[name], self.device) for name in heads})
+        self._check_keys(params)
+        for name in self.tree_keys:
+            self.add_module(name, params_module(params[name], self.device))
         self.eval()
+
+    @property
+    def tree_keys(self):
+        """The param tree's top-level keys: towers, then heads."""
+        return TOWERS[self.bi_enc_type] + (HEADS[self.bi_enc_type] if self.add_linear_layer else ())
+
+    def _check_keys(self, tree) -> None:
+        if set(tree) != set(self.tree_keys):
+            raise ValueError(f"tree keys {sorted(tree)} vs {sorted(self.tree_keys)}")
 
     def params_tree(self) -> Dict[str, Any]:
         """The parameters as a JAX-layout tree with f32 numpy leaves."""
-        return {name: params_tree(mod) for name, mod in {**self.towers, **self.heads}.items()}
+        return {name: params_tree(getattr(self, name)) for name in self.tree_keys}
 
-    def _encode(self, token_ids, which: str) -> torch.Tensor:
+    def load_params_(self, tree: Dict[str, Any]) -> "BiEncoder":
+        """Copy a JAX-layout tree into the parameters, in place."""
+        self._check_keys(tree)
+        for name in self.tree_keys:
+            load_params_(getattr(self, name), tree[name])
+        return self
+
+    def _encode(
+        self, token_ids, which: str, train: bool = False, generator: Optional[torch.Generator] = None
+    ) -> torch.Tensor:
+        """(b, embed_dim) f32 embeddings by the ``which`` ('input' or
+        'label') tower; gradients flow as the caller's grad mode says.
+        ``train`` with a ``generator`` turns on dropout: the encoder's, and
+        with a linear head a keep-0.9 dropout on the pooled embedding
+        before it (``anncur_tpu/models/biencoder.py:158-160``); its seed is
+        drawn before the encoder's."""
         token_ids = torch.as_tensor(token_ids, device=self.device)
+        if not train:
+            generator = None
         token_ids, segment_ids, mask = to_bert_input(token_ids)
         shared = self.bi_enc_type == "shared"
         out_positions = None
@@ -122,10 +163,12 @@ class BiEncoder(nn.Module):
                 )
             else:
                 out_positions = _first_position(token_ids, ENT_TITLE_ID)[:, None]
-        tower = self.towers["bert" if shared else f"{which}_bert"]
+        tower = getattr(self, "bert" if shared else f"{which}_bert")
+        head_seed = draw_seeds(generator, 1)[0] if generator is not None and self.add_linear_layer else None
         seq_out, pooled = bert_encode(
             tower, token_ids, segment_ids, mask, self.spec, compute_dtype=self.compute_dtype,
             cls_only=self.pooling_type in ("cls", "cls_w_lin"), out_positions=out_positions,
+            generator=generator, dropout_on=generator is not None, remat=self.remat,
         )
         if self.pooling_type == "spl_tkns":
             # special-token towers (reference: models/biencoder.py:165-173)
@@ -133,7 +176,8 @@ class BiEncoder(nn.Module):
         else:
             emb = pool_sequence(seq_out, pooled, self.pooling_type)
         if self.add_linear_layer:
-            lin = self.heads["linear" if shared else f"{which}_linear"]
+            lin = getattr(self, "linear" if shared else f"{which}_linear")
+            emb = dropout(emb, head_seed, 0.1)
             with true_f32():
                 emb = emb @ lin["kernel"] + lin["bias"]
         return emb

@@ -1,5 +1,5 @@
 """Training: losses, optimizer, negatives, batches, checkpoints and the
-cross-encoder trainer (counterpart of ``anncur_tpu/train``)."""
+bi-encoder and cross-encoder trainer (counterpart of ``anncur_tpu/train``)."""
 
 from anncur_tpu_torch.train.losses import (  # noqa: F401
     bienc_loss_in_batch_negs,

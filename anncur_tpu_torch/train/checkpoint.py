@@ -7,12 +7,16 @@ Format: pickled numpy pytrees + a JSON manifest, the JAX package's.
 
 What crosses packages: a checkpoint's ``params`` are the JAX-layout tree
 with numpy leaves, so a JAX checkpoint's params load into the port
-(``CrossEncoder.load_params_``) and the port's into JAX. The optimizer
-moments (``{"count", "mu", "nu"}`` keyed by parameter path) and the
-generator state (a uint8 array of ``torch.Generator.get_state()``) are the
-port's own leaves and do not cross. Loading a JAX checkpoint here reads
-its JAX-only leaves (typed PRNG keys, optax states) as
-:class:`ForeignLeaf` placeholders without importing JAX or optax.
+(``load_params_`` of either model) and the port's into JAX. The port
+writes its optimizer state as ``{"count", "mu", "nu"}`` with the moments
+keyed by parameter path, and its generator state as a uint8 array of
+``torch.Generator.get_state()``. Loading a JAX checkpoint here reads its
+JAX-only leaves (typed PRNG keys, optax states) as :class:`ForeignLeaf`
+placeholders without importing JAX or optax; :func:`adam_moments` finds
+the Adam count and moments in either layout, so the port resumes a JAX
+run's optimizer (a JAX key cannot seed a torch generator). JAX reads the
+port's params, step and moments as numpy; its optax state classes are
+not written here.
 """
 
 from __future__ import annotations
@@ -56,6 +60,40 @@ def _to_host(tree):
     if isinstance(tree, torch.Generator):
         return tree.get_state().numpy()
     return tree
+
+
+def flat_paths(tree, prefix: str = "") -> Dict[str, Any]:
+    """{JAX path ('input_bert/layers/0/attn/q_kernel'): leaf} of a nested
+    dict/list tree, the names ``train/optimizer.py::named_parameters``
+    gives."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)) and not isinstance(tree, ForeignLeaf):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    out: Dict[str, Any] = {}
+    for key, val in items:
+        out.update(flat_paths(val, f"{prefix}/{key}" if prefix else str(key)))
+    return out
+
+
+def adam_moments(opt_state) -> Tuple[int, Dict[str, Any], Dict[str, Any]]:
+    """(count, mu, nu) of a checkpoint's optimizer state, the moments keyed
+    by parameter path: the port's ``{"count", "mu", "nu"}``, or the Adam
+    state inside a JAX checkpoint's optax chain (a 3-field
+    ``ScaleByAdamState`` read as a :class:`ForeignLeaf` of count and two
+    param trees)."""
+    if isinstance(opt_state, dict) and {"count", "mu", "nu"} <= set(opt_state):
+        return int(opt_state["count"]), dict(opt_state["mu"]), dict(opt_state["nu"])
+    stack = [opt_state]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ForeignLeaf) and len(node) == 3 and all(isinstance(t, dict) for t in node[1:]):
+            return int(node[0]), flat_paths(node[1]), flat_paths(node[2])
+        if isinstance(node, (list, tuple)):
+            stack.extend(reversed(node))
+    raise ValueError("no Adam moments in the checkpoint's opt_state")
 
 
 def save_pytree(path: str, tree: Any, metadata: Optional[Dict] = None) -> None:

@@ -1,11 +1,12 @@
 """Dataset assembly: tokenized tensors + negatives -> train batches.
 
-A numpy copy of the cross-encoder part of ``anncur_tpu/train/data.py``
-(parity with reference utils/data_process.py:466-946, get_ent_link_ce_
-dataset): datasets, world merging, negative mining per epoch, and
-cross-encoder pair batches (pos_pairs, neg_pairs[b,n,2L]). The
-bi-encoder and distillation batch generators wait for the bi-encoder
-(ROADMAP Queue 1 item 10).
+A numpy copy of ``anncur_tpu/train/data.py`` (parity with reference
+utils/data_process.py:466-946, get_dataloader / get_ent_link_dataset /
+get_ent_link_ce_dataset): datasets, world merging, negative mining per
+epoch, bi-encoder batches (input, pos, negs[b,n,L]), cross-encoder pair
+batches (pos_pairs, neg_pairs[b,n,2L]) and distillation batches (top-N
+labels + teacher scores, or triplets). The miners that need MIPS
+(bi-encoder hard negatives) run it on ``device``: kernel B on the card.
 """
 
 from __future__ import annotations
@@ -147,7 +148,7 @@ def mine_negatives(
         )
     if neg_strategy == "tfidf_hard_negs":
         raise NotImplementedError(
-            "tfidf_hard_negs waits for a port of data/tfidf.py (ROADMAP Queue 1 item 13)"
+            "tfidf_hard_negs waits for a port of data/tfidf.py (ROADMAP Queue 1 item 8)"
         )
     if neg_strategy == "precomp":
         if data.score_matrix is None:
@@ -161,6 +162,53 @@ def mine_negatives(
             out[i] = row
         return out
     raise NotImplementedError(f"neg_strategy={neg_strategy!r}")
+
+
+def _batch_order(n: int, shuffle: bool, seed: int) -> np.ndarray:
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    return order
+
+
+def _batch_indices(
+    order: np.ndarray, batch_size: int, drop_remainder: bool, pad_remainder: bool
+) -> Iterator[np.ndarray]:
+    """Row indices of each batch in ``order``. A short tail is dropped
+    (``drop_remainder``, when there is at least one full batch), padded by
+    wrapping round ``order`` (``pad_remainder``: fixed batch shapes; np.resize
+    cycles when ``order`` is shorter than a batch), or yielded as it is
+    (eval: every example exactly once)."""
+    n = len(order)
+    for i in range(0, n, batch_size):
+        idx = order[i : i + batch_size]
+        if len(idx) < batch_size:
+            if drop_remainder and n >= batch_size:
+                return
+            if pad_remainder:
+                idx = np.resize(np.concatenate([idx, order]), batch_size)
+        yield idx
+
+
+def bienc_batches(
+    data: EntLinkDataset,
+    neg_labels: np.ndarray,  # (n_m, n_negs)
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = True,
+    pad_remainder: bool = True,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields {'input': (b,Lm), 'pos': (b,Le), 'negs': (b,n,Le)}, fixed
+    batch shapes by default (the last partial batch dropped or padded by
+    wrapping)."""
+    order = _batch_order(data.n_ments, shuffle, seed)
+    for idx in _batch_indices(order, batch_size, drop_remainder, pad_remainder):
+        yield {
+            "input": data.mention_tokens[idx],
+            "pos": data.entity_tokens[data.gt_labels[idx]],
+            "negs": data.entity_tokens[neg_labels[idx]],
+        }
 
 
 def crossenc_batches(
@@ -178,22 +226,9 @@ def crossenc_batches(
     lm = data.mention_tokens.shape[1]
     le = data.entity_tokens.shape[1]
     lp = lm + le - 1
-    order = np.arange(data.n_ments)
-    if shuffle:
-        np.random.default_rng(seed).shuffle(order)
-    n = data.n_ments
     num_negs = neg_labels.shape[1]
-    for i in range(0, n, batch_size):
-        idx = order[i : i + batch_size]
-        if len(idx) < batch_size:
-            if drop_remainder and n >= batch_size:
-                return
-            # np.resize cycles when n < batch_size — a plain slice of order
-            # underfilled the batch and broke the fixed-shape contract.
-            # pad_remainder=False instead yields the short tail as-is
-            # (eval: every example exactly once, one extra batch shape)
-            if pad_remainder:
-                idx = np.resize(np.concatenate([idx, order]), batch_size)
+    order = _batch_order(data.n_ments, shuffle, seed)
+    for idx in _batch_indices(order, batch_size, drop_remainder, pad_remainder):
         b = len(idx)
         pos_pairs = np.empty((b, lp), np.int32)
         neg_pairs = np.empty((b, num_negs, lp), np.int32)
@@ -203,3 +238,73 @@ def crossenc_batches(
             for t, nl in enumerate(neg_labels[j]):
                 neg_pairs[row, t] = create_input_label_pair(m, data.entity_tokens[nl])
         yield {"pos_pairs": pos_pairs, "neg_pairs": neg_pairs, "first_segment_end": lm}
+
+
+def distill_triplet_batches(
+    data: EntLinkDataset,
+    num_pos_labels: int,
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    input_embeds: Optional[np.ndarray] = None,
+    label_embeds: Optional[np.ndarray] = None,
+    drop_remainder: bool = False,
+    pad_remainder: bool = True,
+    device: DeviceLike = "cuda",
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Triplet-style distillation (reference neg_strategy
+    'top_ce_w_bienc_hard_negs_trp' / 'top_ce_w_rand_negs_trp',
+    data_process.py:810-860): each of a mention's top-``num_pos_labels``
+    teacher-CE labels becomes a (mention, pos, neg) triplet, negatives
+    mined per mention with the current bi-encoder towers' embeddings
+    (MIPS on ``device``) while treating ALL top-CE labels as positives
+    (random-with-blacklist when no embeddings are given). Yields bi-encoder
+    batches with a single negative: {'input': (b,Lm), 'pos': (b,Le),
+    'negs': (b,1,Le)}."""
+    if data.score_matrix is None:
+        raise ValueError("triplet distillation requires a teacher score matrix")
+    top = negs_mod.get_precomputed_ents_w_scores(data.score_matrix, num_pos_labels)
+    pos_idx = top["indices"]  # (n_m, P)
+    if input_embeds is not None and label_embeds is not None:
+        neg_idx = negs_mod.get_hard_negs_from_embeds_w_blacklist(
+            input_embeds, label_embeds, pos_idx, num_pos_labels, device
+        )
+    else:
+        neg_idx = negs_mod.get_random_negs_w_blacklist(
+            data.gt_labels, pos_idx, data.n_ents, num_pos_labels, seed
+        )
+    # expand to n_m * P triplets (reference :833-845)
+    ment_rows = np.repeat(np.arange(data.n_ments), num_pos_labels)
+    pos_flat = pos_idx.reshape(-1)
+    neg_flat = neg_idx.reshape(-1)
+    order = _batch_order(len(ment_rows), shuffle, seed)
+    for idx in _batch_indices(order, batch_size, drop_remainder, pad_remainder):
+        yield {
+            "input": data.mention_tokens[ment_rows[idx]],
+            "pos": data.entity_tokens[pos_flat[idx]],
+            "negs": data.entity_tokens[neg_flat[idx]][:, None, :],
+        }
+
+
+def distill_batches(
+    data: EntLinkDataset,
+    top_n_labels: int,
+    batch_size: int,
+    shuffle: bool = True,
+    seed: int = 0,
+    drop_remainder: bool = False,
+    pad_remainder: bool = True,
+) -> Iterator[Dict[str, np.ndarray]]:
+    """Yields {'input': (b,Lm), 'labels': (b,N,Le), 'target_scores': (b,N)}
+    for bi-encoder distillation from teacher CE scores (reference
+    'top_ce_match' dataset, data_process.py:706-868)."""
+    if data.score_matrix is None:
+        raise ValueError("distillation requires a teacher score matrix")
+    top = negs_mod.get_precomputed_ents_w_scores(data.score_matrix, top_n_labels)
+    order = _batch_order(data.n_ments, shuffle, seed)
+    for idx in _batch_indices(order, batch_size, drop_remainder, pad_remainder):
+        yield {
+            "input": data.mention_tokens[idx],
+            "labels": data.entity_tokens[top["indices"][idx]],
+            "target_scores": top["scores"][idx],
+        }

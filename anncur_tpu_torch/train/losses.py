@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch.nn import functional as F
 
+from anncur_tpu_torch.utils.device import true_f32
+
 
 def _softmax_xent_int_target(scores: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """F.cross_entropy with integer targets, mean reduction."""
@@ -60,8 +62,9 @@ def bienc_loss_in_batch_negs(
 ) -> torch.Tensor:
     """In-batch negatives (reference: compute_loss_w_in_batch_negs,
     models/biencoder.py:604-638). The (b, b) score matmul runs in true f32
-    (TF32 is off package-wide)."""
-    scores = input_embs.float() @ pos_label_embs.float().T
+    (``utils/device.py::true_f32``), whatever the caller set."""
+    with true_f32():
+        scores = input_embs.float() @ pos_label_embs.float().T
     b = scores.shape[0]
     if loss_type == "ce":
         return _softmax_xent_int_target(scores, torch.arange(b, device=scores.device))

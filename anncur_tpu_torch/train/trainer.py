@@ -1,21 +1,24 @@
-"""Cross-encoder training on one device.
+"""Bi-encoder and cross-encoder training on one device.
 
-Counterpart of ``anncur_tpu/train/trainer.py`` for the cross-encoder
-(parity with the reference's PyTorch-Lightning trainer,
-models/pairwise_trainer.py:168-266): gradient accumulation over
-micro-batches averaged into one optimizer step, per-micro-batch dropout
-streams, eval-mode dev evaluation with top-k checkpoints, an end-of-epoch
-checkpoint, and resume.
+Counterpart of ``anncur_tpu/train/trainer.py`` (parity with the
+reference's PyTorch-Lightning trainer, models/pairwise_trainer.py:168-266):
+gradient accumulation over micro-batches averaged into one optimizer step,
+per-micro-batch dropout streams, the bi-encoder's losses (explicit
+negatives, in-batch negatives within each micro-batch, distillation from
+teacher CE scores) and the cross-encoder's, hard negatives re-mined each
+epoch with the current towers (embedded with kernel A, mined with kernel B
+on the card), eval-mode dev evaluation with top-k checkpoints, an
+end-of-epoch checkpoint, and resume.
 
-Not ported yet, and raising ``NotImplementedError`` rather than skipped:
-bi-encoder training (ROADMAP Queue 1 item 10, with ``models/biencoder.py``)
-and a device mesh or tensor parallelism (Queue 1 item 14).
+Not ported yet, and raising ``NotImplementedError``: a device mesh or
+tensor parallelism (ROADMAP Queue 1 item 9).
 
 Randomness: the state's ``rng`` is a CPU ``torch.Generator`` seeded from
 ``Config.seed``. Each step draws one seed per micro-batch off it (JAX
 splits the step key and folds in the micro-batch index), and each
-micro-batch's loss draws its own seeds for the positive and the negative
-forwards; the masks themselves come from generators on the device.
+micro-batch's loss draws its own seeds for its forwards (the bi-encoder's
+input, positive and negative towers; the CE's positive and negative
+pairs); the masks themselves come from generators on the device.
 """
 
 from __future__ import annotations
@@ -30,11 +33,19 @@ import numpy as np
 import torch
 
 from anncur_tpu_torch.config import Config
+from anncur_tpu_torch.evalx.retrieve_rerank import embed_tokenized
 from anncur_tpu_torch.models.bert import draw_seeds
+from anncur_tpu_torch.models.biencoder import BiEncoder, init_biencoder_params
 from anncur_tpu_torch.models.crossencoder import CrossEncoder, init_crossencoder_params
 from anncur_tpu_torch.train import data as data_mod
-from anncur_tpu_torch.train.checkpoint import TopKCheckpointManager, load_pytree
-from anncur_tpu_torch.train.losses import crossenc_loss, mrr_from_scores
+from anncur_tpu_torch.train.checkpoint import TopKCheckpointManager, adam_moments, load_pytree
+from anncur_tpu_torch.train.losses import (
+    bienc_loss_in_batch_negs,
+    bienc_loss_w_negs,
+    crossenc_loss,
+    distill_loss,
+    mrr_from_scores,
+)
 from anncur_tpu_torch.train.optimizer import Optimizer, apply_updates, make_optimizer, named_parameters
 
 LOGGER = logging.getLogger(__name__)
@@ -53,27 +64,29 @@ class TrainState:
 
 
 class Trainer:
-    """Cross-encoder trainer, ``model_type`` 'cross_enc'."""
+    """``model_type`` 'bi_enc' (a :class:`BiEncoder`) or 'cross_enc' (a
+    :class:`CrossEncoder`) with the reference's loss zoo."""
+
+    DISTILL_TRP_STRATEGIES = ("top_ce_w_bienc_hard_negs_trp", "top_ce_w_rand_negs_trp")
 
     def __init__(
         self,
         config: Config,
-        model: CrossEncoder,
+        model,  # BiEncoder | CrossEncoder
         mesh=None,
         total_steps: int = 10000,
         tp_axis: Optional[str] = None,
         tracker=None,
     ):
-        if not isinstance(model, CrossEncoder):
-            raise NotImplementedError(
-                "bi-encoder training is not ported yet (ROADMAP Queue 1 item 10)"
-            )
+        if not isinstance(model, (BiEncoder, CrossEncoder)):
+            raise TypeError(f"Trainer takes a BiEncoder or a CrossEncoder, not {type(model).__name__}")
         if mesh is not None or tp_axis is not None:
             raise NotImplementedError(
-                "mesh / tensor-parallel training is not ported yet (ROADMAP Queue 1 item 14)"
+                "mesh / tensor-parallel training is not ported yet (ROADMAP Queue 1 item 9)"
             )
         self.config = config
         self.model = model
+        self.is_bienc = isinstance(model, BiEncoder)
         self.total_steps = total_steps
         self.tracker = tracker
         self._tx: Optional[Optimizer] = None
@@ -81,6 +94,8 @@ class Trainer:
         self._dev_negs_epoch: Optional[int] = None
         self._dev_negs: Optional[np.ndarray] = None
         self._warned_tail: set = set()
+        self._warned_missing_metric = False
+        self._trp_embed_cache = None
         self._ckpt = TopKCheckpointManager(
             os.path.join(config.result_dir, "model"),
             k=config.num_top_k_ckpts,
@@ -100,9 +115,11 @@ class Trainer:
         state, step 0 and the seeded generator."""
         cfg = self.config
         if params is None:
-            params = init_crossencoder_params(
-                np.random.default_rng(cfg.seed), self.model.spec, self.model.cross_enc_type
-            )
+            m, rng = self.model, np.random.default_rng(cfg.seed)
+            if self.is_bienc:
+                params = init_biencoder_params(rng, m.spec, m.bi_enc_type, m.add_linear_layer, m.embed_dim)
+            else:
+                params = init_crossencoder_params(rng, m.spec, m.cross_enc_type)
         self.model.load_params_(params)
         self.model.requires_grad_(True)
         named = named_parameters(self.model)
@@ -120,11 +137,15 @@ class Trainer:
     # ---------------- losses ------------------------------------------ #
 
     def _loss_fn(self, batch, generator: Optional[torch.Generator], train: bool = True) -> Tuple[torch.Tensor, Dict]:
-        """Cross-encoder loss of one batch. ``train=False`` is the eval
+        """Loss of one batch and its metrics. ``train=False`` is the eval
         forward (no grad, no dropout); ``train=True`` with ``generator=None``
         takes gradients without dropout (JAX's eval-mode ``_loss_fn`` under
-        ``value_and_grad``). The positive and the negative forwards draw
-        their own dropout streams."""
+        ``value_and_grad``). Each forward draws its own dropout stream."""
+        if self.is_bienc:
+            if not train:
+                with torch.no_grad():
+                    return self._bienc_loss(batch, None, False)
+            return self._bienc_loss(batch, generator, True)
         r_pos = r_neg = None
         if train and generator is not None:
             r_pos, r_neg = (torch.Generator().manual_seed(s) for s in draw_seeds(generator, 2))
@@ -136,6 +157,31 @@ class Trainer:
         ).reshape(b, n)
         loss = crossenc_loss(pos_scores, neg_scores, self.config.loss_type)
         return loss, {"loss": loss, "mrr": mrr_from_scores(pos_scores, neg_scores)}
+
+    def _bienc_loss(self, batch, generator: Optional[torch.Generator], train: bool) -> Tuple[torch.Tensor, Dict]:
+        """Distillation (``target_scores``), explicit negatives (``negs``,
+        with the MRR of the positive among them) or in-batch negatives over
+        this batch's (input, pos) rows. The input, positive (or label) and
+        negative forwards draw three independent streams."""
+        cfg, enc = self.config, self.model
+        r_in = r_pos = r_neg = None
+        if generator is not None:
+            r_in, r_pos, r_neg = (torch.Generator().manual_seed(s) for s in draw_seeds(generator, 3))
+        inp = enc._encode(batch["input"], "input", train, r_in)
+        if "target_scores" in batch:
+            b, n, l = batch["labels"].shape
+            lab = enc._encode(batch["labels"].reshape(b * n, l), "label", train, r_pos).reshape(b, n, -1)
+            loss = distill_loss((lab * inp[:, None, :]).sum(2), batch["target_scores"])
+            return loss, {"loss": loss}
+        pos = enc._encode(batch["pos"], "label", train, r_pos)
+        if "negs" in batch:
+            b, n, l = batch["negs"].shape
+            neg = enc._encode(batch["negs"].reshape(b * n, l), "label", train, r_neg).reshape(b, n, -1)
+            loss = bienc_loss_w_negs(inp, pos, neg, cfg.loss_type, cfg.hinge_margin)
+            mrr = mrr_from_scores((inp * pos).sum(1), (neg * inp[:, None, :]).sum(2))
+            return loss, {"loss": loss, "mrr": mrr}
+        loss = bienc_loss_in_batch_negs(inp, pos, cfg.loss_type, cfg.hinge_margin)
+        return loss, {"loss": loss}
 
     # ---------------- train step -------------------------------------- #
 
@@ -201,7 +247,8 @@ class Trainer:
 
     def evaluate(self, state: TrainState, batches: Iterator[Dict]) -> Dict[str, float]:
         """Eval-mode dev metrics: each batch's mean weighted by its size, so
-        a short tail batch counts each example once."""
+        a short tail batch counts each example once; ``dev_mrr`` only where
+        the batches yield one (explicit negatives)."""
         losses, mrrs, weights = [], [], []
         for batch in batches:
             if "first_segment_end" in batch:
@@ -214,11 +261,12 @@ class Trainer:
             loss, aux = self._loss_fn(b, None, train=False)
             losses.append(float(loss))
             weights.append(next(v.shape[0] for v in b.values() if v.dim() > 0))
-            mrrs.append(float(aux["mrr"]))
+            if "mrr" in aux:
+                mrrs.append(float(aux["mrr"]))
         w = np.asarray(weights, np.float64)
         res = {"dev_loss": float(np.average(losses, weights=w)) if losses else float("nan")}
         if mrrs:
-            res["dev_mrr"] = float(np.average(mrrs, weights=w))
+            res["dev_mrr"] = float(np.average(mrrs, weights=w[: len(mrrs)]))
         return res
 
     # ---------------- full loop --------------------------------------- #
@@ -233,14 +281,21 @@ class Trainer:
         }
 
     def _restore(self, state: TrainState, tree: Dict) -> TrainState:
+        """Load a checkpoint of either package into ``state``: params, step
+        and the Adam count and moments; the generator state where the
+        port wrote it (a JAX key leaves the seeded generator as it is)."""
         self.model.load_params_(tree["params"])
-        opt = tree["opt_state"]
-        state.opt_state["count"] = int(opt["count"])
-        for key in ("mu", "nu"):
-            for n, t in state.opt_state.get(key, {}).items():
-                t.copy_(torch.as_tensor(opt[key][n]))
+        count, mu, nu = adam_moments(tree["opt_state"])
+        state.opt_state["count"] = count
+        for key, saved in (("mu", mu), ("nu", nu)):
+            for n, t in state.opt_state[key].items():
+                t.copy_(torch.as_tensor(np.asarray(saved[n])))
         state.step = int(tree["step"])
-        state.rng.set_state(torch.as_tensor(tree["rng"]))
+        rng = tree.get("rng")
+        if isinstance(rng, np.ndarray) and rng.dtype == np.uint8:
+            state.rng.set_state(torch.as_tensor(rng))
+        else:
+            LOGGER.warning("checkpoint rng is not a torch generator state; keeping the seeded generator")
         return state
 
     def train(
@@ -306,16 +361,75 @@ class Trainer:
         LOGGER.info("epoch %d dev: %s", epoch, dev_metrics)
         if self.tracker is not None:
             self.tracker.log(dict(dev_metrics, epoch=epoch), step=state.step)
-        metric_val = dev_metrics["dev_mrr" if cfg.ckpt_metric == "mrr" else "dev_loss"]
+        metric_name = "dev_mrr" if cfg.ckpt_metric == "mrr" else "dev_loss"
+        if metric_name not in dev_metrics:
+            # ckpt_metric='mrr' with in_batch or distillation, whose eval
+            # ranks no candidates: select top-k checkpoints by dev_loss
+            if not self._warned_missing_metric:
+                LOGGER.warning(
+                    "ckpt_metric=%s but eval produced no %s (neg_strategy=%s yields no ranked "
+                    "candidates); selecting top-k checkpoints by dev_loss instead",
+                    cfg.ckpt_metric, metric_name, cfg.neg_strategy,
+                )
+                self._warned_missing_metric = True
+                self._ckpt.metric, self._ckpt.mode = "loss", "min"
+            metric_name = "dev_loss"
+        metric_val = dev_metrics[metric_name]
         if np.isfinite(metric_val):
             self._ckpt.maybe_save(self._checkpoint_tree(state), metric_val, state.step, epoch)
 
-    def _epoch_negatives(self, data, state: TrainState, epoch: int) -> np.ndarray:
+    def _embed(self, data):
+        """(mention, entity) embeddings of ``data`` by the current towers,
+        eval mode (kernel A on the card), as numpy."""
+        bs = self.config.eval_batch_size
+        return (embed_tokenized(self.model, data.mention_tokens, bs, "input"),
+                embed_tokenized(self.model, data.entity_tokens, bs, "label"))
+
+    def _epoch_negatives(self, data, state: TrainState, epoch: int) -> Optional[np.ndarray]:
+        """This epoch's (n_m, num_negs) negatives, None where the batches
+        bring their own (in-batch, distillation). Bi-encoder hard negatives
+        are re-mined with the current towers (reference:
+        EntLinkData.get_bienc_model, pairwise_trainer.py:133-164)."""
         cfg = self.config
-        return data_mod.mine_negatives(data, cfg.neg_strategy, cfg.num_negs, seed=epoch, device=self.device)
+        if self.is_bienc and cfg.neg_strategy in ("in_batch", "top_ce_match") + self.DISTILL_TRP_STRATEGIES:
+            return None
+        embeds = {}
+        if self.is_bienc and cfg.neg_strategy == "bienc_hard_negs":
+            embeds = dict(zip(("input_embeds", "label_embeds"), self._embed(data)))
+        return data_mod.mine_negatives(
+            data, cfg.neg_strategy, cfg.num_negs, seed=epoch, device=self.device, **embeds
+        )
 
     def _make_batches(self, data, neg_labels, batch_size, epoch, shuffle=None, for_eval=False):
-        shuffle = self.config.shuffle_data if shuffle is None else shuffle
+        cfg = self.config
+        shuffle = cfg.shuffle_data if shuffle is None else shuffle
         # eval sees every example exactly once: no tail drop, no wrap-padding
         tail = {"drop_remainder": False, "pad_remainder": False} if for_eval else {}
-        return data_mod.crossenc_batches(data, neg_labels, batch_size, shuffle, epoch, **tail)
+        if not self.is_bienc:
+            return data_mod.crossenc_batches(data, neg_labels, batch_size, shuffle, epoch, **tail)
+        if cfg.neg_strategy == "top_ce_match":
+            # distillation from teacher CE scores (reference 'top_ce_match'
+            # datasets, data_process.py:706-868)
+            return data_mod.distill_batches(data, cfg.distill_n_labels, batch_size, shuffle, epoch, **tail)
+        if cfg.neg_strategy in self.DISTILL_TRP_STRATEGIES:
+            # triplets; the hard variant mines with the current towers (the
+            # model holds them), embedded once per (dataset, epoch) so a
+            # step-level dev eval does not re-embed the corpus each time
+            embeds = (None, None)
+            if cfg.neg_strategy == "top_ce_w_bienc_hard_negs_trp":
+                key = (id(data), epoch)
+                if self._trp_embed_cache is None or self._trp_embed_cache[0] != key:
+                    self._trp_embed_cache = (key, self._embed(data))
+                embeds = self._trp_embed_cache[1]
+            return data_mod.distill_triplet_batches(
+                data, cfg.distill_n_labels, batch_size, shuffle, epoch,
+                input_embeds=embeds[0], label_embeds=embeds[1], device=self.device, **tail,
+            )
+        if neg_labels is None:  # in-batch negatives
+            return (
+                {"input": b["input"], "pos": b["pos"]}
+                for b in data_mod.bienc_batches(
+                    data, np.zeros((data.n_ments, 1), np.int64), batch_size, shuffle, epoch, **tail
+                )
+            )
+        return data_mod.bienc_batches(data, neg_labels, batch_size, shuffle, epoch, **tail)

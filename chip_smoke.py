@@ -63,14 +63,32 @@ Phases, in order; any failure exits non-zero before the result line:
    version, the AXN oracle recall on the trained-CE matrices at 210 over
    5 rounds (the JAX sweep's ranks), and ``query_tokens_adaptive`` (the
    host round loop) on 8 queries at 100 over 3 rounds;
-9. the ``kernels`` line: each kernel's launches on phases 3-8 (counts set
+9. bi-encoder training: the Trainer takes 1 warm and 5 timed steps at
+   ``configs/el_zeshel_bi_enc.json``'s widths (bert-base, separate towers,
+   cls_w_lin, 128-token texts, bf16, all_encoder_layers, 16 mentions in 4
+   micro-batches; attention dropout 0, hidden 0.1; random tokens) with (a)
+   in-batch negatives, (b) 63 hard negatives mined once over 1,024
+   mentions and 10,000 entities (the towers embed through kernel A, kernel
+   B mines) and (c) distillation from the top 64 of
+   ``benchmarks/trained_ce_matrix.npz``; it checks finite losses, the
+   moved and frozen leaves, the attention kernels' launches (12 layers x 2
+   or 3 tower forwards x 4 micro-batches x 5 steps), one micro-batch's loss
+   and gradient norm against the plain attention, and the mined ids
+   against the plain MIPS;
+10. the paper's evals: ``run_transductive_eval`` (cur, cur_oracle) and
+   ``run_inductive_eval`` (cur) on both committed trained-CE matrices,
+   held against the port on the CPU, and ``build_ent_to_ent_scores`` for
+   1,000 random-token entities against 32 k-means++ anchors of phase 9's
+   towers (phase 4's CE, kernel A), a slice against the plain attention;
+11. the ``kernels`` line: each kernel's launches on phases 3-10 (counts set
    to 0 just before each phase and read just after), error and times;
-10. the last line, ``{"ok": true, "device": {...}}``.
+12. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
 
 import functools
+import itertools
 import json
 import math
 import os
@@ -103,6 +121,13 @@ GRAD_RTOL = 2e-2  # kernels C/D grads vs plain autograd, x the plain grad's max 
 LSE_RTOL = 1e-5  # kernel A's f32 log-sum-exp vs torch.logsumexp, sums in another order
 TRAIN_LOSS_ATOL = 2e-2  # bf16 CE loss through 12 layers, kernels vs plain attention
 TRAIN_GNORM_RTOL = 2e-2  # global gradient norm, the same
+# bi-encoder training (phase 9): its logits are dot products of two
+# 768-wide bf16-computed embeddings (|s| ~ 1e2), so rounding moves its loss
+# in proportion to the loss (TRAIN_LOSS_ATOL relative beyond 1) and its
+# gradient as much as any bf16 attention does: the kernels' gradient is held
+# within this many times SDPA's distance from the plain attention's (SDPA
+# itself misses TRAIN_GNORM_RTOL there, 3.7% at in-batch, PERF.md)
+BIENC_VS_SDPA = 2.0
 # ~10 ms of device clock that the card spins before each timed call
 SLEEP_CYCLES = 20_000_000
 # gradients that are 0 in exact arithmetic (a shift under a softmax), so
@@ -149,14 +174,26 @@ def time_ms(fn, reps, flush):
 # --------------------------------------------------------------------- #
 
 
-def attention_inputs(gen, b, g, s, nh, hd, dev):
+def attention_inputs(gen, b, g, s, nh, hd, dev, all_valid=False):
+    """bf16 (q, k, v), the key mask and each pair's key count: random
+    lengths, or every key valid (``all_valid``: random token ids pad
+    nothing, as in the train steps)."""
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
     k, v = rnd(b, s, nh, hd), rnd(b, s, nh, hd)
     lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
+    if all_valid:
+        lengths = torch.full_like(lengths, s)
     key_valid = torch.arange(s, device=dev)[None, :] < lengths[:, None]
     return rnd(b, g, nh, hd), k, v, key_valid, lengths
+
+
+# the bi-encoder towers' training shapes (phase 9: 128-token texts, random
+# tokens, every key valid): a micro-batch's 4 mentions or positives, its
+# 4 x 63 hard negatives, its 4 x 64 distillation labels; the full layer
+# (g=128) and the CLS-only last layer (g=1)
+TOWER_SHAPES = tuple((b, g, 128) for b in (4, 252, 256) for g in (128, 1))
 
 
 def check_attention(dev, flush):
@@ -170,9 +207,11 @@ def check_attention(dev, flush):
     # last layer (phase 7: 64 texts of 128 tokens); then, timed, the
     # build's full layer (2048 pairs per CE forward), its CLS-only final
     # layer and the train layer
-    for b, g, s, reps in ((64, 256, 256, 0), (64, 1, 256, 0), (64, 3, 256, 0), (64, 128, 128, 0), (64, 1, 128, 0),
-                          (2048, 256, 256, 10), (2048, 1, 256, 20), (64, 255, 255, 50)):
-        q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
+    cases = [(64, 256, 256, 0, False), (64, 1, 256, 0, False), (64, 3, 256, 0, False), (64, 128, 128, 0, False),
+             (64, 1, 128, 0, False), (2048, 256, 256, 10, False), (2048, 1, 256, 20, False), (64, 255, 255, 50, False)]
+    cases += [(b, g, s, 30, True) for b, g, s in TOWER_SHAPES]
+    for b, g, s, reps, all_valid in cases:
+        q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, all_valid)
         got = attention(q, k, v, key_valid).float()
         want = attention_plain(q, k, v, key_valid).float()
         # real query rows: all of a 1- or 3-row slice, rows < length of a full layer
@@ -184,7 +223,7 @@ def check_attention(dev, flush):
             fail(f"attention at b={b} g={g} s={s} disagrees with its plain version: {err}")
         max_err = max(max_err, err)
         if reps:
-            timed.append(time_attention(q, k, v, key_valid, lengths, reps, flush))
+            timed.append(time_attention(q, k, v, key_valid, lengths, reps, flush, all_valid))
     main_shape = timed[0]
     return {
         "name": "attention_fwd",
@@ -198,7 +237,7 @@ def check_attention(dev, flush):
     }
 
 
-def time_attention(q, k, v, key_valid, lengths, reps, flush):
+def time_attention(q, k, v, key_valid, lengths, reps, flush, all_valid=False):
     """Kernel A, its plain version and SDPA (masked) on one input, with
     the bound of what these inputs need: q and out whole, k and v at valid
     keys only, the mask; QK^T and PV over valid keys (multiply-add = 2 ops)."""
@@ -218,7 +257,7 @@ def time_attention(q, k, v, key_valid, lengths, reps, flush):
     nbytes = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + key_valid.numel()
     ops = 4 * nh * g * n_keys * hd
     rec = {
-        "shape": f"b={b} g={g} s={s} nh={nh} hd={hd} bf16, random key lengths",
+        "shape": f"b={b} g={g} s={s} nh={nh} hd={hd} bf16, " + ("every key valid" if all_valid else "random key lengths"),
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, **bound(nbytes, ops, "bf16"),
         "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3, "ops_ms": ops / PEAK_OPS["bf16"] * 1e3,
     }
@@ -305,9 +344,7 @@ def bwd_inputs(gen, b, g, s, nh, hd, dev, all_valid):
     random token ids pad nothing); ``rows`` are the rows that reach a loss
     (those below a pair's length in a full layer, all of a 1-row slice),
     and dO is 0 at the others, as in the CE."""
-    q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev)
-    if all_valid:
-        key_valid, lengths = torch.ones_like(key_valid), torch.full_like(lengths, s)
+    q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, all_valid)
     rows = (torch.arange(g, device=dev)[None, :] < (lengths[:, None] if g == s else g)).expand(b, g)
     dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(q.dtype)
     return q, k, v, key_valid, lengths, rows, dout
@@ -386,17 +423,21 @@ def time_bwd_case(case, what, flush):
 def check_attention_bwd(dev, flush):
     """Kernels C and D (and kernel A's lse) against the plain autograd at
     the training shape, 64 pairs of 255 tokens of random key lengths (full
-    layer and CLS-only final layer), then timed there and at the train
-    step's own inputs: the 63 negative pairs and the 1 positive pair of a
-    micro-batch, every key valid."""
+    layer and CLS-only final layer), then timed there and at the CE train
+    step's own inputs (the 63 negative pairs and the 1 positive pair of a
+    micro-batch, every key valid) and at the bi-encoder towers' training
+    shapes (TOWER_SHAPES, every key valid; the g=1 last layer too, and g=2,
+    the input tower's tag rows under spl_tkns, checked)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     s, nh, hd = 255, 12, 64
     errs = {"dkv": 0.0, "dq": 0.0, "lse": 0.0}
     check_bwd_case(bwd_inputs(gen, 64, 1, s, nh, hd, dev, False), errs, f"b=64 g=1 s={s}")
+    check_bwd_case(bwd_inputs(gen, 64, 2, 128, nh, hd, dev, True), errs, "b=64 g=2 s=128, every key valid")
     timed = []
-    for b, all_valid in ((64, False), (63, True), (1, True)):
-        what = f"b={b} g={s} s={s} nh={nh} hd={hd} bf16, " + ("every key valid" if all_valid else "random key lengths")
-        case = bwd_inputs(gen, b, s, s, nh, hd, dev, all_valid)
+    for b, g, s_, all_valid in ((64, s, s, False), (63, s, s, True), (1, s, s, True)) + tuple(
+            (b, g, s_, True) for b, g, s_ in TOWER_SHAPES):
+        what = f"b={b} g={g} s={s_} nh={nh} hd={hd} bf16, " + ("every key valid" if all_valid else "random key lengths")
+        case = bwd_inputs(gen, b, g, s_, nh, hd, dev, all_valid)
         check_bwd_case(case, errs, what)
         timed.append(time_bwd_case(case, what, flush))
     common = {"route": "cuda", "source": "anncur_tpu_torch/csrc/attention_bwd.cu"}
@@ -578,6 +619,9 @@ def check_mips_kernel(dev, flush):
 # (q, d, n, k): the retrieve-and-rerank search batch, one text, and an eval
 # batch of 256 over ZeShEL-military's entity count
 MIPS_768_SHAPES = ((32, 768, 10000, 64), (1, 768, 104520, 100), (256, 768, 104520, 100))
+# the bi-encoder's hard-negative mine (phase 9): every mention against every
+# entity, num_negs + 1 = 64 (f32 rows)
+MINE_SHAPE = (1024, 768, 10000, 64)
 
 
 def check_mips_768(dev, flush):
@@ -601,6 +645,11 @@ def check_mips_768(dev, flush):
         i8_err = max(i8_err, check_mips(queries, qitems, k, n, f"kernel B q={q} d={d} n={n} k={k} int8", int8=True))
         i8_recs.append(time_mips(mips_topk_int8_fused, mips_topk_int8_plain, queries, qitems, k, n, flush))
         del queries, qitems
+    q, d, n, k = MINE_SHAPE
+    queries, items = mips_inputs(gen, dev, q, d, n, n)
+    f32_err = max(f32_err, check_mips(queries, items, k, n, f"kernel B q={q} d={d} n={n} k={k} f32 (the mine)"))
+    f32_recs.append(time_mips(mips_topk_fused, mips_topk, queries, items, k, n, flush))
+    del queries, items
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")
     return f32_recs, f32_err, {
         "name": "mips_topk_int8_fused",
@@ -758,6 +807,17 @@ def phase_serve(ce, spec, dev, rng):
             "retriever": retriever, "train": train}
 
 
+def leaf_check(state, before, frozen, what):
+    """Fails unless every trainable leaf moved (but those whose gradient is
+    0 in exact arithmetic) and no frozen one did; (leaves changed, leaves)."""
+    changed = {n: not torch.equal(p, before[n]) for n, p in state.params.items()}
+    stuck = [n for n, c in changed.items() if n not in frozen and not c and not n.endswith(ZERO_GRAD_LEAVES)]
+    moved_frozen = [n for n in frozen if changed[n]]
+    if stuck or moved_frozen or not frozen:
+        fail(f"{what}: trainable leaves unchanged {stuck}, frozen leaves changed {moved_frozen}, frozen {sorted(frozen)}")
+    return sum(changed.values()), len(changed)
+
+
 def phase_train(dev, rng):
     """Cross-encoder training through the Trainer at the widths of
     configs/el_zeshel_cross_enc.json: bert-base, default head with
@@ -815,12 +875,8 @@ def phase_train(dev, rng):
         f"({', '.join(f'{t:.3f}' for t in step_s)} s/step), {pairs_per_s:.1f} pairs/s; losses {losses}; launches {counts}")
     if not all(math.isfinite(x) for x in losses):
         fail(f"non-finite training loss: {losses}")
-    changed = {n: not torch.equal(p, before[n]) for n, p in state.params.items()}
-    stuck = [n for n, c in changed.items() if n not in frozen and not c and not n.endswith(ZERO_GRAD_LEAVES)]
-    moved_frozen = [n for n in frozen if changed[n]]
-    log(f"  {sum(changed.values())}/{len(changed)} parameter leaves changed; {len(frozen)} frozen (the embeddings)")
-    if stuck or moved_frozen or not frozen:
-        fail(f"trainable leaves unchanged {stuck}, frozen leaves changed {moved_frozen}, frozen {sorted(frozen)}")
+    n_changed, n_leaves = leaf_check(state, before, frozen, "CE")
+    log(f"  {n_changed}/{n_leaves} parameter leaves changed; {len(frozen)} frozen (the embeddings)")
     per_micro = 2 * spec.num_layers  # positive and negative CE forwards, every layer
     want = per_micro * cfg.grad_acc_steps * timed
     if any(counts[k] != want for k in ("attention_fwd", "attention_bwd_dkv", "attention_bwd_dq")):
@@ -1248,6 +1304,320 @@ def phase_axn(retriever, qtoks, train_dev, dev):
 
 
 # --------------------------------------------------------------------- #
+# phase 9: bi-encoder training
+# --------------------------------------------------------------------- #
+
+BIENC_MENTIONS, BIENC_ENTITIES = 1024, 10000  # (b)'s mine; cut these, never the widths
+BIENC_STRATEGIES = (  # (strategy, config, tower forwards per micro-batch)
+    ("in_batch", "el_zeshel_bi_enc.json", 2),
+    ("bienc_hard_negs", "el_zeshel_bi_enc.json", 3),
+    ("top_ce_match", os.path.join("ce_distill", "zeshel_bi_enc_distill.json"), 2),
+)
+
+
+def bienc_micro_vs_plain(trainer, state, batch):
+    """One micro-batch's loss and gradient through the kernels, with the
+    plain attention in every layer and with SDPA in every layer, the same
+    dropout masks. Returns the three losses, the three gradient norms and
+    the distances of the kernels' and SDPA's gradients from the plain one."""
+    from anncur_tpu_torch.models import bert
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+
+    mb = {k: v[0] for k, v in batch.items()}
+
+    def loss_and_grads(attn):
+        bert.attention = attn
+        try:
+            for p in state.params.values():
+                p.grad = None
+            loss, _ = trainer._loss_fn(mb, torch.Generator().manual_seed(7))
+            loss.backward()
+        finally:
+            bert.attention = attention
+        grads = {n: p.grad.float() for n, p in state.params.items() if p.grad is not None}
+        for p in state.params.values():
+            p.grad = None
+        return float(loss.detach()), grads
+
+    def norm(g):
+        return math.sqrt(sum(float((t * t).sum()) for t in g.values()))
+
+    def dist(g, ref):
+        return math.sqrt(sum(float(((g[n] - t) ** 2).sum()) for n, t in ref.items()))
+
+    loss_p, g_p = loss_and_grads(attention_plain)
+    loss_k, g_k = loss_and_grads(attention)
+    out = {"loss": [loss_k, loss_p], "grad_norm": [norm(g_k), norm(g_p)], "grad_dist": dist(g_k, g_p)}
+    del g_k
+    loss_s, g_s = loss_and_grads(sdpa_attention)
+    out.update(sdpa_loss=loss_s, sdpa_grad_norm=norm(g_s), sdpa_grad_dist=dist(g_s, g_p))
+    return out
+
+
+def check_mined_ids(trainer, data, negs, dev):
+    """The mined negatives against the plain MIPS's top 64 on the same
+    embeddings (the towers in eval mode again), id by id where the plain
+    score differs from both neighbours by more than MIPS_TIE_GAP of the
+    largest (as check_mips); no gold id among them."""
+    from anncur_tpu_torch.ops.mips import mips_topk
+
+    inp, lab = trainer._embed(data)
+    k = trainer.config.num_negs + 1
+    s_p, i_p = (t.cpu().numpy() for t in mips_topk(torch.as_tensor(inp, device=dev), torch.as_tensor(lab, device=dev), k))
+    gap = -np.diff(s_p, axis=1) > MIPS_TIE_GAP * np.abs(s_p).max()
+    sep = np.ones(s_p.shape, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    compared = 0
+    for row, (ids, ok, gold) in enumerate(zip(i_p, sep, data.gt_labels)):
+        keep = ids != gold
+        want, want_ok = ids[keep][:k - 1], ok[keep][:k - 1]
+        if not np.array_equal(negs[row][want_ok], want[want_ok]):
+            fail(f"the mined negatives of mention {row} differ from the plain MIPS's at separated scores")
+        compared += int(want_ok.sum())
+    if (negs == data.gt_labels[:, None]).any():
+        fail("a gold id is among the mined negatives")
+    log(f"  mined ids equal the plain MIPS's at {compared}/{negs.size} separated places; no gold id among them")
+    return compared
+
+
+def phase_bienc_train(dev, rng):
+    """Bi-encoder training through the Trainer at configs/el_zeshel_bi_enc.json's
+    widths (bert-base, separate towers, cls_w_lin, 128-token mentions and
+    entities, bf16, all_encoder_layers, lr 1e-5, 16 mentions a step in 4
+    micro-batches), attention dropout 0 and hidden dropout 0.1, random
+    tokens: (a) in-batch negatives, (b) 63 hard negatives mined once over
+    1,024 mentions and 10,000 entities (kernel B), (c) distillation from the
+    committed trained-CE matrix's top 64 (``ce_distill``'s
+    distill_n_labels). 1 warm and 5 timed steps each."""
+    import tempfile
+
+    from anncur_tpu_torch.config import Config
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.biencoder import BiEncoder
+    from anncur_tpu_torch.train.data import EntLinkDataset
+    from anncur_tpu_torch.train.trainer import Trainer
+
+    spec = BertSpec(attention_dropout=0.0, hidden_dropout=0.1)
+    warm, timed = 1, 5
+    teacher = np.asarray(np.load(os.path.join(ROOT, "benchmarks", TRAINED_CE[0]))["scores"], np.float32)
+    out, launches, kept = {}, None, None
+    for strategy, cfg_file, fwd_per_micro in BIENC_STRATEGIES:
+        cfg = Config.from_json(os.path.join(ROOT, "configs", cfg_file))
+        lm, le = cfg.max_input_len, cfg.max_label_len
+        distill = strategy == "top_ce_match"
+        n_m, n_e = (teacher.shape if distill else (BIENC_MENTIONS, BIENC_ENTITIES))
+        data = EntLinkDataset(
+            rng.integers(1, spec.vocab_size, size=(n_m, lm)).astype(np.int32),
+            rng.integers(1, spec.vocab_size, size=(n_e, le)).astype(np.int32),
+            rng.integers(0, n_e, size=n_m), score_matrix=teacher if distill else None,
+        )
+        with tempfile.TemporaryDirectory() as res_dir:
+            cfg.update_from_dict({"neg_strategy": strategy, "base_res_dir": res_dir, "seed": 0})
+            bienc = BiEncoder(spec, cfg.pooling_type, cfg.bi_enc_type, cfg.embed_dim, cfg.add_linear_layer,
+                              torch.bfloat16, device=dev, seed=0)
+            trainer = Trainer(cfg, bienc, total_steps=100)
+            state = trainer.init_state()
+            rec = {}
+            reset_counts()
+            t0 = time.perf_counter()
+            negs = trainer._epoch_negatives(data, state, 0)
+            torch.cuda.synchronize()
+            mine_s = time.perf_counter() - t0
+            mine_counts = read_counts()
+            if strategy == "bienc_hard_negs":
+                t0 = time.perf_counter()
+                trainer._embed(data)
+                embed_s = time.perf_counter() - t0
+                rec.update(mine_s=mine_s, mine_embed_s=embed_s, mine_launches=mine_counts)
+                log(f"  ({strategy}) mine: {mine_s:.3f} s ({data.n_ments} mentions x {data.n_ents} entities; the "
+                    f"embedding alone {embed_s:.3f} s, {(data.n_ments + data.n_ents) * cfg.embed_dim * 4 / 1e6:.1f} MB "
+                    f"of embeddings through the host); launches {mine_counts}")
+                if mine_counts["mips_topk_fused"] != 1 or mine_counts["attention_fwd"] == 0:
+                    fail(f"the hard-negative mine did not embed through kernel A and mine through kernel B once: {mine_counts}")
+                rec["mine_ids_compared"] = check_mined_ids(trainer, data, negs, dev)
+            batches = [trainer._shard_batch(b)
+                       for b in itertools.islice(trainer._make_batches(data, negs, cfg.train_batch_size, 0), warm + timed)]
+            if len(batches) != warm + timed:
+                fail(f"bi-encoder ({strategy}): {len(batches)} batches, not {warm + timed}")
+            trainer.train_step(state, batches[0])  # warm-up: cuBLAS handles
+            torch.cuda.synchronize()
+            before = {n: p.detach().clone() for n, p in state.params.items()}
+            reset_counts()
+            losses, step_s = [], []
+            for batch in batches[warm:]:
+                t0 = time.perf_counter()
+                metrics = trainer.train_step(state, batch)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+            counts = read_counts()
+            if not all(math.isfinite(x) for x in losses):
+                fail(f"bi-encoder ({strategy}): non-finite loss {losses}")
+            n_frozen = len(trainer._tx.frozen)
+            n_changed, n_leaves = leaf_check(state, before, trainer._tx.frozen, f"bi-encoder ({strategy})")
+            want = spec.num_layers * fwd_per_micro * cfg.grad_acc_steps * timed
+            if any(counts[k] != want for k in ("attention_fwd", "attention_bwd_dkv", "attention_bwd_dq")):
+                fail(f"bi-encoder ({strategy}) launched the attention kernels {counts}, not {want} times each")
+            cmp = bienc_micro_vs_plain(trainer, state, batches[0])
+            (loss_k, loss_p), (norm_k, norm_p) = cmp["loss"], cmp["grad_norm"]
+            log(f"  ({strategy}) micro-batch vs plain attention: loss {loss_k:.5f} vs {loss_p:.5f} (SDPA {cmp['sdpa_loss']:.5f}; "
+                f"tol {TRAIN_LOSS_ATOL} x max(1, |loss|)); grad norm {norm_k:.5f} vs {norm_p:.5f} (SDPA "
+                f"{cmp['sdpa_grad_norm']:.5f}); ||g - g_plain||: kernels {cmp['grad_dist']:.5f}, SDPA "
+                f"{cmp['sdpa_grad_dist']:.5f} (tol {BIENC_VS_SDPA} x SDPA's)")
+            if not (abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL * max(1.0, abs(loss_p))
+                    and cmp["grad_dist"] <= BIENC_VS_SDPA * cmp["sdpa_grad_dist"]):
+                fail(f"bi-encoder ({strategy}) training through the kernels disagrees with the plain attention")
+            if strategy == "in_batch":
+                kept = bienc  # phase 10 clusters entities with its towers
+            else:
+                del bienc
+            del trainer, state, before, batches
+        secs = sum(step_s)
+        n_seqs = cfg.train_batch_size * ((2 if strategy == "in_batch" else 2 + cfg.num_negs) if not distill
+                                         else 1 + cfg.distill_n_labels)
+        rec.update({
+            "step_ms": 1e3 * secs / timed, "step_s": step_s, "mentions_per_s": cfg.train_batch_size * timed / secs,
+            "seqs_per_s": n_seqs * timed / secs, "losses": losses, "launches": counts,
+            "vs_plain": cmp,
+        })
+        log(f"  ({strategy}) {timed} steps of {cfg.train_batch_size} mentions ({n_seqs} tower sequences of 128 "
+            f"tokens): {', '.join(f'{t:.3f}' for t in step_s)} s/step; step_ms {rec['step_ms']:.1f}, mentions_per_s "
+            f"{rec['mentions_per_s']:.2f}, seqs_per_s {rec['seqs_per_s']:.1f}; losses {losses}; {n_changed}/{n_leaves} "
+            f"leaves changed, {n_frozen} frozen (both towers' embeddings); launches {counts}")
+        out[strategy] = rec
+        launches = dict(counts) if launches is None else {k: launches[k] + counts[k] for k in counts}
+        launches = {k: launches[k] + mine_counts[k] for k in launches}
+        torch.cuda.empty_cache()
+    return {"strategies": out, "launches": launches, "bienc": kept}
+
+
+# --------------------------------------------------------------------- #
+# phase 10: the paper's evals
+# --------------------------------------------------------------------- #
+
+TRANSDUCTIVE = dict(methods=("cur", "cur_oracle"), n_seeds=3, n_ment_anchors_vals=[100],
+                    n_ent_anchors_vals=[100, 200, 500], top_k_vals=[1, 10, 100], top_k_retvr_vals=[100, 500])
+E2E_ENTITIES, E2E_ANCHORS = 1000, 32  # cut these, never the widths
+EVAL_RECALL_ATOL, EVAL_FROB_ATOL = 0.005, 2e-3  # tests/test_torch_evalx.py (PARITY.md)
+
+
+def results_close(got, want, n_rows, k=1, path=""):
+    """The first path where two result dicts differ beyond the test
+    tolerances, or None: relative Frobenius error 2e-3; overlap metrics
+    0.005 (PARITY.md's, one item in 200 rankings), or what one reordered
+    item in one of the ``n_rows`` rankings of the smallest split moves the
+    statistic where that is more: the mean 1/(k n), the std 1/(k sqrt(n)),
+    the median 1/k (fractions; counts k times that). The card and the CPU
+    round the projection differently, which may swap two items at the
+    retrieval boundary. ``k``: the top-k where the path does not name it."""
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return f"{path}: keys differ"
+        for key in want:
+            bad = results_close(got[key], want[key], n_rows, k, f"{path}/{key}")
+            if bad:
+                return bad
+        return None
+    if path.endswith("approx_error"):
+        return None  # its relative form is held
+    if path.endswith("approx_error_relative"):
+        return None if abs(got - want) <= EVAL_FROB_ATOL else f"{path}: {got} vs {want}"
+    if "exact_vs_reranked" in path:
+        named = re.search(r"top_k=(\d+)", path)
+        k = int(named.group(1)) if named else k
+        one_item = {"mean": 1.0 / (k * n_rows), "std": 1.0 / (k * math.sqrt(n_rows)), "p50": 1.0 / k}
+        tol = max(EVAL_RECALL_ATOL, one_item[path.rsplit("_", 1)[1]]) * (1 if "frac" in path else k)
+        return None if abs(got - want) <= tol else f"{path}: {got} vs {want}"
+    return None if got == want else f"{path}: {got} vs {want}"
+
+
+def phase_evals(retriever, bienc, spec, dev, rng):
+    """run_transductive_eval (cur, cur_oracle) and run_inductive_eval (cur)
+    on both committed trained-CE matrices, on the card and held against the
+    port on the CPU; then the fixed-anchor-entity producer: 1,000
+    random-token entities clustered by phase 9's towers (k-means++, 32
+    anchors) and scored against the anchors by phase 4's CE (32,000 pairs,
+    kernel A), a slice rescored with the plain attention."""
+    import tempfile
+
+    from anncur_tpu_torch.evalx.inductive import run_inductive_eval
+    from anncur_tpu_torch.evalx.retrieve_rerank import embed_tokenized
+    from anncur_tpu_torch.evalx.transductive import run_approx_eval_w_seed, run_transductive_eval
+    from anncur_tpu_torch.indexer.ent2ent import build_ent_to_ent_scores, kmeanspp_anchor_ids
+    from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, build_pairs, padded_pair_len
+
+    out = {}
+    reset_counts()
+    with tempfile.TemporaryDirectory() as res_dir:
+        for name in TRAINED_CE:
+            d = np.load(os.path.join(ROOT, "benchmarks", name))
+            scores = np.asarray(d["scores"], np.float32)
+            n_train, n_q = int(d["n_train"]), int(d["n_q"])
+            t0 = time.perf_counter()
+            trans = run_transductive_eval(scores, os.path.join(res_dir, name, "t"), device=dev, **TRANSDUCTIVE)
+            trans_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            ind = run_inductive_eval(scores[n_train:n_train + n_q], scores[:n_train], os.path.join(res_dir, name, "i"),
+                                     device=dev)
+            ind_s = time.perf_counter() - t0
+            # the card against the CPU: the inductive dict whole; grid points
+            # of the transductive sweep (one seed each, the CPU's sort of
+            # 628 x 10,000 rows takes a second a point)
+            ind_cpu = run_inductive_eval(scores[n_train:n_train + n_q], scores[:n_train],
+                                         os.path.join(res_dir, name, "ic"), device="cpu")
+            bad = results_close(ind, ind_cpu, n_q)
+            for method in TRANSDUCTIVE["methods"]:
+                for n_e in (100, 500):
+                    pt = [run_approx_eval_w_seed(method, scores, 100, n_e, 10, 500, 0, device=x) for x in (dev, "cpu")]
+                    bad = bad or results_close(*pt, 100, 10, f"{method}/anc_n_e={n_e}")
+            if bad:
+                fail(f"{name}: the card's eval differs from the CPU's at {bad}")
+            rec = {"transductive_s": trans_s, "inductive_s": ind_s}
+            for method in TRANSDUCTIVE["methods"]:
+                for kr in (100, 500):
+                    for n_e in TRANSDUCTIVE["n_ent_anchors_vals"]:
+                        cell = trans[method]["top_k=10"][f"k_retvr={kr}"][f"anc_n_m=100~anc_n_e={n_e}"]["all"]
+                        rec[f"{method}_r@10_kr{kr}_ne{n_e}"] = cell["exact_vs_reranked_approx_retvr~common_frac_mean"]
+            for kr in (100, 500):
+                for n_e in (100, 500):
+                    cell = ind["top_k=10"][f"k_retvr={kr}"][f"anc_n_e={n_e}"]
+                    rec[f"inductive_cur_r@10_kr{kr}_ne{n_e}"] = cell["exact_vs_reranked_approx_retvr~common_frac_mean"]
+            bad_vals = [k for k, v in rec.items() if "r@10" in k and not 0.0 <= v <= 1.0]
+            if bad_vals:
+                fail(f"{name}: recall out of [0, 1] at {bad_vals}")
+            log(f"  {name}: transductive (cur, cur_oracle; 100 mention anchors; 100/200/500 entity anchors; "
+                f"top-k 1/10/100; k_retvr 100/500; 3 seeds) {trans_s:.2f} s; inductive cur ({n_train} train, {n_q} "
+                f"test rows, the default grids) {ind_s:.2f} s; equal to the CPU's within the test tolerances")
+            log(f"  {name} recall@10: " + ", ".join(f"{k} {v:.4f}" for k, v in rec.items() if "r@10" in k))
+            out[name] = rec
+
+    # the fixed-anchor-entity producer
+    ce, lm = retriever.encoder, retriever.max_query_len
+    ents = rng.integers(1, spec.vocab_size, size=(E2E_ENTITIES, lm)).astype(np.int32)
+    anchors = kmeanspp_anchor_ids(embed_tokenized(bienc, ents, 64, "label"), E2E_ANCHORS, seed=0)
+    builder = ScoreMatrixBuilder(ce, ment_block=32, ent_block=32, max_pairs_per_program=32768, device=dev)
+    t0 = time.perf_counter()
+    e2e = build_ent_to_ent_scores(builder, ents, anchors)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    counts = read_counts()
+    pairs = build_pairs(torch.as_tensor(ents[:2], device=dev), torch.as_tensor(ents[anchors], device=dev),
+                        padded_pair_len(lm, lm, builder.pair_pad_multiple, spec.max_position_embeddings))
+    plain = rescore_with_plain_attention(ce, pairs, lm).reshape(2, E2E_ANCHORS).float().cpu().numpy()
+    err = float(np.abs(plain - e2e[:2]).max())
+    log(f"  ent2ent {E2E_ENTITIES} x {E2E_ANCHORS} k-means++ anchors ({E2E_ENTITIES * E2E_ANCHORS} CE pairs): "
+        f"{e2e_s:.3f} s, {E2E_ENTITIES * E2E_ANCHORS / e2e_s:.1f} pairs/s; 2 rows vs plain attention max |diff| "
+        f"{err:.3e} (tol {CE_ATOL}); launches {counts}")
+    if e2e.shape != (E2E_ENTITIES, E2E_ANCHORS) or not np.isfinite(e2e).all() or not err <= CE_ATOL:
+        fail("the entity-to-entity scores have the wrong shape, non-finite values or differ from plain attention")
+    if counts["attention_fwd"] == 0:
+        fail("the paper's evals never launched kernel A")
+    return {"matrices": out, "e2e_s": e2e_s, "e2e_pairs_per_s": E2E_ENTITIES * E2E_ANCHORS / e2e_s,
+            "e2e_plain_err": err, "launches": counts}
+
+
+# --------------------------------------------------------------------- #
 
 
 def main():
@@ -1304,8 +1674,16 @@ def main():
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: AXN serve ({ADAPTIVE_QUERIES} queries, 210 over 8, full rank; early stop), oracle recall, host ADACUR")
     axn = phase_axn(retriever, qtoks, train_dev, dev)
+    del train_dev
+    torch.cuda.empty_cache()
 
-    phases = (build, serve, train, adaptive, rerank, axn)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 9: bi-encoder training (bert-base towers, bf16, 16 mentions in 4 micro-batches; in-batch, 63 hard negatives, top-64 distillation)")
+    bienc = phase_bienc_train(dev, rng)
+
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 10: the paper's evals (transductive and inductive CUR on the trained-CE matrices; entity-to-anchor scores)")
+    evals = phase_evals(retriever, bienc.pop("bienc"), spec, dev, rng)
+
+    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
@@ -1355,6 +1733,13 @@ def main():
         "host_adacur_qps_b100r3": axn["host_qps"],
         "launches_axn_3_calls": axn["launches_base_calls"],
         "launches_axn_early_stop_call": axn["launches_early_stop_calls"],
+        "bienc_train": {k: {m: v for m, v in rec.items() if m not in ("launches",)}
+                        for k, rec in bienc["strategies"].items()},
+        "launches_bienc_train": {k: rec["launches"] for k, rec in bienc["strategies"].items()},
+        "paper_evals": evals["matrices"],
+        "e2e_pairs_per_s": evals["e2e_pairs_per_s"],
+        "e2e_s": evals["e2e_s"],
+        "launches_paper_evals": evals["launches"],
         "card": smi,
     }
     summary["seconds"] = time.perf_counter() - t_start

@@ -693,3 +693,179 @@ def test_retriever_axn_and_host_adaptive_match_cpu(dev):
         sep[:, 1:] &= gaps > 1e-4 * scale
         assert sep.mean() > 0.5
         np.testing.assert_array_equal(i_c[sep], i_h[sep])
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("g", [1, 2])
+def test_attention_kernels_at_the_towers_selected_rows(dev, g, dtype, tol):
+    """The bi-encoder towers' last layer under gradients: one query row
+    (CLS, g=1) or the two tag rows of the input tower (g=2) against 128
+    keys. Kernel A forward and kernels C and D backward against the plain
+    attention and its autograd (tolerances as above, x the plain max)."""
+    s = 128
+    q, k, v, valid, lengths = _attn_case(dev, 16, g, s, 12, 64, dtype, seed=300 + g)
+    gen = torch.Generator(device=dev).manual_seed(7 + g)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves, valid)
+    got = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+    want_out = attention_plain(q, k, v, valid)
+    assert (out.float() - want_out.float()).abs().max().item() <= tol * want_out.float().abs().max().item()
+    want = attention_bwd_plain(q, k, v, valid, dout)
+    for name, a, b, sel in (("dq", got[0], want[0], torch.ones(q.shape[:2], dtype=torch.bool, device=dev)),
+                            ("dk", got[1], want[1], valid), ("dv", got[2], want[2], valid)):
+        err = (a.float() - b.float()).abs().amax(dim=(2, 3))[sel].max().item()
+        assert err <= tol * b.float().abs().max().item(), (name, err)
+    assert not got[1][~valid].any() and not got[2][~valid].any()
+
+
+def test_bienc_train_step_through_the_kernels_matches_plain_attention(dev):
+    """One bi-encoder micro-batch with hard negatives (cls_w_lin towers, the
+    CLS-only last layer), bf16, attention dropout 0: the loss and gradient
+    norm through kernels A, C and D against the same step with the plain
+    attention in every layer (same dropout masks); then a Trainer step
+    launches A, C and D 3 x layers x micro-batches times each."""
+    import math
+
+    import numpy as np
+
+    from anncur_tpu_torch.config import Config
+    from anncur_tpu_torch.models import bert
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.biencoder import BiEncoder
+    from anncur_tpu_torch.train.trainer import Trainer
+
+    spec = BertSpec(num_layers=2, attention_dropout=0.0, hidden_dropout=0.1)
+    cfg = Config()
+    cfg.update_from_dict({"model_type": "bi_enc", "neg_strategy": "random", "num_negs": 7, "train_batch_size": 8,
+                          "grad_acc_steps": 2, "type_optimization": "all_encoder_layers"})
+    tr = Trainer(cfg, BiEncoder(spec, "cls_w_lin", "separate", device=dev, seed=3), total_steps=10)
+    state = tr.init_state()
+    rng = np.random.default_rng(0)
+    mb = {"input": torch.as_tensor(rng.integers(1, 30000, (4, 128)), device=dev),
+          "pos": torch.as_tensor(rng.integers(1, 30000, (4, 128)), device=dev),
+          "negs": torch.as_tensor(rng.integers(1, 30000, (4, 7, 128)), device=dev)}
+
+    def loss_and_norm():
+        for p in state.params.values():
+            p.grad = None
+        loss, _ = tr._loss_fn(mb, torch.Generator().manual_seed(5))
+        loss.backward()
+        return float(loss.detach()), math.sqrt(sum(float((p.grad.float() ** 2).sum()) for p in state.params.values()
+                                          if p.grad is not None))
+
+    loss_k, norm_k = loss_and_norm()
+    bert.attention = attention_plain
+    try:
+        loss_p, norm_p = loss_and_norm()
+    finally:
+        bert.attention = attention
+    assert abs(loss_k - loss_p) <= 2e-2 and abs(norm_k - norm_p) <= 2e-2 * norm_p, (loss_k, loss_p, norm_k, norm_p)
+    before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    tr.train_step(state, {k: torch.stack([v, v]) for k, v in mb.items()})
+    torch.cuda.synchronize()
+    want = 3 * spec.num_layers * 2
+    assert (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + want for n in before)
+
+
+def test_hard_negative_miners_at_the_mine_shape_match_plain_mips(dev):
+    """Both miners through kernel B at the hard-negative mine's shape (1,024
+    mentions, 10,000 entities, d=768, k=64; the triplet miner with a
+    16-label blacklist) against the plain MIPS's ids on the card, id by id
+    where the plain score differs from both neighbours by more than 1e-5
+    of the largest (chip_smoke.py's MIPS_TIE_GAP); no gold or blacklisted
+    id among the negatives."""
+    import numpy as np
+
+    from anncur_tpu_torch.train.negatives import get_hard_negs_from_embeds, get_hard_negs_from_embeds_w_blacklist
+
+    rng = np.random.default_rng(2)
+    ments = rng.standard_normal((1024, 768)).astype(np.float32)
+    ents = rng.standard_normal((10000, 768)).astype(np.float32)
+    gt = rng.integers(0, 10000, size=1024)
+    q, it = torch.as_tensor(ments, device=dev), torch.as_tensor(ents, device=dev)
+    scores, ids = (t.cpu().numpy() for t in mips_topk(q, it, 64 + 16))
+    gap = -np.diff(scores, axis=1) > 1e-5 * np.abs(scores).max()
+    sep = np.ones(scores.shape, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+
+    def compare(got, banned, width):
+        """got[r] against the plain ids of row r past its banned ids, at the
+        separated places; returns how many places were compared."""
+        compared = 0
+        for r in range(len(got)):
+            keep = ~np.isin(ids[r], banned[r])
+            want, ok = ids[r][keep][:width], sep[r][keep][:width]
+            np.testing.assert_array_equal(got[r][ok], want[ok])
+            assert not np.isin(got[r], banned[r]).any()
+            compared += int(ok.sum())
+        return compared
+
+    before = mips_topk_fused.launches
+    got = get_hard_negs_from_embeds(ments, ents, gt, 63, device=dev)
+    assert mips_topk_fused.launches == before + 1
+    assert compare(got, gt[:, None], 63) > 0.9 * got.size
+    black = np.stack([rng.choice(ids[i, :20], 16, replace=False) for i in range(1024)])
+    got_b = get_hard_negs_from_embeds_w_blacklist(ments, ents, black, 64, device=dev)
+    assert compare(got_b, black, 64) > 0.9 * got_b.size
+
+
+def test_eval_harnesses_on_the_card_match_cpu(dev):
+    """run_transductive_eval (cur, cur_oracle) and run_inductive_eval (cur)
+    on the card give the CPU's result dicts on a low-rank matrix (recall
+    equal, relative Frobenius error within 2e-3)."""
+    import tempfile
+
+    import numpy as np
+
+    from anncur_tpu_torch.evalx.inductive import run_inductive_eval
+    from anncur_tpu_torch.evalx.transductive import run_transductive_eval
+
+    rng = np.random.default_rng(3)
+    exact = (rng.standard_normal((200, 8)) @ rng.standard_normal((8, 3000))).astype(np.float32)
+    kw = dict(methods=("cur", "cur_oracle"), n_seeds=2, n_ment_anchors_vals=[50], n_ent_anchors_vals=[20, 100],
+              top_k_vals=[1, 10], top_k_retvr_vals=[50, 200])
+    ikw = dict(top_k_vals=[1, 10], n_ent_anchors_vals=[20, 100])
+    with tempfile.TemporaryDirectory() as d:
+        res = [run_transductive_eval(exact, f"{d}/{x}", device=x, **kw) for x in (dev, "cpu")]
+        ind = [run_inductive_eval(exact[150:], exact[:150], f"{d}/i{x}", device=x, **ikw) for x in (dev, "cpu")]
+
+    def close(a, b, path=""):
+        if isinstance(b, dict):
+            assert set(a) == set(b), path
+            for key in b:
+                close(a[key], b[key], f"{path}/{key}")
+        elif "approx_error" in path and "relative" not in path:
+            return
+        elif "relative" in path:
+            assert abs(a - b) <= 2e-3, path
+        else:
+            assert a == b, (path, a, b)
+
+    close(res[0], res[1])
+    close(ind[0], ind[1])
+
+
+def test_in_batch_loss_product_is_true_f32_on_the_card(dev):
+    """bienc_loss_in_batch_negs keeps its (b, b) product in true f32 with
+    TF32 allowed by the caller: equal to a float64 reference at d=768 to
+    f32 resolution (TF32 would keep 10 mantissa bits)."""
+    import numpy as np
+
+    from anncur_tpu_torch.train.losses import bienc_loss_in_batch_negs
+
+    rng = np.random.default_rng(0)
+    a, b = (rng.standard_normal((16, 768)).astype(np.float32) for _ in range(2))
+    s = a.astype(np.float64) @ b.astype(np.float64).T
+    want = np.mean(np.log(np.exp(s - s.max(1, keepdims=True)).sum(1)) + s.max(1) - np.diag(s))
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = float(bienc_loss_in_batch_negs(torch.as_tensor(a, device=dev), torch.as_tensor(b, device=dev)))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -536,11 +536,14 @@ def test_remat_gives_the_same_grads(world, remat, attn_dropout):
 
 
 def test_trainer_refuses_what_is_not_ported(world, tmp_path):
+    """A model that is neither encoder is refused; a mesh is not ported
+    (ROADMAP Queue 1 item 9). Bi-encoder training is ported:
+    tests/test_torch_bienc_train.py."""
     _, tok = world
     _, cfg = _configs(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="BiEncoder or a CrossEncoder"):
         Trainer(cfg, object())
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 9"):
         Trainer(cfg, _tiny_ce(tok), mesh=object())
 
 
