@@ -29,7 +29,7 @@ import dataclasses
 import logging
 import os
 import pickle
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -297,11 +297,15 @@ class CurRetriever:
         arguments override serving knobs."""
         with open(path, "rb") as fin:
             d = pickle.load(fin)
-        if "next_item_id" not in d:
-            LOGGER.warning(
-                "state dict has no next_item_id; id allocator re-derived as "
-                "max(item_ids)+1, which reuses the id of a removed max-id item"
-            )
+        return cls.from_state_dict(d, encoder, tokenizer, **kw)
+
+    @classmethod
+    def from_state_dict(
+        cls, d: Dict, encoder: CrossEncoder, tokenizer: WordPieceTokenizer, **kw
+    ) -> "CurRetriever":
+        """Build from an already unpickled save() dict of either package
+        (state files can carry hundreds of MB of item tokens: a caller that
+        had to look at the format does not unpickle twice)."""
         dev = encoder.device
         index = CurIndex(
             latent_rows=torch.as_tensor(np.asarray(d["latent_rows"], np.float32), device=dev),
@@ -311,7 +315,7 @@ class CurRetriever:
             approx_preference=d["approx_preference"],
         )
         kw.setdefault("device", dev)
-        return cls(
+        retriever = cls(
             encoder=encoder,
             tokenizer=tokenizer,
             item_tokens=np.asarray(d["item_tokens"]),
@@ -324,6 +328,14 @@ class CurRetriever:
             next_item_id=d.get("next_item_id"),
             **kw,
         )
+        if "next_item_id" not in d:
+            # a legacy state without the allocator: max(item_ids) + 1 reuses
+            # the id of a max-id item removed before saving
+            LOGGER.warning(
+                "state dict has no next_item_id; id allocator re-derived as "
+                "max(item_ids)+1, which reuses the id of a removed max-id item"
+            )
+        return retriever
 
     # ---------------- online query ------------------------------------ #
 

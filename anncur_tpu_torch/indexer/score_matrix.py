@@ -327,6 +327,31 @@ class ScoreMatrixBuilder:
         LOGGER.info("score matrix %dx%d built in %.1fs (%.0f pairs/s)", n_m, n_e, dt, n_m * n_e / dt)
         return out
 
+    @torch.no_grad()
+    def paired_embeds(self, ment_tokens: np.ndarray, ent_tokens: np.ndarray):
+        """(n_m, n_e, h) f32 mention and entity contextual embeddings from
+        the joint forward of a 'w_embeds' CE (reference mode=embeds,
+        run_cross_encoder_for_ment_ent_matrix_zeshel.py:126-163). For small
+        n_m only: the output is O(n_m * n_e * h). Entities are chunked,
+        ``ent_block`` pairs per forward, the last chunk zero-padded."""
+        ment_tokens = np.asarray(ment_tokens)
+        n_m, lm = ment_tokens.shape
+        n_e, le = np.shape(ent_tokens)
+        pair_len = padded_pair_len(lm, le, self.pair_pad_multiple, self.encoder.spec.max_position_embeddings)
+        be = max(self.ent_block, 1)
+        ents = torch.zeros((n_e + (-n_e) % be, le), dtype=torch.int32, device=self.device)
+        ents[:n_e] = tokens_on(self.device, ent_tokens)
+        m_out, e_out = [], []
+        for i in range(n_m):
+            ment = tokens_on(self.device, ment_tokens[i : i + 1])
+            parts = [
+                self.encoder.embed_paired(build_pairs(ment, ents[c : c + be], pair_len), first_segment_end=lm)
+                for c in range(0, ents.shape[0], be)
+            ]
+            m_out.append(torch.cat([m for m, _ in parts])[:n_e].float().cpu().numpy())
+            e_out.append(torch.cat([e for _, e in parts])[:n_e].float().cpu().numpy())
+        return np.stack(m_out), np.stack(e_out)
+
 
 # --------------------------------------------------------------------- #
 # on-disk format: the JAX package's pickle schema (reference

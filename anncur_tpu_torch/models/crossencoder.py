@@ -164,7 +164,12 @@ class CrossEncoder(nn.Module):
             emb = dropout(pool_sequence(seq_out, pooled, self.pooling_type), head_seed, 0.1)
             lin = self.score_linear
             return (emb @ lin["kernel"] + lin["bias"])[:, 0]
-        # w_embeds: the final layer runs only at the three tag positions
+        m_emb, e_emb = self._paired(pair_token_ids, first_segment_end, generator)
+        return (m_emb * e_emb).sum(-1)
+
+    def _paired(self, pair_token_ids, first_segment_end, generator):
+        """w_embeds: (mention, entity) embeddings; the final layer runs only
+        at the three tag positions."""
         pos = torch.stack(
             [
                 _first_position(pair_token_ids, ENT_START_ID),
@@ -174,5 +179,12 @@ class CrossEncoder(nn.Module):
             dim=1,
         )
         seq_out, _ = self._bert(pair_token_ids, first_segment_end, out_positions=pos, generator=generator)
-        m_emb = (seq_out[:, 0, :] + seq_out[:, 1, :]) / 2.0
-        return (m_emb * seq_out[:, 2, :]).sum(-1)
+        return (seq_out[:, 0, :] + seq_out[:, 1, :]) / 2.0, seq_out[:, 2, :]
+
+    @torch.no_grad()
+    def embed_paired(self, pair_token_ids, first_segment_end: int):
+        """(mention_embed, entity_embed), each (b, h), from one joint forward
+        (reference: embed_paired_input_and_labels, crossencoder.py:471-484)."""
+        if self.cross_enc_type != "w_embeds":
+            raise ValueError("embed_paired requires cross_enc_type='w_embeds'")
+        return self._paired(torch.as_tensor(pair_token_ids, device=self.device), first_segment_end, None)

@@ -116,7 +116,7 @@ def mine_negatives(
     (reference dispatch: get_ent_link_dataset, data_process.py:629-687).
     On merged multi-world datasets, negatives stay within each mention's
     world (its own entity range). ``device`` runs the bienc_hard_negs
-    MIPS."""
+    and tfidf_hard_negs MIPS."""
     if data.mention_world is not None and data.world_ent_ranges is not None:
         out = np.empty((data.n_ments, num_negs), np.int64)
         for w, (start, end) in enumerate(data.world_ent_ranges):
@@ -147,8 +147,10 @@ def mine_negatives(
             input_embeds, label_embeds, data.gt_labels, num_negs, device
         )
     if neg_strategy == "tfidf_hard_negs":
-        raise NotImplementedError(
-            "tfidf_hard_negs waits for a port of data/tfidf.py (ROADMAP Queue 1 item 8)"
+        if data.mention_texts is None or data.entities is None:
+            raise ValueError("tfidf_hard_negs requires raw texts")
+        return negs_mod.get_hard_negs_tfidf(
+            data.mention_texts, data.entities, data.gt_labels, num_negs, device
         )
     if neg_strategy == "precomp":
         if data.score_matrix is None:

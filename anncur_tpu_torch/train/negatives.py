@@ -5,18 +5,20 @@ utils/data_process.py:272-463): random negatives (excluding the
 positive), random with blacklist, bi-encoder hard negatives (exact MIPS
 over current tower embeddings: kernel B on the card,
 ``ops/mips_kernel.py::mips_topk_fused``, its plain ``mips_topk`` for CPU
-tensors; ties go to the lowest index as ``lax.top_k``'s do), and precomputed
-negatives with scores (for distillation datasets). TF-IDF hard negatives
-wait for a port of ``data/tfidf.py``.
+tensors; ties go to the lowest index as ``lax.top_k``'s do), TF-IDF hard
+negatives (the same miner over dense tf-idf rows as wide as the corpus
+vocabulary), and precomputed negatives with scores (for distillation
+datasets).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from anncur_tpu_torch.data.tfidf import TfidfVectorizer
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -58,11 +60,24 @@ def get_random_negs_w_blacklist(
     return out
 
 
-def _mips_ids(input_embeds, label_embeds, k: int, device: DeviceLike) -> np.ndarray:
+def _mips(input_embeds, label_embeds, k: int, device: DeviceLike) -> Tuple[np.ndarray, np.ndarray]:
+    """(scores, ids) of the exact top-``k`` on ``device`` (kernel B on the card)."""
     dev = resolve_device(device)
     queries = torch.as_tensor(np.ascontiguousarray(input_embeds, np.float32), device=dev)
     items = torch.as_tensor(np.ascontiguousarray(label_embeds, np.float32), device=dev)
-    return mips_topk_fused(queries, items, k)[1].cpu().numpy()
+    scores, ids = mips_topk_fused(queries, items, k)
+    return scores.cpu().numpy(), ids.cpu().numpy()
+
+
+def _drop_gold(idx: np.ndarray, gt_labels: np.ndarray, num_negs: int) -> np.ndarray:
+    """The first ``num_negs`` non-gold ids of each top-k row."""
+    out = np.empty((len(gt_labels), num_negs), np.int64)
+    for i, gt in enumerate(gt_labels):
+        row = [j for j in idx[i] if j != gt][:num_negs]
+        while len(row) < num_negs:  # pad if gold occupied a slot and k small
+            row.append(row[-1] if row else 0)
+        out[i] = row
+    return out
 
 
 def get_hard_negs_from_embeds(
@@ -76,14 +91,7 @@ def get_hard_negs_from_embeds(
     bi-encoder hard-negative miner (reference: get_hard_negs_biencoder,
     utils/data_process.py:320-370; FAISS -> exact MIPS on ``device``)."""
     k = min(num_negs + 1, label_embeds.shape[0])
-    idx = _mips_ids(input_embeds, label_embeds, k, device)
-    out = np.empty((len(gt_labels), num_negs), np.int64)
-    for i, gt in enumerate(gt_labels):
-        row = [j for j in idx[i] if j != gt][:num_negs]
-        while len(row) < num_negs:  # pad if gold occupied a slot and k small
-            row.append(row[-1] if row else 0)
-        out[i] = row
-    return out
+    return _drop_gold(_mips(input_embeds, label_embeds, k, device)[1], gt_labels, num_negs)
 
 
 def get_hard_negs_from_embeds_w_blacklist(
@@ -98,7 +106,7 @@ def get_hard_negs_from_embeds_w_blacklist(
     top-CE labels, utils/data_process.py:822-831)."""
     n_labels = label_embeds.shape[0]
     k = min(num_negs + max(len(b) for b in blacklists), n_labels)
-    idx = _mips_ids(input_embeds, label_embeds, k, device)
+    idx = _mips(input_embeds, label_embeds, k, device)[1]
     out = np.empty((len(blacklists), num_negs), np.int64)
     for i, banned in enumerate(blacklists):
         banned = set(int(b) for b in banned)
@@ -107,6 +115,35 @@ def get_hard_negs_from_embeds_w_blacklist(
             row.append(row[-1] if row else 0)
         out[i] = row
     return out
+
+
+def tfidf_topk(
+    mention_texts: Sequence[str],
+    entities: Sequence[Tuple[str, str]],
+    k: int,
+    device: DeviceLike = "cuda",
+) -> Tuple[np.ndarray, np.ndarray]:
+    """(scores, ids) of the top-``k`` entities of each mention text under
+    TF-IDF (reference: utils/compute_tfidf_hard_negs.py): a vectorizer
+    fitted on the entity corpus embeds both sides into dense rows as wide
+    as its vocabulary, mined by the exact MIPS on ``device``."""
+    corpus = [f"{t} {d}" for t, d in entities]
+    vec = TfidfVectorizer().fit(corpus)
+    return _mips(vec.transform(mention_texts), vec.transform(corpus), k, device)
+
+
+def get_hard_negs_tfidf(
+    mention_texts: Sequence[str],
+    entities: Sequence[Tuple[str, str]],
+    gt_labels: np.ndarray,
+    num_negs: int,
+    device: DeviceLike = "cuda",
+) -> np.ndarray:
+    """TF-IDF hard negatives (reference: get_hard_negs_tfidf, :373-407):
+    the :func:`tfidf_topk` rows less the gold, as
+    :func:`get_hard_negs_from_embeds` keeps them."""
+    k = min(num_negs + 1, len(entities))
+    return _drop_gold(tfidf_topk(mention_texts, entities, k, device)[1], gt_labels, num_negs)
 
 
 def get_precomputed_ents_w_scores(

@@ -80,9 +80,28 @@ Phases, in order; any failure exits non-zero before the result line:
    held against the port on the CPU, and ``build_ent_to_ent_scores`` for
    1,000 random-token entities against 32 k-means++ anchors of phase 9's
    towers (phase 4's CE, kernel A), a slice against the plain attention;
-11. the ``kernels`` line: each kernel's launches on phases 3-10 (counts set
-   to 0 just before each phase and read just after), error and times;
-12. the last line, ``{"ok": true, "device": {...}}``.
+11. the command-line pipeline over ZeShEL-format files, each CLI through
+   its ``main(argv)`` on the card at bert-base width: a synthetic world
+   (10,000 entities of ~120 words, 400 mentions with ~60 words of context
+   on each side, words of the bert-base-uncased-shaped vocabulary),
+   ``tokenize_entities`` (and the native tokenizer, ids equal to the
+   Python WordPiece's), ``build_score_matrix`` as two chunk jobs of 8
+   anchor mentions + ``combine_chunks`` (against one in-process build
+   and the plain attention), a retriever state file over that matrix,
+   ``serve`` from a JSONL file at cost 600 and adaptively at 210 over 8
+   (each row against the in-process retriever), ``serve --http`` with 32
+   concurrent clients (coalesced dispatches, answers against the file
+   mode's), sequential latency, /add and /remove, ``eval_retrieve_rerank``
+   (256 mentions, top 64), ``compute_tfidf_hard_negs`` (kernel B at d =
+   the fitted vocabulary, against the plain MIPS and timed),
+   ``eval_retrieval`` at one of phase 10's grid points (the same recall)
+   and ``train`` (two bi-encoder steps at configs/el_zeshel_bi_enc.json's
+   widths, kernels A, C and D); launches are counted around the CLIs'
+   calls only;
+12. the ``kernels`` line: each kernel's launches on phases 3-11 (counts set
+   to 0 just before each phase or CLI call and read just after), error
+   and times;
+13. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -1618,6 +1637,558 @@ def phase_evals(retriever, bienc, spec, dev, rng):
 
 
 # --------------------------------------------------------------------- #
+# phase 11: the command-line pipeline over ZeShEL-format files
+# --------------------------------------------------------------------- #
+
+# the synthetic world (ZeShEL's on-disk formats, the bert-base-uncased
+# vocabulary layout): cut these, never the widths, if the run nears its limit
+CLI = dict(n_ents=10000, n_ments=400, desc_words=(100, 141), ctx_words=(50, 71), title_words=2,
+           chunk=8, n_anchor_items=500, queries=128, http_clients=32, http_per_client=4, http_sequential=16,
+           added=16, rerank_mentions=256, tfidf_negs=63)
+CLI_FIXED = ["--top_k", "10", "--top_k_retvr", "100"]  # cost 600 with 500 anchors
+CLI_ADAPTIVE = ["--mode", "adaptive", "--budget", "210", "--rounds", "8", "--top_k", "10"]
+# phase 10's grid point that step 9 repeats through the CLI
+CLI_EVAL_POINT = dict(method="cur", n_seeds=3, n_ment_anchors=100, n_ent_anchors=500, top_k=10, top_k_retvr=500)
+
+
+def make_cli_world(root, rng, vocab):
+    """ZeShEL-format files of CLI's sizes, words drawn from the vocabulary's
+    whole words: every mention's gold title in its text, its context on
+    both sides. Returns (files, mentions, entities)."""
+    from anncur_tpu_torch.data.synthetic import write_world_files
+
+    words = np.asarray([t for t in vocab if t.isascii() and t.isalpha() and len(t) > 1])
+
+    def text(lo_hi):
+        return " ".join(rng.choice(words, size=int(rng.integers(*lo_hi))))
+
+    entities = [(" ".join(rng.choice(words, size=CLI["title_words"])), text(CLI["desc_words"]))
+                for _ in range(CLI["n_ents"])]
+    mentions = []
+    for i in range(CLI["n_ments"]):
+        label = int(rng.integers(0, CLI["n_ents"]))
+        mentions.append({"mention": entities[label][0], "mention_id": f"m{i}", "context_left": text(CLI["ctx_words"]),
+                         "context_right": text(CLI["ctx_words"]), "context_doc_id": f"d{i}", "type": "synth",
+                         "label_id": label})
+    return write_world_files(root, mentions, entities, world="synthcity"), mentions, entities
+
+
+class CallTimer:
+    """Wraps ``owner.name`` for the span of a ``with``: the seconds of each
+    call (with ``sync``, the card synchronised after it) and, with
+    ``keep``, the calls' arguments and results, so a CLI's own work can be
+    timed and its inputs reused without changing what it runs."""
+
+    def __init__(self, owner, name, keep=False, sync=True):
+        self.owner, self.name, self.keep, self.sync = owner, name, keep, sync
+        self.seconds, self.calls = 0.0, []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        orig = self.orig
+
+        @functools.wraps(orig)
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            if self.sync and torch.cuda.is_available():
+                torch.cuda.synchronize()
+            self.seconds += time.perf_counter() - t0
+            if self.keep:
+                self.calls.append((a, k, out))
+            return out
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def read_jsonl(path):
+    with open(path) as fin:
+        return [json.loads(line) for line in fin]
+
+
+def rows_close(got, want, what):
+    """Result rows of the same queries: scores within CE_ATOL; ids equal
+    where the reference's neighbours differ by more than twice the largest
+    score difference seen (random weights put most neighbours within
+    CE_ATOL of each other, and a row's scores moved by at most that much
+    keep the order of scores further apart). Returns (max |diff|, ids
+    compared, ids in all, rows equal in ids and scores)."""
+    if len(got) != len(want):
+        fail(f"{what}: {len(got)} rows against {len(want)}")
+    rows = []
+    for g, w in zip(got, want):
+        gi, gs = np.asarray([r[0] for r in g]), np.asarray([r[1] for r in g], np.float64)
+        wi, ws = np.asarray([r[0] for r in w]), np.asarray([r[1] for r in w], np.float64)
+        if gi.shape != wi.shape or not np.isfinite(gs).all():
+            fail(f"{what}: a row has the wrong length or non-finite scores")
+        rows.append((gi, gs, wi, ws))
+    err = max(float(np.abs(gs - ws).max()) for _, gs, _, ws in rows)
+    if not err <= CE_ATOL:
+        fail(f"{what}: scores differ by {err} (tol {CE_ATOL})")
+    compared = total = same = 0
+    for gi, gs, wi, ws in rows:
+        gap = -np.diff(ws) > 2 * err
+        sep = np.ones(ws.shape, bool)
+        sep[:-1] &= gap
+        sep[1:] &= gap
+        if not np.array_equal(gi[sep], wi[sep]):
+            fail(f"{what}: ids differ at separated scores: {gi.tolist()} vs {wi.tolist()}")
+        compared, total = compared + int(sep.sum()), total + sep.size
+        same += int(np.array_equal(gi, wi) and np.array_equal(gs, ws))
+    return err, compared, total, same
+
+
+def http_call(base, path, payload=None, raw=None):
+    import urllib.error
+    import urllib.request
+
+    data = raw if raw is not None else None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + path, data=data, headers={"Content-Type": "application/json"},
+                                 method="GET" if data is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def phase_cli(dev, rng, trained_ce_recall, device_args=(), arch=None):
+    """Every CLI of the pipeline through its ``main(argv)``: tokenize (and
+    the native tokenizer), build in two chunk jobs + combine, a retriever
+    state file, serve from a file (fixed, adaptive) and over HTTP,
+    retrieve-and-rerank, the TF-IDF mine (kernel B at d = the vocabulary),
+    the transductive eval at one of phase 10's grid points, and two
+    training steps. Each step timed on the host clock and held against an
+    in-process call or the plain version on the same inputs. Launches are
+    counted around the CLIs' calls only. ``device_args`` and ``arch`` (the
+    architecture flags' values; none on the card: bert-base) let a CPU
+    rehearsal run it at a tiny size."""
+    import glob
+    import tempfile
+
+    import anncur_tpu_torch.cli.compute_tfidf_hard_negs as cli_tfidf
+    import anncur_tpu_torch.train.negatives as negatives
+    import anncur_tpu_torch.cli.eval_retrieve_rerank as cli_rr
+    from anncur_tpu_torch.cli import (
+        build_score_matrix,
+        combine_chunks,
+        eval_retrieval,
+        serve,
+        tokenize_entities,
+        train as cli_train,
+    )
+    from anncur_tpu_torch.core.retriever import CurRetriever
+    from anncur_tpu_torch.indexer.score_matrix import (
+        ScoreMatrixBuilder,
+        build_pairs,
+        load_score_matrix,
+        padded_pair_len,
+        save_score_matrix,
+    )
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.biencoder import BiEncoder
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+    from anncur_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
+    from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer, make_realistic_vocab
+    from anncur_tpu_torch.ops.mips import mips_topk
+    from anncur_tpu_torch.train.checkpoint import save_pytree
+
+    device_args, arch = list(device_args), dict(arch or {})
+    arch_args = [x for key, val in arch.items() for x in (f"--{key}", str(val))]
+    totals = {name: 0 for name in _wrappers()}
+    rec = {"seconds": {}}
+
+    def run(step, fn, argv, tensors=True):
+        """One CLI call, timed, its kernel launches added to the phase's:
+        (seconds, its launches). ``tensors``: the CLI takes ``--device``."""
+        reset_counts()
+        t0 = time.perf_counter()
+        fn(argv + (device_args if tensors else []))
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for name, n in counts.items():
+            totals[name] += n
+        rec["seconds"][step] = rec["seconds"].get(step, 0.0) + dt
+        return dt, counts
+
+    with tempfile.TemporaryDirectory() as root:
+        vocab = make_realistic_vocab()
+        tokenizer = WordPieceTokenizer(vocab)
+        vocab_file = os.path.join(root, "vocab.txt")
+        tokenizer.save_vocab(vocab_file)
+        t0 = time.perf_counter()
+        files, mentions, entities = make_cli_world(root, rng, vocab)
+        spec = BertSpec(vocab_size=tokenizer.vocab_size, **arch)  # the CLIs' flags name BertSpec's fields
+        ce = CrossEncoder(spec, compute_dtype=torch.bfloat16, device=dev, seed=0)
+        ce_ckpt = os.path.join(root, "ce.pkl")
+        save_pytree(ce_ckpt, {"params": ce.params_tree()})
+        bienc_ckpt = os.path.join(root, "bienc.pkl")
+        save_pytree(bienc_ckpt, {"params": BiEncoder(spec, embed_dim=spec.hidden_size, device="cpu", seed=1).params_tree()})
+        log(f"  world: {len(entities)} entities, {len(mentions)} mentions, vocabulary {tokenizer.vocab_size}; "
+            f"CE (seed 0) and bi-encoder (seed 1) checkpoints written in {time.perf_counter() - t0:.1f} s")
+        common = ["--vocab_file", vocab_file] + arch_args
+
+        # 1. tokenize, then the native tokenizer on the texts the CLI encoded
+        # (each title and description, whole: its calls are recorded)
+        ents_npy = os.path.join(root, "ents.npy")
+        with CallTimer(WordPieceTokenizer, "encode", keep=True, sync=False) as enc:
+            dt, _ = run("tokenize", tokenize_entities.main,
+                        ["--ent_file", files["ent_file"], "--vocab_file", vocab_file, "--out_file", ents_npy],
+                        tensors=False)
+        ent_toks = np.load(ents_npy)
+        native = NativeWordPieceTokenizer(vocab)
+        if not native.native_available:
+            fail("the native tokenizer is not available")
+        texts, py_ids = [a[1] for a, _, _ in enc.calls], [out for _, _, out in enc.calls]
+        py_s = enc.seconds
+        t0 = time.perf_counter()
+        nat_ids = [native.encode(x) for x in texts]
+        nat_s = time.perf_counter() - t0
+        if len(texts) != 2 * len(entities) or nat_ids != py_ids:
+            fail("the native tokenizer's ids differ from the Python WordPiece's")
+        del enc
+        fill = float((ent_toks > 0).sum(1).mean())
+        rec["tokenize"] = {"entities_per_s": len(entities) / dt, "python_texts_per_s": len(texts) / py_s,
+                           "native_texts_per_s": len(texts) / nat_s, "native_speedup": py_s / nat_s,
+                           "entity_tokens_mean": fill}
+        log(f"  1. tokenize_entities {len(entities)} entities: {dt:.2f} s ({len(entities) / dt:.0f}/s), "
+            f"{fill:.1f} of {ent_toks.shape[1]} tokens filled; WordPiece on its {len(texts)} texts (titles and "
+            f"descriptions): Python {len(texts) / py_s:.0f} texts/s, native {len(texts) / nat_s:.0f} texts/s "
+            f"({py_s / nat_s:.1f}x), ids equal on every text")
+
+        # 2. build: two chunk jobs, combined; against one in-process call
+        base = ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--ent_tokens_file", ents_npy,
+                "--ckpt_path", ce_ckpt, "--res_dir", os.path.join(root, "scores")] + common
+        c = CLI["chunk"]
+        for start in (0, c):
+            run("build", build_score_matrix.main, base + ["--n_ment_start", str(start), "--n_ment", str(c)])
+        parts = sorted(glob.glob(os.path.join(root, "scores", "*.pkl")))
+        full_pkl = os.path.join(root, "full.pkl")
+        run("combine", combine_chunks.main, ["--chunks", *parts, "--out", full_pkl], tensors=False)
+        full = load_score_matrix(full_pkl)
+        scores, ment_toks = full["ment_to_ent_scores"], full["mention_tokens_list"]
+        n_pairs = scores.size
+        build_s = rec["seconds"]["build"]
+        if scores.shape != (2 * c, len(entities)) or not np.isfinite(scores).all():
+            fail(f"the combined matrix has shape {scores.shape} or non-finite values")
+        builder = ScoreMatrixBuilder(ce, device=dev)
+        t0 = time.perf_counter()
+        inproc = builder(ment_toks, ent_toks)
+        inproc_s = time.perf_counter() - t0
+        build_err = float(np.abs(inproc - scores).max())
+        sub = 256
+        pairs = build_pairs(torch.as_tensor(ment_toks[:c], device=dev), torch.as_tensor(ent_toks[:sub], device=dev),
+                            padded_pair_len(ment_toks.shape[1], ent_toks.shape[1], 128, spec.max_position_embeddings))
+        plain = rescore_with_plain_attention(ce, pairs, ment_toks.shape[1]).reshape(c, sub).float().cpu().numpy()
+        plain_err = float(np.abs(plain - scores[:c, :sub]).max())
+        log(f"  2. build_score_matrix 2 chunk jobs of {c} x {len(entities)} + combine_chunks: {build_s:.2f} s, "
+            f"{n_pairs / build_s:.1f} pairs/s; one in-process call of the builder at the CLI's blocks "
+            f"{n_pairs / inproc_s:.1f} pairs/s, max |diff| {build_err:.3e}; {c} x {sub} vs plain attention "
+            f"{plain_err:.3e} (tol {CE_ATOL})")
+        if not (build_err <= CE_ATOL and plain_err <= CE_ATOL):
+            fail("the CLI's score matrix differs from the in-process builder's or the plain attention's")
+        rec["build"] = {"pairs_per_s": n_pairs / build_s, "in_process_pairs_per_s": n_pairs / inproc_s,
+                        "vs_in_process": build_err, "vs_plain": plain_err}
+
+        # 3. a retriever state file over the CLI's matrix
+        t0 = time.perf_counter()
+        retriever = CurRetriever.build(ce, tokenizer, ment_toks, ent_toks, n_anchor_items=CLI["n_anchor_items"],
+                                       builder=builder, train_scores=scores, device=dev)
+        state = os.path.join(root, "state.pkl")
+        retriever.save(state)
+        log(f"  3. CurRetriever.build ({CLI['n_anchor_items']} anchors over the {2 * c}-row matrix) + save: "
+            f"{time.perf_counter() - t0:.2f} s")
+
+        # 4. serve from a file, fixed: 128 queries at cost 600
+        queries = [{k: m[k] for k in ("mention", "context_left", "context_right")}
+                   for m in mentions[2 * c:2 * c + CLI["queries"]]]
+        qfile = os.path.join(root, "queries.jsonl")
+        with open(qfile, "w") as fout:
+            fout.writelines(json.dumps(q) + "\n" for q in queries)
+        qtoks = np.asarray([retriever.tokenize_query(q["mention"], q["context_left"], q["context_right"])
+                            for q in queries], np.int32)
+        serve_base = ["--index", state, "--crossenc_ckpt", ce_ckpt, "--queries", qfile] + common
+        fixed_out = os.path.join(root, "fixed.jsonl")
+        with CallTimer(CurRetriever, "query_tokens_batch") as timer:
+            dt, _ = run("serve_fixed", serve.main, serve_base + ["--out", fixed_out, "--batch", "32"] + CLI_FIXED)
+        fixed_rows = [r["results"] for r in read_jsonl(fixed_out)]
+        s_ref, i_ref = retriever.query_tokens_batch(qtoks, top_k=10, top_k_retvr=100)
+        ref_rows = [list(zip(i.tolist(), s.tolist())) for i, s in zip(i_ref, s_ref)]
+        err, n_cmp, n_all, n_same = rows_close(fixed_rows, ref_rows, "serve --mode fixed vs query_tokens_batch")
+        rec["serve_fixed"] = {"qps": len(queries) / timer.seconds, "qps_with_start": len(queries) / dt, "err": err}
+        log(f"  4. serve fixed, {len(queries)} queries from JSONL at cost {CLI['n_anchor_items'] + 100}, --batch 32: "
+            f"{len(queries) / timer.seconds:.2f} q/s in its query calls ({timer.seconds:.2f} s), "
+            f"{len(queries) / dt:.2f} q/s over the whole CLI ({dt:.2f} s, start-up included); vs query_tokens_batch "
+            f"max |diff| {err:.3e}, {n_cmp}/{n_all} ids compared, {n_same}/{len(queries)} rows identical")
+
+        # 5. serve from a file, adaptive: 210 over 8, one batch of 128
+        ada_out = os.path.join(root, "adaptive.jsonl")
+        with CallTimer(CurRetriever, "query_tokens_adaptive_fused") as timer:
+            dt, _ = run("serve_adaptive", serve.main,
+                        serve_base + ["--out", ada_out, "--batch", str(len(queries))] + CLI_ADAPTIVE)
+        s_ref, i_ref = retriever.query_tokens_adaptive_fused(qtoks, total_budget=210, n_rounds=8, top_k=10, seed=0)
+        err, n_cmp, n_all, n_same = rows_close([r["results"] for r in read_jsonl(ada_out)],
+                                       [list(zip(i.tolist(), s.tolist())) for i, s in zip(i_ref, s_ref)],
+                                       "serve --mode adaptive vs query_tokens_adaptive_fused")
+        rec["serve_adaptive"] = {"qps": len(queries) / timer.seconds, "qps_with_start": len(queries) / dt, "err": err}
+        log(f"  5. serve adaptive 210 over 8, {len(queries)} queries in one batch: {len(queries) / timer.seconds:.2f} q/s "
+            f"in its query call, {len(queries) / dt:.2f} q/s over the whole CLI; vs query_tokens_adaptive_fused "
+            f"max |diff| {err:.3e}, {n_cmp}/{n_all} ids compared, {n_same}/{len(queries)} rows identical")
+
+        # 6. serve over HTTP, coalescing 32 concurrent clients
+        http_base = ["--index", state, "--crossenc_ckpt", ce_ckpt] + common
+        rec["http"] = http_step(run, serve, http_base, queries, fixed_rows, retriever, mentions)
+
+        # 7. retrieve and rerank: 256 mentions, top 64
+        with CallTimer(cli_rr, "run_retrieve_rerank_eval") as timer:
+            dt, _ = run("retrieve_rerank", cli_rr.main,
+                        ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--ent_tokens_file",
+                         ents_npy, "--bienc_ckpt", bienc_ckpt, "--crossenc_ckpt", ce_ckpt, "--n_ment",
+                         str(CLI["rerank_mentions"]), "--top_k", "64", "--batch_size", "64",
+                         "--res_dir", os.path.join(root, "rr")] + common)
+        with open(os.path.join(root, "rr", "res.json")) as fin:
+            rr = json.load(fin)
+        if rr["n_ments"] != CLI["rerank_mentions"] or rr["top_k"] != 64:
+            fail(f"eval_retrieve_rerank wrote {rr}")
+        rec["retrieve_rerank"] = {"mentions_per_s": CLI["rerank_mentions"] / timer.seconds,
+                                  "metrics": {"bienc": rr["bienc"], "crossenc": rr["crossenc"]}}
+        log(f"  7. eval_retrieve_rerank {CLI['rerank_mentions']} mentions over {len(entities)} entities, top 64: "
+            f"{CLI['rerank_mentions'] / timer.seconds:.2f} mentions/s in the eval ({timer.seconds:.2f} s; the "
+            f"entities' embedding inside), {dt:.2f} s the whole CLI; metrics {rr['bienc']} / {rr['crossenc']}")
+
+        # 8. the TF-IDF mine: kernel B at d = the fitted vocabulary
+        negs_json = os.path.join(root, "negs.json")
+        with CallTimer(negatives, "mips_topk_fused", keep=True) as mine:
+            dt, _ = run("tfidf_negs", cli_tfidf.main,
+                        ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--out_file", negs_json,
+                         "--num_negs", str(CLI["tfidf_negs"])])
+        (q_emb, i_emb, k), _, _ = mine.calls[0]
+        rec["tfidf"] = tfidf_step(q_emb, i_emb, k, negs_json, mentions, dt, mips_topk)
+        del q_emb, i_emb, mine
+
+        # 9. the transductive eval at one of phase 10's grid points
+        npz = np.load(os.path.join(ROOT, "benchmarks", "trained_ce_matrix.npz"))
+        tce = np.asarray(npz["scores"], np.float32)
+        tce_pkl = os.path.join(root, "trained_ce.pkl")
+        save_score_matrix(tce_pkl, tce, np.zeros((tce.shape[0], 1), np.int32), np.arange(tce.shape[1]))
+        p = CLI_EVAL_POINT
+        dt, _ = run("eval_retrieval", eval_retrieval.main,
+                    ["--mode", "transductive", "--score_matrix", tce_pkl, "--res_dir", os.path.join(root, "trans"),
+                     "--methods", p["method"], "--n_seeds", str(p["n_seeds"]), "--n_ment_anchors_vals",
+                     str(p["n_ment_anchors"]), "--n_ent_anchors_vals", str(p["n_ent_anchors"]), "--top_k_vals",
+                     str(p["top_k"]), "--top_k_retvr_vals", str(p["top_k_retvr"])])
+        with open(os.path.join(root, "trans", "retrieval_wrt_exact_crossenc.json")) as fin:
+            cell = json.load(fin)[p["method"]][f"top_k={p['top_k']}"][f"k_retvr={p['top_k_retvr']}"]
+        recall = cell[f"anc_n_m={p['n_ment_anchors']}~anc_n_e={p['n_ent_anchors']}"]["all"][
+            "exact_vs_reranked_approx_retvr~common_frac_mean"]
+        log(f"  9. eval_retrieval transductive on trained_ce_matrix.npz at cur, 100 x 500 anchors, k_retvr 500, "
+            f"3 seeds: recall@10 {recall:.4f} (phase 10: {trained_ce_recall}) in {dt:.2f} s")
+        if trained_ce_recall is not None and abs(recall - trained_ce_recall) > 1e-9:
+            fail(f"the CLI's transductive recall@10 {recall} differs from phase 10's {trained_ce_recall}")
+        rec["eval_recall@10"] = recall
+
+        # 10. two bi-encoder training steps at configs/el_zeshel_bi_enc.json's widths
+        rec["train"] = train_step(run, cli_train, files, ents_npy, vocab_file, root)
+        for name in ("attention_fwd", "mips_topk_fused"):
+            if totals[name] == 0:
+                fail(f"phase 11 never launched {name}")
+        if rec["train"]["launches"]["attention_bwd_dkv"] == 0 or rec["train"]["launches"]["attention_bwd_dq"] == 0:
+            fail("the train CLI never launched kernels C and D")
+    rec["launches"] = totals
+    log(f"  phase 11 launches (the CLIs' calls only): {totals}")
+    return rec
+
+
+def http_step(run, serve, serve_base, queries, fixed_rows, retriever, mentions):
+    """``serve --http 127.0.0.1:0`` in a thread: 32 clients x 4 single-query
+    requests (each answer against step 4's row), 16 sequential requests
+    (latency), /add of 16 items and /remove of them, a malformed body."""
+    import threading
+
+    argv = serve_base + ["--http", "127.0.0.1:0", "--batch", "32", "--coalesce_ms", "5"] + CLI_FIXED
+    serve._serve_http.last_server = None
+    result = {}
+
+    def serve_thread():
+        """Keeps what ``run`` returned, or what it raised, for the main thread."""
+        try:
+            result["run"] = run("serve_http", serve.main, argv)
+        except BaseException as e:  # noqa: BLE001 — re-raised through fail() by the main thread
+            result["error"] = e
+
+    thread = threading.Thread(target=serve_thread, daemon=True)
+    thread.start()
+    deadline = time.time() + 300
+    while serve._serve_http.last_server is None and time.time() < deadline and thread.is_alive():
+        time.sleep(0.05)
+    server = serve._serve_http.last_server
+    if server is None:
+        fail(f"the HTTP server did not come up: {result.get('error')!r}")
+    base = "http://127.0.0.1:%d" % server.server_address[1]
+    out = {}
+    try:
+        code, warm = http_call(base, "/query", queries[0])
+        if code != 200:
+            fail(f"HTTP warm query answered {code}: {warm}")
+        n_clients, per = CLI["http_clients"], CLI["http_per_client"]
+        answers, errors, lock = {}, [], threading.Lock()
+        barrier = threading.Barrier(n_clients)
+
+        def client(c):
+            try:
+                barrier.wait(timeout=60)
+                for j in range(per):
+                    i = (c * per + j) % len(queries)
+                    code, got = http_call(base, "/query", queries[i])
+                    if code != 200:
+                        raise RuntimeError(f"{code}: {got}")
+                    with lock:
+                        answers[c * per + j] = (i, got["results"][0]["results"])
+            except Exception as e:  # noqa: BLE001 — reported by the main thread
+                with lock:
+                    errors.append(repr(e))
+
+        clients = [threading.Thread(target=client, args=(c,)) for c in range(n_clients)]
+        t0 = time.perf_counter()
+        for th in clients:
+            th.start()
+        for th in clients:
+            th.join(timeout=600)
+        dt = time.perf_counter() - t0
+        if errors or any(th.is_alive() for th in clients) or len(answers) != n_clients * per:
+            fail(f"HTTP clients failed: {errors[:3]}, {len(answers)} answers")
+        err, n_cmp, n_all, n_same = rows_close([a for _, a in answers.values()],
+                                               [fixed_rows[i] for i, _ in answers.values()],
+                                               "HTTP answers vs the file mode's rows")
+        code, health = http_call(base, "/healthz")
+        if not (code == 200 and health["dispatches"] < health["queries_answered"]):
+            fail(f"HTTP did not coalesce: {health}")
+        out.update(qps=n_clients * per / dt, err=err, dispatches=health["dispatches"],
+                   queries_answered=health["queries_answered"])
+        log(f"  6. serve --http, {n_clients} clients x {per} single-query requests, --batch 32 --coalesce_ms 5: "
+            f"{n_clients * per / dt:.2f} q/s ({dt:.2f} s); dispatches {health['dispatches']} for "
+            f"{health['queries_answered']} queries; vs the file mode's rows max |diff| {err:.3e}, {n_cmp}/{n_all} "
+            f"ids compared, {n_same}/{len(answers)} rows identical")
+        lat = []
+        for i in range(CLI["http_sequential"]):
+            t0 = time.perf_counter()
+            code, _ = http_call(base, "/query", queries[i])
+            lat.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                fail(f"HTTP sequential query answered {code}")
+        out.update(p50_ms=float(np.percentile(lat, 50)), p99_ms=float(np.percentile(lat, 99)))
+        log(f"     {len(lat)} sequential single-query requests: p50 {out['p50_ms']:.1f} ms, p99 {out['p99_ms']:.1f} ms")
+        n0 = health["n_items"]
+        items = [{"title": f"added {i}", "description": mentions[-1 - i]["context_left"]} for i in range(CLI["added"])]
+        t0 = time.perf_counter()
+        code, added = http_call(base, "/add", {"items": items})
+        add_s = time.perf_counter() - t0
+        n_added = http_call(base, "/healthz")[1]["n_items"]
+        code_r, removed = http_call(base, "/remove", {"ids": added.get("ids", [])})
+        n_back = http_call(base, "/healthz")[1]["n_items"]
+        log(f"     /add {len(items)} items ({len(retriever.train_query_tokens)} CE calls each): {add_s:.3f} s, n_items "
+            f"{n0} -> {n_added}; /remove -> {removed}, n_items {n_back}")
+        if code != 200 or n_added != n0 + len(items) or code_r != 200 or removed.get("removed") != len(items) or n_back != n0:
+            fail(f"/add or /remove went wrong: {added}, {removed}, {n0} -> {n_added} -> {n_back}")
+        out["add_s"] = add_s
+        code, bad = http_call(base, "/query", raw=b"{not json")
+        if code != 400:
+            fail(f"a malformed body answered {code}, not 400")
+    finally:
+        server.shutdown()
+        thread.join(timeout=60)
+        serve._serve_http.last_server = None
+    if thread.is_alive():
+        fail("the HTTP server did not stop")
+    if "error" in result:
+        fail(f"serve --http raised: {result['error']!r}")
+    if "run" not in result:
+        fail("serve --http returned no launch counts")
+    return out
+
+
+def tfidf_step(q_emb, i_emb, k, negs_json, mentions, dt, mips_topk):
+    """The CLI's negatives against the plain MIPS on the card on the same
+    rows; kernel B timed at this shape beside its bound. The rows are
+    sparse, so the bound counts what this data needs: the dense rows read
+    once, and 2 operations per product of two non-zeros (the dense GEMM's
+    bound is kept beside it)."""
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+    q, d = q_emb.shape
+    n = i_emb.shape[0]
+    with open(negs_json) as fin:
+        negs = json.load(fin)
+    s_p, i_p = (t.cpu().numpy() for t in mips_topk(q_emb, i_emb, k))
+    gap = -np.diff(s_p, axis=1) > MIPS_TIE_GAP * np.abs(s_p).max()
+    sep = np.ones(s_p.shape, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    compared = 0
+    for r, m in enumerate(mentions):
+        keep = i_p[r] != m["label_id"]
+        want, ok = i_p[r][keep][:k - 1], sep[r][keep][:k - 1]
+        got = np.asarray(negs["indices"][r])
+        if got.shape != want.shape or m["label_id"] in got or not np.array_equal(got[ok], want[ok]):
+            fail(f"TF-IDF negatives of mention {r} differ from the plain MIPS's")
+        compared += int(ok.sum())
+    err = check_mips(q_emb, i_emb, k, n, f"kernel B at the TF-IDF width (q={q} d={d} n={n} k={k})")
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=q_emb.device)
+    timed = time_mips(mips_topk_fused, mips_topk, q_emb, i_emb, k, n, flush)
+    del flush
+    nnz_ops = 2 * float((q_emb != 0).sum(0).double() @ (i_emb != 0).sum(0).double())
+    timed.update(dense_bound_ms=timed["bound_ms"], dense_bound_by=timed["bound_by"], nnz_ops=nnz_ops,
+                 density_items=float((i_emb != 0).float().mean()),
+                 **bound(4 * (q + n) * d + q * k * 12, nnz_ops, "f32"))
+    timed["x_bound"] = timed["ms"] / timed["bound_ms"]
+    log(f"  8. compute_tfidf_hard_negs {q} mentions x {n} entities, {k - 1} negatives: {dt:.2f} s; d = {d} "
+        f"(d % 4 = {d % 4}); {compared} ids equal the plain MIPS's at separated places; kernel B {timed['ms']:.4f} ms, "
+        f"bound {timed['bound_ms']:.4f} ms counting the non-zero products ({timed['bound_by']}; "
+        f"{timed['x_bound']:.1f}x), {timed['dense_bound_ms']:.4f} ms for the dense GEMM; matmul + topk "
+        f"{timed['library_ms']:.4f} ms")
+    return {"seconds": dt, "d": d, "kernel": timed, "mips_err": err, "ids_compared": compared}
+
+
+def train_step(run, cli_train, files, ents_npy, vocab_file, root):
+    """Two bi-encoder steps through the train CLI at configs/el_zeshel_bi_enc.json's
+    widths, over the world's files: in-batch negatives, attention dropout
+    0 (so the attention runs kernels A, C and D), one epoch."""
+    from anncur_tpu_torch.train.checkpoint import load_pytree
+
+    res_root = os.path.join(root, "train")
+    argv = ["--config", os.path.join(ROOT, "configs", "el_zeshel_bi_enc.json"),
+            "--trn_files", json.dumps({"synthcity": [files["ment_file"], files["ent_file"], ents_npy]}),
+            "--dev_files", "{}", "--bert_args", json.dumps({"vocab_file": vocab_file, "attention_probs_dropout_prob": 0.0}),
+            "--base_res_dir", res_root, "--fast_dev_run", "2", "--num_epochs", "1", "--print_interval", "1",
+            "--save_code", "False"]
+    dt, launches = run("train", cli_train.main, argv)
+    (metrics,) = glob_one(res_root, "metrics.jsonl")
+    with open(metrics) as fin:
+        losses = [r["train_loss"] for r in map(json.loads, fin) if "train_loss" in r]
+    (ckpt,) = glob_one(res_root, "eoe-*")
+    tree, _ = load_pytree(ckpt)
+    if len(losses) != 2 or not all(math.isfinite(x) for x in losses) or tree["step"] != 2:
+        fail(f"the train CLI's losses {losses} or checkpoint step {tree.get('step')} are wrong")
+    if set(tree["params"]) != {"input_bert", "label_bert"}:
+        fail(f"the train CLI's checkpoint holds {sorted(tree['params'])}")
+    log(f"  10. train (bi-encoder, configs/el_zeshel_bi_enc.json, in-batch, fast_dev_run 2): {dt:.2f} s the whole "
+        f"CLI; losses {[round(x, 4) for x in losses]}; checkpoint {os.path.basename(ckpt)} read back; launches {launches}")
+    return {"seconds": dt, "losses": losses, "launches": launches}
+
+
+def glob_one(root, pattern):
+    import glob
+
+    return glob.glob(os.path.join(root, "**", pattern), recursive=True)
+
+
+# --------------------------------------------------------------------- #
 
 
 def main():
@@ -1682,14 +2253,24 @@ def main():
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 10: the paper's evals (transductive and inductive CUR on the trained-CE matrices; entity-to-anchor scores)")
     evals = phase_evals(retriever, bienc.pop("bienc"), spec, dev, rng)
+    del retriever
+    torch.cuda.empty_cache()
 
-    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 11: the CLIs over ZeShEL-format files (bert-base, bf16; "
+        f"{CLI['n_ents']} entities, {CLI['n_ments']} mentions)")
+    t0 = time.perf_counter()
+    cli = phase_cli(dev, np.random.default_rng(11), evals["matrices"][TRAINED_CE[0]]["cur_r@10_kr500_ne500"])
+    cli["phase_s"] = time.perf_counter() - t0
+
+    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
         fail("a kernel of the main path was never launched")
     mips = next(kern for kern in kernels if kern["name"] == "mips_topk_fused")
-    mips["max_abs_err"] = max(mips["max_abs_err"], serve["mips_err"], adaptive["mips_err"], rerank["mips_err"], axn["mips_err"])
+    mips["max_abs_err"] = max(mips["max_abs_err"], serve["mips_err"], adaptive["mips_err"], rerank["mips_err"], axn["mips_err"],
+                              cli["tfidf"]["mips_err"])
+    mips["shapes"].append(cli["tfidf"]["kernel"])
     int8 = next(kern for kern in kernels if kern["name"] == "mips_topk_int8_fused")
     int8["max_abs_err"] = max(int8["max_abs_err"], rerank["int8_err"])
     attn = next(kern for kern in kernels if kern["name"] == "attention_fwd")
@@ -1740,6 +2321,26 @@ def main():
         "e2e_pairs_per_s": evals["e2e_pairs_per_s"],
         "e2e_s": evals["e2e_s"],
         "launches_paper_evals": evals["launches"],
+        "cli": {
+            "phase_s": cli["phase_s"],
+            "step_s": cli["seconds"],
+            "tokenize": cli["tokenize"],
+            "build_pairs_per_s": cli["build"]["pairs_per_s"],
+            "serve_fixed_qps": cli["serve_fixed"]["qps"],
+            "serve_fixed_qps_with_start": cli["serve_fixed"]["qps_with_start"],
+            "serve_adaptive_qps": cli["serve_adaptive"]["qps"],
+            "serve_adaptive_qps_with_start": cli["serve_adaptive"]["qps_with_start"],
+            "http": cli["http"],
+            "rerank_mentions_per_s": cli["retrieve_rerank"]["mentions_per_s"],
+            "rerank_metrics": cli["retrieve_rerank"]["metrics"],
+            "tfidf_d": cli["tfidf"]["d"],
+            "tfidf_s": cli["tfidf"]["seconds"],
+            "tfidf_kernel_b": cli["tfidf"]["kernel"],
+            "eval_recall@10": cli["eval_recall@10"],
+            "train": {k: v for k, v in cli["train"].items() if k != "launches"},
+            "launches_train": cli["train"]["launches"],
+        },
+        "launches_cli": cli["launches"],
         "card": smi,
     }
     summary["seconds"] = time.perf_counter() - t_start

@@ -869,3 +869,79 @@ def test_in_batch_loss_product_is_true_f32_on_the_card(dev):
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "q,d,n,n_valid,k",
+    [
+        (4, 8191, 3000, 3000, 64),  # a TF-IDF width: d % 4 == 3, the 4-byte transposed tiles
+        (33, 12347, 2000, 1999, 100),  # d % 4 == 3, 64-query tiles and a ragged one
+        (9, 9002, 1200, 1200, 7),  # d % 4 == 2
+        (2, 8192, 1500, 1500, 10),  # d % 4 == 0 at the same width: the 16-byte path
+    ],
+)
+def test_mips_kernel_at_tfidf_widths_matches_plain(dev, q, d, n, n_valid, k):
+    """Kernel B at the widths of dense TF-IDF rows (d = the fitted
+    vocabulary): the GEMM's depth loop over hundreds of tiles and both
+    row layouts, exact on integer inputs."""
+    queries, items = _int_mips_inputs(dev, q, d, n, seed=d + k)
+    before = mips_topk_fused.launches
+    s_k, i_k = mips_topk_fused(queries, items, k, n_valid)
+    s_p, i_p = mips_topk(queries, items, k, n_valid)
+    torch.cuda.synchronize()
+    assert mips_topk_fused.launches == before + 1
+    assert torch.equal(s_k, s_p)
+    assert torch.equal(i_k, i_p)
+
+
+def test_tfidf_hard_negatives_on_the_card_match_cpu(dev):
+    """The TF-IDF miner through kernel B on sparse, l2-normalised rows as
+    wide as the corpus vocabulary, against the CPU's ids where the CPU
+    scores are separated by more than 1e-5 of the largest."""
+    import numpy as np
+
+    from anncur_tpu_torch.data.tfidf import TfidfVectorizer
+    from anncur_tpu_torch.train.negatives import get_hard_negs_tfidf
+
+    rng = np.random.default_rng(4)
+    words = [f"w{i}" for i in range(9001)]
+    entities = [(f"t{i}", " ".join(rng.choice(words, size=60))) for i in range(2000)]
+    texts = [" ".join(rng.choice(words, size=40)) for _ in range(64)]
+    gt = rng.integers(0, 2000, size=64)
+    corpus = [f"{t} {x}" for t, x in entities]
+    vec = TfidfVectorizer().fit(corpus)
+    assert len(vec.vocabulary_) % 4 != 0 and len(vec.vocabulary_) > 8192
+    q = torch.as_tensor(vec.transform(texts))
+    scores, ids = (t.numpy() for t in mips_topk(q, torch.as_tensor(vec.transform(corpus)), 16))
+    gap = -np.diff(scores, axis=1) > 1e-5 * np.abs(scores).max()
+    sep = np.ones(scores.shape, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    before = mips_topk_fused.launches
+    got = get_hard_negs_tfidf(texts, entities, gt, 15, device=dev)
+    assert mips_topk_fused.launches == before + 1
+    want = get_hard_negs_tfidf(texts, entities, gt, 15, device="cpu")
+    compared = 0
+    for r in range(64):
+        keep = ids[r] != gt[r]
+        ok = sep[r][keep][:15]
+        np.testing.assert_array_equal(got[r][ok], want[r][ok])
+        compared += int(ok.sum())
+    assert compared > 0.5 * got.size
+
+
+def test_native_tokenizer_builds_and_matches_python(dev):
+    """The native tokenizer builds with g++ on the card's host into the
+    package's build directory and gives the Python WordPiece's ids."""
+    import numpy as np
+
+    from anncur_tpu_torch.models.native_tokenizer import NativeWordPieceTokenizer
+    from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer, make_realistic_vocab
+
+    vocab = make_realistic_vocab()
+    native, python = NativeWordPieceTokenizer(vocab), WordPieceTokenizer(vocab)
+    assert native.native_available
+    rng = np.random.default_rng(0)
+    words = [t for t in vocab if t.isalpha()]
+    for text in [" ".join(rng.choice(words, size=120)) for _ in range(20)] + ["naïve café", "x" * 150]:
+        assert native.encode(text) == python.encode(text)

@@ -323,8 +323,10 @@ def test_batches_and_mining_match_jax(world):
             assert g.keys() == w.keys() and g["first_segment_end"] == w["first_segment_end"]
             np.testing.assert_array_equal(g["pos_pairs"], w["pos_pairs"])
             np.testing.assert_array_equal(g["neg_pairs"], w["neg_pairs"])
-    with pytest.raises(NotImplementedError, match="tfidf"):
-        tdata.mine_negatives(data, "tfidf_hard_negs", 3)
+    # tfidf_hard_negs is served now (held to JAX's in test_torch_data.py);
+    # it needs the raw texts, as JAX's does
+    with pytest.raises(ValueError, match="raw texts"):
+        tdata.mine_negatives(data, "tfidf_hard_negs", 3, device="cpu")
 
 
 # ---------------------------------------------------------------- (e) Trainer steps
