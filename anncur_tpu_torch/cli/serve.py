@@ -65,6 +65,8 @@ LOGGER = logging.getLogger("anncur_tpu_torch.serve")
 # payload (tens of thousands of queries) while a bad Content-Length cannot
 # exhaust the serving process's memory
 MAX_BODY_BYTES = 64 * 1024 * 1024
+# CE pairs per forward of an /add (the build's blocks, 32 x 64)
+ADD_PAIRS_PER_FORWARD = 2048
 
 
 class _Pending:
@@ -316,6 +318,12 @@ def main(argv=None):
             fout.close()
 
 
+def _balanced_block(n: int, cap: int) -> int:
+    """The block that covers ``n`` rows in the fewest blocks of at most
+    ``cap`` rows, with the least padding."""
+    return -(-n // -(-n // max(1, cap)))
+
+
 def _serve_http(args, retriever, tokenize, answer):
     """Stdlib HTTP front end over the serving engine. The device runs one
     dispatch at a time, so every retriever call sits behind a lock; the
@@ -334,13 +342,17 @@ def _serve_http(args, retriever, tokenize, answer):
         window_s=max(0.0, args.coalesce_ms) / 1e3,
         device_lock=lock,
     )
-    builder_box = {}
+    k_q = 1 if retriever.train_query_tokens is None else len(retriever.train_query_tokens)
 
-    def get_builder():
-        # made at the first /add, its only user
-        if "b" not in builder_box:
-            builder_box["b"] = ScoreMatrixBuilder(retriever.encoder, device=retriever.device)
-        return builder_box["b"]
+    def add_builder(n_new):
+        """A builder for one /add: an added item costs one CE call per
+        anchor query, and the builder pads both axes to its blocks, so the
+        blocks cover the anchor queries and the new items in balanced
+        forwards of at most ADD_PAIRS_PER_FORWARD pairs (its default 8 x 64
+        blocks would score 64 times the pairs of a one-item /add)."""
+        ment_block = _balanced_block(k_q, ADD_PAIRS_PER_FORWARD)
+        ent_block = _balanced_block(n_new, ADD_PAIRS_PER_FORWARD // ment_block)
+        return ScoreMatrixBuilder(retriever.encoder, ment_block=ment_block, ent_block=ent_block, device=retriever.device)
 
     max_item_len = int(retriever.item_tokens.shape[1])
 
@@ -426,7 +438,7 @@ def _serve_http(args, retriever, tokenize, answer):
                         np.int32,
                     )
                     with lock:
-                        ids = retriever.add_items(toks, get_builder())
+                        ids = retriever.add_items(toks, add_builder(len(toks)))
                     return self._send(200, {"ids": [int(i) for i in ids]})
                 if self.path == "/remove":
                     ids = req.get("ids", [])
@@ -460,8 +472,10 @@ def _serve_http(args, retriever, tokenize, answer):
     server = server_cls((host or "127.0.0.1", int(port)), Handler)
     LOGGER.info("HTTP serving on %s:%d (mode=%s)", *server.server_address[:2], args.mode)
     # hook for callers running main() in a thread: the live server (its
-    # port with ':0', shutdown()) and its retriever
+    # port with ':0', shutdown()), its retriever, and the lock that orders
+    # every dispatch and corpus edit (holding it, no device work is in flight)
     server.retriever = retriever
+    server.device_lock = lock
     _serve_http.last_server = server
     try:
         server.serve_forever()

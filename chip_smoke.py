@@ -98,10 +98,27 @@ Phases, in order; any failure exits non-zero before the result line:
    and ``train`` (two bi-encoder steps at configs/el_zeshel_bi_enc.json's
    widths, kernels A, C and D); launches are counted around the CLIs'
    calls only;
-12. the ``kernels`` line: each kernel's launches on phases 3-11 (counts set
-   to 0 just before each phase or CLI call and read just after), error
-   and times;
-13. the last line, ``{"ok": true, "device": {...}}``.
+12. the analysis CLIs and the serving drivers, each through its
+   ``main(argv)`` on the card at bert-base width: ``compute_bienc_scores``
+   (400 of phase 11's mentions x its 10,000 entities; a sample against
+   embeddings made with the plain attention), ``build_ent2ent`` (1,000 x 32
+   k-means++ anchors of those embeddings; a slice against the plain
+   attention), ``rank_probe`` on the trained-CE matrices, ``launch_jobs
+   --backend local`` (two eval_retrieval jobs at phase 10's grid point,
+   their recall equal to phase 10's, then skipped as done),
+   ``bench_serving_latency``, ``bench_http_serving`` (16 clients x 2) and
+   ``serving_soak`` (fixed and adaptive with escalation, ~20 s each, 6
+   clients and a mutator, its contract asserted), and ZeShEL-military:
+   ``military_scale`` (kernel B at 13,063 x 104,520 x 768, k=64, against
+   matmul + topk; one bert-base build row over 104,520 entities; fixed cost
+   600 at q=32 and adaptive 210 over 8 at q=128 and q=512 over 104,520
+   items, held to phase 6's checks), kernel B timed at its MIPS shape, and
+   ``bench_nitems_scaling`` at q=128 over 10,000 / 30,000 / 104,520 items;
+   one JSON line per driver, with the card;
+13. the ``kernels`` line: each kernel's launches on phases 3-12 (counts set
+   to 0 just before each phase, CLI or driver call and read just after),
+   error and times;
+14. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -969,35 +986,38 @@ def oracle_recalls(dev):
     return out
 
 
-def recorded_adaptive_call(retriever, call, kw, n_q, top_k):
-    """One ``call(kw)`` of query_tokens_adaptive_fused, recording every CE
-    call the engine makes: fails unless each query scored exactly the
-    budget's distinct real items and the answer is the top-k of their exact
-    scores. Returns (scores, ids, scored ids, their exact scores)."""
-    n_items = retriever.item_tokens.shape[0]
-    seen, make_scorer = [], retriever._adaptive_scorer
+def recording_scorers(owner, seen):
+    """Replaces ``owner._adaptive_scorer`` (a retriever, or the class) by one
+    that appends, for each scorer the engine makes, a list of every
+    (ids, exact scores) it is called with to ``seen``. Undo with
+    ``del owner._adaptive_scorer`` (an instance) or by restoring the
+    returned original (the class)."""
+    make_scorer = owner._adaptive_scorer
 
-    def recording(qt, items):
-        score_fn = make_scorer(qt, items)
+    def recording(*a):
+        score_fn = make_scorer(*a)
+        calls = []
+        seen.append(calls)
 
         def fn(ids):
             out = score_fn(ids)
-            seen.append((ids, out))
+            calls.append((ids, out))
             return out
 
         return fn
 
-    retriever._adaptive_scorer = recording
-    try:
-        scores, ids, _ = call(kw)
-    finally:
-        del retriever._adaptive_scorer  # the class's method again
-    torch.cuda.synchronize()
-    scored = torch.cat([i for i, _ in seen], dim=1)[:n_q]
-    vals = torch.cat([v for _, v in seen], dim=1)[:n_q].float()
+    owner._adaptive_scorer = recording
+    return make_scorer
+
+
+def check_scored(calls, scores, ids, budget, n_items, n_q, top_k):
+    """Fails unless each query scored exactly ``budget`` distinct real items
+    in the engine's CE ``calls`` and the answer is the top-k of their exact
+    scores. Returns (scored ids, their exact scores)."""
+    scored = torch.cat([i for i, _ in calls], dim=1)[:n_q]
+    vals = torch.cat([v for _, v in calls], dim=1)[:n_q].float()
     distinct = [len(set(row)) for row in scored.tolist()]
-    budget = kw["total_budget"]
-    log(f"  warm call: {len(seen)} CE stages of widths {[i.shape[1] for i, _ in seen]}; scored ids per query "
+    log(f"  {len(calls)} CE stages of widths {[i.shape[1] for i, _ in calls]}; scored ids per query "
         f"{scored.shape[1]}, distinct {min(distinct)}-{max(distinct)}, max id {int(scored.max())}")
     if scored.shape[1] != budget or min(distinct) != budget or int(scored.max()) >= n_items:
         fail(f"the adaptive engine did not score exactly {budget} distinct real items per query")
@@ -1008,14 +1028,66 @@ def recorded_adaptive_call(retriever, call, kw, n_q, top_k):
     if not (np.array_equal(want_s[:, :top_k].cpu().numpy(), scores)
             and np.array_equal(torch.gather(scored, 1, order[:, :top_k]).cpu().numpy(), ids)):
         fail(f"the adaptive answer is not the top-{top_k} of the exact scores it paid for")
+    return scored, vals
+
+
+def recorded_adaptive_call(retriever, call, kw, n_q, top_k):
+    """One ``call(kw)`` of query_tokens_adaptive_fused, recording every CE
+    call the engine makes: fails unless each query scored exactly the
+    budget's distinct real items and the answer is the top-k of their exact
+    scores. Returns (scores, ids, scored ids, their exact scores)."""
+    seen = []
+    recording_scorers(retriever, seen)
+    try:
+        scores, ids, _ = call(kw)
+    finally:
+        del retriever._adaptive_scorer  # the class's method again
+    torch.cuda.synchronize()
+    scored, vals = check_scored(seen[0], scores, ids, kw["total_budget"], retriever.item_tokens.shape[0], n_q, top_k)
     return scores, ids, scored, vals
 
 
-def phase_adaptive(retriever, train, spec, dev, rng):
-    from anncur_tpu_torch.core.adaptive_fused import ridge_weights, split_rounds
+def scores_vs_plain(retriever, qtoks, ids, scores, what, n=2):
+    """The returned scores of the first ``n`` queries against the
+    plain-attention CE's scores of the returned ids; returns the error."""
     from anncur_tpu_torch.indexer.score_matrix import padded_pair_len
 
-    lm, n_items = retriever.max_query_len, retriever.item_tokens.shape[0]
+    dev, lm, top_k = retriever.device, qtoks.shape[1], ids.shape[1]
+    items = retriever._device_consts()[0]
+    pos = torch.as_tensor(np.searchsorted(retriever.item_ids, ids[:n]), device=dev)  # stable ids -> rows
+    pairs = torch.cat(
+        [torch.as_tensor(qtoks[:n], device=dev)[:, None, :].expand(n, top_k, lm), items[pos][:, :, 1:]], dim=-1,
+    ).reshape(n * top_k, lm + items.shape[1] - 1)
+    pair_len = padded_pair_len(lm, items.shape[1], retriever.pair_pad_multiple,
+                               retriever.encoder.spec.max_position_embeddings)
+    pairs = torch.nn.functional.pad(pairs, (0, pair_len - pairs.shape[1]))
+    plain = rescore_with_plain_attention(retriever.encoder, pairs, lm).reshape(n, top_k).float().cpu().numpy()
+    err = float(np.abs(plain - scores[:n]).max())
+    log(f"  {what} scores vs the plain-attention CE: max |diff| = {err:.3e} (tol {CE_ATOL})")
+    if not err <= CE_ATOL:
+        fail(f"{what} scores differ from the plain-attention CE's: {err}")
+    return err
+
+
+def growth_round_vs_plain(retriever, train_dev, scored, vals, budget, n_rounds, what):
+    """The last growth round's pick (``budget - per`` ids scored) of these
+    queries through kernel B against the plain version; returns the error."""
+    from anncur_tpu_torch.core.adaptive_fused import ridge_weights, split_rounds
+
+    n_items = retriever.item_tokens.shape[0]
+    per = split_rounds(budget, n_rounds)[1]
+    n_s = budget - per
+    train_t = torch.zeros((retriever._padded_n_items(), train_dev.shape[0]), device=retriever.device)
+    train_t[:n_items] = train_dev.T
+    w = ridge_weights(train_t, scored[:, :n_s], vals[:, :n_s])
+    return check_mips(w, train_t, per, n_items, f"kernel B on a growth round of {what} (q={scored.shape[0]}, "
+                      f"S={n_s}, k={per})", exclude=scored[:, :n_s])
+
+
+def phase_adaptive(retriever, train, spec, dev, rng):
+    from anncur_tpu_torch.core.adaptive_fused import split_rounds
+
+    lm = retriever.max_query_len
     top_k, n_q = 10, ADAPTIVE_QUERIES
     qtoks = rng.integers(1, spec.vocab_size, size=(n_q, lm)).astype(np.int32)
     train_dev = torch.as_tensor(train, device=dev)  # device-resident, as a server keeps it
@@ -1052,28 +1124,10 @@ def phase_adaptive(retriever, train, spec, dev, rng):
     if es_stats["avg_budget"] != 210.0 or es_stats["frac_escalated"] != 1.0:
         fail(f"the early-stop worst case did not escalate every query: {es_stats}")
 
-    # the returned scores are the plain-attention CE's scores of the returned ids
-    items = retriever._device_consts()[0]
-    pairs = torch.cat(
-        [torch.as_tensor(qtoks[:2], device=dev)[:, None, :].expand(2, top_k, lm),
-         items[torch.as_tensor(ids[:2], device=dev)][:, :, 1:]], dim=-1,
-    ).reshape(2 * top_k, lm + items.shape[1] - 1)
-    pair_len = padded_pair_len(lm, items.shape[1], retriever.pair_pad_multiple, spec.max_position_embeddings)
-    pairs = torch.nn.functional.pad(pairs, (0, pair_len - pairs.shape[1]))
-    plain = rescore_with_plain_attention(retriever.encoder, pairs, lm).reshape(2, top_k).float().cpu().numpy()
-    ce_err = float(np.abs(plain - scores[:2]).max())
-    log(f"  adaptive top-10 scores vs the plain-attention CE: max |diff| = {ce_err:.3e} (tol {CE_ATOL})")
-    if not ce_err <= CE_ATOL:
-        fail(f"adaptive scores differ from the plain-attention CE's: {ce_err}")
-
+    ce_err = scores_vs_plain(retriever, qtoks, ids, scores, "adaptive top-10")
     # the last growth round's pick (S = 184 scored) through kernel B vs plain
-    per = split_rounds(ADAPTIVE["total_budget"], ADAPTIVE["n_rounds"])[1]
-    n_s = ADAPTIVE["total_budget"] - per
-    train_t = torch.zeros((retriever._padded_n_items(), train_dev.shape[0]), device=dev)
-    train_t[:n_items] = train_dev.T
-    w = ridge_weights(train_t, scored[:, :n_s], vals[:, :n_s])
-    mips_err = check_mips(w, train_t, per, n_items, f"kernel B on a growth round (q={n_q}, S={n_s}, k={per})",
-                          exclude=scored[:, :n_s])
+    mips_err = growth_round_vs_plain(retriever, train_dev, scored, vals, ADAPTIVE["total_budget"],
+                                     ADAPTIVE["n_rounds"], "210 over 8")
     recalls = oracle_recalls(dev)
     counts = {name: base_counts[name] + es_counts[name] for name in base_counts}
     return {"qps": qps, "ce_pairs_per_s": n_q * 210 / base_dt, "seconds": base_s, "early_stop_qps": es_qps,
@@ -1168,11 +1222,12 @@ def phase_retrieve_rerank(retriever, spec, dev, rng):
             "metrics": {"bienc": res["bienc"], "crossenc": res["crossenc"]}}
 
 
-def towers_vs_plain_attention(bienc, ments, ents):
+def towers_vs_plain_attention(bienc, ments, ents, got=None):
     """max over rows of ||kernel - plain|| / ||plain|| of the input tower's
-    embeddings of ``ments`` and the label tower's of ``ents``, the plain
-    ones with the plain attention in every layer; the towers with SDPA in
-    every layer set the yardstick (EMBED_VS_SDPA)."""
+    embeddings of ``ments`` and the label tower's of ``ents`` (``got``: the
+    kernel's embeddings, already made by a caller), the plain ones with the
+    plain attention in every layer; the towers with SDPA in every layer set
+    the yardstick (EMBED_VS_SDPA)."""
     from anncur_tpu_torch.models import bert
     from anncur_tpu_torch.ops.attention import attention, attention_plain
 
@@ -1190,7 +1245,8 @@ def towers_vs_plain_attention(bienc, ments, ents):
         return max(float(((g - w).norm(dim=1) / w.norm(dim=1)).max()) for g, w in zip(got, want))
 
     plain = embeds(attention_plain)
-    err, sdpa_err = dist(embeds(attention), plain), dist(embeds(sdpa_attention), plain)
+    got = embeds(attention) if got is None else [torch.as_tensor(g, device=dev).float() for g in got]
+    err, sdpa_err = dist(got, plain), dist(embeds(sdpa_attention), plain)
     log(f"  bi-encoder embeddings of {ments.shape[0]} mentions and entities vs plain attention, max row "
         f"||diff|| / ||plain||: kernel A {err:.3e}, SDPA {sdpa_err:.3e} (tol {EMBED_VS_SDPA} x SDPA's)")
     if not err <= EMBED_VS_SDPA * sdpa_err:
@@ -1676,12 +1732,13 @@ def make_cli_world(root, rng, vocab):
 class CallTimer:
     """Wraps ``owner.name`` for the span of a ``with``: the seconds of each
     call (with ``sync``, the card synchronised after it) and, with
-    ``keep``, the calls' arguments and results, so a CLI's own work can be
-    timed and its inputs reused without changing what it runs."""
+    ``keep``, the calls' arguments, results and kernel launches, so a CLI's
+    own work can be timed and checked and its inputs reused without
+    changing what it runs."""
 
     def __init__(self, owner, name, keep=False, sync=True):
         self.owner, self.name, self.keep, self.sync = owner, name, keep, sync
-        self.seconds, self.calls = 0.0, []
+        self.seconds, self.calls, self.launches = 0.0, [], []
 
     def __enter__(self):
         self.orig = getattr(self.owner, self.name)
@@ -1689,6 +1746,7 @@ class CallTimer:
 
         @functools.wraps(orig)
         def timed(*a, **k):
+            before = read_counts() if self.keep else None
             t0 = time.perf_counter()
             out = orig(*a, **k)
             if self.sync and torch.cuda.is_available():
@@ -1696,6 +1754,7 @@ class CallTimer:
             self.seconds += time.perf_counter() - t0
             if self.keep:
                 self.calls.append((a, k, out))
+                self.launches.append({name: n - before[name] for name, n in read_counts().items()})
             return out
 
         setattr(self.owner, self.name, timed)
@@ -1756,7 +1815,7 @@ def http_call(base, path, payload=None, raw=None):
         return e.code, json.loads(e.read())
 
 
-def phase_cli(dev, rng, trained_ce_recall, device_args=(), arch=None):
+def phase_cli(dev, rng, root, trained_ce_recall, device_args=(), arch=None):
     """Every CLI of the pipeline through its ``main(argv)``: tokenize (and
     the native tokenizer), build in two chunk jobs + combine, a retriever
     state file, serve from a file (fixed, adaptive) and over HTTP,
@@ -1764,11 +1823,11 @@ def phase_cli(dev, rng, trained_ce_recall, device_args=(), arch=None):
     the transductive eval at one of phase 10's grid points, and two
     training steps. Each step timed on the host clock and held against an
     in-process call or the plain version on the same inputs. Launches are
-    counted around the CLIs' calls only. ``device_args`` and ``arch`` (the
-    architecture flags' values; none on the card: bert-base) let a CPU
-    rehearsal run it at a tiny size."""
+    counted around the CLIs' calls only. Its files are written under
+    ``root``; ``rec["shared"]`` names those phase 12 reads again.
+    ``device_args`` and ``arch`` (the architecture flags' values; none on
+    the card: bert-base) let a CPU rehearsal run it at a tiny size."""
     import glob
-    import tempfile
 
     import anncur_tpu_torch.cli.compute_tfidf_hard_negs as cli_tfidf
     import anncur_tpu_torch.train.negatives as negatives
@@ -1817,190 +1876,191 @@ def phase_cli(dev, rng, trained_ce_recall, device_args=(), arch=None):
         rec["seconds"][step] = rec["seconds"].get(step, 0.0) + dt
         return dt, counts
 
-    with tempfile.TemporaryDirectory() as root:
-        vocab = make_realistic_vocab()
-        tokenizer = WordPieceTokenizer(vocab)
-        vocab_file = os.path.join(root, "vocab.txt")
-        tokenizer.save_vocab(vocab_file)
-        t0 = time.perf_counter()
-        files, mentions, entities = make_cli_world(root, rng, vocab)
-        spec = BertSpec(vocab_size=tokenizer.vocab_size, **arch)  # the CLIs' flags name BertSpec's fields
-        ce = CrossEncoder(spec, compute_dtype=torch.bfloat16, device=dev, seed=0)
-        ce_ckpt = os.path.join(root, "ce.pkl")
-        save_pytree(ce_ckpt, {"params": ce.params_tree()})
-        bienc_ckpt = os.path.join(root, "bienc.pkl")
-        save_pytree(bienc_ckpt, {"params": BiEncoder(spec, embed_dim=spec.hidden_size, device="cpu", seed=1).params_tree()})
-        log(f"  world: {len(entities)} entities, {len(mentions)} mentions, vocabulary {tokenizer.vocab_size}; "
-            f"CE (seed 0) and bi-encoder (seed 1) checkpoints written in {time.perf_counter() - t0:.1f} s")
-        common = ["--vocab_file", vocab_file] + arch_args
+    vocab = make_realistic_vocab()
+    tokenizer = WordPieceTokenizer(vocab)
+    vocab_file = os.path.join(root, "vocab.txt")
+    tokenizer.save_vocab(vocab_file)
+    t0 = time.perf_counter()
+    files, mentions, entities = make_cli_world(root, rng, vocab)
+    spec = BertSpec(vocab_size=tokenizer.vocab_size, **arch)  # the CLIs' flags name BertSpec's fields
+    ce = CrossEncoder(spec, compute_dtype=torch.bfloat16, device=dev, seed=0)
+    ce_ckpt = os.path.join(root, "ce.pkl")
+    save_pytree(ce_ckpt, {"params": ce.params_tree()})
+    bienc_ckpt = os.path.join(root, "bienc.pkl")
+    save_pytree(bienc_ckpt, {"params": BiEncoder(spec, embed_dim=spec.hidden_size, device="cpu", seed=1).params_tree()})
+    log(f"  world: {len(entities)} entities, {len(mentions)} mentions, vocabulary {tokenizer.vocab_size}; "
+        f"CE (seed 0) and bi-encoder (seed 1) checkpoints written in {time.perf_counter() - t0:.1f} s")
+    common = ["--vocab_file", vocab_file] + arch_args
 
-        # 1. tokenize, then the native tokenizer on the texts the CLI encoded
-        # (each title and description, whole: its calls are recorded)
-        ents_npy = os.path.join(root, "ents.npy")
-        with CallTimer(WordPieceTokenizer, "encode", keep=True, sync=False) as enc:
-            dt, _ = run("tokenize", tokenize_entities.main,
-                        ["--ent_file", files["ent_file"], "--vocab_file", vocab_file, "--out_file", ents_npy],
-                        tensors=False)
-        ent_toks = np.load(ents_npy)
-        native = NativeWordPieceTokenizer(vocab)
-        if not native.native_available:
-            fail("the native tokenizer is not available")
-        texts, py_ids = [a[1] for a, _, _ in enc.calls], [out for _, _, out in enc.calls]
-        py_s = enc.seconds
-        t0 = time.perf_counter()
-        nat_ids = [native.encode(x) for x in texts]
-        nat_s = time.perf_counter() - t0
-        if len(texts) != 2 * len(entities) or nat_ids != py_ids:
-            fail("the native tokenizer's ids differ from the Python WordPiece's")
-        del enc
-        fill = float((ent_toks > 0).sum(1).mean())
-        rec["tokenize"] = {"entities_per_s": len(entities) / dt, "python_texts_per_s": len(texts) / py_s,
-                           "native_texts_per_s": len(texts) / nat_s, "native_speedup": py_s / nat_s,
-                           "entity_tokens_mean": fill}
-        log(f"  1. tokenize_entities {len(entities)} entities: {dt:.2f} s ({len(entities) / dt:.0f}/s), "
-            f"{fill:.1f} of {ent_toks.shape[1]} tokens filled; WordPiece on its {len(texts)} texts (titles and "
-            f"descriptions): Python {len(texts) / py_s:.0f} texts/s, native {len(texts) / nat_s:.0f} texts/s "
-            f"({py_s / nat_s:.1f}x), ids equal on every text")
+    # 1. tokenize, then the native tokenizer on the texts the CLI encoded
+    # (each title and description, whole: its calls are recorded)
+    ents_npy = os.path.join(root, "ents.npy")
+    with CallTimer(WordPieceTokenizer, "encode", keep=True, sync=False) as enc:
+        dt, _ = run("tokenize", tokenize_entities.main,
+                    ["--ent_file", files["ent_file"], "--vocab_file", vocab_file, "--out_file", ents_npy],
+                    tensors=False)
+    ent_toks = np.load(ents_npy)
+    native = NativeWordPieceTokenizer(vocab)
+    if not native.native_available:
+        fail("the native tokenizer is not available")
+    texts, py_ids = [a[1] for a, _, _ in enc.calls], [out for _, _, out in enc.calls]
+    py_s = enc.seconds
+    t0 = time.perf_counter()
+    nat_ids = [native.encode(x) for x in texts]
+    nat_s = time.perf_counter() - t0
+    if len(texts) != 2 * len(entities) or nat_ids != py_ids:
+        fail("the native tokenizer's ids differ from the Python WordPiece's")
+    del enc
+    fill = float((ent_toks > 0).sum(1).mean())
+    rec["tokenize"] = {"entities_per_s": len(entities) / dt, "python_texts_per_s": len(texts) / py_s,
+                       "native_texts_per_s": len(texts) / nat_s, "native_speedup": py_s / nat_s,
+                       "entity_tokens_mean": fill}
+    log(f"  1. tokenize_entities {len(entities)} entities: {dt:.2f} s ({len(entities) / dt:.0f}/s), "
+        f"{fill:.1f} of {ent_toks.shape[1]} tokens filled; WordPiece on its {len(texts)} texts (titles and "
+        f"descriptions): Python {len(texts) / py_s:.0f} texts/s, native {len(texts) / nat_s:.0f} texts/s "
+        f"({py_s / nat_s:.1f}x), ids equal on every text")
 
-        # 2. build: two chunk jobs, combined; against one in-process call
-        base = ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--ent_tokens_file", ents_npy,
-                "--ckpt_path", ce_ckpt, "--res_dir", os.path.join(root, "scores")] + common
-        c = CLI["chunk"]
-        for start in (0, c):
-            run("build", build_score_matrix.main, base + ["--n_ment_start", str(start), "--n_ment", str(c)])
-        parts = sorted(glob.glob(os.path.join(root, "scores", "*.pkl")))
-        full_pkl = os.path.join(root, "full.pkl")
-        run("combine", combine_chunks.main, ["--chunks", *parts, "--out", full_pkl], tensors=False)
-        full = load_score_matrix(full_pkl)
-        scores, ment_toks = full["ment_to_ent_scores"], full["mention_tokens_list"]
-        n_pairs = scores.size
-        build_s = rec["seconds"]["build"]
-        if scores.shape != (2 * c, len(entities)) or not np.isfinite(scores).all():
-            fail(f"the combined matrix has shape {scores.shape} or non-finite values")
-        builder = ScoreMatrixBuilder(ce, device=dev)
-        t0 = time.perf_counter()
-        inproc = builder(ment_toks, ent_toks)
-        inproc_s = time.perf_counter() - t0
-        build_err = float(np.abs(inproc - scores).max())
-        sub = 256
-        pairs = build_pairs(torch.as_tensor(ment_toks[:c], device=dev), torch.as_tensor(ent_toks[:sub], device=dev),
-                            padded_pair_len(ment_toks.shape[1], ent_toks.shape[1], 128, spec.max_position_embeddings))
-        plain = rescore_with_plain_attention(ce, pairs, ment_toks.shape[1]).reshape(c, sub).float().cpu().numpy()
-        plain_err = float(np.abs(plain - scores[:c, :sub]).max())
-        log(f"  2. build_score_matrix 2 chunk jobs of {c} x {len(entities)} + combine_chunks: {build_s:.2f} s, "
-            f"{n_pairs / build_s:.1f} pairs/s; one in-process call of the builder at the CLI's blocks "
-            f"{n_pairs / inproc_s:.1f} pairs/s, max |diff| {build_err:.3e}; {c} x {sub} vs plain attention "
-            f"{plain_err:.3e} (tol {CE_ATOL})")
-        if not (build_err <= CE_ATOL and plain_err <= CE_ATOL):
-            fail("the CLI's score matrix differs from the in-process builder's or the plain attention's")
-        rec["build"] = {"pairs_per_s": n_pairs / build_s, "in_process_pairs_per_s": n_pairs / inproc_s,
-                        "vs_in_process": build_err, "vs_plain": plain_err}
+    # 2. build: two chunk jobs, combined; against one in-process call
+    base = ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--ent_tokens_file", ents_npy,
+            "--ckpt_path", ce_ckpt, "--res_dir", os.path.join(root, "scores")] + common
+    c = CLI["chunk"]
+    for start in (0, c):
+        run("build", build_score_matrix.main, base + ["--n_ment_start", str(start), "--n_ment", str(c)])
+    parts = sorted(glob.glob(os.path.join(root, "scores", "*.pkl")))
+    full_pkl = os.path.join(root, "full.pkl")
+    run("combine", combine_chunks.main, ["--chunks", *parts, "--out", full_pkl], tensors=False)
+    full = load_score_matrix(full_pkl)
+    scores, ment_toks = full["ment_to_ent_scores"], full["mention_tokens_list"]
+    n_pairs = scores.size
+    build_s = rec["seconds"]["build"]
+    if scores.shape != (2 * c, len(entities)) or not np.isfinite(scores).all():
+        fail(f"the combined matrix has shape {scores.shape} or non-finite values")
+    builder = ScoreMatrixBuilder(ce, device=dev)
+    t0 = time.perf_counter()
+    inproc = builder(ment_toks, ent_toks)
+    inproc_s = time.perf_counter() - t0
+    build_err = float(np.abs(inproc - scores).max())
+    sub = 256
+    pairs = build_pairs(torch.as_tensor(ment_toks[:c], device=dev), torch.as_tensor(ent_toks[:sub], device=dev),
+                        padded_pair_len(ment_toks.shape[1], ent_toks.shape[1], 128, spec.max_position_embeddings))
+    plain = rescore_with_plain_attention(ce, pairs, ment_toks.shape[1]).reshape(c, sub).float().cpu().numpy()
+    plain_err = float(np.abs(plain - scores[:c, :sub]).max())
+    log(f"  2. build_score_matrix 2 chunk jobs of {c} x {len(entities)} + combine_chunks: {build_s:.2f} s, "
+        f"{n_pairs / build_s:.1f} pairs/s; one in-process call of the builder at the CLI's blocks "
+        f"{n_pairs / inproc_s:.1f} pairs/s, max |diff| {build_err:.3e}; {c} x {sub} vs plain attention "
+        f"{plain_err:.3e} (tol {CE_ATOL})")
+    if not (build_err <= CE_ATOL and plain_err <= CE_ATOL):
+        fail("the CLI's score matrix differs from the in-process builder's or the plain attention's")
+    rec["build"] = {"pairs_per_s": n_pairs / build_s, "in_process_pairs_per_s": n_pairs / inproc_s,
+                    "vs_in_process": build_err, "vs_plain": plain_err}
 
-        # 3. a retriever state file over the CLI's matrix
-        t0 = time.perf_counter()
-        retriever = CurRetriever.build(ce, tokenizer, ment_toks, ent_toks, n_anchor_items=CLI["n_anchor_items"],
-                                       builder=builder, train_scores=scores, device=dev)
-        state = os.path.join(root, "state.pkl")
-        retriever.save(state)
-        log(f"  3. CurRetriever.build ({CLI['n_anchor_items']} anchors over the {2 * c}-row matrix) + save: "
-            f"{time.perf_counter() - t0:.2f} s")
+    # 3. a retriever state file over the CLI's matrix
+    t0 = time.perf_counter()
+    retriever = CurRetriever.build(ce, tokenizer, ment_toks, ent_toks, n_anchor_items=CLI["n_anchor_items"],
+                                   builder=builder, train_scores=scores, device=dev)
+    state = os.path.join(root, "state.pkl")
+    retriever.save(state)
+    log(f"  3. CurRetriever.build ({CLI['n_anchor_items']} anchors over the {2 * c}-row matrix) + save: "
+        f"{time.perf_counter() - t0:.2f} s")
 
-        # 4. serve from a file, fixed: 128 queries at cost 600
-        queries = [{k: m[k] for k in ("mention", "context_left", "context_right")}
-                   for m in mentions[2 * c:2 * c + CLI["queries"]]]
-        qfile = os.path.join(root, "queries.jsonl")
-        with open(qfile, "w") as fout:
-            fout.writelines(json.dumps(q) + "\n" for q in queries)
-        qtoks = np.asarray([retriever.tokenize_query(q["mention"], q["context_left"], q["context_right"])
-                            for q in queries], np.int32)
-        serve_base = ["--index", state, "--crossenc_ckpt", ce_ckpt, "--queries", qfile] + common
-        fixed_out = os.path.join(root, "fixed.jsonl")
-        with CallTimer(CurRetriever, "query_tokens_batch") as timer:
-            dt, _ = run("serve_fixed", serve.main, serve_base + ["--out", fixed_out, "--batch", "32"] + CLI_FIXED)
-        fixed_rows = [r["results"] for r in read_jsonl(fixed_out)]
-        s_ref, i_ref = retriever.query_tokens_batch(qtoks, top_k=10, top_k_retvr=100)
-        ref_rows = [list(zip(i.tolist(), s.tolist())) for i, s in zip(i_ref, s_ref)]
-        err, n_cmp, n_all, n_same = rows_close(fixed_rows, ref_rows, "serve --mode fixed vs query_tokens_batch")
-        rec["serve_fixed"] = {"qps": len(queries) / timer.seconds, "qps_with_start": len(queries) / dt, "err": err}
-        log(f"  4. serve fixed, {len(queries)} queries from JSONL at cost {CLI['n_anchor_items'] + 100}, --batch 32: "
-            f"{len(queries) / timer.seconds:.2f} q/s in its query calls ({timer.seconds:.2f} s), "
-            f"{len(queries) / dt:.2f} q/s over the whole CLI ({dt:.2f} s, start-up included); vs query_tokens_batch "
-            f"max |diff| {err:.3e}, {n_cmp}/{n_all} ids compared, {n_same}/{len(queries)} rows identical")
+    # 4. serve from a file, fixed: 128 queries at cost 600
+    queries = [{k: m[k] for k in ("mention", "context_left", "context_right")}
+               for m in mentions[2 * c:2 * c + CLI["queries"]]]
+    qfile = os.path.join(root, "queries.jsonl")
+    with open(qfile, "w") as fout:
+        fout.writelines(json.dumps(q) + "\n" for q in queries)
+    qtoks = np.asarray([retriever.tokenize_query(q["mention"], q["context_left"], q["context_right"])
+                        for q in queries], np.int32)
+    serve_base = ["--index", state, "--crossenc_ckpt", ce_ckpt, "--queries", qfile] + common
+    fixed_out = os.path.join(root, "fixed.jsonl")
+    with CallTimer(CurRetriever, "query_tokens_batch") as timer:
+        dt, _ = run("serve_fixed", serve.main, serve_base + ["--out", fixed_out, "--batch", "32"] + CLI_FIXED)
+    fixed_rows = [r["results"] for r in read_jsonl(fixed_out)]
+    s_ref, i_ref = retriever.query_tokens_batch(qtoks, top_k=10, top_k_retvr=100)
+    ref_rows = [list(zip(i.tolist(), s.tolist())) for i, s in zip(i_ref, s_ref)]
+    err, n_cmp, n_all, n_same = rows_close(fixed_rows, ref_rows, "serve --mode fixed vs query_tokens_batch")
+    rec["serve_fixed"] = {"qps": len(queries) / timer.seconds, "qps_with_start": len(queries) / dt, "err": err}
+    log(f"  4. serve fixed, {len(queries)} queries from JSONL at cost {CLI['n_anchor_items'] + 100}, --batch 32: "
+        f"{len(queries) / timer.seconds:.2f} q/s in its query calls ({timer.seconds:.2f} s), "
+        f"{len(queries) / dt:.2f} q/s over the whole CLI ({dt:.2f} s, start-up included); vs query_tokens_batch "
+        f"max |diff| {err:.3e}, {n_cmp}/{n_all} ids compared, {n_same}/{len(queries)} rows identical")
 
-        # 5. serve from a file, adaptive: 210 over 8, one batch of 128
-        ada_out = os.path.join(root, "adaptive.jsonl")
-        with CallTimer(CurRetriever, "query_tokens_adaptive_fused") as timer:
-            dt, _ = run("serve_adaptive", serve.main,
-                        serve_base + ["--out", ada_out, "--batch", str(len(queries))] + CLI_ADAPTIVE)
-        s_ref, i_ref = retriever.query_tokens_adaptive_fused(qtoks, total_budget=210, n_rounds=8, top_k=10, seed=0)
-        err, n_cmp, n_all, n_same = rows_close([r["results"] for r in read_jsonl(ada_out)],
-                                       [list(zip(i.tolist(), s.tolist())) for i, s in zip(i_ref, s_ref)],
-                                       "serve --mode adaptive vs query_tokens_adaptive_fused")
-        rec["serve_adaptive"] = {"qps": len(queries) / timer.seconds, "qps_with_start": len(queries) / dt, "err": err}
-        log(f"  5. serve adaptive 210 over 8, {len(queries)} queries in one batch: {len(queries) / timer.seconds:.2f} q/s "
-            f"in its query call, {len(queries) / dt:.2f} q/s over the whole CLI; vs query_tokens_adaptive_fused "
-            f"max |diff| {err:.3e}, {n_cmp}/{n_all} ids compared, {n_same}/{len(queries)} rows identical")
+    # 5. serve from a file, adaptive: 210 over 8, one batch of 128
+    ada_out = os.path.join(root, "adaptive.jsonl")
+    with CallTimer(CurRetriever, "query_tokens_adaptive_fused") as timer:
+        dt, _ = run("serve_adaptive", serve.main,
+                    serve_base + ["--out", ada_out, "--batch", str(len(queries))] + CLI_ADAPTIVE)
+    s_ref, i_ref = retriever.query_tokens_adaptive_fused(qtoks, total_budget=210, n_rounds=8, top_k=10, seed=0)
+    err, n_cmp, n_all, n_same = rows_close([r["results"] for r in read_jsonl(ada_out)],
+                                   [list(zip(i.tolist(), s.tolist())) for i, s in zip(i_ref, s_ref)],
+                                   "serve --mode adaptive vs query_tokens_adaptive_fused")
+    rec["serve_adaptive"] = {"qps": len(queries) / timer.seconds, "qps_with_start": len(queries) / dt, "err": err}
+    log(f"  5. serve adaptive 210 over 8, {len(queries)} queries in one batch: {len(queries) / timer.seconds:.2f} q/s "
+        f"in its query call, {len(queries) / dt:.2f} q/s over the whole CLI; vs query_tokens_adaptive_fused "
+        f"max |diff| {err:.3e}, {n_cmp}/{n_all} ids compared, {n_same}/{len(queries)} rows identical")
 
-        # 6. serve over HTTP, coalescing 32 concurrent clients
-        http_base = ["--index", state, "--crossenc_ckpt", ce_ckpt] + common
-        rec["http"] = http_step(run, serve, http_base, queries, fixed_rows, retriever, mentions)
+    # 6. serve over HTTP, coalescing 32 concurrent clients
+    http_base = ["--index", state, "--crossenc_ckpt", ce_ckpt] + common
+    rec["http"] = http_step(run, serve, http_base, queries, fixed_rows, retriever, mentions)
 
-        # 7. retrieve and rerank: 256 mentions, top 64
-        with CallTimer(cli_rr, "run_retrieve_rerank_eval") as timer:
-            dt, _ = run("retrieve_rerank", cli_rr.main,
-                        ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--ent_tokens_file",
-                         ents_npy, "--bienc_ckpt", bienc_ckpt, "--crossenc_ckpt", ce_ckpt, "--n_ment",
-                         str(CLI["rerank_mentions"]), "--top_k", "64", "--batch_size", "64",
-                         "--res_dir", os.path.join(root, "rr")] + common)
-        with open(os.path.join(root, "rr", "res.json")) as fin:
-            rr = json.load(fin)
-        if rr["n_ments"] != CLI["rerank_mentions"] or rr["top_k"] != 64:
-            fail(f"eval_retrieve_rerank wrote {rr}")
-        rec["retrieve_rerank"] = {"mentions_per_s": CLI["rerank_mentions"] / timer.seconds,
-                                  "metrics": {"bienc": rr["bienc"], "crossenc": rr["crossenc"]}}
-        log(f"  7. eval_retrieve_rerank {CLI['rerank_mentions']} mentions over {len(entities)} entities, top 64: "
-            f"{CLI['rerank_mentions'] / timer.seconds:.2f} mentions/s in the eval ({timer.seconds:.2f} s; the "
-            f"entities' embedding inside), {dt:.2f} s the whole CLI; metrics {rr['bienc']} / {rr['crossenc']}")
+    # 7. retrieve and rerank: 256 mentions, top 64
+    with CallTimer(cli_rr, "run_retrieve_rerank_eval") as timer:
+        dt, _ = run("retrieve_rerank", cli_rr.main,
+                    ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--ent_tokens_file",
+                     ents_npy, "--bienc_ckpt", bienc_ckpt, "--crossenc_ckpt", ce_ckpt, "--n_ment",
+                     str(CLI["rerank_mentions"]), "--top_k", "64", "--batch_size", "64",
+                     "--res_dir", os.path.join(root, "rr")] + common)
+    with open(os.path.join(root, "rr", "res.json")) as fin:
+        rr = json.load(fin)
+    if rr["n_ments"] != CLI["rerank_mentions"] or rr["top_k"] != 64:
+        fail(f"eval_retrieve_rerank wrote {rr}")
+    rec["retrieve_rerank"] = {"mentions_per_s": CLI["rerank_mentions"] / timer.seconds,
+                              "metrics": {"bienc": rr["bienc"], "crossenc": rr["crossenc"]}}
+    log(f"  7. eval_retrieve_rerank {CLI['rerank_mentions']} mentions over {len(entities)} entities, top 64: "
+        f"{CLI['rerank_mentions'] / timer.seconds:.2f} mentions/s in the eval ({timer.seconds:.2f} s; the "
+        f"entities' embedding inside), {dt:.2f} s the whole CLI; metrics {rr['bienc']} / {rr['crossenc']}")
 
-        # 8. the TF-IDF mine: kernel B at d = the fitted vocabulary
-        negs_json = os.path.join(root, "negs.json")
-        with CallTimer(negatives, "mips_topk_fused", keep=True) as mine:
-            dt, _ = run("tfidf_negs", cli_tfidf.main,
-                        ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--out_file", negs_json,
-                         "--num_negs", str(CLI["tfidf_negs"])])
-        (q_emb, i_emb, k), _, _ = mine.calls[0]
-        rec["tfidf"] = tfidf_step(q_emb, i_emb, k, negs_json, mentions, dt, mips_topk)
-        del q_emb, i_emb, mine
+    # 8. the TF-IDF mine: kernel B at d = the fitted vocabulary
+    negs_json = os.path.join(root, "negs.json")
+    with CallTimer(negatives, "mips_topk_fused", keep=True) as mine:
+        dt, _ = run("tfidf_negs", cli_tfidf.main,
+                    ["--ment_file", files["ment_file"], "--ent_file", files["ent_file"], "--out_file", negs_json,
+                     "--num_negs", str(CLI["tfidf_negs"])])
+    (q_emb, i_emb, k), _, _ = mine.calls[0]
+    rec["tfidf"] = tfidf_step(q_emb, i_emb, k, negs_json, mentions, dt, mips_topk)
+    del q_emb, i_emb, mine
 
-        # 9. the transductive eval at one of phase 10's grid points
-        npz = np.load(os.path.join(ROOT, "benchmarks", "trained_ce_matrix.npz"))
-        tce = np.asarray(npz["scores"], np.float32)
-        tce_pkl = os.path.join(root, "trained_ce.pkl")
-        save_score_matrix(tce_pkl, tce, np.zeros((tce.shape[0], 1), np.int32), np.arange(tce.shape[1]))
-        p = CLI_EVAL_POINT
-        dt, _ = run("eval_retrieval", eval_retrieval.main,
-                    ["--mode", "transductive", "--score_matrix", tce_pkl, "--res_dir", os.path.join(root, "trans"),
-                     "--methods", p["method"], "--n_seeds", str(p["n_seeds"]), "--n_ment_anchors_vals",
-                     str(p["n_ment_anchors"]), "--n_ent_anchors_vals", str(p["n_ent_anchors"]), "--top_k_vals",
-                     str(p["top_k"]), "--top_k_retvr_vals", str(p["top_k_retvr"])])
-        with open(os.path.join(root, "trans", "retrieval_wrt_exact_crossenc.json")) as fin:
-            cell = json.load(fin)[p["method"]][f"top_k={p['top_k']}"][f"k_retvr={p['top_k_retvr']}"]
-        recall = cell[f"anc_n_m={p['n_ment_anchors']}~anc_n_e={p['n_ent_anchors']}"]["all"][
-            "exact_vs_reranked_approx_retvr~common_frac_mean"]
-        log(f"  9. eval_retrieval transductive on trained_ce_matrix.npz at cur, 100 x 500 anchors, k_retvr 500, "
-            f"3 seeds: recall@10 {recall:.4f} (phase 10: {trained_ce_recall}) in {dt:.2f} s")
-        if trained_ce_recall is not None and abs(recall - trained_ce_recall) > 1e-9:
-            fail(f"the CLI's transductive recall@10 {recall} differs from phase 10's {trained_ce_recall}")
-        rec["eval_recall@10"] = recall
+    # 9. the transductive eval at one of phase 10's grid points
+    npz = np.load(os.path.join(ROOT, "benchmarks", "trained_ce_matrix.npz"))
+    tce = np.asarray(npz["scores"], np.float32)
+    tce_pkl = os.path.join(root, "trained_ce.pkl")
+    save_score_matrix(tce_pkl, tce, np.zeros((tce.shape[0], 1), np.int32), np.arange(tce.shape[1]))
+    p = CLI_EVAL_POINT
+    dt, _ = run("eval_retrieval", eval_retrieval.main,
+                ["--mode", "transductive", "--score_matrix", tce_pkl, "--res_dir", os.path.join(root, "trans"),
+                 "--methods", p["method"], "--n_seeds", str(p["n_seeds"]), "--n_ment_anchors_vals",
+                 str(p["n_ment_anchors"]), "--n_ent_anchors_vals", str(p["n_ent_anchors"]), "--top_k_vals",
+                 str(p["top_k"]), "--top_k_retvr_vals", str(p["top_k_retvr"])])
+    with open(os.path.join(root, "trans", "retrieval_wrt_exact_crossenc.json")) as fin:
+        cell = json.load(fin)[p["method"]][f"top_k={p['top_k']}"][f"k_retvr={p['top_k_retvr']}"]
+    recall = cell[f"anc_n_m={p['n_ment_anchors']}~anc_n_e={p['n_ent_anchors']}"]["all"][
+        "exact_vs_reranked_approx_retvr~common_frac_mean"]
+    log(f"  9. eval_retrieval transductive on trained_ce_matrix.npz at cur, 100 x 500 anchors, k_retvr 500, "
+        f"3 seeds: recall@10 {recall:.4f} (phase 10: {trained_ce_recall}) in {dt:.2f} s")
+    if trained_ce_recall is not None and abs(recall - trained_ce_recall) > 1e-9:
+        fail(f"the CLI's transductive recall@10 {recall} differs from phase 10's {trained_ce_recall}")
+    rec["eval_recall@10"] = recall
 
-        # 10. two bi-encoder training steps at configs/el_zeshel_bi_enc.json's widths
-        rec["train"] = train_step(run, cli_train, files, ents_npy, vocab_file, root)
-        for name in ("attention_fwd", "mips_topk_fused"):
-            if totals[name] == 0:
-                fail(f"phase 11 never launched {name}")
-        if rec["train"]["launches"]["attention_bwd_dkv"] == 0 or rec["train"]["launches"]["attention_bwd_dq"] == 0:
-            fail("the train CLI never launched kernels C and D")
+    # 10. two bi-encoder training steps at configs/el_zeshel_bi_enc.json's widths
+    rec["train"] = train_step(run, cli_train, files, ents_npy, vocab_file, root)
+    for name in ("attention_fwd", "mips_topk_fused"):
+        if totals[name] == 0:
+            fail(f"phase 11 never launched {name}")
+    if rec["train"]["launches"]["attention_bwd_dkv"] == 0 or rec["train"]["launches"]["attention_bwd_dq"] == 0:
+        fail("the train CLI never launched kernels C and D")
     rec["launches"] = totals
+    rec["shared"] = dict(files=files, vocab_file=vocab_file, ce_ckpt=ce_ckpt, bienc_ckpt=bienc_ckpt, ents_npy=ents_npy,
+                         tce_pkl=tce_pkl, common=common, device_args=device_args)
     log(f"  phase 11 launches (the CLIs' calls only): {totals}")
     return rec
 
@@ -2189,12 +2249,287 @@ def glob_one(root, pattern):
 
 
 # --------------------------------------------------------------------- #
+# phase 12: the analysis CLIs and the serving drivers
+# --------------------------------------------------------------------- #
+
+# cut these, never the widths, if the run nears its limit
+DRIVERS = dict(bienc_mentions=400, e2e_entities=E2E_ENTITIES, e2e_anchors=E2E_ANCHORS, latency_reps=3,
+               http_clients=16, http_per_client=2, http_sequential=8, soak_s=20.0, soak_clients=6)
+# ZeShEL-military: kernel B at (13,063 x 104,520 x 768, k=64); one mention
+# row of the bert-base build over the 104,520 entities in ~2,048-pair
+# forwards; fixed cost 600 at q=32, adaptive 210 over 8 at q=128 and q=512
+# (the driver's defaults but the build's rows)
+MILITARY = ["--build_ments", "1"]
+NITEMS = ["--n_items", "10000", "30000", "104520", "--batches", "128", "--rounds", "8",
+          "--reps", "1", "--shortlist_also", "0"]
+
+
+def phase_drivers(dev, root, shared, recalls, smi, rehearsal=False):
+    """The analysis CLIs and the serving drivers, each through its
+    ``main(argv)`` at bert-base width with random weights, over phase 11's
+    files (``shared``, under ``root``): (a) ``compute_bienc_scores`` (400
+    mentions x 10,000 entities), ``build_ent2ent`` (1,000 x 32 k-means++
+    anchors of those embeddings), ``rank_probe`` on the trained-CE matrices,
+    ``launch_jobs --backend local`` (two eval_retrieval jobs at phase 10's
+    grid point, then the same launch skipping both); (b)
+    ``bench_serving_latency``, ``bench_http_serving`` and ``serving_soak``
+    (each over its own 10,000-item bert-base world); (c) ZeShEL-military:
+    ``military_scale`` (kernel B at 13,063 x 104,520 x 768, one build row,
+    serving over 104,520 items, held to phase 6's checks) and
+    ``bench_nitems_scaling`` at 10,000 / 30,000 / 104,520 items. One JSON
+    line per driver, with the card; launches counted around the drivers'
+    calls only. ``recalls``: phase 10's results on trained_ce_matrix.npz
+    (None skips the comparison). ``rehearsal``: the drivers' tiny CPU
+    sizes."""
+    import pickle
+
+    import anncur_tpu_torch.cli.build_ent2ent as cli_e2e
+    import anncur_tpu_torch.cli.compute_bienc_scores as cli_bienc
+    from anncur_tpu_torch.cli import launch_jobs, rank_probe
+    from anncur_tpu_torch.core.adaptive_fused import split_rounds
+    from anncur_tpu_torch.core.retriever import CurRetriever
+    from anncur_tpu_torch.data import load_entities, load_mentions, tokenize_mentions
+    from anncur_tpu_torch.indexer.ent2ent import kmeanspp_anchor_ids, load_ent_to_ent_pickle
+    from anncur_tpu_torch.indexer.score_matrix import build_pairs, padded_pair_len, save_score_matrix
+    from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+    from anncur_tpu_torch.ops.mips import mips_topk
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+    from anncur_tpu_torch.tools import (
+        bench_http_serving,
+        bench_nitems_scaling,
+        bench_serving_latency,
+        military_scale,
+        serving_soak,
+    )
+    from anncur_tpu_torch.utils.device import true_f32
+
+    root = os.path.join(root, "drivers")
+    os.makedirs(root)
+    common, device_args = shared["common"], shared["device_args"]
+    tiny = ["--tiny", "--device", "cpu"] if rehearsal else []
+    totals = {name: 0 for name in _wrappers()}
+    rec = {"seconds": {}, "lines": {}}
+
+    def run(step, fn, argv):
+        """One driver's ``main(argv)``, timed, its launches added to the
+        phase's: (what it returned, seconds, its launches)."""
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(argv)
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        for name, n in counts.items():
+            totals[name] += n
+        rec["seconds"][step] = dt
+        return out, dt, counts
+
+    def line(driver, **numbers):
+        entry = {"driver": driver, "card": smi, "seconds": rec["seconds"][driver], **numbers}
+        rec["lines"][driver] = entry
+        log(json.dumps(entry))
+
+    # (a) the analysis CLIs
+    tokenizer = WordPieceTokenizer.from_vocab_file(shared["vocab_file"])
+    kb2local, entities = load_entities(shared["files"]["ent_file"])
+    mentions = load_mentions(shared["files"]["ment_file"], kb2local)[:DRIVERS["bienc_mentions"]]
+    ent_toks = np.load(shared["ents_npy"])
+    ment_toks = tokenize_mentions(mentions, tokenizer, 128)
+    ments_pkl, bienc_out = os.path.join(root, "mentions.pkl"), os.path.join(root, "bienc_scores.pkl")
+    save_score_matrix(ments_pkl, np.zeros((len(mentions), 1), np.float32), ment_toks, np.arange(len(entities)))
+    with CallTimer(cli_bienc, "embed_tokenized", keep=True) as emb:
+        _, dt, counts = run("compute_bienc_scores", cli_bienc.main,
+                            ["--score_matrix", ments_pkl, "--ent_tokens_file", shared["ents_npy"], "--bienc_ckpt",
+                             shared["bienc_ckpt"], "--out_file", bienc_out] + common + device_args)
+    with open(bienc_out, "rb") as fin:
+        bienc_scores = pickle.load(fin)["scores"]
+    bienc = emb.calls[0][0][0]
+    m_emb, e_emb = emb.calls[0][2], emb.calls[1][2]
+    del emb
+    if bienc_scores.shape != (len(mentions), len(entities)) or not np.isfinite(bienc_scores).all():
+        fail(f"compute_bienc_scores wrote shape {bienc_scores.shape} or non-finite scores")
+    with true_f32():
+        product = (torch.as_tensor(m_emb, device=dev) @ torch.as_tensor(e_emb, device=dev).T).cpu().numpy()
+    prod_err = float(np.abs(product - bienc_scores).max())
+    if not prod_err <= MIPS_RTOL * float(np.abs(product).max()):
+        fail(f"compute_bienc_scores' matrix is not the product of its towers' embeddings: {prod_err}")
+    emb_err = towers_vs_plain_attention(bienc, ment_toks[:64], ent_toks[:64], got=(m_emb[:64], e_emb[:64]))
+    del bienc
+    line("compute_bienc_scores", mentions=len(mentions), entities=len(entities),
+         seqs_per_s=(len(mentions) + len(entities)) / dt, embed_rel_err_vs_plain=emb_err, launches=counts)
+
+    n_e2e, n_anc = min(DRIVERS["e2e_entities"], len(entities)), DRIVERS["e2e_anchors"]
+    e2e_toks, e2e_emb, e2e_out = (os.path.join(root, f) for f in ("e2e_ents.npy", "e2e_embeds.npy", "e2e.pkl"))
+    np.save(e2e_toks, ent_toks[:n_e2e])
+    np.save(e2e_emb, e_emb[:n_e2e])
+    with CallTimer(cli_e2e, "build_ent_to_ent_scores", keep=True) as e2e_call:
+        _, dt, counts = run("build_ent2ent", cli_e2e.main,
+                            ["--ent_tokens_file", e2e_toks, "--crossenc_ckpt", shared["ce_ckpt"], "--ent_embeds_file",
+                             e2e_emb, "--n_anchors", str(n_anc), "--ment_block", "32", "--ent_block", "32",
+                             "--out_file", e2e_out] + common + device_args)
+    builder = e2e_call.calls[0][0][0]
+    del e2e_call
+    e2e, anchors = load_ent_to_ent_pickle(e2e_out)
+    if not np.array_equal(anchors, kmeanspp_anchor_ids(e_emb[:n_e2e].astype(np.float32), n_anc, 0)):
+        fail("build_ent2ent's anchors are not the k-means++ anchors of its embeddings")
+    lm = ent_toks.shape[1]
+    pairs = build_pairs(torch.as_tensor(ent_toks[:2], device=dev), torch.as_tensor(ent_toks[anchors], device=dev),
+                        padded_pair_len(lm, lm, builder.pair_pad_multiple, builder.encoder.spec.max_position_embeddings))
+    plain = rescore_with_plain_attention(builder.encoder, pairs, lm).reshape(2, n_anc).float().cpu().numpy()
+    del builder
+    e2e_err = float(np.abs(plain - e2e[:2]).max())
+    if e2e.shape != (n_e2e, n_anc) or not np.isfinite(e2e).all() or not e2e_err <= CE_ATOL:
+        fail(f"build_ent2ent's scores have shape {e2e.shape}, non-finite values or differ from plain attention "
+             f"by {e2e_err} (tol {CE_ATOL})")
+    line("build_ent2ent", entities=n_e2e, anchors=n_anc, pairs_per_s=n_e2e * n_anc / dt,
+         two_rows_vs_plain_attention=e2e_err, launches=counts)
+    del m_emb, e_emb
+
+    hard = np.load(os.path.join(ROOT, "benchmarks", TRAINED_CE[1]))
+    hard_pkl, ranks_json = os.path.join(root, "trained_ce_hard.pkl"), os.path.join(root, "ranks.json")
+    save_score_matrix(hard_pkl, np.asarray(hard["scores"], np.float32), np.zeros((hard["scores"].shape[0], 1), np.int32),
+                      np.arange(hard["scores"].shape[1]))
+    reports, dt, _ = run("rank_probe", rank_probe.main,
+                         ["--score_matrices", shared["tce_pkl"], hard_pkl, "--out", ranks_json])
+    for path, rep in reports.items():
+        if not 1 <= rep["rank_99pct_energy"] <= rep["rank"] <= min(rep["shape"]):
+            fail(f"rank_probe's report of {path} is inconsistent: {rep}")
+    line("rank_probe", **{name: {k: reports[p][k] for k in ("shape", "rank", "rank_99pct_energy", "rank_999pct_energy")}
+                          for name, p in zip(TRAINED_CE, (shared["tce_pkl"], hard_pkl))})
+
+    p = CLI_EVAL_POINT
+    methods = ("cur", "cur_oracle")
+    argv = ["--kind", "eval", "--mode", "transductive", "--grid", json.dumps({"method": list(methods)}),
+            "--score_matrix_template", shared["tce_pkl"], "--res_dir_template", os.path.join(root, "launch"),
+            "--extra_args", f"--n_seeds {p['n_seeds']} --n_ment_anchors_vals {p['n_ment_anchors']} --n_ent_anchors_vals "
+            f"{p['n_ent_anchors']} --top_k_vals {p['top_k']} --top_k_retvr_vals {p['top_k_retvr']}",
+            "--backend", "local"] + device_args
+    launched, dt, _ = run("launch_jobs", launch_jobs.main, argv)
+    got = {}
+    for job in launched:
+        with open(job["probe"]) as fin:
+            cell = json.load(fin)[job["overrides"]["method"]][f"top_k={p['top_k']}"][f"k_retvr={p['top_k_retvr']}"]
+        got[job["overrides"]["method"]] = cell[f"anc_n_m={p['n_ment_anchors']}~anc_n_e={p['n_ent_anchors']}"]["all"][
+            "exact_vs_reranked_approx_retvr~common_frac_mean"]
+    if set(got) != set(methods):
+        fail(f"launch_jobs ran {sorted(got)}, not {methods}")
+    for method in methods:
+        want = None if recalls is None else recalls[f"{method}_r@10_kr{p['top_k_retvr']}_ne{p['n_ent_anchors']}"]
+        if want is not None and abs(got[method] - want) > 1e-9:
+            fail(f"launch_jobs' {method} recall@10 {got[method]} differs from phase 10's {want}")
+    again, _, _ = run("launch_jobs_again", launch_jobs.main, argv)
+    if again:
+        fail(f"a second launch_jobs ran {len(again)} done jobs again")
+    line("launch_jobs", jobs=len(launched), recall_at_10=got, phase_10=None if recalls is None else {
+        m: recalls[f"{m}_r@10_kr{p['top_k_retvr']}_ne{p['n_ent_anchors']}"] for m in methods}, skipped_after=len(methods))
+
+    # (b) the serving drivers, each over its own bert-base world
+    lat, _, counts = run("bench_serving_latency", bench_serving_latency.main,
+                         ["--reps", str(DRIVERS["latency_reps"]), "--fixed_batches", "1", "8", "32", "--ada_batches",
+                          "1", "8", "32", "--out", os.path.join(root, "latency.json")] + tiny)
+    rows = lat["results"]
+    if counts["attention_fwd"] == 0 or (counts["mips_topk_fused"] == 0 and not rehearsal):
+        fail(f"bench_serving_latency did not run kernels A and B: {counts}")
+    line("bench_serving_latency", **{name: {k: row[k] for k in ("p50_ms", "p95_ms", "qps")} for name, row in rows.items()
+                                     if name != "add_then_query"}, add_then_query=rows["add_then_query"],
+         launches=counts)
+
+    http, _, counts = run("bench_http_serving", bench_http_serving.main,
+                          ["--clients", str(DRIVERS["http_clients"]), "--per_client", str(DRIVERS["http_per_client"]),
+                           "--seq_baseline", str(DRIVERS["http_sequential"]), "--out",
+                           os.path.join(root, "http.json")] + tiny)
+    conc = http["concurrent"]
+    if not conc["device_dispatches"] < conc["queries"]:
+        fail(f"bench_http_serving's clients were not coalesced: {conc}")
+    line("bench_http_serving", sequential=http["sequential_1_client"], concurrent=conc, launches=counts)
+
+    soak, _, counts = run("serving_soak", serving_soak.main,
+                          ["--seconds", str(DRIVERS["soak_s"]), "--clients", str(DRIVERS["soak_clients"]), "--out",
+                           os.path.join(root, "soak.json")] + tiny)
+    for mode in ("fixed", "adaptive"):
+        if not rehearsal and "device_growth_frac_after_warm" not in soak[mode]:
+            fail(f"serving_soak ({mode}) did not read the card's memory")
+    line("serving_soak", **{mode: {k: soak[mode].get(k) for k in (
+        "seconds", "counts", "latency_s", "rss_growth_frac_after_warm", "device_mb", "device_growth_frac_after_warm",
+        "kernel_builds")} for mode in ("fixed", "adaptive")}, launches=counts)
+
+    # (c) ZeShEL-military: the drive, its adaptive calls recorded
+    military = ["--quick", "--device", "cpu"] if rehearsal else MILITARY
+    seen = []
+    scorer = recording_scorers(CurRetriever, seen)
+    try:
+        with CallTimer(CurRetriever, "query_tokens_adaptive_fused", keep=True) as ada, \
+                CallTimer(CurRetriever, "query_tokens_batch", keep=True) as fixed:
+            mil, _, counts = run("military_scale", military_scale.main,
+                                 military + ["--stages", "mips", "offline_build", "serving", "serving_batch", "--out",
+                                             os.path.join(root, "military.json")])
+    finally:
+        CurRetriever._adaptive_scorer = scorer
+    if len(ada.calls) != 3 or len(seen) != 3 or len(fixed.calls) != 2:
+        fail(f"military_scale made {len(ada.calls)} adaptive and {len(fixed.calls)} fixed calls, not 3 and 2")
+    first = []
+    for (a, k, (scores, ids)), calls, launches in zip(ada.calls, seen, ada.launches):
+        n_items, rounds = a[0].item_tokens.shape[0], split_rounds(k["total_budget"], k["n_rounds"])[2]
+        log(f"  military adaptive call, {a[1].shape[0]} queries over {n_items} items at {k['total_budget']} over "
+            f"{k['n_rounds']}: kernel B launched {launches['mips_topk_fused']} times")
+        scored, vals = check_scored(calls, scores, ids, k["total_budget"], n_items, a[1].shape[0], k["top_k"])
+        if not rehearsal and launches["mips_topk_fused"] != rounds - 1:
+            fail(f"a military adaptive batch launched kernel B {launches['mips_topk_fused']} times, not {rounds - 1}")
+        first = first or [a, k, scores, ids, scored, vals]
+    a, k, scores, ids, scored, vals = first
+    mil_ce_err = scores_vs_plain(a[0], a[1], ids, scores, "military adaptive top-10")
+    mil_err = growth_round_vs_plain(a[0], k["train_scores"], scored, vals, k["total_budget"], k["n_rounds"],
+                                    "ZeShEL-military")
+    for (a, k, (scores, ids)), launches in zip(fixed.calls, fixed.launches):
+        if not rehearsal and launches["mips_topk_fused"] != 1:
+            fail(f"a military fixed batch launched kernel B {launches['mips_topk_fused']} times")
+        if scores.shape != (a[1].shape[0], 10) or not (np.diff(scores, axis=1) <= 0).all() or ids.max() >= n_items:
+            fail("a military fixed answer has the wrong shape, unsorted scores or ids out of range")
+    mil_ce_err = max(mil_ce_err, scores_vs_plain(a[0], a[1], ids, scores, "military fixed top-10"))
+    del ada, fixed, seen, calls, first, scored, vals, a, k
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    stages = mil["stages"]
+    line("military_scale", mips=stages["mips"], offline_build=stages["offline_build"], serving=stages["serving"],
+         serving_batch=stages["serving_batch"], scores_vs_plain_attention=mil_ce_err, launches=counts)
+
+    # kernel B at the military MIPS shape, beside its bound and the library
+    q, n, d, kk = military_scale.mips_shape(rehearsal)
+    queries, items = military_scale.mips_inputs(q, n, d, dev)
+    mil_err = max(mil_err, check_mips(queries[:256], items, kk, n, f"kernel B at ZeShEL-military (256 of {q} "
+                                                                      f"queries, d={d}, n={n}, k={kk})"))
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    rec["military_mips"] = time_mips(mips_topk_fused, mips_topk, queries, items, kk, n, flush)
+    del queries, items, flush
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+    nitems = ["--cpu", "--n_items", "600", "1200", "--batches", "8", "--budget", "60", "--rounds", "3", "--reps", "1",
+              "--shortlist_also", "0"] if rehearsal else NITEMS
+    scaling, _, counts = run("bench_nitems_scaling", bench_nitems_scaling.main,
+                             nitems + ["--out", os.path.join(root, "nitems.json")])
+    line("bench_nitems_scaling", budget=scaling["budget"], rounds=scaling["rounds"], scales={
+        n: {row: v["qps"] for row, v in scale.items() if row != "padded_items"} for n, scale in scaling["scales"].items()},
+        launches=counts)
+
+    for name in ("attention_fwd", "mips_topk_fused"):
+        if totals[name] == 0:
+            fail(f"phase 12 never launched {name}")
+    rec.update(launches=totals, mips_err=mil_err)
+    log(f"  phase 12 launches (the drivers' calls only): {totals}")
+    return rec
+
+
+# --------------------------------------------------------------------- #
 
 
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, ROOT)
+    import tempfile
+
     from anncur_tpu_torch.models.bert import BertSpec
     from anncur_tpu_torch.models.crossencoder import CrossEncoder
     from anncur_tpu_torch.ops import cuda_build
@@ -2256,21 +2591,29 @@ def main():
     del retriever
     torch.cuda.empty_cache()
 
-    log(f"[{time.perf_counter() - t_start:.0f} s] phase 11: the CLIs over ZeShEL-format files (bert-base, bf16; "
-        f"{CLI['n_ents']} entities, {CLI['n_ments']} mentions)")
-    t0 = time.perf_counter()
-    cli = phase_cli(dev, np.random.default_rng(11), evals["matrices"][TRAINED_CE[0]]["cur_r@10_kr500_ne500"])
-    cli["phase_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        log(f"[{time.perf_counter() - t_start:.0f} s] phase 11: the CLIs over ZeShEL-format files (bert-base, bf16; "
+            f"{CLI['n_ents']} entities, {CLI['n_ments']} mentions)")
+        t0 = time.perf_counter()
+        cli = phase_cli(dev, np.random.default_rng(11), root, evals["matrices"][TRAINED_CE[0]]["cur_r@10_kr500_ne500"])
+        cli["phase_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
 
-    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli)
+        log(f"[{time.perf_counter() - t_start:.0f} s] phase 12: the analysis CLIs and the serving drivers (bert-base, "
+            "bf16; phase 11's world; ZeShEL-military's 104,520 items)")
+        t0 = time.perf_counter()
+        drivers = phase_drivers(dev, root, cli.pop("shared"), evals["matrices"][TRAINED_CE[0]], smi)
+        drivers["phase_s"] = time.perf_counter() - t0
+
+    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
         fail("a kernel of the main path was never launched")
     mips = next(kern for kern in kernels if kern["name"] == "mips_topk_fused")
     mips["max_abs_err"] = max(mips["max_abs_err"], serve["mips_err"], adaptive["mips_err"], rerank["mips_err"], axn["mips_err"],
-                              cli["tfidf"]["mips_err"])
-    mips["shapes"].append(cli["tfidf"]["kernel"])
+                              cli["tfidf"]["mips_err"], drivers["mips_err"])
+    mips["shapes"] += [cli["tfidf"]["kernel"], drivers["military_mips"]]
     int8 = next(kern for kern in kernels if kern["name"] == "mips_topk_int8_fused")
     int8["max_abs_err"] = max(int8["max_abs_err"], rerank["int8_err"])
     attn = next(kern for kern in kernels if kern["name"] == "attention_fwd")
@@ -2341,6 +2684,9 @@ def main():
             "launches_train": cli["train"]["launches"],
         },
         "launches_cli": cli["launches"],
+        "drivers": {"phase_s": drivers["phase_s"], "step_s": drivers["seconds"], "lines": drivers["lines"],
+                    "military_mips_kernel_b": drivers["military_mips"]},
+        "launches_drivers": drivers["launches"],
         "card": smi,
     }
     summary["seconds"] = time.perf_counter() - t_start
