@@ -5,10 +5,11 @@ consumes, see indexer/ent2ent.py).
 Counterpart of ``anncur_tpu/cli/build_ent2ent.py``: the same flags,
 anchors (k-means++ over ``--ent_embeds_file``, else a seeded random
 draw, the JAX CLI's numpy draw) and pickle, plus ``--device``. The
-scores come from the port's one-device ``ScoreMatrixBuilder`` (kernel A
-in every CE forward on the card), not the JAX CLI's mesh over every
-local device (ROADMAP Queue 1 item 9). The CE computes in bf16, as the
-JAX CLI's does.
+scores come from the port's ``ScoreMatrixBuilder`` over
+``default_mesh()``, as the JAX CLI's (kernel A in every CE forward on the
+card): entity-sharded over the ranks of a ``torchrun`` launch, rank 0
+writing the pickle; one rank in a plain process. The CE computes in bf16,
+as the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ import torch
 from anncur_tpu_torch.cli import _common
 from anncur_tpu_torch.indexer.ent2ent import build_ent_to_ent_scores, kmeanspp_anchor_ids, save_ent_to_ent_pickle
 from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder
+from anncur_tpu_torch.parallel.mesh import mesh_session
+from anncur_tpu_torch.parallel.multihost import world
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
 
 LOGGER = logging.getLogger("anncur_tpu_torch.build_ent2ent")
@@ -62,10 +65,12 @@ def main(argv=None):
         _common.spec_of(args, tokenizer.vocab_size), args.crossenc_ckpt, "default", COMPUTE_DTYPE, device,
         args.seed, LOGGER, "no --crossenc_ckpt: random cross-encoder",
     )
-    builder = ScoreMatrixBuilder(ce, ment_block=args.ment_block, ent_block=args.ent_block, device=device)
-    scores = build_ent_to_ent_scores(builder, ent_toks, anchors)
-    save_ent_to_ent_pickle(args.out_file, scores, anchors)
-    LOGGER.info("wrote %s %s", args.out_file, scores.shape)
+    with mesh_session(device) as mesh:
+        builder = ScoreMatrixBuilder(ce, ment_block=args.ment_block, ent_block=args.ent_block, device=device, mesh=mesh)
+        scores = build_ent_to_ent_scores(builder, ent_toks, anchors)
+    if world()[0] == 0:
+        save_ent_to_ent_pickle(args.out_file, scores, anchors)
+        LOGGER.info("wrote %s %s", args.out_file, scores.shape)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,12 @@ eval/run_cross_encoder_for_ment_ent_matrix_zeshel.py:284-400): the same
 flags, mention-range chunk jobs (--n_ment_start/--n_ment, with the
 ``_start_<n>`` suffix), the ``chunks_start_<n>`` resume directory and
 the pickled output schema, plus ``--device``. The matrix comes from the
-port's one-device ``ScoreMatrixBuilder`` (kernel A in every CE forward
-on the card), not the JAX CLI's mesh over every local device (ROADMAP
-Queue 1 item 9). ``require_accelerator()`` has no counterpart: its role
-goes to ``--device``. The CE computes in bf16, as the JAX CLI's does.
+port's ``ScoreMatrixBuilder`` over ``default_mesh()``, as the JAX CLI's
+(kernel A in every CE forward on the card): under ``torchrun
+--nproc_per_node N`` the entities are sharded over the N ranks and rank 0
+writes the chunks and the pickle; in a plain process it is one rank.
+``require_accelerator()`` has no counterpart: its role goes to
+``--device``. The CE computes in bf16, as the JAX CLI's does.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from anncur_tpu_torch.cli import _common
 from anncur_tpu_torch.data import load_entities, load_mentions, tokenize_entities, tokenize_mentions
 from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder, save_score_matrix
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+from anncur_tpu_torch.parallel.mesh import mesh_session
+from anncur_tpu_torch.parallel.multihost import world
 
 LOGGER = logging.getLogger("anncur_tpu_torch.build_score_matrix")
 
@@ -64,6 +68,11 @@ def main(argv=None):
     _common.add_device_arg(p)
     args = p.parse_args(argv)
     device = _common.device_of(args)
+    with mesh_session(device) as mesh:
+        _build(args, mesh, device)
+
+
+def _build(args, mesh, device) -> None:
 
     tokenizer = WordPieceTokenizer.from_vocab_file(args.vocab_file)
     kb2local, entities = load_entities(args.ent_file)
@@ -83,7 +92,8 @@ def main(argv=None):
         _common.spec_of(args, tokenizer.vocab_size), args.ckpt_path, args.cross_enc_type, COMPUTE_DTYPE,
         device, args.seed, LOGGER, "no --ckpt_path: using randomly initialized cross-encoder",
     )
-    builder = ScoreMatrixBuilder(ce, ment_block=args.ment_block, ent_block=args.ent_block, device=device)
+    builder = ScoreMatrixBuilder(ce, ment_block=args.ment_block, ent_block=args.ent_block, device=device, mesh=mesh)
+    writer = world()[0] == 0
 
     os.makedirs(args.res_dir, exist_ok=True)
     if args.mode == "embeds":
@@ -93,9 +103,10 @@ def main(argv=None):
             f"ment_and_ent_embeds_n_m_{len(mentions)}_n_e_{len(entities)}"
             f"_all_layers_False{_chunk_suffix(args)}.pkl",
         )
-        with open(out, "wb") as fout:
-            pickle.dump({"ment_embeds": m_emb, "ent_embeds": e_emb}, fout)
-        LOGGER.info("wrote %s", out)
+        if writer:
+            with open(out, "wb") as fout:
+                pickle.dump({"ment_embeds": m_emb, "ent_embeds": e_emb}, fout)
+            LOGGER.info("wrote %s", out)
         return
 
     chunk_dir = os.path.join(args.res_dir, f"chunks_start_{args.n_ment_start}")
@@ -110,6 +121,8 @@ def main(argv=None):
         f"ment_to_ent_scores_n_m_{len(mentions)}_n_e_{len(entities)}"
         f"_all_layers_False{_chunk_suffix(args)}.pkl",
     )
+    if not writer:
+        return
     save_score_matrix(
         out,
         ment_to_ent_scores=scores,

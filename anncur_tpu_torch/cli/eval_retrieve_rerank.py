@@ -6,9 +6,10 @@ zeshel.py:286-416) and bi-encoder-only eval (run_biencoder_eval_zeshel
 Counterpart of ``anncur_tpu/cli/eval_retrieve_rerank.py``: the same flags
 and files, plus ``--device``. On the card the towers and the CE run
 kernel A, the dense search kernel B (``DenseIndex``). The encoders
-compute in bf16, as the JAX CLI's do. The JAX CLI reranks on a mesh over
-every local device; this one runs on one device (the mesh is ROADMAP
-Queue 1 item 9).
+compute in bf16, as the JAX CLI's do. The retrieval runs over
+``default_mesh()``, as the JAX CLI's: sharded over the ranks of a
+``torchrun`` launch (rank 0 writes the files), one rank in a plain
+process.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from anncur_tpu_torch.evalx.retrieve_rerank import (
     run_retrieve_rerank_eval,
 )
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+from anncur_tpu_torch.parallel.mesh import mesh_session
 
 LOGGER = logging.getLogger("anncur_tpu_torch.eval_retrieve_rerank")
 
@@ -112,10 +114,11 @@ def main(argv=None):
         spec, args.crossenc_ckpt, "default", COMPUTE_DTYPE, device, args.seed + 1, LOGGER,
         "no --crossenc_ckpt: random cross-encoder",
     )
-    res = run_retrieve_rerank_eval(
-        bienc, ce, ment_toks, ent_toks, gt,
-        top_k=args.top_k, batch_size=args.batch_size, res_dir=args.res_dir,
-    )
+    with mesh_session(device) as mesh:
+        res = run_retrieve_rerank_eval(
+            bienc, ce, ment_toks, ent_toks, gt,
+            top_k=args.top_k, batch_size=args.batch_size, mesh=mesh, res_dir=args.res_dir,
+        )
     LOGGER.info("retrieve+rerank metrics: %s", json.dumps(res, indent=2))
 
 

@@ -16,7 +16,9 @@ Two serving modes (--mode):
 Queries are micro-batched (--batch) either way.
 
 With --http HOST:PORT the same engine serves over HTTP (stdlib only,
-one device dispatch at a time behind a lock). /query traffic is batched
+one device dispatch at a time behind a lock; one process, whose /add
+builder runs on a world-size-1 mesh, as the JAX server's runs on a mesh
+of its local devices). /query traffic is batched
 across requests: a coalescer worker gathers queries of concurrent
 requests into shared device batches (see Coalescer), so N small clients
 cost ~N/batch dispatches instead of N; --coalesce_ms bounds the extra
@@ -331,8 +333,10 @@ def _serve_http(args, retriever, tokenize, answer):
     from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
     from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder
+    from anncur_tpu_torch.parallel.mesh import mesh_session
 
     lock = threading.Lock()
+    session = {}  # the world-size-1 mesh of /add's builder, while serving
     # every /query goes through the coalescer: one worker drains a shared
     # queue in --batch slices, so queries of different requests share a
     # dispatch
@@ -352,7 +356,10 @@ def _serve_http(args, retriever, tokenize, answer):
         blocks would score 64 times the pairs of a one-item /add)."""
         ment_block = _balanced_block(k_q, ADD_PAIRS_PER_FORWARD)
         ent_block = _balanced_block(n_new, ADD_PAIRS_PER_FORWARD // ment_block)
-        return ScoreMatrixBuilder(retriever.encoder, ment_block=ment_block, ent_block=ent_block, device=retriever.device)
+        return ScoreMatrixBuilder(
+            retriever.encoder, ment_block=ment_block, ent_block=ent_block, device=retriever.device,
+            mesh=session["mesh"],
+        )
 
     max_item_len = int(retriever.item_tokens.shape[1])
 
@@ -476,11 +483,16 @@ def _serve_http(args, retriever, tokenize, answer):
     # every dispatch and corpus edit (holding it, no device work is in flight)
     server.retriever = retriever
     server.device_lock = lock
-    _serve_http.last_server = server
     try:
-        server.serve_forever()
-    except KeyboardInterrupt:
-        pass
+        with mesh_session(retriever.device) as mesh:
+            if mesh.size != 1:
+                raise ValueError(f"serve runs as one process, not over {mesh.size} ranks")
+            session["mesh"] = mesh
+            _serve_http.last_server = server
+            try:
+                server.serve_forever()
+            except KeyboardInterrupt:
+                pass
     finally:
         server.server_close()
         coalescer.stop()

@@ -4,11 +4,16 @@ Counterpart of ``anncur_tpu/cli/train.py`` (parity with reference
 models/train.py:22-68):
 ``python -m anncur_tpu_torch.cli.train --config cfg.json [--any_config_field v] [--device cpu]``
 creates the result dir, snapshots config + command line and dispatches
-to the port's Trainer for bi- or cross-encoder training, on one device:
-a config that asks for several devices (``num_devices`` or
-``mesh_shape``) raises, as the mesh is not ported yet (ROADMAP Queue 1
-item 9). ``--device`` (default ``cuda``) is the one flag beside the
-config's fields.
+to the port's Trainer for bi- or cross-encoder training over a mesh of
+every rank, as the JAX CLI trains on ``default_mesh()``. In a plain
+process that is one rank; under ``torchrun --nproc_per_node N -m
+anncur_tpu_torch.cli.train ...`` it is N ranks (``parallel/multihost.py::
+init_distributed``), laid out by ``mesh_shape`` / ``mesh_axis_names``
+(default: 1-D ``data``), with the towers tensor-parallel over a ``model``
+axis where there is one; ``num_devices``, when set, must equal the number
+of ranks. Rank 0 alone writes the config, the code snapshot, the tracker's
+files and the checkpoints. ``--device`` (default ``cuda``) is the one flag
+beside the config's fields.
 
 One addition to the JAX CLI: ``bert_args`` may carry the HF config's
 ``attention_probs_dropout_prob`` (the JAX CLI reads only ``vocab_file``
@@ -36,6 +41,8 @@ from anncur_tpu_torch.models.bert import BertSpec
 from anncur_tpu_torch.models.biencoder import BiEncoder
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+from anncur_tpu_torch.parallel.mesh import make_mesh, mesh_session
+from anncur_tpu_torch.parallel.multihost import world
 from anncur_tpu_torch.train.data import EntLinkDataset, merge_worlds
 from anncur_tpu_torch.train.trainer import Trainer
 from anncur_tpu_torch.utils import ExperimentTracker
@@ -144,16 +151,35 @@ def main(arg_list=None):
         raise SystemExit(str(err)) from err
     cfg = Config.from_json(config_file) if config_file else Config()
     cfg.update_config_from_arg_list(arg_list)
-    if cfg.num_devices > 1 or int(np.prod(cfg.mesh_shape or [1])) > 1:
-        raise NotImplementedError(
-            "training on a mesh of several devices is not ported yet (ROADMAP Queue 1 item 9)"
+    with mesh_session(device) as mesh:
+        _train(cfg, mesh, device)
+
+
+def _mesh_of(cfg: Config, mesh, device):
+    """The training mesh: ``mesh_shape`` over ``mesh_axis_names``, else the
+    1-D mesh over every rank; and the tensor-parallel axis, if any."""
+    n_ranks = mesh.size
+    if cfg.num_devices > 0 and cfg.num_devices != n_ranks:
+        raise ValueError(
+            f"num_devices={cfg.num_devices} needs {cfg.num_devices} ranks, have {n_ranks} "
+            f"(run under torchrun --nproc_per_node {cfg.num_devices})"
         )
+    if cfg.mesh_shape:
+        mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axis_names, device)
+    tp_axis = "model" if mesh.shape.get("model", 1) > 1 else None
+    return mesh, tp_axis
+
+
+def _train(cfg: Config, mesh, device) -> None:
+    mesh, tp_axis = _mesh_of(cfg, mesh, device)
+    writer = world()[0] == 0
     cfg.seed_host_rngs()
 
     os.makedirs(cfg.result_dir, exist_ok=True)
-    cfg.save_config(cfg.result_dir, "orig_config.json")
-    if cfg.save_code:
-        save_code_snapshot(cfg.result_dir)
+    if writer:
+        cfg.save_config(cfg.result_dir, "orig_config.json")
+        if cfg.save_code:
+            save_code_snapshot(cfg.result_dir)
 
     vocab_path = cfg.bert_args.get("vocab_file") if cfg.bert_args else None
     if not vocab_path or not os.path.exists(vocab_path):
@@ -179,12 +205,15 @@ def main(arg_list=None):
 
     steps_per_epoch = max(1, train_data.n_ments // max(1, cfg.train_batch_size))
     model = build_model(cfg, tokenizer.vocab_size, device)
-    tracker = ExperimentTracker(cfg.result_dir, config=cfg.to_dict())
-    trainer = Trainer(cfg, model, total_steps=steps_per_epoch * cfg.num_epochs, tracker=tracker)
+    tracker = ExperimentTracker(cfg.result_dir, config=cfg.to_dict()) if writer else None
+    trainer = Trainer(
+        cfg, model, mesh=mesh, total_steps=steps_per_epoch * cfg.num_epochs, tp_axis=tp_axis, tracker=tracker
+    )
 
     t0 = time.time()
     trainer.train(train_data, dev_data=dev_data, resume=bool(cfg.ckpt_path))
-    tracker.finish()
+    if tracker is not None:
+        tracker.finish()
     LOGGER.info("training done in %.1fs; results in %s", time.time() - t0, cfg.result_dir)
 
 

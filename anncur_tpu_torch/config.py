@@ -11,9 +11,10 @@ same JSON files load, the same CLI parser and the same ``result_dir``.
   exactly like the reference's (utils/config.py:202-216) so downstream
   aggregation tools can glob results the same way.
 
-Fields that name JAX or TPU machinery (``rng_impl``, ``mesh_shape``,
-``mesh_axis_names``, ``num_devices``) are kept so the files load; the port
-reads none of them.
+``mesh_shape``, ``mesh_axis_names`` and ``num_devices`` are read by the
+train CLI: the mesh of ranks it trains over (``cli/train.py``). The
+field that names JAX machinery, ``rng_impl``, is kept so the files load;
+the port does not read it.
 """
 
 from __future__ import annotations

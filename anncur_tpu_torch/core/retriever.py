@@ -1,6 +1,7 @@
-"""CUR retriever: the serving API, on one GPU.
+"""CUR retriever: the serving API, on one GPU or query-sharded over a
+mesh of ranks.
 
-Counterpart of ``anncur_tpu/core/retriever.py`` on one device:
+Counterpart of ``anncur_tpu/core/retriever.py``:
 
 offline:  exact CE scores of train queries vs all items
           (ScoreMatrixBuilder) -> CurIndex (latent item embeddings U@R)
@@ -20,7 +21,16 @@ adaptive (``query_tokens_adaptive_fused``): the budget is spent in rounds
 host adaptive (``query_tokens_adaptive``): the same method with the round
           loop, f64 pinv and picks on the host (``core/adaptive.py``).
 
-Multi-device serving (the JAX package's mesh and shard_map) is not ported.
+query-sharded (``mesh=``): the counterpart of JAX's shard_map over the
+          mesh's data axis. Every rank holds the whole corpus and index,
+          passes the same global batch, and must call in lockstep; each
+          takes its contiguous slice of the padded batch, runs the fixed
+          path or the adaptive engine (escalation and shortlist included)
+          on its own device, and the results are all-gathered, so every
+          rank returns the whole batch. Chunks are sized per shard
+          (ceil(q / n_dev) queries), so padding never multiplies CE work.
+          The mesh is a serving knob: ``load()`` takes it, ``save()``
+          never writes it. Host ADACUR runs the whole batch on each rank.
 """
 
 from __future__ import annotations
@@ -29,10 +39,12 @@ import dataclasses
 import logging
 import os
 import pickle
-from typing import Dict, List, Optional, Tuple
+import time
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from anncur_tpu_torch.core.adaptive import adaptive_cur_query, cur_complete_fn
 from anncur_tpu_torch.core.adaptive_fused import (
@@ -53,7 +65,8 @@ from anncur_tpu_torch.models.crossencoder import CrossEncoder
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
 from anncur_tpu_torch.ops.mips import topk_stable
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
-from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+from anncur_tpu_torch.parallel.mesh import all_gather_cat
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
 
 LOGGER = logging.getLogger(__name__)
 
@@ -92,11 +105,17 @@ class CurRetriever:
     # monotonic id allocator, never derived from max(item_ids)
     next_item_id: Optional[int] = None
     device: DeviceLike = "cuda"
+    # optional parallel/mesh.py::Mesh: the query batch is sharded over its
+    # mesh_axis (corpus and index replicated); never saved in the state
+    mesh: Optional[Any] = None
+    mesh_axis: str = "data"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         if self.encoder.device != self.device:
             raise ValueError(f"encoder lives on {self.encoder.device}, retriever on {self.device}")
+        if self.mesh is not None and not same_device(self.mesh.device, self.device):
+            raise ValueError(f"the mesh's rank lives on {self.mesh.device}, the retriever on {self.device}")
         if self.index.approx_preference != "rows":
             # the query computes anchor_scores @ latent_cols, which is U@R
             # only under 'rows'; a 'cols' index would rank wrongly
@@ -117,6 +136,38 @@ class CurRetriever:
     def cost_per_query(self) -> int:
         """CE calls per query on the anchor stage."""
         return len(self.anchor_item_ids)
+
+    def _mesh_size(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape[self.mesh_axis]
+
+    def _local_rows(self, qtoks: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous slice of a padded batch (all of it off a
+        mesh); the batch pads to a multiple of the mesh axis."""
+        if self.mesh is None:
+            return qtoks
+        per = qtoks.shape[0] // self._mesh_size()
+        c = self.mesh.coords[self.mesh_axis]
+        return qtoks[c * per: (c + 1) * per]
+
+    def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's rows of ``t``, in mesh order (``t`` itself off a mesh)."""
+        return t if self.mesh is None else all_gather_cat(t, self.mesh, self.mesh_axis)
+
+    def throughput(self, query_tokens: np.ndarray, top_k: int = 10, top_k_retvr: int = 100, iters: int = 3) -> float:
+        """Queries per second of :meth:`query_tokens_batch`, rerank included,
+        after one warm call; the device is synchronized before each clock
+        read (a bench helper)."""
+        self.query_tokens_batch(query_tokens, top_k, top_k_retvr)  # warm-up
+        self._sync()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            self.query_tokens_batch(query_tokens, top_k, top_k_retvr)
+        self._sync()
+        return iters * np.shape(query_tokens)[0] / (time.perf_counter() - t0)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def _stage_batch(self, k: int) -> int:
         return max(1, self.target_pairs_per_step // max(1, k))
@@ -359,24 +410,36 @@ class CurRetriever:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """(scores (q, top_k), stable item ids (q, top_k)). Cost per query =
         n_anchor_items + top_k_retvr CE calls (reference online path,
-        ..._w_fixed_train_test_splits.py:286-303)."""
+        ..._w_fixed_train_test_splits.py:286-303). Over a mesh each rank
+        answers its shard and every rank returns the whole batch."""
         query_tokens = np.asarray(query_tokens, np.int32)
         q, lm = query_tokens.shape
-        n_items = self.item_tokens.shape[0]
         top_k_retvr = min(top_k_retvr, self.index.n_cols)
         top_k = min(top_k, top_k_retvr if rerank else self.index.n_cols)
         k_i = len(self.anchor_item_ids)
-        chunk = max(1, min(self._stage_batch(max(k_i, top_k_retvr)), q))
-        q_pad = q + (-q) % chunk
+        n_dev = self._mesh_size()
+        # the chunk is a per-shard block: capped at ceil(q / n_dev), not q
+        # (the JAX package measured a 16-query batch on 8 devices padding to
+        # 8 x 16 rows, 31.4 -> 4.7 q/s, before capping it)
+        chunk = max(1, min(self._stage_batch(max(k_i, top_k_retvr)), -(-q // n_dev)))
+        q_pad = q + (-q) % (chunk * n_dev)
         qtoks = torch.zeros((q_pad, lm), dtype=torch.int32, device=self.device)
         qtoks[:q] = torch.as_tensor(query_tokens, device=self.device)
+        s, i = self._query_local(self._local_rows(qtoks), chunk, top_k, top_k_retvr, rerank)
+        s, i = self._gather_rows(s), self._gather_rows(i)
+        return s[:q].cpu().numpy(), self.item_ids[i[:q].cpu().numpy()]
+
+    def _query_local(self, qtoks: torch.Tensor, chunk: int, top_k: int, top_k_retvr: int, rerank: bool):
+        """The fixed path on this device over ``qtoks`` (a multiple of
+        ``chunk`` rows): (scores, item positions) tensors."""
+        q_pad, lm = qtoks.shape
+        n_items = self.item_tokens.shape[0]
         items, _, latent_items = self._device_consts()
         anchor_scores = self._anchor_scores(qtoks, chunk)
         # latent projection + top-k in f32 (kernel B on the card); padded
         # item rows sit at the tail and are never selected
         if not rerank:
-            s, i = mips_topk_fused(anchor_scores, latent_items, top_k, n_items)
-            return s[:q].cpu().numpy(), self.item_ids[i[:q].cpu().numpy()]
+            return mips_topk_fused(anchor_scores, latent_items, top_k, n_items)
         _, cand = mips_topk_fused(anchor_scores, latent_items, top_k_retvr, n_items)
 
         # rerank stage: bigger query chunks (only top_k_retvr candidates each)
@@ -386,8 +449,7 @@ class CurRetriever:
             [score_pairs(blk, items[c]) for blk, c in zip(qtoks.split(r_chunk), cand.split(r_chunk))]
         )  # (q_pad, top_k_retvr)
         s, order = topk_stable(exact, top_k)
-        ids = torch.gather(cand, 1, order)
-        return s[:q].cpu().numpy(), self.item_ids[ids[:q].cpu().numpy()]
+        return s, torch.gather(cand, 1, order)
 
     def tokenize_query(self, mention: str, context_left: str = "", context_right: str = "") -> List[int]:
         """The query-tokenization contract: lowercasing + quota-balanced
@@ -539,19 +601,24 @@ class CurRetriever:
         through rank-``axn_rank`` item embeddings of the train matrix
         (default: full rank; ``core/axn.py``), fitted once and cached, with
         ridge ``axn_lam_rel``. Per batch the host reads the device once,
-        for the early-stop flags."""
+        for the early-stop flags. Over a mesh each rank runs its shard's
+        rounds (the shortlist pool and the escalation bucket are per
+        shard, as JAX's pool is per device) and the stats sum the shards'."""
         _check_method(method)
         query_tokens = np.asarray(query_tokens, np.int32)
         q, lm = query_tokens.shape
         n_items = self.item_tokens.shape[0]
         total_budget = min(total_budget, n_items)
         first, per, n_rounds = split_rounds(total_budget, n_rounds)
-        # balanced chunking: round the chunk down to ceil(q / n_chunks)
-        # instead of padding q up to a multiple of the widest stage's chunk
-        chunk0 = max(1, min(self._stage_batch(max(first, per)), q))
-        n_chunks = -(-q // chunk0)
-        q_pad = -(-q // n_chunks) * n_chunks
-        qtoks = torch.zeros((q_pad, lm), dtype=torch.int32, device=self.device)
+        # balanced chunking of each shard's ceil(q / n_dev) rows: round the
+        # chunk down to ceil(q_loc / n_chunks) instead of padding up to a
+        # multiple of the widest stage's chunk
+        n_dev = self._mesh_size()
+        q_loc = -(-q // n_dev)
+        chunk0 = max(1, min(self._stage_batch(max(first, per)), q_loc))
+        n_chunks = -(-q_loc // chunk0)
+        q_pad_loc = -(-q_loc // n_chunks) * n_chunks
+        qtoks = torch.zeros((q_pad_loc * n_dev, lm), dtype=torch.int32, device=self.device)
         qtoks[:q] = torch.as_tensor(query_tokens, device=self.device)
         if train_scores is not None and train_scores.shape[1] != n_items:
             # candidate ids come from train columns: another item set would
@@ -576,24 +643,60 @@ class CurRetriever:
             completer = CurCompleter(train_t, ridge_rel)
         rng = np.random.default_rng(seed)
         anchors0 = torch.as_tensor(np.asarray(sorted(rng.choice(n_items, size=first, replace=False)), np.int64))
-        items = self._device_consts()[0]
         extra = 0 if escalate_budget is None else max(0, min(escalate_budget, n_items) - total_budget)
-        if shortlist and (shortlist < first + q_pad * per + per * max(1, n_rounds - 2) or shortlist >= n_items):
-            # the pool must hold the round-0 anchors, every query's first
-            # picks and room for the remaining rounds
+        if shortlist and (shortlist < first + q_pad_loc * per + per * max(1, n_rounds - 2) or shortlist >= n_items):
+            # the pool (per shard) must hold the round-0 anchors, every
+            # query's first picks and room for the remaining rounds
             shortlist = None
+        # this shard's real rows: the global batch's rows below q
+        c = 0 if self.mesh is None else self.mesh.coords[self.mesh_axis]
+        n_real = min(max(q - c * q_pad_loc, 0), q_pad_loc)
+        s, i, counts = self._adaptive_local(
+            self._local_rows(qtoks), n_real, completer, anchors0, total_budget, n_rounds, top_k, extra,
+            escalate_rounds, stability_overlap, shortlist,
+        )
+        s, i = self._gather_rows(s)[:q], self._gather_rows(i)[:q]
+        stats = {"avg_budget": float(total_budget), "frac_escalated": 0.0, "stable_frac": 1.0}
+        if extra > 0:
+            if self.mesh is not None:
+                summed = torch.as_tensor(counts, dtype=torch.int64, device=self.device)
+                dist.all_reduce(summed, group=self.mesh.groups[self.mesh_axis])
+                counts = summed.tolist()
+            n_stable, n_unstable, padded = counts
+            stats["stable_frac"] = n_stable / q
+            if n_unstable:
+                # padded escalation rows pay real CE calls, so they count
+                stats["avg_budget"] = total_budget + extra * padded / q
+                stats["frac_escalated"] = n_unstable / q
+        scores_out = s.cpu().numpy()
+        ids_out = self.item_ids[i.cpu().numpy()]
+        if return_stats:
+            return scores_out, ids_out, stats
+        return scores_out, ids_out
+
+    def _adaptive_local(
+        self, qtoks, n_real, completer, anchors0, total_budget, n_rounds, top_k, extra, escalate_rounds,
+        stability_overlap, shortlist,
+    ):
+        """The adaptive engine on this device over ``qtoks`` (its first
+        ``n_real`` rows real): (scores, item positions, counts) where
+        counts = [stable real rows, escalated rows, escalation rows with
+        their padding] (zeros without escalation)."""
+        q_pad = qtoks.shape[0]
+        n_items = self.item_tokens.shape[0]
+        items = self._device_consts()[0]
         out = adaptive_rounds(
             self._adaptive_scorer(qtoks, items), completer, anchors0, q_pad, total_budget, n_rounds, top_k,
             n_items, with_state=extra > 0, stability_overlap=stability_overlap, shortlist=shortlist,
         )
-        s, i = out[0][:q], out[1][:q]
-        stats = {"avg_budget": float(total_budget), "frac_escalated": 0.0, "stable_frac": 1.0}
-        if extra > 0:
+        s, i = out[0], out[1]
+        counts = [0, 0, 0]
+        if extra > 0 and n_real:
             _, _, st_ids, st_vals, stable = out
             # only real rows escalate: padded rows would inflate the bucket
-            stable_h = stable[:q].cpu().numpy()
+            stable_h = stable[:n_real].cpu().numpy()
             unstable = np.flatnonzero(~stable_h)
-            stats["stable_frac"] = float(stable_h.mean())
+            counts[0] = int(stable_h.sum())
             if unstable.size:
                 b_pad = _bucket_size(int(unstable.size), q_pad)
                 sel = torch.as_tensor(
@@ -606,11 +709,5 @@ class CurRetriever:
                 rows = sel[: unstable.size]
                 s, i = s.clone(), i.clone()
                 s[rows], i[rows] = s2[: unstable.size], i2[: unstable.size]
-                # padded escalation rows pay real CE calls, so they count
-                stats["avg_budget"] = total_budget + extra * b_pad / q
-                stats["frac_escalated"] = unstable.size / q
-        scores_out = s.cpu().numpy()
-        ids_out = self.item_ids[i.cpu().numpy()]
-        if return_stats:
-            return scores_out, ids_out, stats
-        return scores_out, ids_out
+                counts[1:] = [int(unstable.size), b_pad]
+        return s, i, counts

@@ -8,10 +8,11 @@ on the card (kernel A in every layer), retrieval is ``DenseIndex``
 serving side's pair scorer (``indexer/score_matrix.py::
 crossenc_rerank_scores``, on ``make_pair_scorer``), so its pairs have the
 train matrix's shape. The prediction files have
-the JAX package's schema: either package reads the other's.
-
-Multi-device retrieval (the JAX package's mesh) is not ported: ``mesh=``
-raises (ROADMAP.md Queue 1 item 9).
+the JAX package's schema: either package reads the other's. With
+``mesh=`` the retrieval is sharded over the mesh's ``data`` axis
+(``DenseIndex(mesh=)``, kernel B on each rank's shard, as JAX's
+``mips_topk_sharded``); every rank calls the eval in lockstep and gets
+the same result.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from anncur_tpu_torch.core.metrics import score_topk_preds
 from anncur_tpu_torch.indexer.score_matrix import crossenc_rerank_scores, tokens_on
 from anncur_tpu_torch.models.biencoder import BiEncoder
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
-from anncur_tpu_torch.ops.dense_index import DenseIndex, reject_mesh
+from anncur_tpu_torch.ops.dense_index import DenseIndex
+from anncur_tpu_torch.parallel.multihost import world
 
 LOGGER = logging.getLogger(__name__)
 
@@ -77,7 +79,6 @@ def run_retrieve_rerank_eval(
     ``ment_start``/``n_ment`` slice the mention range for chunked jobs
     (reference :102); ``res_dir`` receives res.json and the per-mention
     top-k predictions in the reference's file schema."""
-    reject_mesh(mesh)
     gt_labels = np.asarray(gt_labels)
     if n_ment > 0 or ment_start > 0:
         stop = ment_start + n_ment if n_ment > 0 else ment_tokens.shape[0]
@@ -98,7 +99,7 @@ def run_retrieve_rerank_eval(
     seconds.update(embed_entities=t1 - t0, embed_mentions=t2 - t1)
 
     k = min(top_k, ent_tokens.shape[0])
-    index = DenseIndex(label_embeds, device=bienc.device)
+    index = DenseIndex(label_embeds, mesh=mesh, device=bienc.device)
     t3 = time.perf_counter()
     bi_scores, bi_idx = index.search(ment_embeds, k)
     t4 = time.perf_counter()
@@ -115,7 +116,7 @@ def run_retrieve_rerank_eval(
         "n_ents": int(ent_tokens.shape[0]),
         "top_k": int(k),
     }
-    if res_dir is not None:
+    if res_dir is not None and world()[0] == 0:  # over a mesh rank 0 writes
         os.makedirs(res_dir, exist_ok=True)
         with open(os.path.join(res_dir, "res.json"), "w") as fout:
             json.dump(res, fout, indent=4)

@@ -1,8 +1,7 @@
 """Offline index build: the (n_ment x n_ent) exact cross-encoder score
-matrix, on one GPU.
+matrix, on one GPU or over a mesh of ranks.
 
-Counterpart of ``anncur_tpu/indexer/score_matrix.py`` without the mesh
-and the multi-host build:
+Counterpart of ``anncur_tpu/indexer/score_matrix.py``:
 
 - pairs are built on the device (mention ⧺ entity[1:], reference
   semantics utils/data_process.py:949-959), padded to a multiple of
@@ -12,12 +11,21 @@ and the multi-host build:
   mention block, each slab copied to the host once,
 - mention blocks checkpoint to disk as ``chunk_<start>.npz`` files that
   the JAX builder reads and writes too (resume: existing chunks are
-  loaded, not recomputed), under a ``ChunkDirLock``.
+  loaded, not recomputed), under a ``ChunkDirLock``,
+- over a mesh (``ScoreMatrixBuilder(mesh=)``) each rank of the ``data``
+  axis scores a contiguous shard of every entity slab (kernel A on its
+  card), the shards padded to equal size, and the score blocks are
+  all-gathered, so every rank returns the full matrix; rank 0 alone
+  writes the chunk files and holds the lock,
+- :meth:`ScoreMatrixBuilder.build_multihost` splits the mention rows over
+  the processes instead, each writing ``proc<pid>`` chunk files that rank
+  0 combines (the JAX layout, so either package's combiner reads them).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import pickle
@@ -28,7 +36,9 @@ import numpy as np
 import torch
 
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
-from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+from anncur_tpu_torch.parallel.mesh import all_gather_cat
+from anncur_tpu_torch.parallel.multihost import barrier, broadcast_object, process_range, world
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
 
 LOGGER = logging.getLogger(__name__)
 
@@ -214,7 +224,8 @@ def crossenc_rerank_scores(
 
 @dataclasses.dataclass
 class ScoreMatrixBuilder:
-    """Exact score matrix on one device.
+    """Exact score matrix on one device, or entity-sharded over the ``axis``
+    of ``mesh`` (every rank calls it in lockstep with the same tokens).
 
     ``ment_block``: mentions per CE forward; ``ent_block``: entities per
     CE forward, so one forward scores ment_block * ent_block pairs."""
@@ -227,6 +238,8 @@ class ScoreMatrixBuilder:
     # host copies (progress and chunk granularity)
     max_pairs_per_program: int = 32768
     device: DeviceLike = "cuda"
+    mesh: Any = None  # parallel/mesh.py::Mesh; None = this device alone
+    axis: str = "data"
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -234,6 +247,8 @@ class ScoreMatrixBuilder:
             raise ValueError(
                 f"encoder lives on {self.encoder.device}, builder on {self.device}"
             )
+        if self.mesh is not None and not same_device(self.mesh.device, self.device):
+            raise ValueError(f"the mesh's rank lives on {self.mesh.device}, the builder on {self.device}")
 
     @torch.no_grad()
     def _score_block(self, block: torch.Tensor, ents: torch.Tensor, lm: int, pair_len: int) -> torch.Tensor:
@@ -253,34 +268,48 @@ class ScoreMatrixBuilder:
         chunk_dir: Optional[str] = None,
         chunk_rows: int = 512,
     ) -> np.ndarray:
-        """The full (n_m, n_e) float32 score matrix on the host.
+        """The full (n_m, n_e) float32 score matrix on the host (on every
+        rank of a mesh).
 
         With ``chunk_dir``, every ``chunk_rows`` (rounded up to whole
         mention blocks) mention rows are written as ``chunk_<start>.npz``;
-        existing chunks are loaded instead of recomputed."""
+        existing chunks are loaded instead of recomputed (over a mesh,
+        rank 0 lists them and writes them)."""
         ment_tokens = np.asarray(ment_tokens)
         ent_tokens = np.asarray(ent_tokens)
         n_m, lm = ment_tokens.shape
         n_e, le = ent_tokens.shape
         bm, be = self.ment_block, self.ent_block
+        n_dev, coord = 1, 0
+        if self.mesh is not None:
+            n_dev, coord = self.mesh.shape[self.axis], self.mesh.coords[self.axis]
+        writer = world()[0] == 0 if self.mesh is not None else True
         pair_len = padded_pair_len(
             lm, le, self.pair_pad_multiple, self.encoder.spec.max_position_embeddings
         )
-        # entity slabs: bounded pairs per slab, capped at the padded corpus
-        n_e_base = n_e + (-n_e) % be
-        slab = min(max(1, self.max_pairs_per_program // (bm * be)) * be, n_e_base)
+        # entity slabs: bounded pairs per slab and rank, capped at the
+        # padded corpus; each slab splits into n_dev equal shards
+        n_e_base = n_e + (-n_e) % (n_dev * be)
+        slab = min(max(1, self.max_pairs_per_program // (bm * be)) * be * n_dev, n_e_base)
         n_e_pad = n_e_base + (-n_e_base) % slab
+        shard = slab // n_dev
         ents = torch.zeros((n_e_pad, le), dtype=torch.int32, device=self.device)
         ents[:n_e] = torch.as_tensor(ent_tokens, dtype=torch.int32, device=self.device)
 
         out = np.zeros((n_m, n_e), np.float32)
         t0 = time.time()
         chunk_start, chunk_buf = 0, []
-        lock = ChunkDirLock(chunk_dir) if chunk_dir is not None else None
+        lock = ChunkDirLock(chunk_dir) if chunk_dir is not None and writer else None
+        existing = set()
+        if chunk_dir is not None:
+            if writer and os.path.isdir(chunk_dir):
+                existing = {f for f in os.listdir(chunk_dir) if f.startswith("chunk_") and f.endswith(".npz")}
+            if self.mesh is not None:
+                existing = broadcast_object(existing)
 
         def flush_chunk():
             nonlocal chunk_start, chunk_buf
-            if chunk_buf:
+            if chunk_buf and writer:
                 np.savez_compressed(
                     os.path.join(chunk_dir, f"chunk_{chunk_start}.npz"),
                     scores=np.concatenate(chunk_buf, axis=0),
@@ -294,7 +323,7 @@ class ScoreMatrixBuilder:
                 if chunk_dir is not None:
                     # chunks are keyed by their exact (block-aligned) start row
                     cpath = os.path.join(chunk_dir, f"chunk_{i}.npz")
-                    if os.path.exists(cpath):
+                    if f"chunk_{i}.npz" in existing:
                         flush_chunk()
                         with np.load(cpath) as data:
                             rows = data["scores"]
@@ -306,7 +335,10 @@ class ScoreMatrixBuilder:
                 block = torch.zeros((bm, lm), dtype=torch.int32, device=self.device)
                 block[:take] = torch.as_tensor(ment_tokens[i : i + take], dtype=torch.int32, device=self.device)
                 for c0 in range(0, n_e_pad, slab):
-                    scores = self._score_block(block, ents[c0 : c0 + slab], lm, pair_len)
+                    s0 = c0 + coord * shard
+                    scores = self._score_block(block, ents[s0 : s0 + shard], lm, pair_len)
+                    if self.mesh is not None:
+                        scores = all_gather_cat(scores, self.mesh, self.axis, dim=1)
                     c1 = min(c0 + slab, n_e)
                     if c1 > c0:
                         out[i : i + take, c0:c1] = scores[:take, : c1 - c0].cpu().numpy()
@@ -325,6 +357,56 @@ class ScoreMatrixBuilder:
                 lock.release()
         dt = max(time.time() - t0, 1e-9)
         LOGGER.info("score matrix %dx%d built in %.1fs (%.0f pairs/s)", n_m, n_e, dt, n_m * n_e / dt)
+        return out
+
+    def build_multihost(
+        self,
+        ment_tokens: np.ndarray,
+        ent_tokens: np.ndarray,
+        chunk_dir: str,
+        chunk_rows: int = 512,
+        progress_cb: Optional[Callable[[float], None]] = None,
+    ) -> Optional[np.ndarray]:
+        """Cross-process build: each process scores its contiguous mention
+        range (:func:`process_range`) with this process-local builder and
+        writes chunk files into ``chunk_dir/proc<pid:04d>`` plus a
+        ``_done.json``; after a barrier, process 0 combines them
+        (``indexer/combine.py``) and returns the full matrix, the others
+        None (``anncur_tpu/indexer/score_matrix.py::build_multihost``, the
+        form of the reference's SLURM mention-range chunks + combiner). A
+        restarted process resumes from its own chunks. ``chunk_dir`` must
+        be shared by the processes."""
+        from anncur_tpu_torch.indexer.combine import combine_chunks
+
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError(
+                "build_multihost needs a process-LOCAL mesh (each process "
+                f"builds its own mention range); mesh contains {self.mesh.size - 1} "
+                "remote devices. Use a global mesh only for training."
+            )
+        pid, n_proc = world()
+        n_m = np.shape(ment_tokens)[0]
+        start, end = process_range(n_m, n_proc, pid)
+        subdir = os.path.join(chunk_dir, f"proc{pid:04d}")
+        LOGGER.info("multihost build: process %d/%d owns mention rows [%d, %d)", pid, n_proc, start, end)
+        if end > start:
+            self(np.asarray(ment_tokens)[start:end], ent_tokens, chunk_dir=subdir, chunk_rows=chunk_rows,
+                 progress_cb=progress_cb)
+        else:  # more processes than rows: still meet at the barrier
+            os.makedirs(subdir, exist_ok=True)
+        with open(os.path.join(subdir, "_done.json"), "w") as fout:
+            json.dump({"row_start": start, "row_end": end}, fout)
+        barrier("score_matrix_build_done")
+        if pid != 0:
+            return None
+        parts = []
+        for p in range(n_proc):
+            s, e = process_range(n_m, n_proc, p)
+            if e > s:
+                parts.append(combine_chunks(os.path.join(chunk_dir, f"proc{p:04d}"), n_ments=e - s))
+        out = np.concatenate(parts, axis=0)
+        if out.shape != (n_m, np.shape(ent_tokens)[0]):
+            raise ValueError(f"combined matrix has shape {out.shape}, not {(n_m, np.shape(ent_tokens)[0])}")
         return out
 
     @torch.no_grad()

@@ -41,6 +41,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from anncur_tpu_torch.ops.attention import attention
+from anncur_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 BertParams = Dict[str, Any]  # nested dict of arrays, the JAX layout
 
@@ -237,6 +238,15 @@ def attention_dropout_core(q, k, v, key_valid, seed: int, rate: float, dtype):
     return torch.einsum("bnqk,bknd->bqnd", probs, v.to(dtype))
 
 
+def _row_dense(x, kernel, bias, dtype, tp):
+    """``_dense`` of a row-parallel product: under tensor parallelism the
+    partial products are summed over the ``model`` group before the bias
+    is added, once."""
+    if tp is None:
+        return _dense(x, kernel, bias, dtype)
+    return reduce_from_tp(x @ kernel.to(dtype), tp) + bias.to(dtype)
+
+
 def _encoder_layer(
     x, key_valid, lp, spec: BertSpec, dtype, rows=None,
     seeds: Optional[Sequence[int]] = None, rate: float = 0.0, attn_remat: bool = False,
@@ -246,17 +256,30 @@ def _encoder_layer(
     (exact: attention needs only those query rows, the MLP is
     position-wise; ``anncur_tpu/models/bert.py::_encoder_layer_select_only``).
     ``seeds``: None (no dropout) or the (attention, hidden 1, hidden 2)
-    dropout seeds; ``rate`` is the hidden dropout rate."""
+    dropout seeds; ``rate`` is the hidden dropout rate.
+
+    A layer that ``parallel/tp.py::shard_params`` sharded carries its
+    ``model`` group as ``lp.tp_group`` and holds this rank's heads and MLP
+    columns: q/k/v and the MLP input are column-parallel, the attention
+    output and the MLP output row-parallel (Megatron layout)."""
     attn_seed, hid_seed1, hid_seed2 = seeds if seeds is not None else (None, None, None)
     attn_rate = spec.attention_dropout if seeds is not None else 0.0
+    tp = getattr(lp, "tp_group", None)
     p = lp["attn"]
     b, s, h = x.shape
-    nh, hd = spec.num_heads, spec.head_dim
-    x_sel = x if rows is None else torch.gather(x, 1, rows[:, :, None].expand(-1, -1, h))
+    hd = spec.head_dim
+    nh = p["q_kernel"].shape[1] // hd  # this rank's heads under tensor parallelism
+
+    def select(t):
+        return t if rows is None else torch.gather(t, 1, rows[:, :, None].expand(-1, -1, h))
+
+    x_in = x if tp is None else copy_to_tp(x, tp)
+    x_sel = select(x)
+    x_in_sel = x_sel if tp is None else select(x_in)
     g = x_sel.shape[1]
-    q = _dense(x_sel, p["q_kernel"], p["q_bias"], dtype).reshape(b, g, nh, hd)
-    k = _dense(x, p["k_kernel"], p["k_bias"], dtype).reshape(b, s, nh, hd)
-    v = _dense(x, p["v_kernel"], p["v_bias"], dtype).reshape(b, s, nh, hd)
+    q = _dense(x_in_sel, p["q_kernel"], p["q_bias"], dtype).reshape(b, g, nh, hd)
+    k = _dense(x_in, p["k_kernel"], p["k_bias"], dtype).reshape(b, s, nh, hd)
+    v = _dense(x_in, p["v_kernel"], p["v_bias"], dtype).reshape(b, s, nh, hd)
     if attn_rate:
         # JAX's XLA path (its flash kernel takes no dropout); remat='attn'
         # recomputes this core in backward instead of keeping its (s, s)
@@ -269,12 +292,13 @@ def _encoder_layer(
             ctx = attention_dropout_core(*args)
     else:
         ctx = attention(q, k, v, key_valid)
-    a = _dense(ctx.reshape(b, g, h), p["out_kernel"], p["out_bias"], dtype)
+    a = _row_dense(ctx.reshape(b, g, nh * hd), p["out_kernel"], p["out_bias"], dtype, tp)
     a = dropout(a, hid_seed1, rate)
     x0 = _layer_norm(x_sel + a, p["ln_scale"], p["ln_bias"], spec.layer_norm_eps)
     mp = lp["mlp"]
-    m = _gelu(_dense(x0, mp["in_kernel"], mp["in_bias"], dtype), spec.gelu_approximate)
-    m = _dense(m, mp["out_kernel"], mp["out_bias"], dtype)
+    x0_in = x0 if tp is None else copy_to_tp(x0, tp)
+    m = _gelu(_dense(x0_in, mp["in_kernel"], mp["in_bias"], dtype), spec.gelu_approximate)
+    m = _row_dense(m, mp["out_kernel"], mp["out_bias"], dtype, tp)
     m = dropout(m, hid_seed2, rate)
     return _layer_norm(x0 + m, mp["ln_scale"], mp["ln_bias"], spec.layer_norm_eps)
 
@@ -344,3 +368,13 @@ def bert_encode(
     pooler = params["pooler"]
     pooled = torch.tanh(seq_out[:, 0, :] @ pooler["kernel"] + pooler["bias"])
     return seq_out, pooled
+
+
+def count_params(params: BertParams) -> int:
+    """Number of parameter values in a params tree (nested dicts and lists
+    of arrays or tensors)."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    if isinstance(params, (list, tuple)):
+        return sum(count_params(v) for v in params)
+    return int(np.prod(np.shape(params)))

@@ -182,6 +182,36 @@ class CrossEncoder(nn.Module):
         return (seq_out[:, 0, :] + seq_out[:, 1, :]) / 2.0, seq_out[:, 2, :]
 
     @torch.no_grad()
+    def embed_input(self, token_ids) -> torch.Tensor:
+        """Mention-only embedding, (b, h) f32 (reference:
+        forward_for_input_embeds, crossencoder.py:127-158): 'w_embeds' is
+        the mean of the [unused0]/[unused1] positions, 'default' the
+        pooled sequence."""
+        token_ids = torch.as_tensor(token_ids, device=self.device)
+        if self.cross_enc_type == "w_embeds":
+            pos = torch.stack([_first_position(token_ids, ENT_START_ID), _first_position(token_ids, ENT_END_ID)], dim=1)
+            seq_out, _ = self._bert(token_ids, 0, out_positions=pos)
+            return (seq_out[:, 0, :] + seq_out[:, 1, :]) / 2.0
+        return self._pooled(token_ids)
+
+    @torch.no_grad()
+    def embed_label(self, token_ids) -> torch.Tensor:
+        """Entity-only embedding, (b, h) f32 (reference:
+        forward_for_label_embeds, crossencoder.py:161-191): 'w_embeds' is
+        the [unused2] position, 'default' the pooled sequence."""
+        token_ids = torch.as_tensor(token_ids, device=self.device)
+        if self.cross_enc_type == "w_embeds":
+            pos = _first_position(token_ids, ENT_TITLE_ID)[:, None]
+            seq_out, _ = self._bert(token_ids, 0, out_positions=pos)
+            return seq_out[:, 0, :]
+        return self._pooled(token_ids)
+
+    def _pooled(self, token_ids):
+        cls_only = self.pooling_type in ("cls", "cls_w_lin")
+        seq_out, pooled = self._bert(token_ids, 0, cls_only=cls_only)
+        return pool_sequence(seq_out, pooled, self.pooling_type)
+
+    @torch.no_grad()
     def embed_paired(self, pair_token_ids, first_segment_end: int):
         """(mention_embed, entity_embed), each (b, h), from one joint forward
         (reference: embed_paired_input_and_labels, crossencoder.py:471-484)."""

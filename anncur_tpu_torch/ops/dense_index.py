@@ -9,8 +9,12 @@ package's size dispatch between a materialised score matrix and a
 streaming scan has no counterpart: kernel B scores queries in chunks that
 fit its scratch whatever the corpus.
 
-Multi-device search (the JAX package's mesh) is not ported: ``mesh=``
-raises (ROADMAP.md Queue 1 item 9).
+With ``mesh=`` the f32 rows are padded to the ``data`` axis
+(``pad_items``) and each rank keeps its shard on its device; a search is
+``ops/mips.py::topk_of_shards`` (kernel B per shard, candidates
+all-gathered), and every rank calls it in lockstep with the same queries.
+An int8 index searches on each rank's own device over the whole corpus
+(JAX's quantised search is single-device too).
 """
 
 from __future__ import annotations
@@ -21,33 +25,33 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from anncur_tpu_torch.ops.mips import pad_items, topk_of_shards
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
 from anncur_tpu_torch.ops.quantized import quantize_items
-from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
 
 LOGGER = logging.getLogger(__name__)
-
-
-def reject_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded search is not ported: ROADMAP.md Queue 1 item 9 (one device only)"
-        )
 
 
 class DenseIndex:
     """Exact inner-product search over item embeddings (FAISS ``.add`` /
     ``.search`` parity). The index keeps one copy of the corpus on
-    ``device``: the f32 rows, or int8 rows and their scales; a host f32
-    copy feeds :meth:`add`."""
+    ``device``: the f32 rows (this rank's shard over a mesh), or int8 rows
+    and their scales; a host f32 copy feeds :meth:`add`."""
 
     def __init__(self, embeds, mesh=None, quantize: bool = False, device: DeviceLike = "cuda"):
         """``quantize=True`` stores items as int8 with per-item scales: ~4x
         less traffic on the scan at <0.5% score error; pair with exact
-        reranking."""
-        reject_mesh(mesh)
+        reranking. ``mesh``: shard the f32 rows over its ``data`` axis."""
         self.device = resolve_device(device)
+        if mesh is not None and not same_device(mesh.device, self.device):
+            raise ValueError(f"the mesh's rank lives on {mesh.device}, the index on {self.device}")
+        self.mesh = mesh
         self._quantize = bool(quantize)
+        if quantize and mesh is not None and mesh.size > 1:
+            LOGGER.warning(
+                "quantize=True: int8 search runs single-device; the %d-rank mesh is ignored for search", mesh.size
+            )
         self._host_embeds = _host_f32(embeds)
         self._rebuild_device_state()
 
@@ -55,8 +59,15 @@ class DenseIndex:
         self.n, self.dim = self._host_embeds.shape
         rows = torch.as_tensor(self._host_embeds, device=self.device)
         self.embeds = self.quantized = None
+        self._base = 0
         if self._quantize:
             self.quantized = quantize_items(rows)
+        elif self.mesh is not None:
+            n_dev = self.mesh.shape["data"]
+            padded, _ = pad_items(rows, n_dev)
+            shard = padded.shape[0] // n_dev
+            self._base = self.mesh.coords["data"] * shard
+            self.embeds = padded[self._base: self._base + shard].contiguous()
         else:
             self.embeds = rows
 
@@ -73,6 +84,8 @@ class DenseIndex:
         k = min(k, self.n)
         if self.quantized is not None:
             s, i = mips_topk_int8_fused(queries, self.quantized, k)
+        elif self.mesh is not None:
+            s, i = topk_of_shards(queries, self.embeds, k, self.mesh, "data", self._base, self.n)
         else:
             s, i = mips_topk_fused(queries, self.embeds, k)
         return s.cpu().numpy(), i.cpu().numpy()

@@ -6,6 +6,8 @@ descending sort of an order-preserving integer key of the scores:
 ``lax.top_k`` gives, and a float sort ties -0.0 with +0.0 where
 ``lax.top_k`` ranks +0.0 above -0.0. This module is also the plain
 version of kernel B (``ops/mips_kernel.py``), of its int8 entry too.
+:func:`mips_topk_sharded` is the search over items sharded on a mesh:
+kernel B on each rank's shard, then the candidates merged.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from anncur_tpu_torch.parallel.mesh import all_gather_cat
 
 # "Excluded" score fill, as anncur_tpu/ops/mips.py::NEG_INF: never selected
 # by a top-k over real scores, and representable in float32.
@@ -144,3 +148,64 @@ def select_topk(
         keys.scatter_(1, ex, -(1 << 32))
         keys = keys[:, :n]
     return _topk_of_keys(scores, keys, k)
+
+
+def mips_topk_sharded(
+    queries: torch.Tensor,  # (q, d) f32, the same on every rank
+    items: torch.Tensor,  # (n, d), n divisible by the mesh axis (pad_items first)
+    k: int,
+    mesh,
+    axis: str = "data",
+    n_valid: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mesh-sharded exact MIPS (``anncur_tpu.ops.mips.mips_topk_sharded``):
+    each rank of ``axis`` searches its contiguous shard of ``items`` and
+    every rank returns the global (scores (q, k), ids (q, k)), ties to the
+    lowest global id. Every rank calls it with the same arguments.
+    ``n_valid``: the number of real items (the rest are padding rows)."""
+    n_items = items.shape[0]
+    n_dev = mesh.shape[axis]
+    if n_items % n_dev != 0:
+        raise ValueError(
+            f"items count {n_items} must be divisible by mesh axis {axis}={n_dev}; "
+            "pad with pad_items() first"
+        )
+    shard = n_items // n_dev
+    base = mesh.coords[axis] * shard
+    n_valid = n_items if n_valid is None else int(n_valid)
+    return topk_of_shards(queries, items[base: base + shard], k, mesh, axis, base, n_valid)
+
+
+def topk_of_shards(
+    queries: torch.Tensor,
+    shard_items: torch.Tensor,  # (shard, d): this rank's rows, global ids base..base+shard-1
+    k: int,
+    mesh,
+    axis: str,
+    base: int,
+    n_valid: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The global top-k from each rank's shard: kernel B over the shard's
+    valid rows (``ops/mips_kernel.py``, the plain version on CPU tensors),
+    ids offset by ``base``; a shard short of candidates fills its list with
+    its padded rows at ``NEG_INF``, as JAX's masked columns. The (q,
+    n_dev * k_local) candidates are all-gathered in rank order and the
+    global top-k taken with :func:`topk_stable`: equal scores keep rank,
+    then id, order, so ties go to the lowest global id."""
+    from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
+
+    q, shard = queries.shape[0], shard_items.shape[0]
+    k_local = min(k, shard)
+    valid = min(max(n_valid - base, 0), shard)
+    take = min(k_local, valid)
+    dev = queries.device
+    s = torch.full((q, k_local), NEG_INF, dtype=torch.float32, device=dev)
+    i = (base + torch.arange(k_local, device=dev)).expand(q, k_local).clone()
+    if take:
+        s_t, i_t = mips_topk_fused(queries, shard_items, take, valid)
+        s[:, :take], i[:, :take] = s_t, i_t + base
+    i[:, take:] = base + valid + torch.arange(k_local - take, device=dev)
+    s_all = all_gather_cat(s, mesh, axis, dim=1)
+    i_all = all_gather_cat(i, mesh, axis, dim=1)
+    s_fin, j = topk_stable(s_all, k)
+    return s_fin, torch.gather(i_all, 1, j)

@@ -10,8 +10,10 @@ ce / bce over (pos, negs) score rows.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.nn import functional as F
 
+from anncur_tpu_torch.parallel.mesh import all_gather_grad
 from anncur_tpu_torch.utils.device import true_f32
 
 
@@ -59,17 +61,32 @@ def bienc_loss_in_batch_negs(
     pos_label_embs: torch.Tensor,  # (b, d)
     loss_type: str = "ce",
     hinge_margin: float = 0.5,
+    group=None,
 ) -> torch.Tensor:
     """In-batch negatives (reference: compute_loss_w_in_batch_negs,
     models/biencoder.py:604-638). The (b, b) score matmul runs in true f32
-    (``utils/device.py::true_f32``), whatever the caller set."""
+    (``utils/device.py::true_f32``), whatever the caller set.
+
+    ``group``: a data-parallel process group. Each rank passes its equal
+    share of the rows of one global batch; every row is scored against the
+    positives of every rank (gathered with their gradients flowing back to
+    their rank), and the rank returns its rows' mean. The mean of these
+    over the ranks is the one-process loss of the global batch, and so is
+    the mean of their gradients."""
+    pos = pos_label_embs
+    offset = 0
+    if group is not None:
+        pos = all_gather_grad(pos_label_embs, group)
+        offset = dist.get_rank(group) * input_embs.shape[0]
     with true_f32():
-        scores = input_embs.float() @ pos_label_embs.float().T
-    b = scores.shape[0]
+        scores = input_embs.float() @ pos.float().T
+    b, n = scores.shape
+    rows = torch.arange(b, device=scores.device)
     if loss_type == "ce":
-        return _softmax_xent_int_target(scores, torch.arange(b, device=scores.device))
+        return _softmax_xent_int_target(scores, rows + offset)
     if loss_type in ("hinge", "hinge_sq"):
-        y = 2.0 * torch.eye(b, device=scores.device) - 1.0
+        y = -torch.ones((b, n), device=scores.device)
+        y[rows, rows + offset] = 1.0
         loss = torch.clamp(hinge_margin - y * scores, min=0.0)
         return loss.mean() if loss_type == "hinge" else (loss * loss).mean()
     raise NotImplementedError(f"loss_type={loss_type!r}")

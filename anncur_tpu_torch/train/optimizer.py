@@ -100,6 +100,14 @@ class Optimizer:
         self.weight_decay = weight_decay
         self.max_grad_norm = max_grad_norm
         self.b1, self.b2, self.eps = 0.9, 0.999, 1e-6
+        self.sharded: set = set()
+        self.tp_group = None
+
+    def tensor_parallel(self, sharded, group) -> None:
+        """Gradients of the ``sharded`` names are this rank's blocks under
+        tensor parallelism: their squares are summed over ``group`` for the
+        clip norm; the replicated ones count once."""
+        self.sharded, self.tp_group = set(sharded), group
 
     def init(self, params: Params) -> Dict:
         zeros = lambda: {n: torch.zeros_like(p, dtype=torch.float32) for n, p in params.items()}  # noqa: E731
@@ -108,7 +116,14 @@ class Optimizer:
     @torch.no_grad()
     def update(self, grads: Params, state: Dict, params: Params) -> Params:
         g = {n: torch.zeros_like(t) if n in self.frozen else t.float() for n, t in grads.items()}
-        norm = torch.sqrt(sum((t * t).sum() for t in g.values()))
+        if self.sharded:
+            import torch.distributed as dist
+
+            own = sum((g[n] * g[n]).sum() for n in self.sharded).reshape(1).clone()
+            dist.all_reduce(own, group=self.tp_group)
+            norm = torch.sqrt(sum((t * t).sum() for n, t in g.items() if n not in self.sharded) + own[0])
+        else:
+            norm = torch.sqrt(sum((t * t).sum() for t in g.values()))
         if not bool(norm < self.max_grad_norm):
             g = {n: (t / norm) * self.max_grad_norm for n, t in g.items()}
         lr = self.schedule(state["count"])

@@ -1,4 +1,5 @@
-"""Bi-encoder and cross-encoder training on one device.
+"""Bi-encoder and cross-encoder training, on one device or over a mesh
+of ranks.
 
 Counterpart of ``anncur_tpu/train/trainer.py`` (parity with the
 reference's PyTorch-Lightning trainer, models/pairwise_trainer.py:168-266):
@@ -10,15 +11,29 @@ epoch with the current towers (embedded with kernel A, mined with kernel B
 on the card), eval-mode dev evaluation with top-k checkpoints, an
 end-of-epoch checkpoint, and resume.
 
-Not ported yet, and raising ``NotImplementedError``: a device mesh or
-tensor parallelism (ROADMAP Queue 1 item 9).
+Over a mesh (``parallel/mesh.py``; every rank runs the same Trainer in
+lockstep on the same global batches): each rank takes its slice of every
+micro-batch on the ``data`` axis, starts from rank 0's state, and the
+gradients are all-reduced to the global mean before the optimizer, so the
+clip norm is the reduced gradient's. The in-batch loss scores each rank's
+mentions against the positives of every rank (``train/losses.py``), so
+the step equals the one-process step on the global micro-batch, as JAX's
+GSPMD step does. With ``tp_axis`` the towers are also tensor-parallel over
+that axis (``parallel/tp.py``). Only rank 0 writes checkpoints (full
+parameters and moments), then all ranks meet at a barrier; a resume reads
+on rank 0 and broadcasts; each epoch's negatives are mined once and
+broadcast.
 
 Randomness: the state's ``rng`` is a CPU ``torch.Generator`` seeded from
 ``Config.seed``. Each step draws one seed per micro-batch off it (JAX
 splits the step key and folds in the micro-batch index), and each
 micro-batch's loss draws its own seeds for its forwards (the bi-encoder's
 input, positive and negative towers; the CE's positive and negative
-pairs); the masks themselves come from generators on the device.
+pairs); the masks themselves come from generators on the device. Over a
+mesh every rank draws the same micro-batch seeds and mixes in its ``data``
+coordinate (coordinate 0 keeps the seed), so ranks drop different units
+and a step with dropout is not bit for bit the one-process step; at
+dropout 0 it is the same function.
 """
 
 from __future__ import annotations
@@ -31,14 +46,17 @@ from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from anncur_tpu_torch.config import Config
 from anncur_tpu_torch.evalx.retrieve_rerank import embed_tokenized
 from anncur_tpu_torch.models.bert import draw_seeds
 from anncur_tpu_torch.models.biencoder import BiEncoder, init_biencoder_params
 from anncur_tpu_torch.models.crossencoder import CrossEncoder, init_crossencoder_params
+from anncur_tpu_torch.parallel import tp as tp_mod
+from anncur_tpu_torch.parallel.multihost import barrier, broadcast_object, replicate_from_host, world
 from anncur_tpu_torch.train import data as data_mod
-from anncur_tpu_torch.train.checkpoint import TopKCheckpointManager, adam_moments, load_pytree
+from anncur_tpu_torch.train.checkpoint import TopKCheckpointManager, adam_moments, flat_paths, load_pytree
 from anncur_tpu_torch.train.losses import (
     bienc_loss_in_batch_negs,
     bienc_loss_w_negs,
@@ -47,6 +65,7 @@ from anncur_tpu_torch.train.losses import (
     mrr_from_scores,
 )
 from anncur_tpu_torch.train.optimizer import Optimizer, apply_updates, make_optimizer, named_parameters
+from anncur_tpu_torch.utils.device import same_device
 
 LOGGER = logging.getLogger(__name__)
 
@@ -65,7 +84,10 @@ class TrainState:
 
 class Trainer:
     """``model_type`` 'bi_enc' (a :class:`BiEncoder`) or 'cross_enc' (a
-    :class:`CrossEncoder`) with the reference's loss zoo."""
+    :class:`CrossEncoder`) with the reference's loss zoo. ``mesh``: a
+    ``parallel/mesh.py::Mesh`` holding the model's device (data parallel
+    over its ``data`` axis); ``tp_axis``: a mesh axis to split the towers
+    over (tensor parallel); None for pure data parallelism."""
 
     DISTILL_TRP_STRATEGIES = ("top_ce_w_bienc_hard_negs_trp", "top_ce_w_rand_negs_trp")
 
@@ -80,10 +102,13 @@ class Trainer:
     ):
         if not isinstance(model, (BiEncoder, CrossEncoder)):
             raise TypeError(f"Trainer takes a BiEncoder or a CrossEncoder, not {type(model).__name__}")
-        if mesh is not None or tp_axis is not None:
-            raise NotImplementedError(
-                "mesh / tensor-parallel training is not ported yet (ROADMAP Queue 1 item 9)"
-            )
+        if tp_axis is not None and (mesh is None or tp_axis not in mesh.shape):
+            raise ValueError(f"tp_axis={tp_axis!r} needs a mesh with that axis")
+        if mesh is not None and not same_device(mesh.device, model.device):
+            raise ValueError(f"the model lives on {model.device}, the mesh's rank on {mesh.device}")
+        self.mesh = mesh
+        self.tp_axis = tp_axis
+        self._specs = None  # parameter shard dims under tensor parallelism
         self.config = config
         self.model = model
         self.is_bienc = isinstance(model, BiEncoder)
@@ -107,6 +132,22 @@ class Trainer:
     def device(self) -> torch.device:
         return self.model.device
 
+    @property
+    def _n_data(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape.get("data", 1)
+
+    @property
+    def _data_group(self):
+        """The data-parallel group of a training step (None off a mesh)."""
+        if self.mesh is None:
+            return None
+        return self.mesh.groups.get("data")
+
+    @property
+    def _is_writer(self) -> bool:
+        """Rank 0 writes the checkpoints."""
+        return world()[0] == 0
+
     # ---------------- state ------------------------------------------- #
 
     def init_state(self, params=None) -> TrainState:
@@ -120,7 +161,20 @@ class Trainer:
                 params = init_biencoder_params(rng, m.spec, m.bi_enc_type, m.add_linear_layer, m.embed_dim)
             else:
                 params = init_crossencoder_params(rng, m.spec, m.cross_enc_type)
-        self.model.load_params_(params)
+        if self._specs is None:
+            self.model.load_params_(params)
+            if self.mesh is not None:
+                # every rank starts from rank 0's values
+                with torch.no_grad():
+                    own = [p.data for p in self.model.parameters()]
+                    for p, val in zip(self.model.parameters(), replicate_from_host(self.mesh, own)):
+                        p.copy_(val)
+                if self.tp_axis is not None:
+                    self._specs = tp_mod.shard_params(self.model, self.mesh, self.tp_axis)
+        else:  # sharded by an earlier call: rank 0's full values, this rank's blocks
+            full = {n: np.asarray(v, np.float32) for n, v in flat_paths(params).items()}
+            tp_mod.load_full_(named_parameters(self.model), replicate_from_host(self.mesh, full), self._specs,
+                              self.mesh, self.tp_axis)
         self.model.requires_grad_(True)
         named = named_parameters(self.model)
         self._tx = make_optimizer(
@@ -132,20 +186,30 @@ class Trainer:
             max_grad_norm=cfg.max_grad_norm,
             type_optimization=cfg.type_optimization or "all",
         )
-        return TrainState(params=named, opt_state=self._tx.init(named), step=0, rng=cfg.prng_key("cpu"))
+        rng = cfg.prng_key("cpu")
+        if self.mesh is not None:
+            rng = replicate_from_host(self.mesh, rng)
+        if self._specs is not None:
+            self._tx.tensor_parallel([n for n, d in self._specs.items() if d is not None], self.mesh.groups[self.tp_axis])
+        return TrainState(params=named, opt_state=self._tx.init(named), step=0, rng=rng)
 
     # ---------------- losses ------------------------------------------ #
 
-    def _loss_fn(self, batch, generator: Optional[torch.Generator], train: bool = True) -> Tuple[torch.Tensor, Dict]:
+    def _loss_fn(
+        self, batch, generator: Optional[torch.Generator], train: bool = True, group=None
+    ) -> Tuple[torch.Tensor, Dict]:
         """Loss of one batch and its metrics. ``train=False`` is the eval
         forward (no grad, no dropout); ``train=True`` with ``generator=None``
         takes gradients without dropout (JAX's eval-mode ``_loss_fn`` under
-        ``value_and_grad``). Each forward draws its own dropout stream."""
+        ``value_and_grad``). Each forward draws its own dropout stream.
+        ``group``: the data-parallel group when ``batch`` is this rank's
+        share of a global micro-batch (the in-batch loss gathers the other
+        ranks' positives over it)."""
         if self.is_bienc:
             if not train:
                 with torch.no_grad():
                     return self._bienc_loss(batch, None, False)
-            return self._bienc_loss(batch, generator, True)
+            return self._bienc_loss(batch, generator, True, group)
         r_pos = r_neg = None
         if train and generator is not None:
             r_pos, r_neg = (torch.Generator().manual_seed(s) for s in draw_seeds(generator, 2))
@@ -158,7 +222,7 @@ class Trainer:
         loss = crossenc_loss(pos_scores, neg_scores, self.config.loss_type)
         return loss, {"loss": loss, "mrr": mrr_from_scores(pos_scores, neg_scores)}
 
-    def _bienc_loss(self, batch, generator: Optional[torch.Generator], train: bool) -> Tuple[torch.Tensor, Dict]:
+    def _bienc_loss(self, batch, generator: Optional[torch.Generator], train: bool, group=None) -> Tuple[torch.Tensor, Dict]:
         """Distillation (``target_scores``), explicit negatives (``negs``,
         with the MRR of the positive among them) or in-batch negatives over
         this batch's (input, pos) rows. The input, positive (or label) and
@@ -180,7 +244,7 @@ class Trainer:
             loss = bienc_loss_w_negs(inp, pos, neg, cfg.loss_type, cfg.hinge_margin)
             mrr = mrr_from_scores((inp * pos).sum(1), (neg * inp[:, None, :]).sum(2))
             return loss, {"loss": loss, "mrr": mrr}
-        loss = bienc_loss_in_batch_negs(inp, pos, cfg.loss_type, cfg.hinge_margin)
+        loss = bienc_loss_in_batch_negs(inp, pos, cfg.loss_type, cfg.hinge_margin, group)
         return loss, {"loss": loss}
 
     # ---------------- train step -------------------------------------- #
@@ -189,33 +253,58 @@ class Trainer:
         """One optimizer step over ``batch`` = :meth:`_shard_batch`'s
         (grad_acc, micro, ...) tensors: gradients of each micro-batch's
         loss, summed and divided by their count, then the optimizer. The
-        parameters, optimizer state, step and generator advance in place."""
+        parameters, optimizer state, step and generator advance in place.
+        Over a mesh the gradients and losses are then averaged over the
+        ``data`` axis (one all-reduce each), before the optimizer."""
         if self._tx is None:
             raise RuntimeError("call init_state first")
         n_micro = next(iter(batch.values())).shape[0]
         seeds = draw_seeds(state.rng, n_micro)
+        coord = 0 if self.mesh is None else self.mesh.coords.get("data", 0)
+        group = self._data_group
         params = state.params
         for p in params.values():
             p.grad = None
         micro_losses = []
         for idx in range(n_micro):
             mb = {k: v[idx] for k, v in batch.items()}
-            loss, _ = self._loss_fn(mb, torch.Generator().manual_seed(seeds[idx]))
+            # data coordinate 0 keeps the one-process stream
+            seed = (seeds[idx] + coord * 0x9E3779B97F4A7C15) % (1 << 62)
+            loss, _ = self._loss_fn(mb, torch.Generator().manual_seed(seed), group=group)
             loss.backward()  # accumulates into .grad as JAX sums the scan
             micro_losses.append(loss.detach())
         # a parameter the head never reads (the pooler under w_embeds) has
         # no grad; JAX's is zeros
         grads = {n: torch.zeros_like(p) if p.grad is None else p.grad / n_micro for n, p in params.items()}
+        micro = torch.stack(micro_losses)
+        if group is not None:
+            grads, micro = self._mean_over_data(grads, micro, group)
         apply_updates(params, self._tx.update(grads, state.opt_state, params))
         for p in params.values():
             p.grad = None
         state.step += 1
-        micro = torch.stack(micro_losses)
         return {"loss": micro.mean(), "micro_losses": micro}
+
+    def _mean_over_data(self, grads: Dict[str, torch.Tensor], micro: torch.Tensor, group):
+        """Gradients and micro-batch losses averaged over the data group,
+        flattened into one all-reduce."""
+        names = list(grads)
+        flat = torch.cat([grads[n].reshape(-1) for n in names] + [micro.float()])
+        dist.all_reduce(flat, group=group)
+        flat /= self._n_data
+        out, at = {}, 0
+        for n in names:
+            out[n] = flat[at: at + grads[n].numel()].view_as(grads[n])
+            at += grads[n].numel()
+        return out, flat[at:]
 
     def _shard_batch(self, batch) -> Dict[str, torch.Tensor]:
         """Stack into (grad_acc, micro_b, ...) tensors on the device; a batch
-        not divisible by ``grad_acc_steps`` loses its tail, with a warning."""
+        not divisible by ``grad_acc_steps`` loses its tail, with a warning.
+        Over a mesh ``batch`` is the global batch (the same on every rank)
+        and each rank keeps its equal, contiguous share of every
+        micro-batch; a micro-batch that does not divide by the ``data`` axis
+        raises, as JAX's multi-process path does."""
         acc = max(1, self.config.grad_acc_steps)
         out = {}
         for k, v in batch.items():
@@ -235,9 +324,17 @@ class Trainer:
                     "dropping %d samples per step — pick a divisible "
                     "train_batch_size", k, b, acc_eff, b - acc_eff * micro,
                 )
-            out[k] = torch.as_tensor(
-                v[: acc_eff * micro].reshape((acc_eff, micro) + v.shape[1:]), device=self.device
-            )
+            v = v[: acc_eff * micro].reshape((acc_eff, micro) + v.shape[1:])
+            n = self._n_data
+            if n > 1:
+                if micro % n:
+                    raise ValueError(
+                        f"multi-process training requires the global micro-batch ({micro}) to be divisible "
+                        f"by the mesh data axis ({n}) — pad train_batch_size/grad_acc_steps"
+                    )
+                c = self.mesh.coords["data"]
+                v = v[:, c * (micro // n): (c + 1) * (micro // n)]
+            out[k] = torch.as_tensor(v, device=self.device)
         if "first_segment_end" in batch:
             # pair layout is constant per dataset
             self._fse = int(batch["first_segment_end"])
@@ -272,24 +369,44 @@ class Trainer:
     # ---------------- full loop --------------------------------------- #
 
     def _checkpoint_tree(self, state: TrainState) -> Dict:
+        """The checkpoint's tree. Under tensor parallelism every rank calls
+        it: the full parameters and moments are gathered from the blocks."""
+        params, opt_state = self.model.params_tree(), state.opt_state
+        if self._specs is not None:
+            full = tp_mod.gather_full(state.params, self._specs, self.mesh, self.tp_axis)
+            params = tp_mod.full_tree(params, {n: t.cpu().numpy() for n, t in full.items()})
+            opt_state = dict(opt_state, **{
+                key: tp_mod.gather_full(opt_state[key], self._specs, self.mesh, self.tp_axis) for key in ("mu", "nu")
+            })
         return {
-            "params": self.model.params_tree(),
-            "opt_state": state.opt_state,
+            "params": params,
+            "opt_state": opt_state,
             "step": int(state.step),
             # rng continuity: resume picks up the dropout stream mid-sequence
             "rng": state.rng,
         }
 
+    def _save(self, save, state: TrainState, *args) -> None:
+        """``save(tree, *args)`` on rank 0 only, then a barrier, so no rank
+        reads a half-written checkpoint."""
+        tree = self._checkpoint_tree(state)
+        if self._is_writer:
+            save(tree, *args)
+        barrier("checkpoint")
+
     def _restore(self, state: TrainState, tree: Dict) -> TrainState:
         """Load a checkpoint of either package into ``state``: params, step
         and the Adam count and moments; the generator state where the
         port wrote it (a JAX key leaves the seeded generator as it is)."""
-        self.model.load_params_(tree["params"])
         count, mu, nu = adam_moments(tree["opt_state"])
+        if self._specs is not None:
+            tp_mod.load_full_(state.params, flat_paths(tree["params"]), self._specs, self.mesh, self.tp_axis)
+        else:
+            self.model.load_params_(tree["params"])
         state.opt_state["count"] = count
         for key, saved in (("mu", mu), ("nu", nu)):
-            for n, t in state.opt_state[key].items():
-                t.copy_(torch.as_tensor(np.asarray(saved[n])))
+            full = {n: np.asarray(saved[n]) for n in state.opt_state[key]}
+            tp_mod.load_full_(state.opt_state[key], full, self._specs or {}, self.mesh, self.tp_axis)
         state.step = int(tree["step"])
         rng = tree.get("rng")
         if isinstance(rng, np.ndarray) and rng.dtype == np.uint8:
@@ -306,14 +423,7 @@ class Trainer:
     ) -> TrainState:
         cfg = self.config
         state = self.init_state()
-        start_epoch = 0
-        if resume:
-            last = self._ckpt.latest_eoe()
-            if last is not None:
-                tree, _ = load_pytree(last["path"])
-                state = self._restore(state, tree)
-                start_epoch = last["epoch"] + 1
-                LOGGER.info("resumed from %s (epoch %d)", last["path"], start_epoch)
+        start_epoch = self._resume(state) if resume else 0
 
         batch_size = cfg.train_batch_size
         fast_dev = cfg.fast_dev_run
@@ -345,8 +455,23 @@ class Trainer:
             # end-of-epoch, pairwise_trainer.py:214-237)
             if dev_data is not None:
                 self._dev_eval_and_ckpt(state, dev_data, batch_size, epoch)
-            self._ckpt.save_end_of_epoch(self._checkpoint_tree(state), epoch, state.step)
+            self._save(self._ckpt.save_end_of_epoch, state, epoch, state.step)
         return state
+
+    def _resume(self, state: TrainState) -> int:
+        """Restore the latest end-of-epoch checkpoint into ``state``, if
+        any: rank 0 reads it and every rank restores it (JAX's
+        ``_place_like``). Returns the epoch to start from."""
+        last = tree = None
+        if self._is_writer:
+            last = self._ckpt.latest_eoe()
+            tree = None if last is None else load_pytree(last["path"])[0]
+        last, tree = broadcast_object((last, tree))
+        if last is None:
+            return 0
+        self._restore(state, tree)
+        LOGGER.info("resumed from %s (epoch %d)", last["path"], last["epoch"] + 1)
+        return last["epoch"] + 1
 
     def _dev_eval_and_ckpt(self, state: TrainState, dev_data, batch_size: int, epoch: int) -> None:
         cfg = self.config
@@ -376,7 +501,7 @@ class Trainer:
             metric_name = "dev_loss"
         metric_val = dev_metrics[metric_name]
         if np.isfinite(metric_val):
-            self._ckpt.maybe_save(self._checkpoint_tree(state), metric_val, state.step, epoch)
+            self._save(self._ckpt.maybe_save, state, metric_val, state.step, epoch)
 
     def _embed(self, data):
         """(mention, entity) embeddings of ``data`` by the current towers,
@@ -389,10 +514,19 @@ class Trainer:
         """This epoch's (n_m, num_negs) negatives, None where the batches
         bring their own (in-batch, distillation). Bi-encoder hard negatives
         are re-mined with the current towers (reference:
-        EntLinkData.get_bienc_model, pairwise_trainer.py:133-164)."""
+        EntLinkData.get_bienc_model, pairwise_trainer.py:133-164). Over a
+        mesh rank 0 mines (every rank does, under tensor parallelism, whose
+        forwards need them all) and broadcasts its ids."""
         cfg = self.config
         if self.is_bienc and cfg.neg_strategy in ("in_batch", "top_ce_match") + self.DISTILL_TRP_STRATEGIES:
             return None
+        if self.mesh is None:
+            return self._mine(data, epoch)
+        negs = self._mine(data, epoch) if self._is_writer or self._specs is not None else None
+        return broadcast_object(negs)
+
+    def _mine(self, data, epoch: int) -> np.ndarray:
+        cfg = self.config
         embeds = {}
         if self.is_bienc and cfg.neg_strategy == "bienc_hard_negs":
             embeds = dict(zip(("input_embeds", "label_embeds"), self._embed(data)))

@@ -1,5 +1,5 @@
-"""Device resolution for the port's entry points, and the true-f32
-matmul scope."""
+"""Device resolution for the port's entry points, device identity, and
+the true-f32 matmul scope."""
 
 from __future__ import annotations
 
@@ -21,6 +21,18 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+def same_device(a: DeviceLike, b: DeviceLike) -> bool:
+    """Whether ``a`` and ``b`` name one device: ``cuda`` without an index
+    is the current CUDA device (``cuda`` and ``cuda:0`` are one there)."""
+    a, b = torch.device(a), torch.device(b)
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    current = torch.cuda.current_device()
+    return (current if a.index is None else a.index) == (current if b.index is None else b.index)
 
 
 @contextlib.contextmanager

@@ -115,10 +115,24 @@ Phases, in order; any failure exits non-zero before the result line:
    items, held to phase 6's checks), kernel B timed at its MIPS shape, and
    ``bench_nitems_scaling`` at q=128 over 10,000 / 30,000 / 104,520 items;
    one JSON line per driver, with the card;
-13. the ``kernels`` line: each kernel's launches on phases 3-12 (counts set
-   to 0 just before each phase, CLI or driver call and read just after),
-   error and times;
-14. the last line, ``{"ok": true, "device": {...}}``.
+13. the parallel layer at world size 1, on a 1-rank NCCL group started on
+   an in-process store and destroyed at the end of the phase, reusing
+   phases 3-7's CE, retriever and state, each path against the one-device
+   call it replaces: the Trainer over ``default_mesh()`` and over a (1, 1)
+   data x model mesh with the towers tensor-parallel (2 steps each from
+   phase 5's starting state; losses and gradient norm to phase 5's
+   tolerances; A, C, D launches), the entity-sharded build and
+   ``build_multihost`` of 4 x 2048 of phase 3's pairs, ``mips_topk_sharded``
+   at ZeShEL-military's MIPS shape and ``DenseIndex(mesh=)`` on phase 7's
+   embeddings (both timed beside the one-device calls),
+   ``CurRetriever(mesh=)`` at cost 600 on phase 4's 32 queries and at 210
+   over 8 on phase 6's 128 (phases 4 and 6's checks, q/s beside theirs),
+   and ``python -m anncur_tpu_torch.parallel.dryrun --nproc 1 --device
+   cuda``; one JSON line per check, with the card;
+14. the ``kernels`` line: each kernel's launches on phases 3-13 (counts set
+   to 0 just before each phase, CLI, driver or path call and read just
+   after), error and times;
+15. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -776,7 +790,8 @@ def phase_build(ce, spec, dev, rng):
     log(f"  build sub-block 2x{sub} vs plain attention: max |diff| = {err:.3e} (tol {CE_ATOL}), score range [{scores.min():.4f}, {scores.max():.4f}]")
     if not err <= CE_ATOL:
         fail(f"score matrix disagrees with the plain-attention CE: {err}")
-    return {"pairs_per_s": pairs_per_s, "seconds": dt, "launches": counts, "plain_attention_err": err}
+    return {"pairs_per_s": pairs_per_s, "seconds": dt, "launches": counts, "plain_attention_err": err,
+            "ment": ment, "ent": ent, "scores": scores}
 
 
 def phase_serve(ce, spec, dev, rng):
@@ -840,7 +855,7 @@ def phase_serve(ce, spec, dev, rng):
         fail(f"text query returned {res}")
     log(f"  text query -> {res}")
     return {"qps": qps, "ce_pairs_per_s": ce_pairs_per_s, "seconds": dt, "launches": counts, "mips_err": mips_err,
-            "retriever": retriever, "train": train}
+            "retriever": retriever, "train": train, "answer": (qtoks, scores, ids)}
 
 
 def leaf_check(state, before, frozen, what):
@@ -889,7 +904,8 @@ def phase_train(dev, rng):
         trainer = Trainer(cfg, ce, total_steps=100)
         state = trainer.init_state()
         negs = trainer._epoch_negatives(data, state, 0)
-        batches = [trainer._shard_batch(b) for b in trainer._make_batches(data, negs, cfg.train_batch_size, 0)]
+        raw = list(trainer._make_batches(data, negs, cfg.train_batch_size, 0))
+        batches = [trainer._shard_batch(b) for b in raw]
         pairs_per_step = cfg.train_batch_size * (1 + cfg.num_negs)
         trainer.train_step(state, batches[0])  # warm-up: cuBLAS handles, kernel loads
         torch.cuda.synchronize()
@@ -942,7 +958,8 @@ def phase_train(dev, rng):
     if not (abs(loss_k - loss_p) <= TRAIN_LOSS_ATOL and abs(norm_k - norm_p) <= TRAIN_GNORM_RTOL * norm_p):
         fail("training through the kernels disagrees with the plain attention")
     return {"pairs_per_s": pairs_per_s, "step_s": step_s, "losses": losses, "launches": counts,
-            "loss_vs_plain": [loss_k, loss_p], "grad_norm_vs_plain": [norm_k, norm_p]}
+            "loss_vs_plain": [loss_k, loss_p], "grad_norm_vs_plain": [norm_k, norm_p],
+            "start": (ce, cfg, raw[:2])}
 
 
 ADAPTIVE_QUERIES = 128  # cut this, never the widths, if the run nears its limit
@@ -1133,7 +1150,7 @@ def phase_adaptive(retriever, train, spec, dev, rng):
     return {"qps": qps, "ce_pairs_per_s": n_q * 210 / base_dt, "seconds": base_s, "early_stop_qps": es_qps,
             "early_stop_seconds": es_s, "early_stop_avg_budget": es_stats["avg_budget"], "launches": counts,
             "launches_base_calls": base_counts, "launches_early_stop_calls": es_counts, "mips_err": mips_err,
-            "ce_err": ce_err, "recall": recalls, "qtoks": qtoks, "train_dev": train_dev}
+            "ce_err": ce_err, "recall": recalls, "qtoks": qtoks, "train_dev": train_dev, "answer": (scores, ids)}
 
 
 RERANK_MENTIONS = 1024  # cut this, never the widths, if the run nears its limit
@@ -1219,7 +1236,7 @@ def phase_retrieve_rerank(retriever, spec, dev, rng):
     return {"mentions_per_s": mps, "seconds": dt, "stage_seconds": sec, "embed_seqs_per_s": embed_sps,
             "search_ms": sec["search"] * 1e3, "rerank_pairs_per_s": rerank_pps, "launches": counts,
             "mips_err": mips_err, "int8_err": int8_err, "embed_err": embed_err, "int8_overlap": overlap,
-            "metrics": {"bienc": res["bienc"], "crossenc": res["crossenc"]}}
+            "metrics": {"bienc": res["bienc"], "crossenc": res["crossenc"]}, "embeds": (ment_emb, label_emb)}
 
 
 def towers_vs_plain_attention(bienc, ments, ents, got=None):
@@ -2523,6 +2540,218 @@ def phase_drivers(dev, root, shared, recalls, smi, rehearsal=False):
 
 # --------------------------------------------------------------------- #
 
+# --------------------------------------------------------------------- #
+# phase 13: the parallel layer at world size 1
+# --------------------------------------------------------------------- #
+
+
+def same_answer(got, want, what, atol=CE_ATOL):
+    """Scores within ``atol`` and ids equal wherever the reference's
+    neighbours differ by more than ``MIPS_TIE_GAP`` of its scale; returns
+    the largest score difference."""
+    (s, i), (s_ref, i_ref) = ((np.asarray(a), np.asarray(b)) for a, b in (got, want))
+    if s.shape != s_ref.shape or i.shape != i_ref.shape:
+        fail(f"{what}: shapes {s.shape} vs {s_ref.shape}")
+    err = float(np.abs(s - s_ref).max())
+    gap = -np.diff(s_ref, axis=1) > MIPS_TIE_GAP * float(np.abs(s_ref).max())
+    sep = np.ones(s_ref.shape, bool)
+    sep[:, :-1] &= gap
+    sep[:, 1:] &= gap
+    if not err <= atol or not np.array_equal(i[sep], i_ref[sep]):
+        fail(f"{what}: scores differ by {err} (tol {atol}) or ids differ at separated scores")
+    return err
+
+
+def phase_parallel(dev, smi, build, serve, train, adaptive, embeds, retriever, train_mat, rehearsal=False):
+    """The parallel layer on a 1-rank NCCL group (``mesh_session``: started
+    on an in-process store, destroyed at the end), each path against the
+    one-device call it replaces, on phases 3-7's state: (a) the Trainer over
+    ``default_mesh()`` and over a (1, 1) data x model mesh with the towers
+    tensor-parallel, 2 steps each from phase 5's starting state; (b) the
+    entity-sharded build and ``build_multihost`` of 4 x 2048 of phase 3's
+    pairs; (c) ``mips_topk_sharded`` at ZeShEL-military's MIPS shape and
+    ``DenseIndex(mesh=)`` on phase 7's embeddings, both timed beside the
+    one-device calls; (d) ``CurRetriever(mesh=)`` at cost 600 on phase 4's
+    queries and at 210 over 8 on phase 6's, held to those phases' checks;
+    (e) ``parallel/dryrun.py --nproc 1 --device cuda`` in its own process.
+    One JSON line per check, with the card. Launches are counted around the
+    main-path calls of (a)-(d) only. ``rehearsal``: a CPU run at tiny
+    shapes (gloo, the quick MIPS shape, no launch checks, the dry run on
+    the CPU)."""
+    import dataclasses
+    import tempfile
+
+    import torch.distributed as dist
+
+    from anncur_tpu_torch.indexer.score_matrix import ScoreMatrixBuilder
+    from anncur_tpu_torch.ops.dense_index import DenseIndex
+    from anncur_tpu_torch.ops.mips import mips_topk_sharded, topk_of_shards
+    from anncur_tpu_torch.ops.mips_kernel import fused_mips_topk, mips_topk_fused
+    from anncur_tpu_torch.parallel.mesh import make_mesh, mesh_session
+    from anncur_tpu_torch.tools import military_scale
+    from anncur_tpu_torch.train.trainer import Trainer
+
+    totals = {name: 0 for name in _wrappers()}
+    rec = {"lines": {}, "seconds": {}}
+
+    def counted(fn):
+        reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for name, n in read_counts().items():
+            totals[name] += n
+        return out
+
+    def line(check, t0, **numbers):
+        rec["seconds"][check] = time.perf_counter() - t0
+        entry = {"phase13": check, "card": smi, "seconds": rec["seconds"][check], **numbers}
+        rec["lines"][check] = entry
+        log(json.dumps(entry))
+
+    with mesh_session(dev) as mesh, tempfile.TemporaryDirectory() as tmp:
+        if (dist.get_backend() != ("gloo" if rehearsal else "nccl") or mesh.shape != {"data": 1}
+                or mesh.device != torch.device(dev)):
+            fail(f"the world-size-1 group is not NCCL on {dev}: {dist.get_backend()} {mesh.shape} {mesh.device}")
+
+        # (a) training: phase 5's CE, config and first two batches
+        t0 = time.perf_counter()
+        ce, cfg, raw = train["start"]
+        cfg.update_from_dict({"base_res_dir": tmp})
+        mesh_tp = make_mesh((1, 1), ("data", "model"), dev)
+
+        def two_steps(m, tp_axis):
+            trainer = Trainer(cfg, ce, mesh=m, total_steps=100, tp_axis=tp_axis)
+            state = trainer.init_state()
+            batches = [trainer._shard_batch(b) for b in raw]
+            reset_counts()
+            losses = [float(trainer.train_step(state, b)["loss"]) for b in batches]
+            torch.cuda.synchronize()
+            launched = read_counts()
+            # one micro-batch's loss and gradient norm at the state reached
+            mb = {k: v[0] for k, v in batches[0].items()}
+            for p in state.params.values():
+                p.grad = None
+            loss, _ = trainer._loss_fn(mb, torch.Generator().manual_seed(7), group=trainer._data_group)
+            loss.backward()
+            norm = math.sqrt(sum(float((p.grad.float() ** 2).sum()) for p in state.params.values() if p.grad is not None))
+            for p in state.params.values():
+                p.grad = None
+            return losses, float(loss.detach()), norm, launched
+
+        ref = two_steps(None, None)
+        for name, m, tp_axis in (("dp", mesh, None), ("dp_tp", mesh_tp, "model")):
+            losses, loss, norm, launched = two_steps(m, tp_axis)
+            for k, n_ in launched.items():
+                totals[k] += n_
+            d_loss = max(abs(a - b) for a, b in zip(losses + [loss], ref[0] + [ref[1]]))
+            if not (d_loss <= TRAIN_LOSS_ATOL and abs(norm - ref[2]) <= TRAIN_GNORM_RTOL * ref[2]):
+                fail(f"training over the {name} mesh: losses {losses}, {loss} vs {ref[0]}, {ref[1]}; "
+                     f"grad norm {norm} vs {ref[2]}")
+            want = 2 * 2 * ce.spec.num_layers * cfg.grad_acc_steps  # 2 steps x (pos, neg) forwards x layers x micro
+            if not rehearsal and any(launched[k] != want for k in ("attention_fwd", "attention_bwd_dkv", "attention_bwd_dq")):
+                fail(f"training over the {name} mesh launched the attention kernels {launched}, not {want} times")
+            line(f"train_{name}", t0, mesh=m.shape, tp_axis=tp_axis, losses=losses, one_device_losses=ref[0],
+                 micro_loss=[loss, ref[1]], grad_norm=[norm, ref[2]], launches=launched)
+            t0 = time.perf_counter()
+        del ce, raw
+        torch.cuda.empty_cache()
+
+        # (b) the entity-sharded build and build_multihost, 4 x 2048 pairs
+        t0 = time.perf_counter()
+        ment, ent = build["ment"][:4], build["ent"]
+        # 4 x 512 pairs per forward, as phase 3's 32 x 64
+        builder = ScoreMatrixBuilder(retriever.encoder, ment_block=4, ent_block=512, device=dev, mesh=mesh)
+        sharded = counted(lambda: builder(ment, ent))
+        dt = time.perf_counter() - t0
+        local = ScoreMatrixBuilder(retriever.encoder, ment_block=4, ent_block=512, device=dev)
+        multihost = counted(lambda: local.build_multihost(ment, ent, os.path.join(tmp, "mh"), chunk_rows=4))
+        errs = [float(np.abs(m - build["scores"][:4]).max()) for m in (sharded, multihost)]
+        if not max(errs) <= CE_ATOL:
+            fail(f"the sharded build or build_multihost differs from phase 3's rows by {errs}")
+        line("build", t0, pairs=4 * ent.shape[0], pairs_per_s=4 * ent.shape[0] / dt,
+             phase3_pairs_per_s=build["pairs_per_s"], max_abs_err=errs[0], multihost_max_abs_err=errs[1])
+
+        # (c) sharded MIPS at ZeShEL-military's shape, DenseIndex(mesh=) at phase 7's
+        t0 = time.perf_counter()
+        flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+        q, n, d, kk = military_scale.mips_shape(rehearsal)
+        queries, items = military_scale.mips_inputs(q, n, d, dev)
+        got = counted(lambda: mips_topk_sharded(queries, items, kk, mesh))
+        want = fused_mips_topk(queries, items, kk)
+        err = same_answer([t.cpu().numpy() for t in got], [t.cpu().numpy() for t in want],
+                          "mips_topk_sharded at ZeShEL-military", atol=MIPS_RTOL * float(want[0].abs().max()))
+        sharded_ms = time_ms(lambda: mips_topk_sharded(queries, items, kk, mesh), 10, flush)
+        fused_ms = time_ms(lambda: fused_mips_topk(queries, items, kk), 10, flush)
+        del queries, items, got, want
+        line("mips_sharded", t0, shape=f"q={q} d={d} n={n} k={kk}", max_abs_err=err, ms=sharded_ms,
+             one_device_ms=fused_ms)
+        t0 = time.perf_counter()
+        ment_emb, label_emb = embeds
+        index = DenseIndex(label_emb, mesh=mesh, device=dev)
+        got = counted(lambda: index.search(ment_emb, RERANK["top_k"]))
+        one = DenseIndex(label_emb, device=dev)
+        err = same_answer(got, one.search(ment_emb, RERANK["top_k"]), "DenseIndex(mesh=)",
+                          atol=MIPS_RTOL * float(np.abs(got[0]).max()))
+        q_dev = torch.as_tensor(ment_emb, device=dev)
+        sharded_ms = time_ms(lambda: topk_of_shards(q_dev, index.embeds, RERANK["top_k"], mesh, "data", 0, index.n), 30, flush)
+        fused_ms = time_ms(lambda: mips_topk_fused(q_dev, one.embeds, RERANK["top_k"]), 30, flush)
+        del flush, index, one, q_dev
+        torch.cuda.empty_cache()
+        line("dense_index", t0, shape=f"q={ment_emb.shape[0]} d={ment_emb.shape[1]} n={label_emb.shape[0]} "
+             f"k={RERANK['top_k']}", max_abs_err=err, ms=sharded_ms, one_device_ms=fused_ms)
+
+        # (d) query-sharded serving over phase 4's 10,000 items
+        t0 = time.perf_counter()
+        sharded_r = dataclasses.replace(retriever, mesh=mesh)
+        qtoks, scores4, ids4 = serve["answer"]
+        sharded_r.query_tokens_batch(qtoks, top_k=10, top_k_retvr=100)  # warm
+        torch.cuda.synchronize()
+        t1, before = time.perf_counter(), dict(totals)
+        fixed = counted(lambda: sharded_r.query_tokens_batch(qtoks, top_k=10, top_k_retvr=100))
+        dt = time.perf_counter() - t1
+        launched = {k: totals[k] - before[k] for k in totals}
+        if not rehearsal and (launched["attention_fwd"] == 0 or launched["mips_topk_fused"] != 1):
+            fail(f"the sharded query batch did not run kernel A and kernel B once: {launched}")
+        err = same_answer(fixed, (scores4, ids4), "CurRetriever(mesh=) at cost 600")
+        line("serve_fixed", t0, queries=len(qtoks), qps=len(qtoks) / dt, phase4_qps=serve["qps"], max_abs_err=err,
+             launches=launched)
+
+        t0 = time.perf_counter()
+        qtoks6 = adaptive["qtoks"]
+        train_dev = torch.as_tensor(train_mat, device=dev)
+
+        def call(kw):
+            return sharded_r.query_tokens_adaptive_fused(qtoks6, top_k=10, train_scores=train_dev, return_stats=True,
+                                                         **kw)
+
+        before = dict(totals)
+        s6, i6, _, _ = counted(lambda: recorded_adaptive_call(sharded_r, call, ADAPTIVE, len(qtoks6), 10))
+        launched = {k: totals[k] - before[k] for k in totals}
+        rounds = ADAPTIVE["n_rounds"]
+        if not rehearsal and (launched["mips_topk_fused"] != rounds - 1 or launched["attention_fwd"] == 0):
+            fail(f"the sharded adaptive batch did not launch kernel B once per growth round: {launched}")
+        secs = timed_calls(lambda: call(ADAPTIVE), 2)
+        err = same_answer((s6, i6), adaptive["answer"], "CurRetriever(mesh=) adaptive 210 over 8")
+        ce_err = scores_vs_plain(sharded_r, qtoks6, i6, s6, "sharded adaptive top-10")
+        line("serve_adaptive", t0, queries=len(qtoks6), qps=len(qtoks6) / statistics.median(secs),
+             phase6_qps=adaptive["qps"], max_abs_err=err, scores_vs_plain_attention=ce_err, launches=launched)
+        del sharded_r, train_dev
+
+    if dist.is_initialized():
+        fail("the world-size-1 group outlived phase 13")
+
+    # (e) the dry run in its own process: 1 rank over NCCL
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "anncur_tpu_torch.parallel.dryrun", "--nproc", "1", "--device",
+                          "cpu" if rehearsal else "cuda", "--timeout", "300"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=400)
+    summary = next((json.loads(x)["dryrun"] for x in out.stdout.splitlines() if x.startswith('{"dryrun"')), None)
+    if out.returncode != 0 or summary is None:
+        fail(f"parallel/dryrun.py --nproc 1 --device cuda failed:\n{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    line("dryrun", t0, **{k: v for k, v in summary["ranks"][0].items() if k != "seconds"})
+    rec["launches"] = totals
+    return rec
+
 
 def main():
     if not torch.cuda.is_available():
@@ -2561,22 +2790,27 @@ def main():
     log(f"  CE initialised in {time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     build = phase_build(ce, spec, dev, rng)
+    build_state = {k: build.pop(k) for k in ("ment", "ent", "scores")}
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 4: serve (10,000 items, 500 anchors, top-100 rerank, top-10)")
     serve = phase_serve(ce, spec, dev, rng)
     retriever, train_mat = serve.pop("retriever"), serve.pop("train")
+    serve_answer = serve.pop("answer")
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 5: train (bert-base CE, bf16, 4 x 64 pairs of 255 tokens per step)")
     del ce  # phase 6 serves through phase 4's retriever, which keeps its CE
     torch.cuda.empty_cache()
     train = phase_train(dev, rng)
+    train_start = train.pop("start")
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 6: adaptive serve ({ADAPTIVE_QUERIES} queries, budget 210 over 8 rounds, top-10; early stop)")
     adaptive = phase_adaptive(retriever, train_mat, spec, dev, rng)
     qtoks, train_dev = adaptive.pop("qtoks"), adaptive.pop("train_dev")
+    adaptive_answer = adaptive.pop("answer")
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 7: retrieve and rerank (bert-base bi-encoder, seed 1, bf16; {RERANK_MENTIONS} mentions, top 64, CE rerank)")
     rerank = phase_retrieve_rerank(retriever, spec, dev, rng)
+    embeds = rerank.pop("embeds")
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 8: AXN serve ({ADAPTIVE_QUERIES} queries, 210 over 8, full rank; early stop), oracle recall, host ADACUR")
     axn = phase_axn(retriever, qtoks, train_dev, dev)
@@ -2588,7 +2822,6 @@ def main():
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 10: the paper's evals (transductive and inductive CUR on the trained-CE matrices; entity-to-anchor scores)")
     evals = phase_evals(retriever, bienc.pop("bienc"), spec, dev, rng)
-    del retriever
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as root:
@@ -2605,7 +2838,18 @@ def main():
         drivers = phase_drivers(dev, root, cli.pop("shared"), evals["matrices"][TRAINED_CE[0]], smi)
         drivers["phase_s"] = time.perf_counter() - t0
 
-    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers)
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 13: the parallel layer at world size 1 (NCCL; DP and TP "
+        "training, sharded and multi-process builds, sharded MIPS, query-sharded serving, the dry run)")
+    t0 = time.perf_counter()
+    parallel = phase_parallel(
+        dev, smi, dict(build_state, pairs_per_s=build["pairs_per_s"]), dict(serve, answer=serve_answer),
+        {"start": train_start}, dict(adaptive, qtoks=qtoks, answer=adaptive_answer), embeds, retriever, train_mat,
+    )
+    parallel["phase_s"] = time.perf_counter() - t0
+    del retriever, train_start, embeds
+    torch.cuda.empty_cache()
+
+    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers, parallel)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
@@ -2687,6 +2931,8 @@ def main():
         "drivers": {"phase_s": drivers["phase_s"], "step_s": drivers["seconds"], "lines": drivers["lines"],
                     "military_mips_kernel_b": drivers["military_mips"]},
         "launches_drivers": drivers["launches"],
+        "parallel": {"phase_s": parallel["phase_s"], "step_s": parallel["seconds"], "lines": parallel["lines"]},
+        "launches_parallel": parallel["launches"],
         "card": smi,
     }
     summary["seconds"] = time.perf_counter() - t_start

@@ -18,7 +18,6 @@ from anncur_tpu.models.bert import BertSpec as JaxBertSpec
 from anncur_tpu.models.biencoder import BiEncoder as JaxBiEncoder
 from anncur_tpu.models.crossencoder import CrossEncoder as JaxCrossEncoder
 
-from anncur_tpu_torch.evalx import retrieve_rerank as trr
 from anncur_tpu_torch.models.bert import BertSpec
 from anncur_tpu_torch.models.biencoder import BiEncoder
 from anncur_tpu_torch.models.convert import (
@@ -27,8 +26,9 @@ from anncur_tpu_torch.models.convert import (
     crossencoder_from_jax_params,
 )
 
-# the module (anncur_tpu.evalx re-exports a function of the same name)
+# the modules (both packages' evalx re-export a function of the same name)
 jrr = importlib.import_module("anncur_tpu.evalx.retrieve_rerank")
+trr = importlib.import_module("anncur_tpu_torch.evalx.retrieve_rerank")
 torch.set_num_threads(2)  # xdist runs several test files side by side
 
 # the tolerances of tests/test_torch_models.py: f32 sums in other orders;
@@ -157,7 +157,8 @@ def _metrics_only(res):
 def test_retrieve_rerank_eval_and_files_match_jax(eval_world, tmp_path):
     """run_retrieve_rerank_eval and run_biencoder_eval: the same metrics as
     JAX's; each package's run_from_precomputed_preds reads the other's
-    prediction files to the same metrics; a mesh and an empty slice raise."""
+    prediction files to the same metrics; over a 1-rank mesh (the sharded
+    search, gathered) the metrics are the same; an empty slice raises."""
     ment, ent, gt, enc_j, bi_params, enc_t, ce_j, ce_params, ce_t = eval_world
     kw = dict(top_k=8, batch_size=8, ment_start=2, n_ment=15)
     got = trr.run_retrieve_rerank_eval(enc_t, ce_t, ment, ent, gt, res_dir=str(tmp_path / "port"), **kw)
@@ -170,7 +171,10 @@ def test_retrieve_rerank_eval_and_files_match_jax(eval_world, tmp_path):
     for reader, writer in ((trr, "jax"), (jrr, "port"), (trr, "port")):
         res = reader.run_from_precomputed_preds(str(tmp_path / writer))
         assert res["bienc"] == want["bienc"] and res["crossenc"] == want["crossenc"] and res["n_ments"] == 15
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        trr.run_retrieve_rerank_eval(enc_t, ce_t, ment, ent, gt, mesh=object())
+    from anncur_tpu_torch.parallel.mesh import mesh_session
+
+    with mesh_session("cpu") as mesh:
+        sharded = trr.run_retrieve_rerank_eval(enc_t, ce_t, ment, ent, gt, mesh=mesh, **kw)
+    assert _metrics_only(sharded) == want
     with pytest.raises(ValueError, match="empty mention slice"):
         trr.run_retrieve_rerank_eval(enc_t, ce_t, ment, ent, gt, ment_start=100)

@@ -150,7 +150,7 @@ def test_overrides_and_one_device(world, tmp_path, monkeypatch):
         assert json.load(fin)["seed"] == 7
     (tmp_path / "mesh").mkdir()
     for extra in (["--num_devices", "2"], ["--mesh_shape", "4"]):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="needs"):
             _run("port", world, "bienc_random", tmp_path / "mesh", monkeypatch, extra=extra)
 
 

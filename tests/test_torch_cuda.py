@@ -975,3 +975,29 @@ def test_native_tokenizer_builds_and_matches_python(dev):
     words = [t for t in vocab if t.isalpha()]
     for text in [" ".join(rng.choice(words, size=120)) for _ in range(20)] + ["naïve café", "x" * 150]:
         assert native.encode(text) == python.encode(text)
+
+
+def test_sharded_mips_on_a_world_size_1_nccl_mesh_matches_fused(dev):
+    """mips_topk_sharded over a 1-rank NCCL group: kernel B on the one
+    shard, the candidates all-gathered over NCCL, equal to the JAX-named
+    fused_mips_topk (kernel B alone); padding rows never selected."""
+    import torch.distributed as dist
+
+    from anncur_tpu_torch.ops.mips import mips_topk_sharded
+    from anncur_tpu_torch.ops.mips_kernel import fused_mips_topk
+    from anncur_tpu_torch.parallel.mesh import mesh_session
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn(33, 96, generator=gen, device=dev)
+    items = torch.randn(5000, 96, generator=gen, device=dev)
+    padded = torch.cat([items, torch.zeros(8, 96, device=dev)])
+    with mesh_session(dev) as mesh:
+        assert dist.get_backend() == "nccl" and mesh.device == dev
+        before = mips_topk_fused.launches
+        s, i = mips_topk_sharded(q, padded, 40, mesh, n_valid=5000)
+        torch.cuda.synchronize()
+        assert mips_topk_fused.launches == before + 1
+    assert not dist.is_initialized()
+    s_ref, i_ref = fused_mips_topk(q, items, 40)
+    assert torch.equal(i, i_ref.to(i.dtype)) and torch.equal(s, s_ref)
+    assert int(i.max()) < 5000

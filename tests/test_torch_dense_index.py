@@ -141,8 +141,17 @@ def test_dense_index_quantized_overlaps_f32_and_mesh_raises():
     _, i_f = tdense.DenseIndex(items, device="cpu").search(q, 10)
     _, i_q = tdense.DenseIndex(items, quantize=True, device="cpu").search(q, 10)
     assert float(topk_overlap_frac(i_q, i_f).mean()) > 0.9
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        tdense.DenseIndex(items, mesh=object(), device="cpu")
+    from anncur_tpu_torch.parallel.mesh import Mesh, mesh_session
+
+    elsewhere = Mesh(shape={"data": 1}, ranks=np.zeros(1, np.int64), coords={"data": 0}, groups={},
+                     device=torch.device("meta"))
+    with pytest.raises(ValueError, match="the mesh's rank lives on"):
+        tdense.DenseIndex(items, mesh=elsewhere, device="cpu")
+    with mesh_session("cpu") as mesh:  # the sharded search over one rank
+        s_m, i_m = tdense.DenseIndex(items, mesh=mesh, device="cpu").search(q, 10)
+    s_f, _ = tdense.DenseIndex(items, device="cpu").search(q, 10)
+    np.testing.assert_array_equal(i_m, i_f)
+    np.testing.assert_array_equal(s_m, s_f)
     assert tdense.build_flat_or_ivff_index(items, device="cpu").n == 500
 
 

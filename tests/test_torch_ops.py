@@ -15,11 +15,12 @@ from anncur_tpu.ops import mips as jmips
 import anncur_tpu.ops.pinv  # noqa: F401  (the package re-exports a function named pinv)
 from anncur_tpu.ops.mips_pallas import mips_topk_pallas, mips_topk_pallas_maxmask
 
-from anncur_tpu_torch.ops import pinv as tpinv
+import anncur_tpu_torch.ops.pinv  # noqa: F401  (the package re-exports a function named pinv, as JAX's)
 from anncur_tpu_torch.ops.mips import masked_topk, mips_topk, topk_stable
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 
 jpinv = sys.modules["anncur_tpu.ops.pinv"]
+tpinv = sys.modules["anncur_tpu_torch.ops.pinv"]
 torch.set_num_threads(2)  # xdist runs several test files side by side
 
 

@@ -538,15 +538,23 @@ def test_remat_gives_the_same_grads(world, remat, attn_dropout):
 
 
 def test_trainer_refuses_what_is_not_ported(world, tmp_path):
-    """A model that is neither encoder is refused; a mesh is not ported
-    (ROADMAP Queue 1 item 9). Bi-encoder training is ported:
-    tests/test_torch_bienc_train.py."""
+    """A model that is neither encoder is refused, and so are a tensor-
+    parallel axis without a mesh and a mesh whose rank lives on another
+    device than the model. Bi-encoder training is ported:
+    tests/test_torch_bienc_train.py; training over a mesh:
+    tests/test_torch_parallel.py."""
+    from anncur_tpu_torch.parallel.mesh import Mesh
+
     _, tok = world
     _, cfg = _configs(tmp_path)
     with pytest.raises(TypeError, match="BiEncoder or a CrossEncoder"):
         Trainer(cfg, object())
-    with pytest.raises(NotImplementedError, match="item 9"):
-        Trainer(cfg, _tiny_ce(tok), mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        Trainer(cfg, _tiny_ce(tok), tp_axis="model")
+    elsewhere = Mesh(shape={"data": 1}, ranks=np.zeros(1, np.int64), coords={"data": 0}, groups={},
+                     device=torch.device("meta"))
+    with pytest.raises(ValueError, match="the model lives on"):
+        Trainer(cfg, _tiny_ce(tok), mesh=elsewhere)
 
 
 def test_config_copy_loads_the_same_files(tmp_path):
