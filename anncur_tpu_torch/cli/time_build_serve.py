@@ -1,13 +1,15 @@
-"""Phases 3-4 of one checkout's ``chip_smoke.py``: build pairs/s and
-cost-600 q/s.
+"""Phases 3, 4 and 6 of one checkout's ``chip_smoke.py``: build pairs/s,
+cost-600 q/s and adaptive (210 over 8) q/s.
 
     python anncur_tpu_torch/cli/time_build_serve.py [--root DIR]
 
-Runs ``phase_build`` and ``phase_serve`` of ``DIR/chip_smoke.py`` with
+Runs ``phase_build``, ``phase_serve`` and ``phase_adaptive`` of
+``DIR/chip_smoke.py`` (phase 6 on phase 4's retriever; phase 5 is not
+run, so its queries are other draws than a full run's) with
 ``DIR``'s ``anncur_tpu_torch`` (default: this checkout), so that another
 commit (a ``git archive`` of it) runs on the same card in the same call;
 run it for each root in turns (parent, change, change, parent). Prints
-one JSON line with the root, both rates and ``nvidia-smi``'s SM clock,
+one JSON line with the root, the three rates and ``nvidia-smi``'s SM clock,
 power draw, power limit and temperature after the run. Needs a CUDA card.
 """
 
@@ -44,12 +46,13 @@ def main(argv=None):
     rng = np.random.default_rng(0)
     build = chip_smoke.phase_build(ce, spec, dev, rng)
     serve = chip_smoke.phase_serve(ce, spec, dev, rng)
+    adaptive = chip_smoke.phase_adaptive(serve["retriever"], serve["train"], spec, dev, rng)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,power.limit,temperature.gpu", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     ).stdout.strip()
     print(json.dumps({"root": root, "device": torch.cuda.get_device_name(0), "build_pairs_per_s": build["pairs_per_s"],
-                      "cost600_qps": serve["qps"], "smi": smi}), flush=True)
+                      "cost600_qps": serve["qps"], "adaptive_qps": adaptive["qps"], "smi": smi}), flush=True)
 
 
 if __name__ == "__main__":

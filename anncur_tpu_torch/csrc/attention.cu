@@ -47,6 +47,13 @@
 // - Epilogue: O / l rounded to bf16, staged in the warp's rows of the Q
 //   tile, written in 16-byte coalesced stores; rows >= g are not stored.
 //
+// Head dims above 256 (any multiple of 16) take the wide route below
+// (attention_fwd_bf16_wide_kernel, attention_fwd_f32_wide_kernel; shared
+// pieces in csrc/attention_wide.cuh): S = Q K^T streams Q and K in
+// 64-column chunks, and each block writes one column slice of O (128 in
+// bf16, 64 in f32), recomputing its scores. The templated bodies keep hd
+// up to 256.
+//
 // f32 (no main-path caller on the card; the card tests use it): a CUDA-core
 // body. One block per (pair, head, tile of 128 / SPLIT query rows) streams
 // K, V and the key bias through shared memory in 64-key tiles, so s is not
@@ -72,6 +79,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_wide.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -432,6 +440,214 @@ attention_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ 
   if (lse != nullptr && part == 0) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m - shift) + logf(l);
 }
 
+// ----------------------------------------------------------------- wide
+
+// The wide route (csrc/attention_wide.cuh): hd above 256, any multiple of
+// 16, a runtime count. One block per (pair, head, output slice, tile of 64
+// query rows), the tile index fastest. S = Q K^T streams Q and K through
+// shared memory in 64-column chunks; the online softmax is the templated
+// body's; O += P V reads the slice's V columns. Each slice's block
+// recomputes the scores, and slice 0 writes the lse.
+constexpr int kSliceA = 128;  // output columns of a bf16 block
+
+__global__ void __launch_bounds__(attn_wide::kThreads)
+attention_fwd_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                               const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                               bf16* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
+                               int hd, int n_qt, int n_sl, long long q_sb, long long q_sr,
+                               long long q_sh, long long k_sb, long long k_sr, long long k_sh,
+                               long long v_sb, long long v_sr, long long v_sh, long long valid_sb,
+                               float scale) {
+  using namespace attn_wide;
+  constexpr int kLdV = kSliceA + 8;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qc = reinterpret_cast<bf16*>(smem);  // a 64-column chunk of the Q tile
+  bf16* kc = qc + kRows * kLdB;              // the same chunk of the key tile
+  bf16* vsl = kc + kRows * kLdB;             // the key tile's V columns of this slice
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt;
+  const int sl = (blockIdx.x / n_qt) % n_sl;
+  const int bh = blockIdx.x / n_qt / n_sl;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows, col0 = sl * kSliceA;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  const bool any_valid = pair_has_valid_key(vrow, s);
+
+  const int wrow = warp * 16, kq = 2 * (lane & 3);
+  float o[kSliceA / 8][4];
+#pragma unroll
+  for (int d = 0; d < kSliceA / 8; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int key0 = 0; key0 < s; key0 += kKeyTile) {
+    __syncthreads();  // the previous tile's V is consumed
+    stage_bf16(vsl, kLdV, vb, v_sr, key0, s, col0, kSliceA, hd);
+    float sc[kKeyTile / 8][4];
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j) sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += kChunk) {
+      if (c0) __syncthreads();  // the previous chunk is consumed
+      stage_bf16(qc, kLdB, qb, q_sr, row0, g, c0, kChunk, hd);
+      stage_bf16(kc, kLdB, kb, k_sr, key0, s, c0, kChunk, hd);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_chunk_nt(sc, qc, wrow, kc, lane);
+    }
+    float tmax[2];
+    scale_and_bias<false>(sc, tmax, scale, key_bits(vrow, key0, s, lane), s - key0, kq);
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+      tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+      const float m_new = fmaxf(m[i], tmax[i]);
+      alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+      m[i] = m_new;
+      l[i] *= alpha[i];
+    }
+#pragma unroll
+    for (int d = 0; d < kSliceA / 8; ++d) {
+      o[d][0] *= alpha[0];
+      o[d][1] *= alpha[0];
+      o[d][2] *= alpha[1];
+      o[d][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int j = 0; j < kKeyTile / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        sc[j][e] = exp2f((sc[j][e] - m[i]) * kLog2e);
+        l[i] += sc[j][e];
+      }
+    }
+    mma_rows<kSliceA>(o, sc, vsl, kLdV, lane);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  __syncthreads();  // vsl is free for the epilogue
+  store_rows_bf16<kSliceA>(vsl + wrow * kLdV, kLdV, o, 1.0f / l[0], 1.0f / l[1],
+                           out + (static_cast<size_t>(b) * g * nh + h) * hd,
+                           static_cast<long long>(nh) * hd, row0 + wrow, g, col0, hd, lane);
+  if (lse != nullptr && sl == 0 && (lane & 3) == 0) {
+    const float shift = any_valid ? 0.0f : kMaskBias;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + wrow + (lane >> 2) + 8 * i;
+      if (row < g) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m[i] - shift) + logf(l[i]);
+    }
+  }
+}
+
+// f32 wide: the same blocks with 64-column slices; each thread owns 8 query
+// rows x 4 keys of a score tile (then 8 rows x 4 output columns), its rows'
+// max and sum reduced over the 16 lanes that share them
+__global__ void __launch_bounds__(attn_wide::kThreads)
+attention_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                              const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                              float* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
+                              int hd, int n_qt, int n_sl, long long q_sb, long long q_sr,
+                              long long q_sh, long long k_sb, long long k_sr, long long k_sh,
+                              long long v_sb, long long v_sr, long long v_sh, long long valid_sb,
+                              float scale) {
+  using namespace attn_wide;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  float* ks = qs + kRows * kLdF;
+  float* ps = ks + kRows * kLdF;  // P of the key tile
+  float* vs = ps + kRows * kLdF;  // the key tile's V columns of this slice
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int qt = blockIdx.x % n_qt;
+  const int sl = (blockIdx.x / n_qt) % n_sl;
+  const int bh = blockIdx.x / n_qt / n_sl;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows, col0 = sl * kSliceF;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;  // for the lse
+
+  float o[8][4], m[8], l[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[i][j] = 0.0f;
+  }
+  for (int key0 = 0; key0 < s; key0 += kRows) {
+    float sc[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += kChunk) {
+      __syncthreads();  // the previous chunk (and tile) is consumed
+      stage_f32(qs, qb, q_sr, row0, g, c0, hd);
+      stage_f32(ks, kb, k_sr, key0, s, c0, hd);
+      __syncthreads();
+      mm_nt(sc, qs, ks, ty, tx);
+    }
+    float bias[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + 4 * tx + j;
+      bias[j] = key >= s ? -INFINITY : (vrow[key] ? 0.0f : kMaskBias);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      float tmax = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sc[i][j] = sc[i][j] * scale + bias[j];
+        tmax = fmaxf(tmax, sc[i][j]);
+      }
+      // finite: every tile holds a key < s
+      const float m_new = fmaxf(m[i], row_max16(tmax));
+      const float alpha = expf(m[i] - m_new);  // 0 on the first tile (m = -inf)
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        o[i][j] *= alpha;
+        const float p = expf(sc[i][j] - m_new);
+        l[i] += p;
+        ps[(8 * ty + i) * kLdF + 4 * tx + j] = p;
+      }
+    }
+    stage_f32(vs, vb, v_sr, key0, s, col0, hd);
+    __syncthreads();
+    mm_nn(o, ps, vs, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float sum = row_sum16(l[i]);  // every lane shuffles: before any exit
+    const int row = row0 + 8 * ty + i;
+    if (row >= g) continue;
+    const float inv = 1.0f / sum;
+    float res[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) res[j] = o[i][j] * inv;
+    if (col0 + 4 * tx < hd)
+      store_unit(out + ((static_cast<size_t>(b) * g + row) * nh + h) * hd + col0 + 4 * tx, res);
+    if (lse != nullptr && sl == 0 && tx == 0)
+      lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m[i] - shift) + logf(sum);
+  }
+}
+
 // ----------------------------------------------------------------- launch
 
 template <int HD, int NW>
@@ -482,6 +698,37 @@ cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v,
   return launch_bf16<HD, 4>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
 }
 
+// the wide route: hd above 256, any multiple of 16
+cudaError_t launch_wide(int is_bf16, const void* q, const void* k, const void* v,
+                        const void* key_valid, void* out, float* lse, int b, int g, int s, int nh,
+                        int hd, const long long* st, float scale, cudaStream_t stream) {
+  using namespace attn_wide;
+  const int n_qt = (g + kRows - 1) / kRows;
+  const int n_sl = (hd + (is_bf16 ? kSliceA : kSliceF) - 1) / (is_bf16 ? kSliceA : kSliceF);
+  const long long blocks = static_cast<long long>(b) * nh * n_sl * n_qt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  if (is_bf16) {
+    const size_t smem = (2 * kRows * kLdB + kRows * (kSliceA + 8)) * sizeof(bf16);
+    auto kern = attention_fwd_bf16_wide_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        static_cast<const uint8_t*>(key_valid), static_cast<bf16*>(out), lse, g, s, nh, hd, n_qt, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
+  } else {
+    const size_t smem = 4 * kRows * kLdF * sizeof(float);
+    auto kern = attention_fwd_f32_wide_kernel;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const uint8_t*>(key_valid), static_cast<float*>(out), lse, g, s, nh, hd, n_qt, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], scale);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // strides (in elements): q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh,
@@ -504,7 +751,9 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
     case H: return launch<H>(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, st, scale, cs);
     ATTN_HEAD_DIMS(ATTN_CASE)
 #undef ATTN_CASE
-    default: return cudaErrorInvalidValue;
+    default:
+      if (hd <= 256 || hd % 16) return cudaErrorInvalidValue;
+      return launch_wide(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, hd, st, scale, cs);
   }
 }
 

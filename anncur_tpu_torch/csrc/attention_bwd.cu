@@ -60,6 +60,11 @@
 // - Every output row is written by one block and no atomics are used, so
 //   two launches on the same inputs give the same bits.
 //
+// Head dims above 256 (any multiple of 16) take the wide route (the
+// *_wide_kernel bodies; shared pieces in csrc/attention_wide.cuh): S and
+// dP stream their operands in 64-column chunks, and each block writes one
+// 64-column slice of dK and dV (C) or dQ (D), recomputing its scores.
+//
 // f32 (no main-path caller; the card tests use it): the first version's
 // CUDA-core bodies. One thread would hold k, v, dK and dV rows (4 x hd f32 =
 // 256 registers at hd=64), too many, so the head dim is split across SPLIT
@@ -93,6 +98,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_wide.cuh"
 #include "mma_sm90.cuh"
 
 namespace {
@@ -707,6 +713,399 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
+// ------------------------------------------------------------------- wide
+
+// The wide route (csrc/attention_wide.cuh): hd above 256, any multiple of
+// 16, a runtime count. The score products S and dP stream their operands in
+// 64-column chunks; each block writes one column slice of its outputs and
+// recomputes the scores. lse, shift and the -inf of rows past g and keys
+// past s are as in the templated bodies, so a pair with no valid key and a
+// padding row come out the same.
+constexpr int kSliceB = 64;  // output columns of a bf16 block
+
+// Kernel C wide: one block per (pair, head, slice, tile of 64 keys), the
+// tile fastest; four warps own 16 keys each. Per 64-query tile: S^T = K Q^T
+// and dP^T = V dO^T over the chunks, P^T and dS^T in f32, then dV += P^T dO
+// and dK += dS^T Q over the slice's columns of Q and dO.
+__global__ void __launch_bounds__(attn_wide::kThreads)
+attention_bwd_dkv_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                   const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                                   const bf16* __restrict__ dout, const float* __restrict__ lse,
+                                   const float* __restrict__ delta, bf16* __restrict__ dk_out,
+                                   bf16* __restrict__ dv_out, int g, int s, int nh, int hd, int n_kt,
+                                   int n_sl, long long q_sb, long long q_sr, long long q_sh,
+                                   long long k_sb, long long k_sr, long long k_sh, long long v_sb,
+                                   long long v_sr, long long v_sh, long long valid_sb, float scale) {
+  using namespace attn_wide;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* kc = reinterpret_cast<bf16*>(smem);  // 64-column chunks of the block's K and V,
+  bf16* vc = kc + kRows * kLdB;               // and of the query tile's Q and dO
+  bf16* qc = vc + kRows * kLdB;
+  bf16* dc = qc + kRows * kLdB;
+  bf16* qsl = dc + kRows * kLdB;  // the query tile's Q and dO columns of this slice
+  bf16* dsl = qsl + kRows * kLdB;
+  float* lse_s = reinterpret_cast<float*>(dsl + kRows * kLdB);
+  float* delta_s = lse_s + kRows;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kt = blockIdx.x % n_kt;
+  const int sl = (blockIdx.x / n_kt) % n_sl;
+  const int bh = blockIdx.x / n_kt / n_sl;
+  const int h = bh % nh, b = bh / nh;
+  const int key0 = kt * kRows, col0 = sl * kSliceB;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
+  const long long do_sr = static_cast<long long>(nh) * hd;
+  const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
+  const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;
+
+  const int wrow = warp * 16, r = lane >> 2, kq = 2 * (lane & 3);
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + wrow + r + 8 * i;
+    bias[i] = key >= s ? -INFINITY : (vrow[key] ? 0.0f : kMaskBias);
+  }
+  float dk[kSliceB / 8][4], dv[kSliceB / 8][4];
+#pragma unroll
+  for (int d = 0; d < kSliceB / 8; ++d)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[d][e] = dv[d][e] = 0.0f;
+
+  for (int i0 = 0; i0 < g; i0 += kRows) {
+    __syncthreads();  // the previous query tile is consumed
+    stage_bf16(qsl, kLdB, qb, q_sr, i0, g, col0, kSliceB, hd);
+    stage_bf16(dsl, kLdB, dob, do_sr, i0, g, col0, kSliceB, hd);
+    for (int i = tid; i < kRows; i += kThreads) {
+      if (i0 + i < g) {
+        cp_async_4(smem_addr(lse_s + i), lse_b + i0 + i);
+        cp_async_4(smem_addr(delta_s + i), delta_b + i0 + i);
+      } else {  // P = exp(... - inf) = 0: the row adds nothing
+        lse_s[i] = INFINITY;
+        delta_s[i] = 0.0f;
+      }
+    }
+    float st[8][4], dpt[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += kChunk) {
+      if (c0) __syncthreads();  // the previous chunk is consumed
+      stage_bf16(kc, kLdB, kb, k_sr, key0, s, c0, kChunk, hd);
+      stage_bf16(vc, kLdB, vb, v_sr, key0, s, c0, kChunk, hd);
+      stage_bf16(qc, kLdB, qb, q_sr, i0, g, c0, kChunk, hd);
+      stage_bf16(dc, kLdB, dob, do_sr, i0, g, c0, kChunk, hd);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_chunk_nt(st, kc, wrow, qc, lane);
+      mma_chunk_nt(dpt, vc, wrow, dc, lane);
+    }
+    // P^T and dS^T in f32: rows are this lane's two keys, columns queries
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 lq = *reinterpret_cast<const float2*>(lse_s + 8 * j + kq);
+      const float2 dq = *reinterpret_cast<const float2*>(delta_s + 8 * j + kq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = st[j][e] * scale + bias[e >> 1];
+        const float p = exp2f((x - shift - ((e & 1) ? lq.y : lq.x)) * kLog2e);
+        st[j][e] = p;
+        dpt[j][e] = p * (dpt[j][e] - ((e & 1) ? dq.y : dq.x));
+      }
+    }
+    attn_wide::mma_rows<kSliceB>(dv, st, dsl, kLdB, lane);
+    attn_wide::mma_rows<kSliceB>(dk, dpt, qsl, kLdB, lane);
+  }
+
+  __syncthreads();  // kc and vc are free for the epilogue
+  bf16* dk_b = dk_out + (static_cast<size_t>(b) * s * nh + h) * hd;
+  bf16* dv_b = dv_out + (static_cast<size_t>(b) * s * nh + h) * hd;
+  store_rows_bf16<kSliceB>(kc + wrow * kLdB, kLdB, dk, scale, scale, dk_b, do_sr, key0 + wrow, s, col0, hd, lane);
+  store_rows_bf16<kSliceB>(vc + wrow * kLdB, kLdB, dv, 1.0f, 1.0f, dv_b, do_sr, key0 + wrow, s, col0, hd, lane);
+}
+
+// Kernel D wide: one block per (pair, head, slice, tile of 64 query rows),
+// the tile fastest; four warps own 16 rows each. Per 64-key tile: S = Q K^T
+// and dP = dO V^T over the chunks, dS in f32, then dQ += dS K over the
+// slice's columns of K.
+__global__ void __launch_bounds__(attn_wide::kThreads)
+attention_bwd_dq_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                  const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                                  const bf16* __restrict__ dout, const float* __restrict__ lse,
+                                  const float* __restrict__ delta, bf16* __restrict__ dq_out, int g,
+                                  int s, int nh, int hd, int n_qt, int n_sl, long long q_sb,
+                                  long long q_sr, long long q_sh, long long k_sb, long long k_sr,
+                                  long long k_sh, long long v_sb, long long v_sr, long long v_sh,
+                                  long long valid_sb, float scale) {
+  using namespace attn_wide;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qc = reinterpret_cast<bf16*>(smem);  // 64-column chunks of the row tile's Q and dO,
+  bf16* dc = qc + kRows * kLdB;               // and of the key tile's K and V
+  bf16* kc = dc + kRows * kLdB;
+  bf16* vc = kc + kRows * kLdB;
+  bf16* ksl = vc + kRows * kLdB;  // the key tile's K columns of this slice
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt;
+  const int sl = (blockIdx.x / n_qt) % n_sl;
+  const int bh = blockIdx.x / n_qt / n_sl;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows, col0 = sl * kSliceB;
+  const bf16* qb = q + b * q_sb + h * q_sh;
+  const bf16* kb = k + b * k_sb + h * k_sh;
+  const bf16* vb = v + b * v_sb + h * v_sh;
+  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
+  const long long do_sr = static_cast<long long>(nh) * hd;
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;
+
+  const int wrow = warp * 16, r = lane >> 2, kq = 2 * (lane & 3);
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + wrow + r + 8 * i;
+    const size_t at = (static_cast<size_t>(b) * nh + h) * g + row;
+    lse_r[i] = row < g ? lse[at] : INFINITY;  // P = 0 on padding rows
+    delta_r[i] = row < g ? delta[at] : 0.0f;
+  }
+  float dq[kSliceB / 8][4];
+#pragma unroll
+  for (int d = 0; d < kSliceB / 8; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.0f;
+
+  for (int key0 = 0; key0 < s; key0 += kRows) {
+    __syncthreads();  // the previous key tile is consumed
+    stage_bf16(ksl, kLdB, kb, k_sr, key0, s, col0, kSliceB, hd);
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += kChunk) {
+      if (c0) __syncthreads();  // the previous chunk is consumed
+      stage_bf16(qc, kLdB, qb, q_sr, row0, g, c0, kChunk, hd);
+      stage_bf16(dc, kLdB, dob, do_sr, row0, g, c0, kChunk, hd);
+      stage_bf16(kc, kLdB, kb, k_sr, key0, s, c0, kChunk, hd);
+      stage_bf16(vc, kLdB, vb, v_sr, key0, s, c0, kChunk, hd);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      mma_chunk_nt(sc, qc, wrow, kc, lane);
+      mma_chunk_nt(dp, dc, wrow, vc, lane);
+    }
+    // dS = P * (dP - D) in f32; keys past s get bias -inf, so P = 0
+    const uint64_t bits = key_bits(vrow, key0, s, lane);
+    const int n_keys = s - key0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + kq + (e & 1);
+        const float bias = col >= n_keys ? -INFINITY : (((bits >> col) & 1) ? 0.0f : kMaskBias);
+        const float x = sc[j][e] * scale + bias;
+        const float p = exp2f((x - shift - lse_r[e >> 1]) * kLog2e);
+        dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]);
+      }
+    }
+    attn_wide::mma_rows<kSliceB>(dq, dp, ksl, kLdB, lane);
+  }
+
+  __syncthreads();  // qc is free for the epilogue
+  store_rows_bf16<kSliceB>(qc + wrow * kLdB, kLdB, dq, scale, scale, dq_out + (static_cast<size_t>(b) * g * nh + h) * hd,
+                           do_sr, row0 + wrow, g, col0, hd, lane);
+}
+
+// f32 wide kernel C: one block per (pair, head, 64-column slice, tile of 64
+// keys). Each thread owns 8 queries x 4 keys of a score tile; P and dS go
+// to shared memory, then it owns 8 keys x 4 columns of dK and dV.
+__global__ void __launch_bounds__(attn_wide::kThreads)
+attention_bwd_dkv_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                  const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                                  const float* __restrict__ dout, const float* __restrict__ lse,
+                                  const float* __restrict__ delta, float* __restrict__ dk_out,
+                                  float* __restrict__ dv_out, int g, int s, int nh, int hd, int n_kt,
+                                  int n_sl, long long q_sb, long long q_sr, long long q_sh,
+                                  long long k_sb, long long k_sr, long long k_sh, long long v_sb,
+                                  long long v_sr, long long v_sh, long long valid_sb, float scale) {
+  using namespace attn_wide;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // chunks, then the slice's columns, of Q and dO
+  float* ds = qs + kRows * kLdF;
+  float* ks = ds + kRows * kLdF;  // chunks of K and V
+  float* vs = ks + kRows * kLdF;
+  float* ps = vs + kRows * kLdF;   // P [query][key]
+  float* dss = ps + kRows * kLdF;  // dS [query][key]
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int kt = blockIdx.x % n_kt;
+  const int sl = (blockIdx.x / n_kt) % n_sl;
+  const int bh = blockIdx.x / n_kt / n_sl;
+  const int h = bh % nh, b = bh / nh;
+  const int key0 = kt * kRows, col0 = sl * kSliceF;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const float* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
+  const long long do_sr = static_cast<long long>(nh) * hd;
+  const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
+  const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;
+  float bias[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int key = key0 + 4 * tx + j;
+    bias[j] = key >= s ? -INFINITY : (vrow[key] ? 0.0f : kMaskBias);
+  }
+
+  float dk[8][4], dv[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dk[i][j] = dv[i][j] = 0.0f;
+  for (int i0 = 0; i0 < g; i0 += kRows) {
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += kChunk) {
+      __syncthreads();  // the previous chunk (and query tile) is consumed
+      stage_f32(qs, qb, q_sr, i0, g, c0, hd);
+      stage_f32(ds, dob, do_sr, i0, g, c0, hd);
+      stage_f32(ks, kb, k_sr, key0, s, c0, hd);
+      stage_f32(vs, vb, v_sr, key0, s, c0, hd);
+      __syncthreads();
+      mm_nt(sc, qs, ks, ty, tx);
+      mm_nt(dp, ds, vs, ty, tx);
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int row = i0 + 8 * ty + i;
+      const float lse_i = row < g ? lse_b[row] : INFINITY;  // P = 0 on padding rows
+      const float delta_i = row < g ? delta_b[row] : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(sc[i][j] * scale + bias[j] - shift - lse_i);
+        ps[(8 * ty + i) * kLdF + 4 * tx + j] = p;
+        dss[(8 * ty + i) * kLdF + 4 * tx + j] = p * (dp[i][j] - delta_i);
+      }
+    }
+    __syncthreads();  // the chunks are consumed
+    stage_f32(qs, qb, q_sr, i0, g, col0, hd);
+    stage_f32(ds, dob, do_sr, i0, g, col0, hd);
+    __syncthreads();
+    mm_tn(dv, ps, ds, ty, tx);
+    mm_tn(dk, dss, qs, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = key0 + 8 * ty + i;
+    if (key >= s || col0 + 4 * tx >= hd) continue;
+    const size_t o = ((static_cast<size_t>(b) * s + key) * nh + h) * hd + col0 + 4 * tx;
+    float kx[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) kx[j] = dk[i][j] * scale;
+    store_unit(dk_out + o, kx);
+    store_unit(dv_out + o, dv[i]);
+  }
+}
+
+// f32 wide kernel D: one block per (pair, head, 64-column slice, tile of 64
+// query rows). Each thread owns 8 rows x 4 keys of a score tile; dS goes to
+// shared memory, then it owns 8 rows x 4 columns of dQ.
+__global__ void __launch_bounds__(attn_wide::kThreads)
+attention_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
+                                 const float* __restrict__ dout, const float* __restrict__ lse,
+                                 const float* __restrict__ delta, float* __restrict__ dq_out, int g,
+                                 int s, int nh, int hd, int n_qt, int n_sl, long long q_sb,
+                                 long long q_sr, long long q_sh, long long k_sb, long long k_sr,
+                                 long long k_sh, long long v_sb, long long v_sr, long long v_sh,
+                                 long long valid_sb, float scale) {
+  using namespace attn_wide;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);  // chunks of Q and dO
+  float* ds = qs + kRows * kLdF;
+  float* ks = ds + kRows * kLdF;  // chunks, then the slice's columns, of K; chunks of V
+  float* vs = ks + kRows * kLdF;
+  float* dss = vs + kRows * kLdF;  // dS [row][key]
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int qt = blockIdx.x % n_qt;
+  const int sl = (blockIdx.x / n_qt) % n_sl;
+  const int bh = blockIdx.x / n_qt / n_sl;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows, col0 = sl * kSliceF;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  const float* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
+  const long long do_sr = static_cast<long long>(nh) * hd;
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;
+  float lse_r[8], delta_r[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + 8 * ty + i;
+    const size_t at = (static_cast<size_t>(b) * nh + h) * g + row;
+    lse_r[i] = row < g ? lse[at] : INFINITY;  // P = 0 on padding rows
+    delta_r[i] = row < g ? delta[at] : 0.0f;
+  }
+
+  float dq[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dq[i][j] = 0.0f;
+  for (int key0 = 0; key0 < s; key0 += kRows) {
+    float sc[8][4], dp[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.0f;
+    for (int c0 = 0; c0 < hd; c0 += kChunk) {
+      __syncthreads();  // the previous chunk (and key tile) is consumed
+      stage_f32(qs, qb, q_sr, row0, g, c0, hd);
+      stage_f32(ds, dob, do_sr, row0, g, c0, hd);
+      stage_f32(ks, kb, k_sr, key0, s, c0, hd);
+      stage_f32(vs, vb, v_sr, key0, s, c0, hd);
+      __syncthreads();
+      mm_nt(sc, qs, ks, ty, tx);
+      mm_nt(dp, ds, vs, ty, tx);
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int key = key0 + 4 * tx + j;
+      const float bias = key >= s ? -INFINITY : (vrow[key] ? 0.0f : kMaskBias);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        dss[(8 * ty + i) * kLdF + 4 * tx + j] =
+            expf(sc[i][j] * scale + bias - shift - lse_r[i]) * (dp[i][j] - delta_r[i]);
+    }
+    __syncthreads();  // the chunks are consumed
+    stage_f32(ks, kb, k_sr, key0, s, col0, hd);
+    __syncthreads();
+    mm_nn(dq, dss, ks, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = row0 + 8 * ty + i;
+    if (row >= g || col0 + 4 * tx >= hd) continue;
+    float o[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) o[j] = dq[i][j] * scale;
+    store_unit(dq_out + ((static_cast<size_t>(b) * g + row) * nh + h) * hd + col0 + 4 * tx, o);
+  }
+}
+
 // ---------------------------------------------------------------- launches
 
 struct Args {
@@ -806,6 +1205,66 @@ cudaError_t launch(int is_bf16, const Args& a) {
   return a.g <= 16 ? launch_dq_bf16<HD, 1>(a) : launch_dq_bf16<HD, 4>(a);
 }
 
+// the wide route: hd above 256, any multiple of 16
+template <bool kDkv>
+cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
+  using namespace attn_wide;
+  const int n_tiles = ((kDkv ? a.s : a.g) + kRows - 1) / kRows;
+  const int slice = is_bf16 ? kSliceB : kSliceF;
+  const int n_sl = (hd + slice - 1) / slice;
+  const long long blocks = static_cast<long long>(a.b) * a.nh * n_sl * n_tiles;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  // bf16: six chunk tiles (C: K, V, Q, dO chunks and Q, dO slices) or five
+  // (D) and C's lse and D; f32: six 64 x 65 tiles (C) or five (D)
+  const size_t smem = is_bf16 ? (kDkv ? 6 * kRows * kLdB * sizeof(bf16) + 2 * kRows * sizeof(float)
+                                      : 5 * kRows * kLdB * sizeof(bf16))
+                              : (kDkv ? 6 : 5) * kRows * kLdF * sizeof(float);
+  const long long* st = a.st;
+  const unsigned grid = static_cast<unsigned>(blocks);
+  if (is_bf16 && kDkv) {
+    auto kern = attention_bwd_dkv_bf16_wide_kernel;
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0),
+        static_cast<bf16*>(a.out1), a.g, a.s, a.nh, hd, n_tiles, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+  } else if (is_bf16) {
+    auto kern = attention_bwd_dq_bf16_wide_kernel;
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
+        static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0),
+        a.g, a.s, a.nh, hd, n_tiles, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+  } else if (kDkv) {
+    auto kern = attention_bwd_dkv_f32_wide_kernel;
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+        static_cast<float*>(a.out1), a.g, a.s, a.nh, hd, n_tiles, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+  } else {
+    auto kern = attention_bwd_dq_f32_wide_kernel;
+    cudaError_t err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, kThreads, smem, a.stream>>>(
+        static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
+        static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
+        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
+        a.g, a.s, a.nh, hd, n_tiles, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+  }
+  return cudaGetLastError();
+}
+
 template <bool kDkv>
 int run(const void* q, const void* k, const void* v, const void* key_valid, const void* dout,
         const void* lse, const void* delta, void* out0, void* out1, int is_bf16, int b, int g,
@@ -822,7 +1281,9 @@ int run(const void* q, const void* k, const void* v, const void* key_valid, cons
     case H: return launch<H, kDkv>(is_bf16, a);
     ATTN_HEAD_DIMS(ATTN_CASE)
 #undef ATTN_CASE
-    default: return cudaErrorInvalidValue;
+    default:
+      if (hd <= 256 || hd % 16) return cudaErrorInvalidValue;
+      return launch_wide<kDkv>(is_bf16, hd, a);
   }
 }
 

@@ -5,7 +5,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Every multiple of 16 from 16 to 256: X(hd) once per head dim.
+// Every multiple of 16 from 16 to 256: X(hd) once per head dim (wider
+// heads take the wide route, csrc/attention_wide.cuh).
 #define ATTN_HEAD_DIMS(X)                                                                   \
   X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(144) X(160) X(176) X(192) X(208) X(224) \
   X(240) X(256)

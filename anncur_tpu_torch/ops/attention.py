@@ -15,11 +15,13 @@ the backward launches kernels C (dK, dV) and D (dQ). A call without one
 launches kernel A alone. CPU tensors take the plain versions, and autograd
 differentiates :func:`attention_plain`.
 
-The kernels take head dims that are multiples of 16 up to 256. Below 256
-:func:`attention` zero-pads q, k and v to the next multiple of 16 (zero
+The kernels take every head dim that is a multiple of 16: up to 256
+through bodies templated on it, above 256 through a wide route with the
+head dim a runtime count (``csrc/attention_wide.cuh``). :func:`attention`
+zero-pads q, k and v of any other width to the next multiple of 16 (zero
 columns add nothing to QKᵀ and give zero output columns), keeps the
 softmax scale at 1/√(real hd), and slices the output and the gradients
-back; above 256 it raises.
+back, so it takes every head dim that JAX's ``_attn_core`` takes.
 """
 
 from __future__ import annotations
@@ -31,8 +33,9 @@ import torch
 
 from anncur_tpu_torch.ops import cuda_build
 
-# every multiple of 16 from 16 to 256 (csrc/attention_common.cuh)
-_HEAD_DIMS = tuple(range(16, 257, 16))
+# head dims the kernels take are multiples of this (csrc/attention_common.cuh
+# up to 256, csrc/attention_wide.cuh above)
+_HEAD_DIM_UNIT = 16
 
 
 def attention_plain(q, k, v, key_valid):
@@ -73,8 +76,8 @@ attention.launches = 0  # kernel A launches; chip_smoke reads and resets it
 
 def _pad_head_dim(q, k, v):
     """q, k, v zero-padded along the head dim to the next multiple of 16
-    when it is below 256 (themselves otherwise)."""
-    pad = -q.shape[-1] % 16 if q.shape[-1] < 256 else 0
+    (themselves when it is one)."""
+    pad = -q.shape[-1] % _HEAD_DIM_UNIT
     if not pad:
         return q, k, v
     return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
@@ -204,10 +207,10 @@ def _check(q, k, v, key_valid) -> None:
         raise ValueError(f"attention: q {tuple(q.shape)} does not fit k {tuple(k.shape)}")
     if tuple(key_valid.shape) != (b, s) or key_valid.stride(1) != 1:
         raise ValueError(f"attention: key_valid must be a row-contiguous ({b}, {s}) tensor")
-    if hd not in _HEAD_DIMS:
+    if hd <= 0 or hd % _HEAD_DIM_UNIT:
         raise ValueError(
-            f"attention: head dim {hd} is not a multiple of 16 from 16 to 256 "
-            "(attention() pads head dims below 256; above 256 is not supported)"
+            f"attention: head dim {hd} is not a positive multiple of {_HEAD_DIM_UNIT} "
+            "(the kernels' rule; attention() zero-pads other widths)"
         )
     es = q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):

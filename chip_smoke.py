@@ -23,9 +23,14 @@ Phases, in order; any failure exits non-zero before the result line:
    checked once more at k=500), and kernel B at the bi-encoder's width
    d=768 over f32 rows and, through its int8 entry, over int8 rows with
    per-row scales (a search batch q=32 over 10,000 entities, k=64; one
-   text and an eval batch of 256 over 104,520 entities, k=100). For every
-   bf16 instantiation of kernels A, C and D (every head dim that is a
-   multiple of 16 up to 256): its HMMA count in the SASS (it fails on
+   text and an eval batch of 256 over 104,520 entities, k=100). Head
+   dims above 256 (kernels A, C and D's wide route): ``attention`` and
+   its autograd against the plain versions at hd 272, 384, 512 and 768,
+   bf16 and f32, at b=64 g=s=255 nh=4 (one launch each of A, C and D and
+   none of the plain attention per call), each kernel timed there beside
+   its bound, the plain version and SDPA. For every bf16 instantiation of
+   kernels A, C and D (every head dim that is a multiple of 16 up to 256,
+   and the wide route's body): its HMMA count in the SASS (it fails on
    none) and ptxas' registers and spills; for kernel B's kernels, f32 and
    int8, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
@@ -49,7 +54,7 @@ Phases, in order; any failure exits non-zero before the result line:
    600;
 7. retrieve and rerank: a bert-base bi-encoder (``configs/
    el_zeshel_bi_enc.json``: separate towers, cls_w_lin, 768; random
-   weights from seed 1, bf16) embeds phase 4's 10,000 entities and 1,024
+   weights from seed 1, bf16) embeds phase 4's 10,000 entities and 512
    mentions of 128 tokens, ``DenseIndex`` retrieves each mention's top 64
    (kernel B) and phase 4's CE reranks them (``run_retrieve_rerank_eval``,
    one small warm call, then one timed call), and the same embeddings are
@@ -107,13 +112,13 @@ Phases, in order; any failure exits non-zero before the result line:
    --backend local`` (two eval_retrieval jobs at phase 10's grid point,
    their recall equal to phase 10's, then skipped as done),
    ``bench_serving_latency``, ``bench_http_serving`` (16 clients x 2) and
-   ``serving_soak`` (fixed and adaptive with escalation, ~20 s each, 6
+   ``serving_soak`` (fixed and adaptive with escalation, ~8 s each, 6
    clients and a mutator, its contract asserted), and ZeShEL-military:
    ``military_scale`` (kernel B at 13,063 x 104,520 x 768, k=64, against
    matmul + topk; one bert-base build row over 104,520 entities; fixed cost
    600 at q=32 and adaptive 210 over 8 at q=128 and q=512 over 104,520
    items, held to phase 6's checks), kernel B timed at its MIPS shape, and
-   ``bench_nitems_scaling`` at q=128 over 10,000 / 30,000 / 104,520 items;
+   ``bench_nitems_scaling`` at q=128 over 10,000 and 104,520 items;
    one JSON line per driver, with the card;
 13. the parallel layer at world size 1, on a 1-rank NCCL group started on
    an in-process store and destroyed at the end of the phase, reusing
@@ -129,14 +134,28 @@ Phases, in order; any failure exits non-zero before the result line:
    over 8 on phase 6's 128 (phases 4 and 6's checks, q/s beside theirs),
    and ``python -m anncur_tpu_torch.parallel.dryrun --nproc 1 --device
    cuda``; one JSON line per check, with the card;
-14. the ``kernels`` line: each kernel's launches on phases 3-13 (counts set
+14. the last tools/ drivers and the examples (``phase_tools``), each
+   through its ``main(argv)`` at full widths and cut counts, its answers
+   checked: ``bench_early_stop`` at q=128 (the regimes' budgets, the
+   scores against the plain-attention CE), ``measure_packing`` at 16 x
+   2,048 pairs per regime (bucketed equal to padded), ``quickstart`` on
+   the card (recall, also on the CPU with the card's weights; A, C, D and
+   B launched), ``yugioh_scale_eval`` on the full 3,374 x 10,031 matrix
+   over a 2 x 2 grid (a point against the CPU),
+   ``multichip_scaling`` at world size 1 over NCCL (against the world
+   served unsharded), and ``adaptive_matched_recall --tiny`` and
+   ``make_trained_ce_matrix --quick`` on the card (the matched budgets
+   against the committed JAX artifact, the training from one start
+   against the CPU's); one JSON line per driver, with the card;
+15. the ``kernels`` line: each kernel's launches on phases 3-14 (counts set
    to 0 just before each phase, CLI, driver or path call and read just
    after), error and times;
-15. the last line, ``{"ok": true, "device": {...}}``.
+16. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
 
+import contextlib
 import functools
 import itertools
 import json
@@ -183,8 +202,17 @@ SLEEP_CYCLES = 20_000_000
 # gradients that are 0 in exact arithmetic (a shift under a softmax), so
 # a step may leave them, and their parameters, unchanged
 ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
-# bf16 instantiations of kernels A, C and D: 16 head dims x 2 tilings
-BF16_INSTANTIATIONS = 32
+# bf16 instantiations of kernels A, C and D: 16 head dims x 2 tilings, and
+# the wide route's one body (head dims above 256, a runtime count)
+BF16_INSTANTIATIONS = 33
+# head dims above 256 (the wide route; 272 also pads nothing, 300-style
+# widths pad to these), held in bf16 and f32 at the train layer's b=64
+# g=s=255 with nh=4
+WIDE_HEAD_DIMS = (272, 384, 512, 768)
+WIDE_SHAPE = (64, 255, 255, 4)
+# f32 kernel vs plain: sums of up to 768 products in another order
+ATTN_F32_ATOL = 1e-4  # forward, absolute
+GRAD_F32_RTOL = 1e-4  # gradients, x the plain gradient's max
 
 
 def log(msg):
@@ -224,12 +252,12 @@ def time_ms(fn, reps, flush):
 # --------------------------------------------------------------------- #
 
 
-def attention_inputs(gen, b, g, s, nh, hd, dev, all_valid=False):
-    """bf16 (q, k, v), the key mask and each pair's key count: random
-    lengths, or every key valid (``all_valid``: random token ids pad
-    nothing, as in the train steps)."""
+def attention_inputs(gen, b, g, s, nh, hd, dev, all_valid=False, dtype=torch.bfloat16):
+    """(q, k, v) in ``dtype`` (bf16), the key mask and each pair's key
+    count: random lengths, or every key valid (``all_valid``: random token
+    ids pad nothing, as in the train steps)."""
     def rnd(*shape):
-        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     k, v = rnd(b, s, nh, hd), rnd(b, s, nh, hd)
     lengths = torch.randint(1, s + 1, (b,), generator=gen, device=dev)
@@ -354,15 +382,19 @@ def ptxas_report(source):
 
 def instantiations(source, kernel, param, expected):
     """Each instantiation (head dim, ``param``) of the bf16 body ``kernel``
-    in the built library of ``csrc/<source>.cu``: its HMMA (tensor-core)
-    instructions as ``cuobjdump -sass`` lists them, and its registers and
-    spilled bytes from the build's ``ptxas -v`` report. Fails unless there
-    are ``expected`` instantiations, each with HMMA."""
+    in the built library of ``csrc/<source>.cu``, and its wide route's body
+    (``kernel`` with ``_wide`` before ``_kernel``: head dims above 256): its
+    HMMA (tensor-core) instructions as ``cuobjdump -sass`` lists them, and
+    its registers and spilled bytes from the build's ``ptxas -v`` report.
+    Fails unless there are ``expected`` instantiations, each with HMMA."""
     pattern = re.compile(kernel + r"ILi(\d+)ELi(\d+)E")
+    wide = kernel.replace("_kernel", "_wide_kernel")
 
     def label(name):
         found = pattern.search(name)
-        return f"hd={found.group(1)} {param}={found.group(2)}" if found else None
+        if found:
+            return f"hd={found.group(1)} {param}={found.group(2)}"
+        return "hd>256 (wide route)" if wide in name else None
 
     found = {label(name): dict(rec) for name, rec in ptxas_report(source).items() if label(name)}
     sass = _sass(source)
@@ -505,6 +537,118 @@ def check_attention_bwd(dev, flush):
             "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS),
         })
     return errs["lse"], kernels
+
+
+def check_attention_wide(dev, flush):
+    """Head dims above 256 (the wide route of kernels A, C and D): at each
+    of WIDE_HEAD_DIMS, in bf16 and f32, at WIDE_SHAPE with random key
+    lengths, ``attention`` and its autograd (``AttentionFunction``: A with
+    the lse, then C and D) against the plain versions at the real rows and
+    valid keys, masked keys' dK and dV exactly zero; each call launches A,
+    C and D once and the plain attention never. Then A, C and D timed,
+    each beside its bound, the plain version and SDPA. Returns one record
+    per (hd, dtype) with the errors and times of the three kernels."""
+    from anncur_tpu_torch.ops import attention as attn_mod
+    from anncur_tpu_torch.ops.attention import (
+        attention, attention_bwd_dkv, attention_bwd_dq, attention_bwd_plain, attention_fwd, attention_plain,
+    )
+
+    b, g, s, nh = WIDE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(12)
+    plain_calls = []
+
+    def counted_plain(*a, **k):
+        plain_calls.append(1)
+        return attention_plain(*a, **k)
+
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        fwd_tol, grad_tol = (ATTN_ATOL, GRAD_RTOL) if dtype == torch.bfloat16 else (ATTN_F32_ATOL, GRAD_F32_RTOL)
+        for hd in WIDE_HEAD_DIMS:
+            q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
+            rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]).expand(b, g)
+            dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(dtype)
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            reset_counts()
+            attn_mod.attention_plain = counted_plain
+            try:
+                out = attention(*leaves, key_valid)
+                got = torch.autograd.grad(out, leaves, dout)
+                torch.cuda.synchronize()
+            finally:
+                attn_mod.attention_plain = attention_plain
+            counts = read_counts()
+            want_out = attention_plain(q, k, v, key_valid)
+            want = attention_bwd_plain(q, k, v, key_valid, dout)
+            fwd_err = float((out.detach().float() - want_out.float()).abs().amax(dim=(2, 3))[rows].max())
+            errs = {}
+            for key, a, w, sel in (("dq", got[0], want[0], rows), ("dk", got[1], want[1], key_valid),
+                                   ("dv", got[2], want[2], key_valid)):
+                errs[key] = float((a.float() - w.float()).abs().amax(dim=(2, 3))[sel].max() / w.float().abs().max())
+            zero = bool((got[1][~key_valid] == 0).all() and (got[2][~key_valid] == 0).all())
+            launched = (counts["attention_fwd"], counts["attention_bwd_dkv"], counts["attention_bwd_dq"])
+            what = f"hd={hd} {name} b={b} g=s={s} nh={nh}"
+            log(f"  wide route {what}: forward max |kernel - plain| {fwd_err:.3e} (tol {fwd_tol}); dQ/dK/dV "
+                f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} x max (tol {grad_tol}); masked keys zero: {zero}; "
+                f"launches A/C/D {launched}, plain attention {len(plain_calls)}")
+            if not (fwd_err <= fwd_tol and max(errs.values()) <= grad_tol and zero):
+                fail(f"the wide route disagrees with the plain attention at {what}: forward {fwd_err}, {errs}, "
+                     f"masked keys zero {zero}")
+            if launched != (1, 1, 1) or plain_calls:
+                fail(f"at {what} the call launched A/C/D {launched} times and the plain attention {len(plain_calls)}")
+            del out, got, want, want_out, leaves
+            recs.append({"hd": hd, "dtype": name, "fwd_err": fwd_err, "grad_rel_err": errs,
+                         **time_wide(q, k, v, key_valid, lengths, dout, what, flush)})
+    return recs
+
+
+def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
+    """Kernels A, C and D at one wide input, each beside its bound (bytes:
+    each input read once at valid keys, each output written once;
+    operations: its products over the valid keys at the dtype's peak), the
+    plain version's and SDPA's forward and whole backward."""
+    from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq, attention_fwd, attention_plain
+
+    b, g, nh, hd = q.shape
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    reps = 10
+    with torch.no_grad():
+        a_ms = time_ms(lambda: attention(q, k, v, key_valid), reps, flush)
+        plain_ms = time_ms(lambda: attention_plain(q, k, v, key_valid), 3, flush)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=key_valid[:, None, None, :]), reps, flush)
+        out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        c_ms = time_ms(lambda: attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta), reps, flush)
+        d_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, lse, delta), reps, flush)
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    plain_bwd_ms = time_grad_ms(attention_plain(*leaves, key_valid), leaves, dout, 3, flush)
+    lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_leaves, attn_mask=key_valid[:, None, None, :])
+    sdpa_bwd_ms = time_grad_ms(lib_out, lib_leaves, dout.transpose(1, 2), reps, flush)
+    n_keys = int(lengths.sum())
+    es = q.element_size()
+    row_bytes = nh * hd * es
+    qo = q.numel() * es  # q, or out, or dO, or dQ
+    kv_valid = n_keys * row_bytes  # k or v (or dK, dV) at the valid keys
+    pair_ops = 2 * nh * g * n_keys * hd  # one product of (g x valid keys x hd)
+    stats = 2 * b * nh * g * 4  # lse and D
+    recs = {
+        "A": {"ms": a_ms, **bound(2 * qo + 2 * kv_valid + key_valid.numel(), 2 * pair_ops, dt),
+              "plain_ms": plain_ms, "library_ms": sdpa_ms},
+        "C": {"ms": c_ms, **bound(2 * qo + 4 * kv_valid + stats + key_valid.numel(), 4 * pair_ops, dt),
+              "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+        "D": {"ms": d_ms, **bound(3 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops, dt),
+              "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+    }
+    for rec in recs.values():
+        rec["x_bound"] = rec["ms"] / rec["bound_ms"]
+    log(f"  wide route {what}: A {a_ms:.4f} ms (bound {recs['A']['bound_ms']:.4f}, {recs['A']['bound_by']}; plain "
+        f"{plain_ms:.4f}, SDPA {sdpa_ms:.4f}); C {c_ms:.4f} (bound {recs['C']['bound_ms']:.4f}), D {d_ms:.4f} "
+        f"(bound {recs['D']['bound_ms']:.4f}); whole backward plain {plain_bwd_ms:.4f}, SDPA {sdpa_bwd_ms:.4f}")
+    return recs
 
 
 # kernel B's timed shapes (q, d, n, n_valid, k, S excluded ids per row): a
@@ -741,6 +885,47 @@ def reset_counts():
 
 def read_counts():
     return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+class StepRecorder:
+    """One phase's steps: each timed, its kernel launches added to the
+    phase's ``totals``, one JSON line per step with the card. ``rec`` is
+    the phase's record (``seconds`` and ``lines`` by step); ``key`` names
+    the step in its line."""
+
+    def __init__(self, smi=None, key="driver"):
+        self.smi, self.key = smi, key
+        self.totals = {name: 0 for name in _wrappers()}
+        self.rec = {"seconds": {}, "lines": {}}
+
+    def counted(self, fn):
+        """``fn()``, the card synchronised after it, its launches added to
+        the phase's; (what it returned, its launches)."""
+        reset_counts()
+        out = fn()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        counts = read_counts()
+        for name, n in counts.items():
+            self.totals[name] += n
+        return out, counts
+
+    def run(self, step, fn, argv):
+        """One driver's ``fn(argv)``, timed, its launches counted; a step
+        run twice adds its seconds. (what it returned, seconds, launches)."""
+        t0 = time.perf_counter()
+        out, counts = self.counted(lambda: fn(argv))
+        dt = time.perf_counter() - t0
+        self.rec["seconds"][step] = self.rec["seconds"].get(step, 0.0) + dt
+        return out, dt, counts
+
+    def line(self, step, t0=None, **numbers):
+        """Log the step's JSON line; ``t0`` times the step from there."""
+        if t0 is not None:
+            self.rec["seconds"][step] = time.perf_counter() - t0
+        entry = {self.key: step, "card": self.smi, "seconds": self.rec["seconds"][step], **numbers}
+        self.rec["lines"][step] = entry
+        log(json.dumps(entry))
 
 
 def rescore_with_plain_attention(ce, pairs, lm):
@@ -1153,7 +1338,7 @@ def phase_adaptive(retriever, train, spec, dev, rng):
             "ce_err": ce_err, "recall": recalls, "qtoks": qtoks, "train_dev": train_dev, "answer": (scores, ids)}
 
 
-RERANK_MENTIONS = 1024  # cut this, never the widths, if the run nears its limit
+RERANK_MENTIONS = 512  # cut this, never the widths, if the run nears its limit
 RERANK = dict(top_k=64, batch_size=64)  # tools/scale_drive_tpu.py's config #4
 
 
@@ -1875,23 +2060,13 @@ def phase_cli(dev, rng, root, trained_ce_recall, device_args=(), arch=None):
 
     device_args, arch = list(device_args), dict(arch or {})
     arch_args = [x for key, val in arch.items() for x in (f"--{key}", str(val))]
-    totals = {name: 0 for name in _wrappers()}
-    rec = {"seconds": {}}
+    steps = StepRecorder()
+    totals, rec = steps.totals, steps.rec
 
     def run(step, fn, argv, tensors=True):
-        """One CLI call, timed, its kernel launches added to the phase's:
-        (seconds, its launches). ``tensors``: the CLI takes ``--device``."""
-        reset_counts()
-        t0 = time.perf_counter()
-        fn(argv + (device_args if tensors else []))
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = read_counts()
-        for name, n in counts.items():
-            totals[name] += n
-        rec["seconds"][step] = rec["seconds"].get(step, 0.0) + dt
-        return dt, counts
+        """One CLI call through ``steps``: (seconds, its launches).
+        ``tensors``: the CLI takes ``--device``."""
+        return steps.run(step, fn, argv + (device_args if tensors else []))[1:]
 
     vocab = make_realistic_vocab()
     tokenizer = WordPieceTokenizer(vocab)
@@ -2270,14 +2445,14 @@ def glob_one(root, pattern):
 # --------------------------------------------------------------------- #
 
 # cut these, never the widths, if the run nears its limit
-DRIVERS = dict(bienc_mentions=400, e2e_entities=E2E_ENTITIES, e2e_anchors=E2E_ANCHORS, latency_reps=3,
-               http_clients=16, http_per_client=2, http_sequential=8, soak_s=20.0, soak_clients=6)
+DRIVERS = dict(bienc_mentions=400, e2e_entities=E2E_ENTITIES, e2e_anchors=E2E_ANCHORS, latency_reps=2,
+               http_clients=16, http_per_client=2, http_sequential=8, soak_s=8.0, soak_clients=6)
 # ZeShEL-military: kernel B at (13,063 x 104,520 x 768, k=64); one mention
 # row of the bert-base build over the 104,520 entities in ~2,048-pair
 # forwards; fixed cost 600 at q=32, adaptive 210 over 8 at q=128 and q=512
 # (the driver's defaults but the build's rows)
 MILITARY = ["--build_ments", "1"]
-NITEMS = ["--n_items", "10000", "30000", "104520", "--batches", "128", "--rounds", "8",
+NITEMS = ["--n_items", "10000", "104520", "--batches", "128", "--rounds", "8",
           "--reps", "1", "--shortlist_also", "0"]
 
 
@@ -2293,7 +2468,7 @@ def phase_drivers(dev, root, shared, recalls, smi, rehearsal=False):
     (each over its own 10,000-item bert-base world); (c) ZeShEL-military:
     ``military_scale`` (kernel B at 13,063 x 104,520 x 768, one build row,
     serving over 104,520 items, held to phase 6's checks) and
-    ``bench_nitems_scaling`` at 10,000 / 30,000 / 104,520 items. One JSON
+    ``bench_nitems_scaling`` at 10,000 and 104,520 items. One JSON
     line per driver, with the card; launches counted around the drivers'
     calls only. ``recalls``: phase 10's results on trained_ce_matrix.npz
     (None skips the comparison). ``rehearsal``: the drivers' tiny CPU
@@ -2324,28 +2499,8 @@ def phase_drivers(dev, root, shared, recalls, smi, rehearsal=False):
     os.makedirs(root)
     common, device_args = shared["common"], shared["device_args"]
     tiny = ["--tiny", "--device", "cpu"] if rehearsal else []
-    totals = {name: 0 for name in _wrappers()}
-    rec = {"seconds": {}, "lines": {}}
-
-    def run(step, fn, argv):
-        """One driver's ``main(argv)``, timed, its launches added to the
-        phase's: (what it returned, seconds, its launches)."""
-        reset_counts()
-        t0 = time.perf_counter()
-        out = fn(argv)
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = read_counts()
-        for name, n in counts.items():
-            totals[name] += n
-        rec["seconds"][step] = dt
-        return out, dt, counts
-
-    def line(driver, **numbers):
-        entry = {"driver": driver, "card": smi, "seconds": rec["seconds"][driver], **numbers}
-        rec["lines"][driver] = entry
-        log(json.dumps(entry))
+    steps = StepRecorder(smi)
+    run, line, totals, rec = steps.run, steps.line, steps.totals, steps.rec
 
     # (a) the analysis CLIs
     tokenizer = WordPieceTokenizer.from_vocab_file(shared["vocab_file"])
@@ -2591,22 +2746,11 @@ def phase_parallel(dev, smi, build, serve, train, adaptive, embeds, retriever, t
     from anncur_tpu_torch.tools import military_scale
     from anncur_tpu_torch.train.trainer import Trainer
 
-    totals = {name: 0 for name in _wrappers()}
-    rec = {"lines": {}, "seconds": {}}
+    steps = StepRecorder(smi, key="phase13")
+    line, totals, rec = steps.line, steps.totals, steps.rec
 
     def counted(fn):
-        reset_counts()
-        out = fn()
-        torch.cuda.synchronize()
-        for name, n in read_counts().items():
-            totals[name] += n
-        return out
-
-    def line(check, t0, **numbers):
-        rec["seconds"][check] = time.perf_counter() - t0
-        entry = {"phase13": check, "card": smi, "seconds": rec["seconds"][check], **numbers}
-        rec["lines"][check] = entry
-        log(json.dumps(entry))
+        return steps.counted(fn)[0]
 
     with mesh_session(dev) as mesh, tempfile.TemporaryDirectory() as tmp:
         if (dist.get_backend() != ("gloo" if rehearsal else "nccl") or mesh.shape != {"data": 1}
@@ -2753,6 +2897,233 @@ def phase_parallel(dev, smi, build, serve, train, adaptive, embeds, retriever, t
     return rec
 
 
+# --------------------------------------------------------------------- #
+# phase 14: the last tools/ drivers and the examples
+# --------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def keep_all_head_masks():
+    """The 'default' CE head's keep-0.9 training dropout keeps every unit
+    (its 1/0.9 scale kept), so that a trainer run twice from one start,
+    with the spec's own rates at 0, computes one deterministic function;
+    the CPU at one thread, whose reductions keep their order then."""
+    import anncur_tpu_torch.models.crossencoder as tce
+
+    orig, threads = tce.dropout, torch.get_num_threads()
+    tce.dropout = lambda x, seed, rate: x if seed is None else x / (1.0 - rate)
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        tce.dropout = orig
+        torch.set_num_threads(threads)
+
+
+# cut these, never the widths, if the run nears its limit
+TOOLS = dict(early_stop_q=128, packing_ments=16, yugioh_grid=(100, 500), yugioh_cpu_point=(100, 100))
+QUICKSTART_RECALL = 0.95  # JAX's quickstart reaches 1.000 on the CPU (tests/test_torch_examples.py)
+# make_trained_ce_matrix's quick training from one start, card against CPU:
+# steps, loss tolerance (on the CPU against JAX the first 15 sit within 4e-7)
+TCE_SAME_START = (12, 1e-5)
+RECALL_ATOL = 0.005  # PARITY.md: one reordered item in 200 rankings
+
+
+def phase_tools(dev, root, smi, rehearsal=False):
+    """The last five drivers and the two examples, each through its
+    ``main(argv)``, their answers checked: (a) ``bench_early_stop`` at
+    q=128, 1 rep, no bucket sweep (each regime's budget and escalated
+    share as its stability overlap forces them, the last call's top-10
+    scores against the plain-attention CE); (b) ``measure_packing`` at 16 x
+    2,048 pairs per regime (bucketed scores equal to padded within
+    CE_ATOL); (c) ``quickstart`` on the card (recall against the exact CE
+    ranking, kernels A, C, D and B launched); (d) ``yugioh_scale_eval`` on
+    the full 3,374 x 10,031 matrix over a 2 x 2 grid (one point against
+    the port's evaluator on the CPU, the oracle above CUR); (e)
+    ``multichip_scaling`` at world size 1 over NCCL (its answers against
+    the same world served in this process without a mesh); (f)
+    ``adaptive_matched_recall --tiny`` and ``make_trained_ce_matrix
+    --quick`` on the card (matched budgets equal to the committed JAX
+    artifact's; the matrix's layout, and its training from one start on
+    the card against the CPU's, TCE_SAME_START). The quickstart's stages
+    4-6 run again on the CPU with the CE the card trained (the recall
+    within one item of the card's). One JSON line per driver, with the
+    card; launches counted around the drivers' calls only. ``rehearsal``:
+    the drivers' CPU sizes."""
+    import tempfile
+
+    from anncur_tpu_torch.config import Config
+    from anncur_tpu_torch.core.retriever import CurRetriever
+    from anncur_tpu_torch.evalx.transductive import run_approx_eval_w_seed
+    from anncur_tpu_torch.examples import quickstart, yugioh_scale_eval
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+    from anncur_tpu_torch.parallel.dryrun import _same_topk
+    from anncur_tpu_torch.tools import (
+        adaptive_matched_recall,
+        bench_early_stop,
+        make_trained_ce_matrix,
+        measure_packing,
+        multichip_scaling,
+    )
+    from anncur_tpu_torch.train.data import EntLinkDataset
+
+    root = os.path.join(root, "tools")
+    os.makedirs(root)
+    steps = StepRecorder(smi)
+    run, line, totals, rec = steps.run, steps.line, steps.totals, steps.rec
+
+    def launched(counts, names, what):
+        if not rehearsal and any(counts[n] == 0 for n in names):
+            fail(f"{what} did not launch {names}: {counts}")
+
+    # (a) the early-stop benchmark at a cut batch
+    with CallTimer(CurRetriever, "query_tokens_adaptive_fused", keep=True) as calls:
+        es, _, counts = run("bench_early_stop", bench_early_stop.main,
+                         ["--q", "8" if rehearsal else str(TOOLS["early_stop_q"]), "--reps", "1", "--skip_buckets",
+                          "--out", os.path.join(root, "early_stop.json")] + (["--cpu"] if rehearsal else []))
+    _, cfg = bench_early_stop.headline_config()
+    rows = es["e2e"]
+    want = {"stable_all": (cfg["base_budget"], 0.0), "escalate_all": (cfg["escalate_budget"], 1.0)}
+    for name, (budget, frac) in want.items():
+        if (rows[name]["avg_budget"], rows[name]["frac_escalated"]) != (budget, frac):
+            fail(f"bench_early_stop's {name} row spent {rows[name]['avg_budget']} at {rows[name]['frac_escalated']} "
+                 f"escalated, not {budget} at {frac}")
+    if not cfg["base_budget"] <= rows["natural"]["avg_budget"] <= cfg["escalate_budget"]:
+        fail(f"bench_early_stop's natural row spent {rows['natural']['avg_budget']}")
+    (retriever, qt), _, (scores, ids, _) = calls.calls[-1]
+    es_err = scores_vs_plain(retriever, qt, ids, scores, "bench_early_stop's escalate_all call")
+    del calls, retriever
+    launched(counts, ("attention_fwd", "mips_topk_fused"), "bench_early_stop")
+    line("bench_early_stop", config=es["config"], q=es["q"], compile_per_bucket=es["compile_per_bucket"],
+         e2e={n: {k: r[k] for k in ("qps", "med_s", "first_call_s", "avg_budget", "frac_escalated")}
+              for n, r in rows.items()}, scores_vs_plain=es_err, launches=counts)
+
+    # (b) entity-length bucketing of the build
+    pack, _, counts = run("measure_packing", measure_packing.main,
+                       (["--quick"] if rehearsal else ["--n_ments", str(TOOLS["packing_ments"])])
+                       + ["--out", os.path.join(root, "packing.json")])
+    for regime, r in pack["regimes"].items():
+        if not r["max_abs_err"] <= CE_ATOL or sum(r["bucket_sizes"].values()) != pack["shape"]["n_ents"]:
+            fail(f"measure_packing's {regime} regime: bucketed scores differ from padded by {r['max_abs_err']} "
+                 f"(tol {CE_ATOL}) or its buckets hold {r['bucket_sizes']}")
+    ratios = [pack["regimes"][r]["padding_ratio"] for r in measure_packing.REGIMES]
+    if not ratios[0] == 0.0 < ratios[1] < ratios[2]:
+        fail(f"measure_packing's padding ratios {ratios} are not the regimes'")
+    launched(counts, ("attention_fwd",), "measure_packing")
+    line("measure_packing", shape=pack["shape"], dtype=pack["dtype"], regimes=pack["regimes"], launches=counts)
+
+    # (c) the quickstart on the card
+    with CallTimer(quickstart, "train_cross_encoder", keep=True) as trained, \
+            CallTimer(quickstart, "index_and_query", keep=True) as indexed:
+        qs, _, counts = run("quickstart", quickstart.main, ["--device", "cpu" if rehearsal else str(dev)])
+    if not qs["recall"] >= QUICKSTART_RECALL or len(qs["text_query"]) != 3:
+        fail(f"the quickstart's recall {qs['recall']} is below {QUICKSTART_RECALL} or its text query gave "
+             f"{qs['text_query']}")
+    launched(counts, ("attention_fwd", "attention_bwd_dkv", "attention_bwd_dq", "mips_topk_fused"), "the quickstart")
+    # stages 4-6 again on the CPU with the CE the card trained: a recall
+    # that follows the weights is the training's, not the scoring's
+    ce = trained.calls[-1][2][0]
+    (_, tokenizer, ment_toks, ent_toks, _), _, (_, idx, exact_top, _) = indexed.calls[-1]
+    del trained, indexed
+    cpu_ce = CrossEncoder(ce.spec, compute_dtype=torch.float32, device="cpu").load_params_(ce.params_tree())
+    _, cpu_idx, cpu_top, cpu_recall = quickstart.index_and_query(cpu_ce, tokenizer, ment_toks, ent_toks, "cpu")
+    if not abs(cpu_recall - qs["recall"]) <= 1 / idx.size:
+        fail(f"the card's quickstart CE gives recall {qs['recall']} on the card but {cpu_recall} on the CPU")
+    line("quickstart", recall=qs["recall"], cpu_recall_with_card_weights=cpu_recall,
+         same_exact_top5_on_cpu=bool(np.array_equal(exact_top, cpu_top)),
+         same_retrieved_on_cpu=bool(np.array_equal(idx, cpu_idx)), departs_from_reference=qs["departs_from_reference"],
+         bienc_steps=qs["bienc_steps"], ce_steps=qs["ce_steps"], cost_per_query=qs["cost_per_query"],
+         text_query=qs["text_query"], launches=counts)
+
+    # (d) BASELINE config #1's matrix over a 2 x 2 grid
+    grid = [20, 40] if rehearsal else list(TOOLS["yugioh_grid"])
+    point = (20, 20) if rehearsal else TOOLS["yugioh_cpu_point"]
+    yg_dir = os.path.join(root, "yugioh")
+    if rehearsal:
+        sizes = (yugioh_scale_eval.N_MENTS, yugioh_scale_eval.N_ENTS, yugioh_scale_eval.RANK)
+        yugioh_scale_eval.N_MENTS, yugioh_scale_eval.N_ENTS, yugioh_scale_eval.RANK = 200, 600, 10
+    try:
+        yg, _, counts = run("yugioh_scale_eval", yugioh_scale_eval.main,
+                         [yg_dir, "--device", "cpu" if rehearsal else str(dev), "--grid", *map(str, grid),
+                          "--oracle_point", *map(str, grid[-1:] * 2)])
+        mat = yugioh_scale_eval.make_matrix(yugioh_scale_eval.N_MENTS, yugioh_scale_eval.N_ENTS, yugioh_scale_eval.RANK)
+    finally:
+        if rehearsal:
+            yugioh_scale_eval.N_MENTS, yugioh_scale_eval.N_ENTS, yugioh_scale_eval.RANK = sizes
+    with open(os.path.join(yg_dir, "retrieval_wrt_exact_crossenc.json")) as fin:
+        cell = json.load(fin)["cur"]["top_k=10"]["k_retvr=500"][f"anc_n_m={point[0]}~anc_n_e={point[1]}"]
+    cpu = run_approx_eval_w_seed("cur", mat, *point, 10, 500, seed=0, device="cpu")
+    del mat
+    yg_err = max(abs(cell[split][yugioh_scale_eval.RECALL] - cpu[split][yugioh_scale_eval.RECALL])
+                 for split in ("anchor", "non_anchor", "all"))
+    op = yg["oracle_point"]
+    if yg["n_points"] != len(grid) ** 2 or not yg_err <= RECALL_ATOL or not (
+            op["cur_oracle_recall"] >= op["cur_recall"] - RECALL_ATOL):
+        fail(f"yugioh_scale_eval: {yg['n_points']} points, the card vs the CPU at {point} {yg_err} (tol {RECALL_ATOL}), "
+             f"oracle {op['cur_oracle_recall']} vs cur {op['cur_recall']}")
+    line("yugioh_scale_eval", shape=yg["shape"], grid=grid, sweep_s=yg["sweep_s"], s_per_point=yg["s_per_point"],
+         points=yg["points"], oracle_point=op, cpu_point=list(point), recall_vs_cpu=yg_err, heat_map=yg["heat_map"],
+         launches=counts)
+
+    # (e) query-sharded serving at world size 1, against this process unsharded
+    mc, _, _ = run("multichip_scaling", multichip_scaling.main,
+                (["--quick", "--device", "cpu"] if rehearsal else ["--device", "cuda"])
+                + ["--nproc", "1", "--timeout", "600", "--out", os.path.join(root, "multichip.json")])
+    world = multichip_scaling.build_world(rehearsal, "cpu" if rehearsal else dev)
+    reset_counts()
+    alone = {**multichip_scaling.fixed(*world), **multichip_scaling.adaptive(*world)}
+    counts = read_counts()
+    del world
+    got = mc["answers"]["1"]
+    mc_err = max(_same_topk(got[f"{p}_scores"], got[f"{p}_ids"], alone[f"{p}_scores"], alone[f"{p}_ids"],
+                            f"multichip_scaling's {p} answers") for p in ("fixed", "adaptive"))
+    launched(counts, ("attention_fwd", "mips_topk_fused"), "the unsharded multichip_scaling world")
+    line("multichip_scaling", host=mc["host"], rows=mc["rows"], answers_vs_unsharded=mc_err, launches_unsharded=counts)
+
+    # (f) the two tools sized for the CPU, on the card at their tiny sizes
+    tool_dev = "cpu" if rehearsal else str(dev)
+    amr, _, _ = run("adaptive_matched_recall", adaptive_matched_recall.main,
+                    ["--tiny", "--device", tool_dev, "--out", os.path.join(root, "amr.json")])
+    with open(os.path.join(ROOT, "benchmarks", "adaptive_matched_recall_quick.json")) as fin:
+        jax_amr = json.load(fin)
+    budgets = {f"{n}/{v}": (r["matched_budget"], jax_amr["scenarios"][n][v]["matched_budget"])
+               for n, scen in amr["scenarios"].items() for v, r in scen.items() if v != "early_stop"
+               and isinstance(r, dict) and "matched_budget" in r}
+    if any(a != b for a, b in budgets.values()) or amr["headline_matched_budget"] != jax_amr["headline_matched_budget"]:
+        fail(f"adaptive_matched_recall's matched budgets differ from the committed JAX sweep's: {budgets}")
+    line("adaptive_matched_recall", device=amr["device"], headline_matched_budget=amr["headline_matched_budget"],
+         headline_early_stop=amr["headline_early_stop"], matched_budgets_vs_jax=budgets)
+
+    tce_path = os.path.join(root, "tce_quick.npz")
+    meta, _, counts = run("make_trained_ce_matrix", make_trained_ce_matrix.main,
+                          ["--quick", "--device", tool_dev, "--out", tce_path])
+    if not (np.isfinite(meta["final_loss"]) and meta["train_steps"] == 30
+            and np.load(tce_path)["scores"].shape == (76, 400)):
+        fail(f"make_trained_ce_matrix --quick: {meta}")
+    launched(counts, ("attention_fwd",), "make_trained_ce_matrix")
+    # its training from one start on the card and on the CPU, before the
+    # two f32 trajectories part (tests/test_torch_tools.py holds it to JAX's)
+    ment, ent, gt, tok, hard_negs = make_trained_ce_matrix.make_shared_world(np.random.default_rng(0), 400, 276,
+                                                                             n_rare=120)
+    train_slice = slice(76, 276)
+    data = EntLinkDataset(ment[train_slice], ent, gt[train_slice])
+    spec = make_trained_ce_matrix.ce_spec(tok.vocab_size, True, hidden_dropout=0.0, attention_dropout=0.0)
+    losses = {}
+    with keep_all_head_masks(), tempfile.TemporaryDirectory() as tmp:
+        for d in (tool_dev, "cpu"):
+            cfg = Config(**make_trained_ce_matrix.train_kwargs(True), base_res_dir=tmp)
+            negs = make_trained_ce_matrix.train_negatives(data, gt, train_slice, hard_negs, cfg.num_negs, d)
+            ce = CrossEncoder(spec, compute_dtype=torch.float32, device=d)
+            _, losses[d] = make_trained_ce_matrix.train_ce(ce, cfg, data, negs, TCE_SAME_START[0])
+    tce_err = max(abs(a - b) for a, b in zip(losses[tool_dev], losses["cpu"]))
+    if not tce_err <= TCE_SAME_START[1]:
+        fail(f"make_trained_ce_matrix's training from one start: card {losses[tool_dev]} vs CPU {losses['cpu']}")
+    line("make_trained_ce_matrix", **{k: meta[k] for k in ("device", "world", "train_steps", "final_loss", "s2_over_s1",
+                                                         "rank_97pct_energy", "gold_in_top64_frac")},
+         same_start_steps=TCE_SAME_START[0], same_start_loss_vs_cpu=tce_err, launches=counts)
+    rec["launches"] = totals
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
@@ -2779,6 +3150,11 @@ def main():
     fwd = check_attention(dev, flush)
     lse_err, bwd = check_attention_bwd(dev, flush)
     fwd["lse_rel_err"] = lse_err
+    wide = check_attention_wide(dev, flush)
+    for kern, key, err in ((fwd, "A", "fwd_err"), (bwd[0], "C", "dk"), (bwd[1], "D", "dq")):
+        kern["wide_head_dims"] = [
+            {"hd": r["hd"], "dtype": r["dtype"], "err": r[err] if err == "fwd_err" else r["grad_rel_err"][err],
+             **r[key]} for r in wide]
     kernels = [fwd, *bwd, *check_mips_kernel(dev, flush)]
     del flush
     torch.cuda.empty_cache()
@@ -2849,7 +3225,15 @@ def main():
     del retriever, train_start, embeds
     torch.cuda.empty_cache()
 
-    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers, parallel)
+    with tempfile.TemporaryDirectory() as root:
+        log(f"[{time.perf_counter() - t_start:.0f} s] phase 14: the last tools/ drivers and the examples (early stop "
+            "at q=128, packing, quickstart, yugioh-scale eval, multichip at world size 1, the CPU-sized tools on the card)")
+        t0 = time.perf_counter()
+        tools = phase_tools(dev, root, smi)
+        tools["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+
+    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers, parallel, tools)
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
@@ -2933,6 +3317,8 @@ def main():
         "launches_drivers": drivers["launches"],
         "parallel": {"phase_s": parallel["phase_s"], "step_s": parallel["seconds"], "lines": parallel["lines"]},
         "launches_parallel": parallel["launches"],
+        "tools": {"phase_s": tools["phase_s"], "step_s": tools["seconds"], "lines": tools["lines"]},
+        "launches_tools": tools["launches"],
         "card": smi,
     }
     summary["seconds"] = time.perf_counter() - t_start

@@ -63,12 +63,12 @@ def test_attention_kernel_matches_plain(dev, b, g, s, nh, hd, dtype, atol):
     assert err <= atol, err
 
 
-def _edge_case(dev, g, hd, seed, s=255, nh=3):
-    """bf16 pairs of a ragged s=255 keys: prefix lengths at the 64-key tile
-    boundaries, a pair with no valid key, a mask with holes inside tiles
-    and a whole masked tile between valid keys, and a pair whose first
-    tile is all masked."""
-    q, k, v, _, _ = _attn_case(dev, 8, g, s, nh, hd, torch.bfloat16, seed)
+def _edge_case(dev, g, hd, seed, s=255, nh=3, dtype=torch.bfloat16):
+    """Pairs (bf16 unless ``dtype``) of a ragged s=255 keys: prefix lengths
+    at the 64-key tile boundaries, a pair with no valid key, a mask with
+    holes inside tiles and a whole masked tile between valid keys, and a
+    pair whose first tile is all masked."""
+    q, k, v, _, _ = _attn_case(dev, 8, g, s, nh, hd, dtype, seed)
     valid = torch.zeros(8, s, dtype=torch.bool, device=dev)
     for r, n in enumerate((1, 63, 64, 65, s)):
         valid[r, :n] = True
@@ -223,13 +223,65 @@ def test_attention_kernels_at_long_s_and_wide_heads(dev, b, s, nh, hd, dtype):
     assert (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + 1 for n in before)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hd", [272, 384, 512, 768])
+def test_attention_kernels_take_wide_head_dims(dev, hd, dtype):
+    """The wide route of kernels A, C and D (head dims above 256, streamed
+    in 64-column chunks, outputs in column slices) against the plain
+    versions at chip_smoke.py's tolerance (2e-2), with a ragged s of 130
+    keys, a full layer and a 1-row slice; one launch of each kernel, none
+    of the plain version."""
+    for g in (130, 1):
+        q, k, v, valid, lengths = _attn_case(dev, 3, g, 130, 2, hd, dtype, seed=hd + g)
+        before = (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches)
+        _check_fwd_bwd(q, k, v, valid, lengths, dtype, 2e-2)
+        assert (attention.launches, attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("g,hd", [(255, 384), (1, 512), (17, 272)])
+def test_attention_wide_route_at_edge_masks(dev, g, hd, dtype):
+    """The wide route on ``_edge_case``'s masks, at every row and key (the
+    pair with no valid key included): the forward within 2e-2, the lse
+    without the no-valid-key shift within 1e-5 relative, dQ, dK, dV within
+    2e-2 x the plain gradient's max, masked keys of pairs with a valid key
+    exactly zero, and two launches the same bits."""
+    q, k, v, valid = _edge_case(dev, g, hd, seed=g + hd, dtype=dtype)
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    assert (out.float() - attention_plain(q, k, v, valid).float()).abs().max().item() <= 2e-2
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / hd ** 0.5
+    scores = scores + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    shift = torch.where(valid.any(dim=1), 0.0, -1e9)[:, None, None, None]
+    assert torch.allclose(lse, torch.logsumexp(scores - shift, dim=-1), rtol=1e-5, atol=1e-5)
+    gen = torch.Generator(device=dev).manual_seed(g * 10 + hd)
+    dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
+    want = attention_bwd_plain(q, k, v, valid, dout)
+    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    runs = [
+        (*attention_bwd_dkv(q, k, v, valid, dout, lse, delta), attention_bwd_dq(q, k, v, valid, dout, lse, delta))
+        for _ in range(2)
+    ]
+    torch.cuda.synchronize()
+    dk, dv, dq = runs[0]
+    for name, a, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
+        assert a.dtype == dtype and a.shape == w.shape, name
+        err = (a.float() - w.float()).abs().max().item()
+        assert err <= 2e-2 * w.float().abs().max().item(), (name, err)
+    masked = ~valid & valid.any(dim=1, keepdim=True)
+    assert not dk[masked].any() and not dv[masked].any()
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
     q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
     with pytest.raises(ValueError, match="head dim"):  # the kernel itself: multiples of 16 only
         attention_fwd(q[..., :8], k[..., :8], v[..., :8], valid)
-    big = torch.zeros(2, 8, 2, 264, device=dev)  # attention() pads below 256 only
-    with pytest.raises(ValueError, match="head dim"):
-        attention(big, big, big, valid)
+    # above 256 is no longer refused: attention() pads 264 to 272 for the wide route
+    big = torch.randn(2, 8, 2, 264, device=dev)
+    before = attention.launches
+    got = attention(big, big, big, valid)
+    assert attention.launches == before + 1
+    assert (got - attention_plain(big, big, big, valid)).abs().max().item() <= 1e-4
     with pytest.raises(ValueError, match="bf16 or f32"):
         attention(q.half(), k.half(), v.half(), valid)
     with pytest.raises(ValueError, match="one CUDA device"):
@@ -237,7 +289,7 @@ def test_attention_kernel_rejects_what_it_cannot_take(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("hd", [8, 24, 72, 200])
+@pytest.mark.parametrize("hd", [8, 24, 72, 200, 300])
 def test_attention_pads_head_dims_that_are_not_multiples_of_16(dev, hd, dtype):
     """attention() zero-pads q, k, v to the next multiple of 16 with the
     softmax scale of the real head dim, and slices the output and dQ, dK,
