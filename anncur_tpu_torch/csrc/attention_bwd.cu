@@ -4,8 +4,8 @@
 // anncur_tpu/models/bert.py::_flash_attention reaches under jax.grad:
 // _flash_attention_bwd_dkv (kernel C here) and _flash_attention_bwd_dq
 // (kernel D), jax/experimental/pallas/ops/tpu/flash_attention.py. With the
-// forward's row log-sum-exp lse (csrc/attention.cu) and D = rowsum(dO * O)
-// (a plain torch reduction beforehand, as JAX computes it outside Pallas):
+// forward's row log-sum-exp lse (csrc/attention.cu):
+//     D  = rowsum(dO * O)                            (kernel D writes it)
 //     P  = exp(Q K^T * scale + bias - shift - lse)   (recomputed, never stored)
 //     dV = P^T dO
 //     dS = P * (dO V^T - D)
@@ -18,16 +18,68 @@
 // would come out as 1 instead of 1/l. Scores, exponentials and sums are f32;
 // dQ, dK, dV are written in q's dtype.
 //
+// D = rowsum(dO * O) is JAX's di (flash_attention.py:273, computed there
+// outside Pallas). Here kernel D computes it: its blocks own whole query
+// rows of dO, so each also reads those rows of O, sums the products in f32
+// (bf16 products are exact in f32), uses the sum for its dS and writes it
+// to the (b, nh, g) f32 delta buffer. The wrapper launches D, then C on the
+// same stream; C reads D's delta. Every route does this (the wide route in
+// its blocks too: each column slice sums whole rows, slice 0 writes them),
+// so the backward is two launches and no torch pass.
+//
 // Bound on the H100: at the train step's shape (63 pairs, g = s = 255,
 // nh = 12, hd = 64, bf16, every key valid) kernel C reads Q, K, V, dO, lse
 // and D and writes dK and dV, 150 MB: 0.045 ms at 3.35 TB/s. Its four
 // products (S^T, dP^T, dV, dK) are 25 GFLOP, 0.025 ms on the bf16 tensor
-// cores. Kernel D moves 125 MB (0.037 ms) for three products (0.019 ms).
-// Both lie below the bf16 ridge (~295 FLOP/B), so bytes bound them; with
-// mma.sync short of the tensor-core peak the two times come close.
+// cores. Kernel D reads Q, K, V, dO, O and lse and writes dQ and D, 150 MB
+// (0.045 ms) for three products (0.019 ms). Both lie below the bf16 ridge
+// (~295 FLOP/B), so bytes bound them: the design keeps every tile's bytes
+// read once per block, the products on the tensor cores at their full
+// rate, and shared memory out of the way of both.
 //
-// bf16 design (hd any multiple of 16 up to 256, templated on HD): mma.sync m16n8k16
-// (bf16 in, f32 accumulate), ldmatrix and cp.async from csrc/mma_sm90.cuh.
+// Hopper bodies (bf16, hd = 64, g > 16: every configuration's full layers;
+// namespace hopper): wgmma m64n64k16 with operands in 128-byte-swizzled
+// shared memory filled by TMA (csrc/wgmma_sm90.cuh), and the recomputed
+// P^T / dS^T (C) or dS (D) fed back from registers as A. A block is one
+// warpgroup; its thread 0 keeps TMA loads a ring of kStages tiles ahead,
+// each stage completing on its mbarrier. No producer warp: the register
+// file is allocated per warp at the kernel's count, so a fifth warp would
+// cost its 32 threads' share and leave room for two blocks an SM instead
+// of three (a design with one measured C 0.1178 ms, D 0.1109 against
+// 0.0922 and 0.0874 at the train step's shape on the H100,
+// cli/time_attention_bwd.py; PERF.md). The swizzle replaces the
+// 16-byte row padding of the mma.sync bodies (wgmma descriptors take no
+// padded rows) and keeps every operand read free of bank conflicts; wgmma
+// reads its operands from shared memory itself, so no ldmatrix traffic
+// competes with the tensor cores. S (or S^T) and dP (dP^T) are committed
+// as two groups, so the exponentials of P run while dP is on the tensor
+// cores.
+// - Kernel C: one block per (pair, head, tile of 64 keys). K and V load
+//   once, then 64-row tiles of Q and dO, with their lse and D by cp.async
+//   (rows >= g: TMA zero-fills Q and dO, lse = +inf, so their P is 0). Per
+//   tile: S^T = K Q^T and dP^T = V dO^T (both operands K-major), P^T and
+//   dS^T in f32 registers, rounded to bf16 A fragments for dV += P^T dO and
+//   dK += dS^T Q (dO and Q as MN-major B, wgmma's transpose bit). The four
+//   accumulators are 128 registers a thread. A block whose 64 keys are all
+//   masked, in a pair that has a valid key, writes zeros and returns.
+// - Kernel D: one block per (pair, head, tile of 64 query rows). Q and dO
+//   load once, then the key tiles that hold a valid key (one 64-bit ballot
+//   word per tile; every tile in a pair with none), K and V through the
+//   ring. The first kStages key tiles go in flight with Q, dO and O,
+//   before the mask is read, on the guess that none of them is skipped (a
+//   wrong guess waits for them and loads the right ones). D for the
+//   block's rows is summed from the dO and O tiles in shared memory (four
+//   lanes a row; summed from global memory instead, its loads sat on the
+//   block's critical path and cost D ~23% at the train step's shape). Per
+//   tile: S = Q K^T and dP = dO V^T, dS in f32, dQ += dS K (K as MN-major
+//   B).
+// - Both stage their bf16 results through the freed ring in padded rows
+//   for 16-byte coalesced stores.
+//
+// mma.sync bodies (bf16, every other head dim that is a multiple of 16 up
+// to 256, and g <= 16 at hd = 64, the CLS-only final layer): mma.sync
+// m16n8k16 (bf16 in, f32 accumulate), ldmatrix and cp.async from
+// csrc/mma_sm90.cuh.
 // - Kernel C: one block per (pair, head, tile of 64 keys), the tile index
 //   fastest, so the tiles of one head run together and share its Q and dO
 //   in L2. Four warps own 16 keys each and keep their K and V rows in
@@ -42,23 +94,25 @@
 //   that has a valid key, writes zeros and returns.
 // - Kernel D: one block per (pair, head, tile of 16 * NW query rows), NW = 4
 //   (1 when g <= 16, so no warp computes only padding). Each warp keeps its
-//   16 rows of Q and dO as A fragments and their lse and D in registers. K
-//   and V stream in 64-key tiles, double-buffered; a tile without a valid
-//   key is skipped when the pair has one (one 64-bit ballot word per tile,
-//   as in kernel A; tile 0 always runs, and adds exact zeros if masked).
-//   Each 16-key step makes S = Q K^T and dP = dO V^T (K and V as B through
-//   plain ldmatrix), dS in f32, and dQ += dS K (dS in bf16 from the
-//   accumulators, K through ldmatrix.trans).
-// - P and dS are rounded to bf16 before the dV, dK and dQ products, as the
-//   TPU kernel rounds them (p.astype(do.dtype), ds.astype(q.dtype)); scores,
-//   exponentials, dP - D and every sum stay f32. The exponent is the
-//   difference S * scale + bias - shift - lse, taken before the log2(e)
-//   scaling: at lse ~ -1e9 a folded FMA would lose it.
+//   16 rows of Q and dO as A fragments and their lse and D in registers (D
+//   summed from global dO and O by the four lanes of each row). K and V
+//   stream in 64-key tiles, double-buffered; a tile without a valid key is
+//   skipped when the pair has one (one 64-bit ballot word per tile, as in
+//   kernel A; tile 0 always runs, and adds exact zeros if masked). Each
+//   16-key step makes S = Q K^T and dP = dO V^T (K and V as B through plain
+//   ldmatrix), dS in f32, and dQ += dS K (dS in bf16 from the accumulators,
+//   K through ldmatrix.trans).
 // - Shared rows are padded by 16 bytes, so the eight row addresses of each
 //   8x8 ldmatrix fall in distinct banks. The epilogues stage the bf16
 //   results in the warp's own shared rows for 16-byte coalesced stores.
-// - Every output row is written by one block and no atomics are used, so
-//   two launches on the same inputs give the same bits.
+//
+// In every bf16 body P and dS are rounded to bf16 before the dV, dK and dQ
+// products, as the TPU kernel rounds them (p.astype(do.dtype),
+// ds.astype(q.dtype)); scores, exponentials, dP - D and every sum stay f32.
+// The exponent is the difference S * scale + bias - shift - lse, taken
+// before the log2(e) scaling: at lse ~ -1e9 a folded FMA would lose it.
+// Every output row is written by one block and no atomics are used, so two
+// launches on the same inputs give the same bits.
 //
 // Head dims above 256 (any multiple of 16) take the wide route (the
 // *_wide_kernel bodies; shared pieces in csrc/attention_wide.cuh): S and
@@ -79,17 +133,18 @@
 //   shared-memory tiles of 64 rows of Q and dO (with their lse and D), every
 //   lane of a group reading the same row: a broadcast.
 // - Kernel D: one block per (pair, head, tile of 128/SPLIT query rows). A
-//   lane holds its row's q, dO, dQ dims; the block walks the keys in tiles
-//   of 64 rows of K and V. It skips masked keys (P = 0 there) whenever the
-//   pair has a valid key; a pair with none attends every key, as forward.
+//   lane holds its row's q, dO, dQ dims (and sums its part of D); the block
+//   walks the keys in tiles of 64 rows of K and V. It skips masked keys (P =
+//   0 there) whenever the pair has a valid key; a pair with none attends
+//   every key, as forward.
 // Kernel C likewise returns zeros at once from a block whose keys are all
 // masked.
 //
-// Layout is the JAX one: q (b, g, nh, hd), k and v (b, s, nh, hd) with any
-// strides on the batch, row and head axes, hd contiguous and rows 16-byte
-// aligned; dO, dQ (b, g, nh, hd) and dK, dV (b, s, nh, hd) contiguous; lse
-// and D (b, nh, g) f32. The kernels allocate nothing and run on the
-// caller's stream.
+// Layout is the JAX one: q, dO and O (b, g, nh, hd), k and v (b, s, nh, hd),
+// each with any strides on the batch, row and head axes, hd contiguous and
+// rows 16-byte aligned; dQ (b, g, nh, hd) and dK, dV (b, s, nh, hd)
+// contiguous; lse and D (b, nh, g) f32. The kernels allocate nothing and
+// run on the caller's stream.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -100,6 +155,7 @@
 #include "attention_common.cuh"
 #include "attention_wide.cuh"
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -110,6 +166,31 @@ using namespace attn_f32;
 constexpr int kTile = 64;  // keys of a kernel C block; keys of a kernel D tile
 constexpr float kMaskBias = -1e9f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// rowsum(dO * O) of one row of hd bf16 values in f32, split over the four
+// lanes of a quad (part = lane % 4 takes the 16-byte units part, part + 4,
+// ...) and summed across it, (p0 + p1) + (p2 + p3), so all four hold the
+// same bits; 0 where !ok (every lane of the warp must call it)
+__device__ __forceinline__ float quad_row_delta(const bf16* dor, const bf16* orow, int hd, bool ok, int part) {
+  float acc = 0.0f;
+  if (ok) {
+    for (int u = part; u < hd / 8; u += 4) {
+      const uint4 x = *reinterpret_cast<const uint4*>(dor + 8 * u);
+      const uint4 y = *reinterpret_cast<const uint4*>(orow + 8 * u);
+      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xs[e]), yf = __bfloat1622float2(ys[e]);
+        acc = fmaf(xf.x, yf.x, acc);  // the product is exact in f32
+        acc = fmaf(xf.y, yf.y, acc);
+      }
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
 
 // ------------------------------------------------------------ kernel C, bf16
 
@@ -137,7 +218,8 @@ attention_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict
                               long long q_sb, long long q_sr, long long q_sh,
                               long long k_sb, long long k_sr, long long k_sh,
                               long long v_sb, long long v_sr, long long v_sh,
-                              long long valid_sb, float scale) {
+                              long long valid_sb, long long do_sb, long long do_sr,
+                              long long do_sh, float scale) {
   constexpr int kThreads = 128, kLd = HD + 8, kUnits = HD / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* ks = reinterpret_cast<bf16*>(smem);  // the block's kTile keys
@@ -165,8 +247,7 @@ attention_bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict
     cp_async_16(smem_addr(vs + r * kLd + c * 8), ok ? vb + key * v_sr + c * 8 : vb, ok ? 16 : 0);
   }
   const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
-  const long long do_sr = static_cast<long long>(nh) * HD;
+  const bf16* dob = dout + b * do_sb + h * do_sh;
   const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
   const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
   auto load_q = [&](int t, int stage) {
@@ -339,12 +420,14 @@ template <int HD, int NW>
 __global__ void __launch_bounds__(NW * 32)
 attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                             const bf16* __restrict__ dout, const float* __restrict__ lse,
-                             const float* __restrict__ delta, bf16* __restrict__ dq_out, int g,
-                             int s, int nh, int n_qt, long long q_sb, long long q_sr,
-                             long long q_sh, long long k_sb, long long k_sr, long long k_sh,
-                             long long v_sb, long long v_sr, long long v_sh,
-                             long long valid_sb, float scale) {
+                             const bf16* __restrict__ dout, const bf16* __restrict__ out,
+                             const float* __restrict__ lse, float* __restrict__ delta,
+                             bf16* __restrict__ dq_out, int g, int s, int nh, int n_qt,
+                             long long q_sb, long long q_sr, long long q_sh, long long k_sb,
+                             long long k_sr, long long k_sh, long long v_sb, long long v_sr,
+                             long long v_sh, long long valid_sb, long long do_sb, long long do_sr,
+                             long long do_sh, long long o_sb, long long o_sr, long long o_sh,
+                             float scale) {
   constexpr int kRows = 16 * NW, kThreads = 32 * NW, kLd = HD + 8, kUnits = HD / 8;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
@@ -376,8 +459,7 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
 
   // the Q and dO tiles (rows >= g zero) and key tile 0, which always runs
   const bf16* qb = q + b * q_sb + h * q_sh;
-  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
-  const long long do_sr = static_cast<long long>(nh) * HD;
+  const bf16* dob = dout + b * do_sb + h * do_sh;
   for (int u = tid; u < kRows * kUnits; u += kThreads) {
     const int r = u / kUnits, c = u % kUnits;
     const int row = row0 + r;
@@ -408,13 +490,17 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   const int wrow = warp * 16;     // this warp's first row in the tile
   const int r = lane >> 2;        // this lane's rows: wrow + r and wrow + r + 8
   const int kq = 2 * (lane & 3);  // this lane's first key column of a C fragment
+  // lse and D of this lane's rows; D summed from dO and O by the row's quad
+  const bf16* ob = out + b * o_sb + h * o_sh;
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wrow + r + 8 * i;
+    const bool ok = row < g;
     const size_t at = (static_cast<size_t>(b) * nh + h) * g + row;
-    lse_r[i] = row < g ? lse[at] : INFINITY;  // P = 0 on padding rows
-    delta_r[i] = row < g ? delta[at] : 0.0f;
+    lse_r[i] = ok ? lse[at] : INFINITY;  // P = 0 on padding rows
+    delta_r[i] = quad_row_delta(dob + (ok ? row : 0) * do_sr, ob + (ok ? row : 0) * o_sr, HD, ok, lane & 3);
+    if (ok && (lane & 3) == 0) delta[at] = delta_r[i];
   }
   uint32_t qf[HD / 16][4], df[HD / 16][4];
   float dq[HD / 8][4];
@@ -507,6 +593,430 @@ attention_bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict_
   }
 }
 
+// ------------------------------------------------ kernels C and D, Hopper
+
+// bf16, hd = 64, g > 16: wgmma on TMA-filled, 128-byte-swizzled tiles (the
+// header note). One warpgroup a block; its thread 0 issues the TMA loads.
+namespace hopper {
+
+using namespace wgmma_sm90;
+
+constexpr int kRows = 64;                    // rows of every tile: a C block's keys, a D block's queries
+constexpr int kTileBytes = kRows * 64 * 2;   // one 64 x 64 bf16 tile
+constexpr int kStages = 2;                   // depth of the ring
+constexpr int kThreads = 128;                // one warpgroup
+constexpr int kBlocksPerSm = 3;              // C at <= 168 registers, D likewise
+constexpr int kLdOut = 72;                   // epilogue rows, padded by 16 bytes
+
+struct Maps {  // q, k, v, dO and (kernel D) O as 64-row x 64-column TMA boxes
+  RowMap q, k, v, dout, out;
+};
+
+// kernel C's shared memory, from a 1024-byte boundary: K, V, the ring's Q
+// and dO tiles, its lse and D rows, the barriers
+constexpr int kDkvQ = 2 * kTileBytes;
+constexpr int kDkvDo = kDkvQ + kStages * kTileBytes;
+constexpr int kDkvStats = kDkvDo + kStages * kTileBytes;
+constexpr int kDkvBars = kDkvStats + 2 * kStages * kRows * 4;
+constexpr int kDkvSmem = kDkvBars + (kStages + 1) * 8 + 1024;  // + room to align
+
+// kernel D's: Q, dO, O, the ring's K and V tiles, the barriers, one mask
+// word per key tile, then the running tiles' indices
+constexpr int kDqK = 3 * kTileBytes;
+constexpr int kDqV = kDqK + kStages * kTileBytes;
+constexpr int kDqBars = kDqV + kStages * kTileBytes;
+constexpr int kDqBits = kDqBars + (kStages + 1) * 8;
+static_assert(2 * kRows * kLdOut * 2 <= 2 * kStages * kTileBytes, "C's epilogue fits in the ring");
+static_assert(kRows * kLdOut * 2 <= kStages * kTileBytes, "D's epilogue fits in the K ring");
+
+__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
+  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void load_tile(void* dst, const RowMap& m, uint64_t* bar, int h, int row, int b,
+                                          bool issue) {
+  int c[4];
+  tile_coords(m.order, h, row, b, c);
+  tma_load_4d(dst, &m.map, bar, c[0], c[1], c[2], c[3], issue);
+}
+
+// two tiles (one box each of two maps) at one row into dst0, dst1, their
+// bytes on bar; issued by the threads that pass `issue` (one a block)
+__device__ __forceinline__ void load_pair(void* dst0, const RowMap& m0, void* dst1, const RowMap& m1, uint64_t* bar,
+                                          int h, int row, int b, bool issue) {
+  mbar_arrive_expect_tx(bar, 2 * kTileBytes, issue);
+  load_tile(dst0, m0, bar, h, row, b, issue);
+  load_tile(dst1, m1, bar, h, row, b, issue);
+}
+
+// the bf16 A fragment of k-step kk from an accumulator (the layout note of
+// csrc/wgmma_sm90.cuh): columns 16kk..16kk+15 rounded to bf16 pairs
+__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16x2(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+}
+
+// this warp's 16 rows of a 64 x 64 accumulator (times mul) in bf16 into
+// padded shared rows, then 16-byte stores of rows < n_rows: row i of the
+// tile goes to dst + (row0 + i) * rs
+__device__ __forceinline__ void store_acc(bf16* stage, const float (&d)[32], float mul, bf16* dst, long long rs,
+                                          int row0, int n_rows, int warp, int lane) {
+  const int r = 16 * warp + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    *reinterpret_cast<uint32_t*>(stage + r * kLdOut + 8 * j + c) = pack_bf16x2(d[4 * j] * mul, d[4 * j + 1] * mul);
+    *reinterpret_cast<uint32_t*>(stage + (r + 8) * kLdOut + 8 * j + c) =
+        pack_bf16x2(d[4 * j + 2] * mul, d[4 * j + 3] * mul);
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * 8; u += 32) {
+    const int i = 16 * warp + u / 8, unit = u % 8;
+    if (row0 + i < n_rows)
+      *reinterpret_cast<uint4*>(dst + (row0 + i) * rs + 8 * unit) =
+          *reinterpret_cast<const uint4*>(stage + i * kLdOut + 8 * unit);
+  }
+}
+
+// Kernel C: one block per (pair, head, tile of 64 keys), the tile fastest.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+attention_bwd_dkv_wgmma_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               bf16* __restrict__ dk_out, bf16* __restrict__ dv_out, int g, int s, int nh,
+                               int n_kt, long long valid_sb, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* ks = smem;
+  unsigned char* vs = smem + kTileBytes;
+  unsigned char* qs = smem + kDkvQ;    // stage i at qs + i * kTileBytes
+  unsigned char* dos = smem + kDkvDo;  // likewise
+  float* lse_s = reinterpret_cast<float*>(smem + kDkvStats);  // [kStages][kRows]
+  float* delta_s = lse_s + kStages * kRows;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDkvBars);  // [kStages]
+  uint64_t* kv_full = full + kStages;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kt = blockIdx.x % n_kt;
+  const int bh = blockIdx.x / n_kt;
+  const int h = bh % nh, b = bh / nh;
+  const int key0 = kt * kRows;
+  const int n_qt = (g + kRows - 1) / kRows;
+  const int n_first = min(kStages, n_qt);  // query tiles loaded before the loop
+  const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
+  const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
+
+  // query tile t's lse and D into stage st by cp.async (threads 0-63 lse,
+  // 64-127 D), committed as one group; rows past g copy row g - 1, and the
+  // consumer takes lse = +inf there (P = 0). No branch: see load_pair.
+  auto load_stats = [&](int t, int st) {
+    const int r = tid & (kRows - 1), row = min(t * kRows + r, g - 1);
+    cp_async_4(smem_addr((tid < kRows ? lse_s : delta_s) + st * kRows + r), (tid < kRows ? lse_b : delta_b) + row);
+    cp_async_commit();
+  };
+
+  // the barriers, then K, V and the first query tiles in flight while the
+  // block reads the mask
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) mbar_init(full + i, 1);
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+    load_pair(ks, maps.k, vs, maps.v, kv_full, h, key0, b, true);
+    for (int t = 0; t < n_first; ++t)
+      load_pair(qs + t * kTileBytes, maps.q, dos + t * kTileBytes, maps.dout, full + t, h, t * kRows, b, true);
+  }
+#pragma unroll
+  for (int t = 0; t < kStages; ++t) load_stats(t, t);
+  // does the pair have a valid key, and this tile? (the first barrier also
+  // publishes the mbarriers' init)
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  int any = 0;
+  for (int j = tid; j < s; j += kThreads) any |= vrow[j];
+  const bool pair_any = __syncthreads_or(any);
+  const bool tile_any = __syncthreads_or(tid < kRows && key0 + tid < s && vrow[key0 + tid]);
+  if (pair_any && !tile_any) {
+    // every P of the tile is exp(-1e9 + ...) = 0 in f32: dK = dV = 0
+    // exactly; the loads in flight land before the block leaves
+    mbar_wait(kv_full, 0);
+    for (int t = 0; t < n_first; ++t) mbar_wait(full + t, 0);
+    cp_async_wait<0>();
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int u = tid; u < kRows * 8; u += kThreads) {
+      const int key = key0 + u / 8;
+      if (key < s) {
+        const size_t o = ((static_cast<size_t>(b) * s + key) * nh + h) * 64 + (u % 8) * 8;
+        *reinterpret_cast<uint4*>(dk_out + o) = zero;
+        *reinterpret_cast<uint4*>(dv_out + o) = zero;
+      }
+    }
+    return;
+  }
+  const float shift = pair_any ? 0.0f : kMaskBias;
+
+  // warp w's accumulator rows are keys 16w + r and 16w + r + 8
+  const int r = lane >> 2, cq = 2 * (lane & 3);
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 16 * warp + r + 8 * i;
+    bias[i] = key >= s ? -INFINITY : (vrow[key] ? 0.0f : kMaskBias);
+  }
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.0f;
+  const uint32_t k_addr = smem_u32(ks), v_addr = smem_u32(vs);
+  mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < n_qt; ++t) {
+    const int st = t % kStages;
+    const uint32_t q_addr = smem_u32(qs + st * kTileBytes), do_addr = smem_u32(dos + st * kTileBytes);
+    cp_async_wait<kStages - 1>();  // this thread's lse and D of tile t
+    __syncthreads();               // everyone's
+    mbar_wait(full + st, (t / kStages) & 1);
+    // S^T = K Q^T, then dP^T = V dO^T: keys x queries, hd reduced (K-major);
+    // P^T is formed while dP^T is on the tensor cores
+    float sT[32], dpT[32];  // the first k-step overwrites them
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ss(sT, desc_sw128(k_addr + 32 * kk), desc_sw128(q_addr + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ss(dpT, desc_sw128(v_addr + 32 * kk), desc_sw128(do_addr + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    keep(sT);
+    // P^T and dS^T in f32: columns are queries 8j + cq, 8j + cq + 1
+    const float* ls = lse_s + st * kRows;
+    const float* ds = delta_s + st * kRows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = t * kRows + 8 * j + cq;
+      const float2 lq = *reinterpret_cast<const float2*>(ls + 8 * j + cq);
+      const float l0 = row < g ? lq.x : INFINITY, l1 = row + 1 < g ? lq.y : INFINITY;  // P = 0 past g
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sT[4 * j + e] * scale + bias[e >> 1];
+        sT[4 * j + e] = exp2f((x - shift - ((e & 1) ? l1 : l0)) * kLog2e);
+      }
+    }
+    uint32_t pa[4][4], sa[4][4];
+    to_a(pa, sT);
+    wgmma_wait<0>();
+    keep(dpT);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dq = *reinterpret_cast<const float2*>(ds + 8 * j + cq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dpT[4 * j + e] = sT[4 * j + e] * (dpT[4 * j + e] - ((e & 1) ? dq.y : dq.x));
+    }
+    to_a(sa, dpT);
+    // dV += P^T dO and dK += dS^T Q: queries reduced, dO and Q MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs_mn(dv, pa[kk], desc_sw128(do_addr + 2048 * kk));
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs_mn(dk, sa[kk], desc_sw128(q_addr + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(dv);
+    keep(dk);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      keep(pa[kk]);
+      keep(sa[kk]);
+    }
+    __syncthreads();  // every warp is done with the stage: refill it kStages tiles on
+    load_pair(qs + st * kTileBytes, maps.q, dos + st * kTileBytes, maps.dout, full + st, h, (t + kStages) * kRows, b,
+              tid == 0 && t + kStages < n_qt);
+    load_stats(t + kStages, st);
+  }
+  cp_async_wait<0>();  // the copies past the last tile land before the block leaves
+
+  // dK * scale and dV in bf16 through the ring's tiles (every product has read them)
+  bf16* kst = reinterpret_cast<bf16*>(qs);
+  bf16* vst = kst + kRows * kLdOut;
+  const long long rs = static_cast<long long>(nh) * 64;
+  bf16* dk_b = dk_out + (static_cast<size_t>(b) * s * nh + h) * 64;
+  bf16* dv_b = dv_out + (static_cast<size_t>(b) * s * nh + h) * 64;
+  store_acc(kst, dk, scale, dk_b, rs, key0, s, warp, lane);
+  store_acc(vst, dv, 1.0f, dv_b, rs, key0, s, warp, lane);
+}
+
+// Kernel D: one block per (pair, head, tile of 64 query rows), the tile fastest.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+attention_bwd_dq_wgmma_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
+                              const float* __restrict__ lse, float* __restrict__ delta, bf16* __restrict__ dq_out,
+                              int g, int s, int nh, int n_qt, long long valid_sb, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  unsigned char* qs = smem;
+  unsigned char* dos = smem + kTileBytes;
+  unsigned char* os = smem + 2 * kTileBytes;
+  unsigned char* ks = smem + kDqK;  // stage i at ks + i * kTileBytes
+  unsigned char* vs = smem + kDqV;  // likewise
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kDqBars);  // [kStages]
+  uint64_t* q_full = full + kStages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt;
+  const int bh = blockIdx.x / n_qt;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows;
+  const int n_tiles = (s + kRows - 1) / kRows;
+  uint64_t* tile_bits = reinterpret_cast<uint64_t*>(smem + kDqBits);
+  int* run = reinterpret_cast<int*>(tile_bits + n_tiles);  // the running tiles, in order
+
+  // the barriers, then Q, dO, O and the first kStages key tiles in flight
+  // while the block reads the mask (the key tiles on the guess that none
+  // is skipped)
+  const int n_guess = min(kStages, n_tiles);
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) mbar_init(full + i, 1);
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(q_full, 3 * kTileBytes, true);
+    load_tile(qs, maps.q, q_full, h, row0, b, true);
+    load_tile(dos, maps.dout, q_full, h, row0, b, true);
+    load_tile(os, maps.out, q_full, h, row0, b, true);
+    for (int i = 0; i < n_guess; ++i)
+      load_pair(ks + i * kTileBytes, maps.k, vs + i * kTileBytes, maps.v, full + i, h, i * kRows, b, true);
+  }
+
+  // warp w's accumulator rows are queries row0 + 16w + r and + 8
+  const int r = lane >> 2, cq = 2 * (lane & 3);
+  float lse_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + r + 8 * i;
+    lse_r[i] = row < g ? lse[(static_cast<size_t>(b) * nh + h) * g + row] : INFINITY;  // P = 0 on padding rows
+  }
+
+  // one word of valid-key bits per key tile (the barrier also publishes the
+  // mbarriers' init)
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  bool any_local = false;
+  for (int t = warp; t < n_tiles; t += kThreads / 32) {
+    const int j0 = t * kRows + lane, j1 = j0 + 32;
+    const uint32_t lo = __ballot_sync(0xffffffffu, j0 < s && vrow[j0]);
+    const uint32_t hi = __ballot_sync(0xffffffffu, j1 < s && vrow[j1]);
+    if (lane == 0) tile_bits[t] = (static_cast<uint64_t>(hi) << 32) | lo;
+    any_local |= (lo | hi) != 0;
+  }
+  const bool any_valid = __syncthreads_or(any_local);
+  // the key tiles that run: a tile without a valid key adds exactly 0 when
+  // the pair has one; a pair with none attends every key
+  int n_run = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (any_valid && tile_bits[t] == 0) continue;
+    if (tid == 0) run[n_run] = t;
+    ++n_run;
+  }
+  __syncthreads();  // publishes run
+  bool guessed = true;
+  for (int i = 0; i < n_guess; ++i) guessed &= i < n_run && run[i] == i;
+  int lap = 0;  // rounds each stage's barrier ran ahead of the ring
+  if (!guessed) {
+    // a skipped tile among the first: let the guessed loads land, then
+    // load the running tiles in their place
+    for (int i = 0; i < n_guess; ++i) mbar_wait(full + i, 0);
+    __syncthreads();  // every thread has seen those phases complete
+    if (tid == 0)
+      for (int i = 0; i < min(kStages, n_run); ++i)
+        load_pair(ks + i * kTileBytes, maps.k, vs + i * kTileBytes, maps.v, full + i, h, run[i] * kRows, b, true);
+    lap = 1;
+  }
+  const float shift = any_valid ? 0.0f : kMaskBias;
+  float dq[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq[i] = 0.0f;
+  const uint32_t q_addr = smem_u32(qs), do_addr = smem_u32(dos);
+  mbar_wait(q_full, 0);
+  // D of this thread's rows from the dO and O tiles (TMA zero-filled past
+  // g), summed as quad_row_delta sums it: lane part p takes the 16-byte
+  // units p and p + 4 of the row (unit u of tile row i sits at u ^ (i % 8))
+  float delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = 16 * warp + r + 8 * i;
+    float acc = 0.0f;
+#pragma unroll
+    for (int uu = 0; uu < 2; ++uu) {
+      const int off = row * 128 + (((lane & 3) + 4 * uu) ^ (row & 7)) * 16;
+      const uint4 x = *reinterpret_cast<const uint4*>(dos + off);
+      const uint4 y = *reinterpret_cast<const uint4*>(os + off);
+      const __nv_bfloat162* xs = reinterpret_cast<const __nv_bfloat162*>(&x);
+      const __nv_bfloat162* ys = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 xf = __bfloat1622float2(xs[e]), yf = __bfloat1622float2(ys[e]);
+        acc = fmaf(xf.x, yf.x, acc);
+        acc = fmaf(xf.y, yf.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+    delta_r[i] = acc;
+    if (row0 + row < g && (lane & 3) == 0) delta[(static_cast<size_t>(b) * nh + h) * g + row0 + row] = acc;
+  }
+
+  for (int i = 0; i < n_run; ++i) {
+    const int t = run[i], st = i % kStages;
+    const uint32_t k_addr = smem_u32(ks + st * kTileBytes), v_addr = smem_u32(vs + st * kTileBytes);
+    mbar_wait(full + st, (i / kStages + lap) & 1);
+    // S = Q K^T, then dP = dO V^T: queries x keys, hd reduced (K-major); P
+    // is formed while dP is on the tensor cores
+    float sc[32], dp[32];  // the first k-step overwrites them
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ss(sc, desc_sw128(q_addr + 32 * kk), desc_sw128(k_addr + 32 * kk), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ss(dp, desc_sw128(do_addr + 32 * kk), desc_sw128(v_addr + 32 * kk), kk);
+    wgmma_commit();
+    wgmma_wait<1>();
+    keep(sc);
+    // P, then dS = P * (dP - D) in f32; keys past s get bias -inf, so P = 0
+    const uint64_t bits = tile_bits[t];
+    const int n_keys = s - t * kRows;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + cq + (e & 1);
+        const float bias = col >= n_keys ? -INFINITY : (((bits >> col) & 1) ? 0.0f : kMaskBias);
+        const float x = sc[4 * j + e] * scale + bias;
+        sc[4 * j + e] = exp2f((x - shift - lse_r[e >> 1]) * kLog2e);
+      }
+    }
+    wgmma_wait<0>();
+    keep(dp);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) dp[e] = sc[e] * (dp[e] - delta_r[(e >> 1) & 1]);
+    uint32_t sa[4][4];
+    to_a(sa, dp);
+    // dQ += dS K: keys reduced, K MN-major
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs_mn(dq, sa[kk], desc_sw128(k_addr + 2048 * kk));
+    wgmma_commit();
+    wgmma_wait<0>();
+    keep(dq);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) keep(sa[kk]);
+    __syncthreads();  // every warp is done with the stage: refill it kStages running tiles on
+    const bool refill = i + kStages < n_run;
+    load_pair(ks + st * kTileBytes, maps.k, vs + st * kTileBytes, maps.v, full + st, h,
+              run[refill ? i + kStages : i] * kRows, b, tid == 0 && refill);
+  }
+
+  // dQ * scale in bf16 through the K ring (every product has read it)
+  bf16* dq_b = dq_out + (static_cast<size_t>(b) * g * nh + h) * 64;
+  store_acc(reinterpret_cast<bf16*>(ks), dq, scale, dq_b, static_cast<long long>(nh) * 64, row0, g, warp, lane);
+}
+
+}  // namespace hopper
+
 // ----------------------------------------------------------------- f32
 
 template <int HD>
@@ -519,7 +1029,8 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restric
                              long long q_sb, long long q_sr, long long q_sh,
                              long long k_sb, long long k_sr, long long k_sh,
                              long long v_sb, long long v_sr, long long v_sh,
-                             long long valid_sb, float scale) {
+                             long long valid_sb, long long do_sb, long long do_sr,
+                             long long do_sh, float scale) {
   using S = Split<HD>;
   constexpr int kKeys = kF32Threads / S::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -566,14 +1077,14 @@ attention_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restric
   for (int d = 0; d < S::kDims; ++d) dk[d] = dv[d] = 0.0f;
 
   const float* qb = q + b * q_sb + h * q_sh;
-  const float* dob = dout + (static_cast<size_t>(b) * g * nh + h) * HD;
+  const float* dob = dout + b * do_sb + h * do_sh;
   const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
   const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
   for (int i0 = 0; i0 < g; i0 += kTile) {
     const int n = min(kTile, g - i0);
     __syncthreads();  // the previous tile is consumed
     stage_rows<HD>(qs, qb, q_sr, i0, n);
-    stage_rows<HD>(dos, dob, static_cast<long long>(nh) * HD, i0, n);
+    stage_rows<HD>(dos, dob, do_sr, i0, n);
     for (int i = threadIdx.x; i < n; i += kF32Threads) {
       lse_s[i] = lse_b[i0 + i];
       delta_s[i] = delta_b[i0 + i];
@@ -627,12 +1138,13 @@ template <int HD>
 __global__ void __launch_bounds__(kF32Threads)
 attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                            const float* __restrict__ dout, const float* __restrict__ lse,
-                            const float* __restrict__ delta, float* __restrict__ dq_out, int g,
-                            int s, int nh, long long q_sb, long long q_sr, long long q_sh,
-                            long long k_sb, long long k_sr, long long k_sh,
-                            long long v_sb, long long v_sr, long long v_sh,
-                            long long valid_sb, float scale) {
+                            const float* __restrict__ dout, const float* __restrict__ out,
+                            const float* __restrict__ lse, float* __restrict__ delta,
+                            float* __restrict__ dq_out, int g, int s, int nh, long long q_sb,
+                            long long q_sr, long long q_sh, long long k_sb, long long k_sr,
+                            long long k_sh, long long v_sb, long long v_sr, long long v_sh,
+                            long long valid_sb, long long do_sb, long long do_sr, long long do_sh,
+                            long long o_sb, long long o_sr, long long o_sh, float scale) {
   using S = Split<HD>;
   constexpr int kRows = kF32Threads / S::kLanes;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -652,17 +1164,24 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
 
   float qr[S::kDims], dor[S::kDims], dq[S::kDims];
   const float* qp = q + b * q_sb + row_c * q_sr + h * q_sh;
-  const size_t io_row = ((static_cast<size_t>(b) * g + row_c) * nh + h) * HD;
+  const float* dop = dout + b * do_sb + row_c * do_sr + h * do_sh;
+  const float* op = out + b * o_sb + row_c * o_sr + h * o_sh;
+  float odot = 0.0f;  // this lane's part of D = rowsum(dO * O)
 #pragma unroll
   for (int t = 0; t < S::kUnits; ++t) {
     load_unit(qp + S::offset(part, t), qr + t * S::kUnit);
-    load_unit(dout + io_row + S::offset(part, t), dor + t * S::kUnit);
+    load_unit(dop + S::offset(part, t), dor + t * S::kUnit);
+    float ov[S::kUnit];
+    load_unit(op + S::offset(part, t), ov);
+#pragma unroll
+    for (int e = 0; e < S::kUnit; ++e) odot = fmaf(dor[t * S::kUnit + e], ov[e], odot);
   }
 #pragma unroll
   for (int d = 0; d < S::kDims; ++d) dq[d] = 0.0f;
   const size_t stat = (static_cast<size_t>(b) * nh + h) * g + row_c;
   const float lse_i = lse[stat];
-  const float delta_i = delta[stat];
+  const float delta_i = S::reduce(odot);
+  if (in_range && part == 0) delta[stat] = delta_i;
 
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
@@ -704,6 +1223,7 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
   }
 
   if (!in_range) return;
+  const size_t io_row = ((static_cast<size_t>(b) * g + row_c) * nh + h) * HD;
 #pragma unroll
   for (int t = 0; t < S::kUnits; ++t) {
     float o[S::kUnit];
@@ -735,7 +1255,8 @@ attention_bwd_dkv_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __res
                                    bf16* __restrict__ dv_out, int g, int s, int nh, int hd, int n_kt,
                                    int n_sl, long long q_sb, long long q_sr, long long q_sh,
                                    long long k_sb, long long k_sr, long long k_sh, long long v_sb,
-                                   long long v_sr, long long v_sh, long long valid_sb, float scale) {
+                                   long long v_sr, long long v_sh, long long valid_sb, long long do_sb,
+                                   long long do_sr, long long do_sh, float scale) {
   using namespace attn_wide;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* kc = reinterpret_cast<bf16*>(smem);  // 64-column chunks of the block's K and V,
@@ -756,8 +1277,8 @@ attention_bwd_dkv_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __res
   const bf16* qb = q + b * q_sb + h * q_sh;
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
-  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
-  const long long do_sr = static_cast<long long>(nh) * hd;
+  const bf16* dob = dout + b * do_sb + h * do_sh;
+  const long long out_rs = static_cast<long long>(nh) * hd;  // dK and dV rows
   const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
   const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
   const uint8_t* vrow = key_valid + b * valid_sb;
@@ -826,8 +1347,8 @@ attention_bwd_dkv_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __res
   __syncthreads();  // kc and vc are free for the epilogue
   bf16* dk_b = dk_out + (static_cast<size_t>(b) * s * nh + h) * hd;
   bf16* dv_b = dv_out + (static_cast<size_t>(b) * s * nh + h) * hd;
-  store_rows_bf16<kSliceB>(kc + wrow * kLdB, kLdB, dk, scale, scale, dk_b, do_sr, key0 + wrow, s, col0, hd, lane);
-  store_rows_bf16<kSliceB>(vc + wrow * kLdB, kLdB, dv, 1.0f, 1.0f, dv_b, do_sr, key0 + wrow, s, col0, hd, lane);
+  store_rows_bf16<kSliceB>(kc + wrow * kLdB, kLdB, dk, scale, scale, dk_b, out_rs, key0 + wrow, s, col0, hd, lane);
+  store_rows_bf16<kSliceB>(vc + wrow * kLdB, kLdB, dv, 1.0f, 1.0f, dv_b, out_rs, key0 + wrow, s, col0, hd, lane);
 }
 
 // Kernel D wide: one block per (pair, head, slice, tile of 64 query rows),
@@ -837,12 +1358,14 @@ attention_bwd_dkv_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __res
 __global__ void __launch_bounds__(attn_wide::kThreads)
 attention_bwd_dq_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                                  const bf16* __restrict__ dout, const float* __restrict__ lse,
-                                  const float* __restrict__ delta, bf16* __restrict__ dq_out, int g,
-                                  int s, int nh, int hd, int n_qt, int n_sl, long long q_sb,
-                                  long long q_sr, long long q_sh, long long k_sb, long long k_sr,
-                                  long long k_sh, long long v_sb, long long v_sr, long long v_sh,
-                                  long long valid_sb, float scale) {
+                                  const bf16* __restrict__ dout, const bf16* __restrict__ out,
+                                  const float* __restrict__ lse, float* __restrict__ delta,
+                                  bf16* __restrict__ dq_out, int g, int s, int nh, int hd, int n_qt,
+                                  int n_sl, long long q_sb, long long q_sr, long long q_sh,
+                                  long long k_sb, long long k_sr, long long k_sh, long long v_sb,
+                                  long long v_sr, long long v_sh, long long valid_sb, long long do_sb,
+                                  long long do_sr, long long do_sh, long long o_sb, long long o_sr,
+                                  long long o_sh, float scale) {
   using namespace attn_wide;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qc = reinterpret_cast<bf16*>(smem);  // 64-column chunks of the row tile's Q and dO,
@@ -860,19 +1383,23 @@ attention_bwd_dq_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __rest
   const bf16* qb = q + b * q_sb + h * q_sh;
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
-  const bf16* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
-  const long long do_sr = static_cast<long long>(nh) * hd;
+  const bf16* dob = dout + b * do_sb + h * do_sh;
+  const bf16* ob = out + b * o_sb + h * o_sh;
   const uint8_t* vrow = key_valid + b * valid_sb;
   const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;
 
+  // lse and D of this lane's rows: every slice sums D over whole rows of dO
+  // and O, slice 0 writes it
   const int wrow = warp * 16, r = lane >> 2, kq = 2 * (lane & 3);
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + wrow + r + 8 * i;
+    const bool ok = row < g;
     const size_t at = (static_cast<size_t>(b) * nh + h) * g + row;
-    lse_r[i] = row < g ? lse[at] : INFINITY;  // P = 0 on padding rows
-    delta_r[i] = row < g ? delta[at] : 0.0f;
+    lse_r[i] = ok ? lse[at] : INFINITY;  // P = 0 on padding rows
+    delta_r[i] = quad_row_delta(dob + (ok ? row : 0) * do_sr, ob + (ok ? row : 0) * o_sr, hd, ok, lane & 3);
+    if (sl == 0 && ok && (lane & 3) == 0) delta[at] = delta_r[i];
   }
   float dq[kSliceB / 8][4];
 #pragma unroll
@@ -917,7 +1444,7 @@ attention_bwd_dq_bf16_wide_kernel(const bf16* __restrict__ q, const bf16* __rest
 
   __syncthreads();  // qc is free for the epilogue
   store_rows_bf16<kSliceB>(qc + wrow * kLdB, kLdB, dq, scale, scale, dq_out + (static_cast<size_t>(b) * g * nh + h) * hd,
-                           do_sr, row0 + wrow, g, col0, hd, lane);
+                           static_cast<long long>(nh) * hd, row0 + wrow, g, col0, hd, lane);
 }
 
 // f32 wide kernel C: one block per (pair, head, 64-column slice, tile of 64
@@ -931,7 +1458,8 @@ attention_bwd_dkv_f32_wide_kernel(const float* __restrict__ q, const float* __re
                                   float* __restrict__ dv_out, int g, int s, int nh, int hd, int n_kt,
                                   int n_sl, long long q_sb, long long q_sr, long long q_sh,
                                   long long k_sb, long long k_sr, long long k_sh, long long v_sb,
-                                  long long v_sr, long long v_sh, long long valid_sb, float scale) {
+                                  long long v_sr, long long v_sh, long long valid_sb, long long do_sb,
+                                  long long do_sr, long long do_sh, float scale) {
   using namespace attn_wide;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // chunks, then the slice's columns, of Q and dO
@@ -950,8 +1478,7 @@ attention_bwd_dkv_f32_wide_kernel(const float* __restrict__ q, const float* __re
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-  const float* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
-  const long long do_sr = static_cast<long long>(nh) * hd;
+  const float* dob = dout + b * do_sb + h * do_sh;
   const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
   const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
   const uint8_t* vrow = key_valid + b * valid_sb;
@@ -1023,12 +1550,14 @@ attention_bwd_dkv_f32_wide_kernel(const float* __restrict__ q, const float* __re
 __global__ void __launch_bounds__(attn_wide::kThreads)
 attention_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                  const float* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                                 const float* __restrict__ dout, const float* __restrict__ lse,
-                                 const float* __restrict__ delta, float* __restrict__ dq_out, int g,
-                                 int s, int nh, int hd, int n_qt, int n_sl, long long q_sb,
-                                 long long q_sr, long long q_sh, long long k_sb, long long k_sr,
-                                 long long k_sh, long long v_sb, long long v_sr, long long v_sh,
-                                 long long valid_sb, float scale) {
+                                 const float* __restrict__ dout, const float* __restrict__ out,
+                                 const float* __restrict__ lse, float* __restrict__ delta,
+                                 float* __restrict__ dq_out, int g, int s, int nh, int hd, int n_qt,
+                                 int n_sl, long long q_sb, long long q_sr, long long q_sh,
+                                 long long k_sb, long long k_sr, long long k_sh, long long v_sb,
+                                 long long v_sr, long long v_sh, long long valid_sb, long long do_sb,
+                                 long long do_sr, long long do_sh, long long o_sb, long long o_sr,
+                                 long long o_sh, float scale) {
   using namespace attn_wide;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);  // chunks of Q and dO
@@ -1046,17 +1575,30 @@ attention_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __res
   const float* qb = q + b * q_sb + h * q_sh;
   const float* kb = k + b * k_sb + h * k_sh;
   const float* vb = v + b * v_sb + h * v_sh;
-  const float* dob = dout + (static_cast<size_t>(b) * g * nh + h) * hd;
-  const long long do_sr = static_cast<long long>(nh) * hd;
+  const float* dob = dout + b * do_sb + h * do_sh;
+  const float* ob = out + b * o_sb + h * o_sh;
   const uint8_t* vrow = key_valid + b * valid_sb;
   const float shift = pair_has_valid_key(vrow, s) ? 0.0f : kMaskBias;
+  // lse and D of this thread's rows: the 16 lanes of a row sum D over the
+  // whole of dO * O (every slice), slice 0 writes it
   float lse_r[8], delta_r[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = row0 + 8 * ty + i;
+    const bool ok = row < g;
     const size_t at = (static_cast<size_t>(b) * nh + h) * g + row;
-    lse_r[i] = row < g ? lse[at] : INFINITY;  // P = 0 on padding rows
-    delta_r[i] = row < g ? delta[at] : 0.0f;
+    lse_r[i] = ok ? lse[at] : INFINITY;  // P = 0 on padding rows
+    float acc = 0.0f;
+    for (int c = 4 * tx; ok && c < hd; c += 64) {
+      const float4 x = *reinterpret_cast<const float4*>(dob + row * do_sr + c);
+      const float4 y = *reinterpret_cast<const float4*>(ob + row * o_sr + c);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+      acc = fmaf(x.z, y.z, acc);
+      acc = fmaf(x.w, y.w, acc);
+    }
+    delta_r[i] = row_sum16(acc);
+    if (sl == 0 && ok && tx == 0) delta[at] = delta_r[i];
   }
 
   float dq[8][4];
@@ -1109,10 +1651,13 @@ attention_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __res
 // ---------------------------------------------------------------- launches
 
 struct Args {
-  const void *q, *k, *v, *key_valid, *dout, *lse, *delta;
+  const void *q, *k, *v, *key_valid, *dout, *out, *lse;
+  void* delta;        // written by kernel D, read by kernel C
   void *out0, *out1;  // dK, dV (kernel C) or dQ (kernel D)
   int b, g, s, nh;
-  long long st[10];  // q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb
+  // q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb,
+  // do_sb, do_sr, do_sh, o_sb, o_sr, o_sh
+  long long st[16];
   float scale;
   cudaStream_t stream;
 };
@@ -1120,6 +1665,53 @@ struct Args {
 template <typename Kern>
 cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
+// the Hopper bodies' tensor maps of q, k, v, dO and, for kernel D, O
+cudaError_t make_maps(hopper::Maps* m, const Args& a) {
+  using wgmma_sm90::make_row_map;
+  const long long* st = a.st;
+  cudaError_t err = make_row_map(&m->q, a.q, a.b, a.g, a.nh, st[0], st[1], st[2]);
+  if (err == cudaSuccess) err = make_row_map(&m->k, a.k, a.b, a.s, a.nh, st[3], st[4], st[5]);
+  if (err == cudaSuccess) err = make_row_map(&m->v, a.v, a.b, a.s, a.nh, st[6], st[7], st[8]);
+  if (err == cudaSuccess) err = make_row_map(&m->dout, a.dout, a.b, a.g, a.nh, st[10], st[11], st[12]);
+  if (err == cudaSuccess && a.out != nullptr) err = make_row_map(&m->out, a.out, a.b, a.g, a.nh, st[13], st[14], st[15]);
+  return err;
+}
+
+cudaError_t launch_dkv_hopper(const Args& a) {
+  hopper::Maps maps;
+  cudaError_t err = make_maps(&maps, a);
+  if (err != cudaSuccess) return err;
+  auto kern = hopper::attention_bwd_dkv_wgmma_kernel;
+  err = set_smem(kern, hopper::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (a.s + hopper::kRows - 1) / hopper::kRows;
+  const long long blocks = static_cast<long long>(a.b) * a.nh * n_kt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), hopper::kThreads, hopper::kDkvSmem, a.stream>>>(
+      maps, static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.g, a.s, a.nh,
+      n_kt, a.st[9], a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dq_hopper(const Args& a) {
+  hopper::Maps maps;
+  cudaError_t err = make_maps(&maps, a);
+  if (err != cudaSuccess) return err;
+  auto kern = hopper::attention_bwd_dq_wgmma_kernel;
+  const int n_tiles = (a.s + hopper::kRows - 1) / hopper::kRows;
+  const size_t smem = hopper::kDqBits + static_cast<size_t>(n_tiles) * (sizeof(uint64_t) + sizeof(int)) + 1024;
+  err = set_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  const int n_qt = (a.g + hopper::kRows - 1) / hopper::kRows;
+  const long long blocks = static_cast<long long>(a.b) * a.nh * n_qt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), hopper::kThreads, smem, a.stream>>>(
+      maps, static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
+      static_cast<bf16*>(a.out0), a.g, a.s, a.nh, n_qt, a.st[9], a.scale);
+  return cudaGetLastError();
 }
 
 template <int HD, int QT>
@@ -1137,7 +1729,7 @@ cudaError_t launch_dkv_bf16(const Args& a) {
       static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<bf16*>(a.out0), static_cast<bf16*>(a.out1), a.g, a.s, a.nh, n_kt,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], a.scale);
   return cudaGetLastError();
 }
 
@@ -1154,9 +1746,10 @@ cudaError_t launch_dq_bf16(const Args& a) {
   kern<<<static_cast<unsigned>(blocks), NW * 32, smem, a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
       static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const bf16*>(a.out), static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
       static_cast<bf16*>(a.out0), a.g, a.s, a.nh, n_qt,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+      st[13], st[14], st[15], a.scale);
   return cudaGetLastError();
 }
 
@@ -1174,7 +1767,7 @@ cudaError_t launch_dkv_f32(const Args& a) {
       static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
       static_cast<float*>(a.out0), static_cast<float*>(a.out1), a.g, a.s, a.nh,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], a.scale);
   return cudaGetLastError();
 }
 
@@ -1190,17 +1783,30 @@ cudaError_t launch_dq_f32(const Args& a) {
   kern<<<grid, kF32Threads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
       static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<const float*>(a.out), static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
       static_cast<float*>(a.out0), a.g, a.s, a.nh,
-      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+      st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+      st[13], st[14], st[15], a.scale);
   return cudaGetLastError();
 }
 
-// bf16 tiles of 16 query rows (one warp in D) when g <= 16: the CLS-only
-// final layer, so no warp computes only padding
+// whether every axis a Hopper body maps with TMA (q, k, v, dO; O in D)
+// has a positive stride (a broadcast view, stride 0, takes the mma.sync
+// body)
+bool tma_strides(const Args& a, bool dkv) {
+  const int mapped[] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11, 12, 13, 14, 15};
+  for (int i : mapped)
+    if (a.st[i] <= 0 && (i < 13 || !dkv)) return false;
+  return true;
+}
+
+// bf16: the Hopper bodies at hd = 64 for g > 16; tiles of 16 query rows
+// (one warp in D) when g <= 16: the CLS-only final layer, so no warp
+// computes only padding
 template <int HD, bool kDkv>
 cudaError_t launch(int is_bf16, const Args& a) {
   if (!is_bf16) return kDkv ? launch_dkv_f32<HD>(a) : launch_dq_f32<HD>(a);
+  if (HD == 64 && a.g > 16 && tma_strides(a, kDkv)) return kDkv ? launch_dkv_hopper(a) : launch_dq_hopper(a);
   if (kDkv) return a.g <= 16 ? launch_dkv_bf16<HD, 16>(a) : launch_dkv_bf16<HD, 64>(a);
   return a.g <= 16 ? launch_dq_bf16<HD, 1>(a) : launch_dq_bf16<HD, 4>(a);
 }
@@ -1230,17 +1836,18 @@ cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
         static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0),
         static_cast<bf16*>(a.out1), a.g, a.s, a.nh, hd, n_tiles, n_sl,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], a.scale);
   } else if (is_bf16) {
     auto kern = attention_bwd_dq_bf16_wide_kernel;
     cudaError_t err = set_smem(kern, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k), static_cast<const bf16*>(a.v),
-        static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<bf16*>(a.out0),
+        static_cast<const uint8_t*>(a.key_valid), static_cast<const bf16*>(a.dout), static_cast<const bf16*>(a.out),
+        static_cast<const float*>(a.lse), static_cast<float*>(a.delta), static_cast<bf16*>(a.out0),
         a.g, a.s, a.nh, hd, n_tiles, n_sl,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+        st[13], st[14], st[15], a.scale);
   } else if (kDkv) {
     auto kern = attention_bwd_dkv_f32_wide_kernel;
     cudaError_t err = set_smem(kern, smem);
@@ -1250,7 +1857,7 @@ cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
         static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
         static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
         static_cast<float*>(a.out1), a.g, a.s, a.nh, hd, n_tiles, n_sl,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12], a.scale);
   } else {
     auto kern = attention_bwd_dq_f32_wide_kernel;
     cudaError_t err = set_smem(kern, smem);
@@ -1258,24 +1865,18 @@ cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
     kern<<<grid, kThreads, smem, a.stream>>>(
         static_cast<const float*>(a.q), static_cast<const float*>(a.k), static_cast<const float*>(a.v),
         static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.dout),
-        static_cast<const float*>(a.lse), static_cast<const float*>(a.delta), static_cast<float*>(a.out0),
-        a.g, a.s, a.nh, hd, n_tiles, n_sl,
-        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], a.scale);
+        static_cast<const float*>(a.out), static_cast<const float*>(a.lse), static_cast<float*>(a.delta),
+        static_cast<float*>(a.out0), a.g, a.s, a.nh, hd, n_tiles, n_sl,
+        st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], st[9], st[10], st[11], st[12],
+        st[13], st[14], st[15], a.scale);
   }
   return cudaGetLastError();
 }
 
 template <bool kDkv>
-int run(const void* q, const void* k, const void* v, const void* key_valid, const void* dout,
-        const void* lse, const void* delta, void* out0, void* out1, int is_bf16, int b, int g,
-        int s, int nh, int hd, long long q_sb, long long q_sr, long long q_sh, long long k_sb,
-        long long k_sr, long long k_sh, long long v_sb, long long v_sr, long long v_sh,
-        long long valid_sb, float scale, int device, void* stream) {
+int run(const Args& a, int is_bf16, int hd, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const Args a{q, k, v, key_valid, dout, lse, delta, out0, out1, b, g, s, nh,
-               {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb},
-               scale, static_cast<cudaStream_t>(stream)};
   switch (hd) {
 #define ATTN_CASE(H) \
     case H: return launch<H, kDkv>(is_bf16, a);
@@ -1289,31 +1890,41 @@ int run(const void* q, const void* k, const void* v, const void* key_valid, cons
 
 }  // namespace
 
-// Kernel C: dK and dV, each (b, s, nh, hd) contiguous in q's dtype. Strides
-// (in elements) as attention_fwd's. Returns cudaGetLastError() after the launch.
-extern "C" int attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                 const void* key_valid, const void* dout, const void* lse,
-                                 const void* delta, void* dk, void* dv, int is_bf16, int b,
-                                 int g, int s, int nh, int hd, long long q_sb, long long q_sr,
-                                 long long q_sh, long long k_sb, long long k_sr, long long k_sh,
-                                 long long v_sb, long long v_sr, long long v_sh,
-                                 long long valid_sb, float scale, int device, void* stream) {
-  return run<true>(q, k, v, key_valid, dout, lse, delta, dk, dv, is_bf16, b, g, s, nh, hd, q_sb,
-                   q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb, scale, device,
-                   stream);
+// Both entries take, after their pointers: is_bf16, b, g, s, nh, hd, then
+// 16 strides in elements (q, k, v: batch, row, head; key_valid's batch;
+// dO's and O's batch, row, head), the softmax scale, the device and the
+// stream. Each returns cudaGetLastError() after its launch.
+
+// Kernel D: dQ, (b, g, nh, hd) contiguous in q's dtype, and delta = rowsum(dO
+// * O), (b, nh, g) f32, for kernel C. Launch it first.
+extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v, const void* key_valid,
+                                const void* dout, const void* out, const void* lse, void* delta, void* dq,
+                                int is_bf16, int b, int g, int s, int nh, int hd, long long q_sb,
+                                long long q_sr, long long q_sh, long long k_sb, long long k_sr, long long k_sh,
+                                long long v_sb, long long v_sr, long long v_sh, long long valid_sb,
+                                long long do_sb, long long do_sr, long long do_sh, long long o_sb,
+                                long long o_sr, long long o_sh, float scale, int device, void* stream) {
+  const Args a{q, k, v, key_valid, dout, out, lse, delta, dq, nullptr, b, g, s, nh,
+               {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb, do_sb, do_sr, do_sh, o_sb, o_sr,
+                o_sh},
+               scale, static_cast<cudaStream_t>(stream)};
+  return run<false>(a, is_bf16, hd, device);
 }
 
-// Kernel D: dQ, (b, g, nh, hd) contiguous in q's dtype.
-extern "C" int attention_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* key_valid, const void* dout, const void* lse,
-                                const void* delta, void* dq, int is_bf16, int b, int g, int s,
-                                int nh, int hd, long long q_sb, long long q_sr, long long q_sh,
-                                long long k_sb, long long k_sr, long long k_sh, long long v_sb,
-                                long long v_sr, long long v_sh, long long valid_sb, float scale,
-                                int device, void* stream) {
-  return run<false>(q, k, v, key_valid, dout, lse, delta, dq, nullptr, is_bf16, b, g, s, nh, hd,
-                    q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb, scale, device,
-                    stream);
+// Kernel C: dK and dV, each (b, s, nh, hd) contiguous in q's dtype, from
+// kernel D's delta (O's strides are not read).
+extern "C" int attention_bwd_dkv(const void* q, const void* k, const void* v, const void* key_valid,
+                                 const void* dout, const void* lse, const void* delta, void* dk, void* dv,
+                                 int is_bf16, int b, int g, int s, int nh, int hd, long long q_sb,
+                                 long long q_sr, long long q_sh, long long k_sb, long long k_sr, long long k_sh,
+                                 long long v_sb, long long v_sr, long long v_sh, long long valid_sb,
+                                 long long do_sb, long long do_sr, long long do_sh, long long o_sb,
+                                 long long o_sr, long long o_sh, float scale, int device, void* stream) {
+  const Args a{q, k, v, key_valid, dout, nullptr, lse, const_cast<void*>(delta), dk, dv, b, g, s, nh,
+               {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb, do_sb, do_sr, do_sh, o_sb, o_sr,
+                o_sh},
+               scale, static_cast<cudaStream_t>(stream)};
+  return run<true>(a, is_bf16, hd, device);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -11,9 +11,9 @@ bool; the result is ``(b, g, nh, hd)`` in q's dtype.
 
 On CUDA tensors, a call that needs a gradient goes through
 :class:`AttentionFunction`: kernel A also writes the row log-sum-exp, and
-the backward launches kernels C (dK, dV) and D (dQ). A call without one
-launches kernel A alone. CPU tensors take the plain versions, and autograd
-differentiates :func:`attention_plain`.
+the backward launches kernel D (dQ, and D = rowsum(dO * O)), then kernel C
+(dK, dV). A call without one launches kernel A alone. CPU tensors take the
+plain versions, and autograd differentiates :func:`attention_plain`.
 
 The kernels take every head dim that is a multiple of 16: up to 256
 through bodies templated on it, above 256 through a wide route with the
@@ -46,6 +46,12 @@ def attention_plain(q, k, v, key_valid):
     bias = torch.where(key_valid, 0.0, -1e9).to(torch.float32)
     probs = torch.softmax(scores + bias[:, None, None, :], dim=-1)
     return torch.einsum("bnqk,bknd->bqnd", probs, v.float()).to(q.dtype)
+
+
+def attention_delta_plain(dout, out):
+    """``D = rowsum(dO * O)``, (b, nh, g) f32: JAX's ``di``
+    (``flash_attention.py:273``), the plain version of what kernel D writes."""
+    return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def attention_bwd_plain(q, k, v, key_valid, dout):
@@ -84,12 +90,14 @@ def _pad_head_dim(q, k, v):
 
 
 class AttentionFunction(torch.autograd.Function):
-    """Kernel A forward with the row log-sum-exp saved; kernels C and D
-    backward. ``D = rowsum(dO * O)`` is a plain reduction beforehand, as
-    JAX computes it outside Pallas (``flash_attention.py:273-275``). A
-    head dim that is not a multiple of 16 runs zero-padded (the padded
-    output and dO columns are zero, so D is unchanged); the outputs and
-    gradients are sliced back."""
+    """Kernel A forward with the row log-sum-exp saved; kernels D then C
+    backward, two launches: D also writes ``D = rowsum(dO * O)`` (JAX
+    computes it outside Pallas, ``flash_attention.py:273-275``), which C
+    reads. dO goes to the kernels with its strides; only one they cannot
+    take (a broadcast, or rows off 16 bytes) is copied. A head dim that is
+    not a multiple of 16 runs zero-padded (the padded output and dO columns
+    are zero, so D is unchanged); the outputs and gradients are sliced
+    back."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid):
@@ -104,12 +112,12 @@ class AttentionFunction(torch.autograd.Function):
     def backward(ctx, dout):
         q, k, v, key_valid, out, lse = ctx.saved_tensors
         hd = ctx.hd
-        dout = torch.nn.functional.pad(dout, (0, q.shape[-1] - hd)) if q.shape[-1] != hd else dout.contiguous()
-        # (b, nh, g): one f32 copy of dout times out, products exact in f32
-        # (dout.float() is dout itself when it is f32, so nothing in place)
-        delta = (dout.float() * out).sum(-1).transpose(1, 2).contiguous()
+        if q.shape[-1] != hd:
+            dout = torch.nn.functional.pad(dout, (0, q.shape[-1] - hd))
+        elif not _rows_ok(dout):
+            dout = dout.clone(memory_format=torch.contiguous_format)
+        dq, delta = attention_bwd_dq(q, k, v, key_valid, dout, out, lse, scale=ctx.scale)
         dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta, scale=ctx.scale)
-        dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta, scale=ctx.scale)
         return dq[..., :hd], dk[..., :hd], dv[..., :hd], None
 
 
@@ -132,21 +140,51 @@ def attention_fwd(q, k, v, key_valid, with_lse: bool = False, scale=None):
     return out, lse
 
 
+def attention_bwd_dq(q, k, v, key_valid, dout, out, lse, scale=None):
+    """Kernel D: ``(dQ, delta)``: dQ (b, g, nh, hd) in q's dtype and
+    ``delta = rowsum(dout * out)`` (b, nh, g) f32, which kernel C reads.
+    From the forward's inputs, its output ``out`` and its (b, nh, g) f32
+    ``lse``, and ``dout``; ``dout`` and ``out`` (b, g, nh, hd) with any
+    strides that keep hd contiguous and rows on 16 bytes. ``scale`` as the
+    forward's. CPU tensors take :func:`attention_bwd_plain` and
+    :func:`attention_delta_plain`."""
+    if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout, out)):
+        return attention_bwd_plain(q, k, v, key_valid, dout)[0], attention_delta_plain(dout, out)
+    _check_bwd(q, k, v, key_valid, dout, lse)
+    _check_rows("out", out, q)
+    b, g, nh, _ = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, nh, g), dtype=torch.float32, device=q.device)
+    lib = _lib("attention_bwd", "attention_bwd_dq", 9, 16)
+    rc = lib.attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_bwd_geometry(q, k, v, key_valid, dout, out, scale),
+    )
+    cuda_build.check(lib, rc, "attention dQ kernel")
+    attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+attention_bwd_dq.launches = 0  # kernel D launches
+
+
 def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta, scale=None):
     """Kernel C: ``(dK, dV)``, each (b, s, nh, hd) in q's dtype, from the
-    forward's inputs, ``dout`` (b, g, nh, hd) contiguous, and the (b, nh, g)
-    f32 ``lse`` and ``delta = rowsum(dout * out)``; ``scale`` as the
-    forward's. CPU tensors take :func:`attention_bwd_plain`."""
+    forward's inputs, ``dout`` (strides as :func:`attention_bwd_dq` takes
+    them), ``lse`` and kernel D's ``delta`` (both (b, nh, g) f32); launch
+    it after D on the same stream. CPU tensors take
+    :func:`attention_bwd_plain`."""
     if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
         return attention_bwd_plain(q, k, v, key_valid, dout)[1:]
-    _check_bwd(q, k, v, key_valid, dout, lse, delta)
+    _check_bwd(q, k, v, key_valid, dout, lse)
+    _check_stats("delta", delta, q)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    lib = _lib("attention_bwd", "attention_bwd_dkv", 9)
+    lib = _lib("attention_bwd", "attention_bwd_dkv", 9, 16)
     rc = lib.attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        *_geometry(q, k, v, key_valid, scale),
+        *_bwd_geometry(q, k, v, key_valid, dout, None, scale),
     )
     cuda_build.check(lib, rc, "attention dK/dV kernel")
     attention_bwd_dkv.launches += 1
@@ -154,26 +192,6 @@ def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta, scale=None):
 
 
 attention_bwd_dkv.launches = 0  # kernel C launches
-
-
-def attention_bwd_dq(q, k, v, key_valid, dout, lse, delta, scale=None):
-    """Kernel D: dQ, (b, g, nh, hd) in q's dtype; arguments as
-    :func:`attention_bwd_dkv`. CPU tensors take :func:`attention_bwd_plain`."""
-    if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
-        return attention_bwd_plain(q, k, v, key_valid, dout)[0]
-    _check_bwd(q, k, v, key_valid, dout, lse, delta)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    lib = _lib("attention_bwd", "attention_bwd_dq", 8)
-    rc = lib.attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_geometry(q, k, v, key_valid, scale),
-    )
-    cuda_build.check(lib, rc, "attention dQ kernel")
-    attention_bwd_dq.launches += 1
-    return dq
-
-
-attention_bwd_dq.launches = 0  # kernel D launches
 
 
 def _geometry(q, k, v, key_valid, scale=None):
@@ -188,6 +206,25 @@ def _geometry(q, k, v, key_valid, scale=None):
         key_valid.stride(0), 1.0 / math.sqrt(hd) if scale is None else scale,
         q.device.index if q.device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(q.device).cuda_stream,
+    )
+
+
+def _bwd_geometry(q, k, v, key_valid, dout, out, scale=None):
+    """The backward entries' arguments after the pointers: those of
+    :func:`_geometry` with dO's and O's (b, g, nh) strides (O's zero when
+    ``out`` is None) before the scale."""
+    geo = _geometry(q, k, v, key_valid, scale)
+    o_strides = (0, 0, 0) if out is None else tuple(out.stride()[:3])
+    return (*geo[:16], *dout.stride()[:3], *o_strides, *geo[16:])
+
+
+def _rows_ok(t) -> bool:
+    """Whether the backward kernels take ``t``'s layout as it is: hd
+    contiguous, the other strides nonzero multiples of 16 bytes, the base
+    on 16 bytes."""
+    es = t.element_size()
+    return t.stride(3) == 1 and t.data_ptr() % 16 == 0 and all(
+        t.stride(i) > 0 and (t.stride(i) * es) % 16 == 0 for i in range(3)
     )
 
 
@@ -221,29 +258,40 @@ def _check(q, k, v, key_valid) -> None:
     # both bodies stream K and V in 64-key tiles, so s is not bounded here
 
 
-def _check_bwd(q, k, v, key_valid, dout, lse, delta) -> None:
-    """What kernels C and D take beyond the forward's inputs: a contiguous
-    ``dout`` shaped and typed like q, and contiguous (b, nh, g) f32 ``lse``
-    and ``delta``, all on q's device."""
+def _check_bwd(q, k, v, key_valid, dout, lse) -> None:
+    """What kernels C and D take beyond the forward's inputs: ``dout``
+    shaped and typed like q on its device (:func:`_check_rows`) and a
+    contiguous (b, nh, g) f32 ``lse``."""
     _check(q, k, v, key_valid)
+    _check_rows("dout", dout, q)
+    _check_stats("lse", lse, q)
+
+
+def _check_rows(name, t, q) -> None:
+    if t is None or t.shape != q.shape or t.dtype != q.dtype or t.device != q.device or not _rows_ok(t):
+        raise ValueError(
+            f"attention backward: {name} must be a {tuple(q.shape)} {q.dtype} tensor on {q.device} with hd "
+            "contiguous and its other strides nonzero multiples of 16 bytes"
+        )
+
+
+def _check_stats(name, t, q) -> None:
     b, g, nh, _ = q.shape
-    if dout.shape != q.shape or dout.dtype != q.dtype or dout.device != q.device or not dout.is_contiguous():
-        raise ValueError(f"attention backward: dout must be a contiguous {tuple(q.shape)} {q.dtype} tensor on {q.device}")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if (
-            t is None or tuple(t.shape) != (b, nh, g) or t.dtype != torch.float32
-            or t.device != q.device or not t.is_contiguous()
-        ):
-            raise ValueError(f"attention backward: {name} must be a contiguous ({b}, {nh}, {g}) f32 tensor on {q.device}")
+    if (
+        t is None or tuple(t.shape) != (b, nh, g) or t.dtype != torch.float32
+        or t.device != q.device or not t.is_contiguous()
+    ):
+        raise ValueError(f"attention backward: {name} must be a contiguous ({b}, {nh}, {g}) f32 tensor on {q.device}")
 
 
-def _lib(source: str, entry: str, n_ptrs: int) -> ctypes.CDLL:
+def _lib(source: str, entry: str, n_ptrs: int, n_strides: int = 10) -> ctypes.CDLL:
     """The library of ``csrc/<source>.cu`` with ``entry``'s signature set:
-    ``n_ptrs`` pointers, then the arguments of :func:`_geometry`."""
+    ``n_ptrs`` pointers, then the arguments of :func:`_geometry` (of
+    :func:`_bwd_geometry` with ``n_strides`` 16)."""
     lib = cuda_build.load(source)
     fn = getattr(lib, entry)
     if fn.argtypes is None:
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + [i64] * 10 + [ctypes.c_float, i32, ptr]
+        fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides + [ctypes.c_float, i32, ptr]
         fn.restype = i32
     return lib

@@ -12,10 +12,13 @@ Phases, in order; any failure exits non-zero before the result line:
    PyTorch library call's (a yardstick the port never calls) and the
    least time the card could take (``bound_ms``): kernel A (attention
    forward, with its row log-sum-exp; timed at the build's full layer,
-   its CLS-only final layer and the train layer), kernels C and D
-   (attention backward, dK/dV and dQ; timed at 64 pairs of random key
-   lengths and at the train step's own inputs, 63 and 1 pairs with every
-   key valid, beside the port's whole backward and SDPA's) and kernel B
+   its CLS-only final layer and the train layer), kernels D and C
+   (attention backward, dQ with D = rowsum(dO * O), then dK/dV; checked
+   also for D's delta, same bits twice and a part-padding query tile;
+   timed, D first, at 64 pairs of random key lengths and at the train
+   step's own inputs, 63 and 1 pairs with every key valid, beside the
+   port's whole backward and SDPA's; one whole backward at 63 pairs under
+   ``torch.profiler`` must be exactly D then C on the card) and kernel B
    (MIPS top-k: score GEMM + cluster radix select; timed at a cost-600
    batch, q=32 over 10,000 items, at one text, q=1, at an eval batch
    of 256 over ZeShEL-military's 104,520 entities, and at an adaptive
@@ -28,11 +31,13 @@ Phases, in order; any failure exits non-zero before the result line:
    its autograd against the plain versions at hd 272, 384, 512 and 768,
    bf16 and f32, at b=64 g=s=255 nh=4 (one launch each of A, C and D and
    none of the plain attention per call), each kernel timed there beside
-   its bound, the plain version and SDPA. For every bf16 instantiation of
-   kernels A, C and D (every head dim that is a multiple of 16 up to 256,
-   and the wide route's body): its HMMA count in the SASS (it fails on
-   none) and ptxas' registers and spills; for kernel B's kernels, f32 and
-   int8, registers and spills;
+   its bound, the plain version and SDPA (C and D also as the whole
+   backward). For every bf16 instantiation of kernels A, C and D (every
+   head dim that is a multiple of 16 up to 256, the wide route's body, and
+   C and D's Hopper body at hd 64): its HMMA count in the SASS, HGMMA for
+   the Hopper body (it fails on none, and on a Hopper body that spills)
+   and ptxas' registers and spills; for kernel B's kernels, f32 and int8,
+   registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -203,8 +208,11 @@ SLEEP_CYCLES = 20_000_000
 # a step may leave them, and their parameters, unchanged
 ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
 # bf16 instantiations of kernels A, C and D: 16 head dims x 2 tilings, and
-# the wide route's one body (head dims above 256, a runtime count)
+# the wide route's one body (head dims above 256, a runtime count); C and D
+# add their Hopper body (wgmma, hd = 64, g > 16)
 BF16_INSTANTIATIONS = 33
+BWD_BF16_INSTANTIATIONS = 34
+DELTA_RTOL = 1e-6  # kernel D's D = rowsum(dO * O) vs the plain reduction, x max|D| (f32 sums in another order)
 # head dims above 256 (the wide route; 272 also pads nothing, 300-style
 # widths pad to these), held in bf16 and f32 at the train layer's b=64
 # g=s=255 with nh=4
@@ -380,13 +388,19 @@ def ptxas_report(source):
     return found
 
 
-def instantiations(source, kernel, param, expected):
+HOPPER_LABEL = "hd=64 g>16 (wgmma)"
+
+
+def instantiations(source, kernel, param, expected, hopper=None):
     """Each instantiation (head dim, ``param``) of the bf16 body ``kernel``
-    in the built library of ``csrc/<source>.cu``, and its wide route's body
-    (``kernel`` with ``_wide`` before ``_kernel``: head dims above 256): its
-    HMMA (tensor-core) instructions as ``cuobjdump -sass`` lists them, and
-    its registers and spilled bytes from the build's ``ptxas -v`` report.
-    Fails unless there are ``expected`` instantiations, each with HMMA."""
+    in the built library of ``csrc/<source>.cu``, its wide route's body
+    (``kernel`` with ``_wide`` before ``_kernel``: head dims above 256) and
+    its Hopper body ``hopper`` where it has one: its tensor-core
+    instructions as ``cuobjdump -sass`` lists them (HMMA for mma.sync,
+    HGMMA for wgmma: neither name contains the other), and its registers
+    and spilled bytes from the build's ``ptxas -v`` report. Fails unless
+    there are ``expected`` instantiations, each mma.sync body with HMMA and
+    the Hopper body with HGMMA and no spilled byte."""
     pattern = re.compile(kernel + r"ILi(\d+)ELi(\d+)E")
     wide = kernel.replace("_kernel", "_wide_kernel")
 
@@ -394,24 +408,34 @@ def instantiations(source, kernel, param, expected):
         found = pattern.search(name)
         if found:
             return f"hd={found.group(1)} {param}={found.group(2)}"
+        if hopper and hopper in name:
+            return HOPPER_LABEL
         return "hd>256 (wide route)" if wide in name else None
 
     found = {label(name): dict(rec) for name, rec in ptxas_report(source).items() if label(name)}
     sass = _sass(source)
     if sass is None:
-        log(f"  {kernel}: cuobjdump not found, HMMA count not measured")
+        log(f"  {kernel}: cuobjdump not found, HMMA and HGMMA counts not measured")
     else:
         fn = None
         for line in sass.splitlines():
             if "Function :" in line:
                 fn = label(line)
                 if fn:
-                    found.setdefault(fn, {})["hmma"] = 0
+                    found.setdefault(fn, {}).update(hmma=0, hgmma=0)
+            elif fn and "HGMMA" in line:
+                found[fn]["hgmma"] += 1
             elif fn and "HMMA" in line:
                 found[fn]["hmma"] += 1
-    log(f"  {kernel} by instantiation (HMMA in SASS, ptxas registers and spill bytes): {found}")
-    if len(found) != expected or (sass is not None and not all(rec.get("hmma") for rec in found.values())):
+    log(f"  {kernel} by instantiation (HMMA and HGMMA in SASS, ptxas registers and spill bytes): {found}")
+
+    def on_tensor_cores(name, rec):
+        return rec.get("hgmma") if name == HOPPER_LABEL else rec.get("hmma")
+
+    if len(found) != expected or (sass is not None and not all(on_tensor_cores(n, r) for n, r in found.items())):
         fail(f"{kernel} is not on the tensor cores in every one of its {expected} instantiations: {found}")
+    if hopper and (found.get(HOPPER_LABEL, {}).get("spill_stores", 1) or found[HOPPER_LABEL].get("spill_loads", 1)):
+        fail(f"{hopper} spills registers (ptxas): {found.get(HOPPER_LABEL)}")
     return found
 
 
@@ -432,48 +456,65 @@ def bwd_inputs(gen, b, g, s, nh, hd, dev, all_valid):
     return q, k, v, key_valid, lengths, rows, dout
 
 
+def run_bwd(q, k, v, key_valid, dout, out, lse):
+    """Kernel D (dQ and D = rowsum(dO * O)), then kernel C (dK, dV), as the
+    autograd runs them: (dq, dk, dv, delta)."""
+    from anncur_tpu_torch.ops.attention import attention_bwd_dkv, attention_bwd_dq
+
+    dq, delta = attention_bwd_dq(q, k, v, key_valid, dout, out, lse)
+    return (dq, *attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta), delta)
+
+
 def check_bwd_case(case, errs, what):
-    """Kernels C and D (and kernel A's lse) against the plain autograd on
+    """Kernels D and C (and kernel A's lse) against the plain autograd on
     one input, at the rows that reach a loss and the valid keys; masked
-    keys must get exactly zero dK and dV. Raises ``errs`` to the errors."""
-    from anncur_tpu_torch.ops.attention import attention_bwd_dkv, attention_bwd_dq, attention_bwd_plain, attention_fwd
+    keys must get exactly zero dK and dV; D's delta against the plain
+    rowsum(dO * O); a second launch must give the same bits. Raises
+    ``errs`` to the errors."""
+    from anncur_tpu_torch.ops.attention import attention_bwd_plain, attention_delta_plain, attention_fwd
 
     q, k, v, key_valid, _, rows, dout = case
     hd = q.shape[-1]
     out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dk, dv = attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta)
-    dq = attention_bwd_dq(q, k, v, key_valid, dout, lse, delta)
+    dq, dk, dv, delta = got = run_bwd(q, k, v, key_valid, dout, out, lse)
+    again = run_bwd(q, k, v, key_valid, dout, out, lse)
     want = attention_bwd_plain(q, k, v, key_valid, dout)
+    want_delta = attention_delta_plain(dout, out)
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
     want_lse = torch.logsumexp(scores + torch.where(key_valid, 0.0, -1e9)[:, None, None, :], dim=-1)
     torch.cuda.synchronize()
     lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).transpose(1, 2)[rows].max())
-    for name, got, ref, sel in (("dq", dq, want[0], rows), ("dkv", dk, want[1], key_valid), ("dkv", dv, want[2], key_valid)):
-        err = float((got.float() - ref.float()).abs().amax(dim=(2, 3))[sel].max() / ref.float().abs().max())
+    for name, res, ref, sel in (("dq", dq, want[0], rows), ("dkv", dk, want[1], key_valid), ("dkv", dv, want[2], key_valid)):
+        err = float((res.float() - ref.float()).abs().amax(dim=(2, 3))[sel].max() / ref.float().abs().max())
         errs[name] = max(errs[name], err)
     zero = bool((dk[~key_valid] == 0).all() and (dv[~key_valid] == 0).all())
-    log(f"  kernels C/D {what}: max |kernel - plain| / max|plain| dQ {errs['dq']:.3e}, dK/dV {errs['dkv']:.3e} (tol {GRAD_RTOL}); masked keys zero: {zero}; lse rel err {lse_err:.2e}")
-    if not (errs["dq"] <= GRAD_RTOL and errs["dkv"] <= GRAD_RTOL and zero):
-        fail(f"attention backward kernels disagree with the plain autograd at {what}: {errs}, masked keys zero {zero}")
+    delta_err = float((delta - want_delta).abs().max() / want_delta.abs().max())
+    errs["delta"] = max(errs["delta"], delta_err)
+    differ = [name for name, a, b in zip(("dq", "dk", "dv", "delta"), got, again) if not torch.equal(a, b)]
+    same = not differ
+    log(f"  kernels C/D {what}: max |kernel - plain| / max|plain| dQ {errs['dq']:.3e}, dK/dV {errs['dkv']:.3e} (tol {GRAD_RTOL}); masked keys zero: {zero}; D's delta rel err {delta_err:.2e} (tol {DELTA_RTOL}); same bits twice: {same}; lse rel err {lse_err:.2e}")
+    if not (errs["dq"] <= GRAD_RTOL and errs["dkv"] <= GRAD_RTOL and zero and delta_err <= DELTA_RTOL and same):
+        fail(f"attention backward kernels disagree with the plain autograd at {what}: {errs}, masked keys zero {zero}, "
+             f"outputs that differ between two launches {differ}")
     if not lse_err <= LSE_RTOL:
         fail(f"kernel A's lse disagrees with logsumexp at {what}: {lse_err}")
     errs["lse"] = max(errs["lse"], lse_err)
 
 
 def time_bwd_case(case, what, flush):
-    """Kernels C and D on one input, each beside its bound, with the
-    port's whole attention backward (autograd through kernel A's graph:
-    D = rowsum(dO * O), then C and D), the plain autograd and SDPA's
-    backward (masked where a key is masked) beside both."""
+    """Kernels D and C on one input, in that order, each beside its bound,
+    with the port's whole attention backward (autograd through kernel A's
+    graph: D, which also writes D = rowsum(dO * O), then C), the plain
+    autograd and SDPA's backward (masked where a key is masked) beside
+    both."""
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq, attention_fwd, attention_plain
 
     q, k, v, key_valid, lengths, _, dout = case
     b, g, nh, hd = q.shape
     out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, out, lse), 20, flush)
+    _, delta = attention_bwd_dq(q, k, v, key_valid, dout, out, lse)
     dkv_ms = time_ms(lambda: attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta), 20, flush)
-    dq_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, lse, delta), 20, flush)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
     whole_ms = time_grad_ms(attention(*leaves, key_valid), leaves, dout, 20, flush)
     plain_ms = time_grad_ms(attention_plain(*leaves, key_valid), leaves, dout, 5, flush)
@@ -482,8 +523,9 @@ def time_bwd_case(case, what, flush):
     lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_leaves, attn_mask=mask)
     library_ms = time_grad_ms(lib_out, lib_leaves, dout.transpose(1, 2), 20, flush)
     # what these inputs need: q, dO (all rows), k and v at valid keys, lse
-    # and D read; dK, dV at valid keys or dQ written. Operations over the
-    # valid keys: C does 4 products (S, dP, dV, dK), D 3 (S, dP, dQ)
+    # and D read (D writes D, C reads it); C writes dK, dV at valid keys, D
+    # reads O and writes dQ. Operations over the valid keys: C does 4
+    # products (S, dP, dV, dK), D 3 (S, dP, dQ)
     n_keys = int(lengths.sum())
     row_bytes = nh * hd * q.element_size()
     common = 2 * q.numel() * q.element_size() + 2 * n_keys * row_bytes + 2 * lse.numel() * 4 + key_valid.numel()
@@ -491,15 +533,41 @@ def time_bwd_case(case, what, flush):
     both = {"shape": what, "plain_ms": plain_ms, "library_ms": library_ms, "whole_backward_ms": whole_ms}
     recs = (
         {"ms": dkv_ms, **bound(common + 2 * n_keys * row_bytes, 4 * pair_ops, "bf16"), **both},
-        {"ms": dq_ms, **bound(common + q.numel() * q.element_size(), 3 * pair_ops, "bf16"), **both},
+        {"ms": dq_ms, **bound(common + 2 * q.numel() * q.element_size(), 3 * pair_ops, "bf16"), **both},
     )
     for rec in recs:
         rec["x_bound"] = rec["ms"] / rec["bound_ms"]
-    log(f"  kernels C/D {what}: C {dkv_ms:.4f} ms (bound {recs[0]['bound_ms']:.4f}, {recs[0]['bound_by']}, "
-        f"{recs[0]['x_bound']:.2f}x), D {dq_ms:.4f} ms (bound {recs[1]['bound_ms']:.4f}, {recs[1]['bound_by']}, "
-        f"{recs[1]['x_bound']:.2f}x), C + D {dkv_ms + dq_ms:.4f} ms; whole backward {whole_ms:.4f} ms; "
+    log(f"  kernels D/C {what}: D {dq_ms:.4f} ms (bound {recs[1]['bound_ms']:.4f}, {recs[1]['bound_by']}, "
+        f"{recs[1]['x_bound']:.2f}x), C {dkv_ms:.4f} ms (bound {recs[0]['bound_ms']:.4f}, {recs[0]['bound_by']}, "
+        f"{recs[0]['x_bound']:.2f}x), C + D {dkv_ms + dq_ms:.4f} ms; whole backward {whole_ms:.4f} ms; "
         f"SDPA backward {library_ms:.4f} ms (whole / SDPA {whole_ms / library_ms:.2f}x); plain {plain_ms:.4f} ms")
     return recs
+
+
+def profile_bwd(case, what):
+    """One whole backward through the autograd under ``torch.profiler``:
+    its device work must be exactly kernel D, then kernel C (no torch
+    reduction, copy or cast beside them). Returns the kernels' names and
+    device microseconds in order."""
+    from anncur_tpu_torch.ops.attention import attention
+
+    q, k, v, key_valid, _, _, dout = case
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    out = attention(*leaves, key_valid)
+    torch.autograd.grad(out, leaves, dout, retain_graph=True)  # warm
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    seen = [(e.name, float(e.time_range.end - e.time_range.start)) for e in events]
+    ok = (len(seen) == 2 and "attention_bwd_dq" in seen[0][0] and "attention_bwd_dkv" in seen[1][0])
+    log(f"  profiler, one whole backward at {what}: {len(seen)} device kernels {[(n[:90], round(t, 2)) for n, t in seen]}")
+    if not ok:
+        fail(f"the whole backward at {what} is not exactly kernel D then kernel C: {seen}")
+    return [{"name": n, "us": t} for n, t in seen]
 
 
 def check_attention_bwd(dev, flush):
@@ -512,30 +580,38 @@ def check_attention_bwd(dev, flush):
     the input tower's tag rows under spl_tkns, checked)."""
     gen = torch.Generator(device=dev).manual_seed(3)
     s, nh, hd = 255, 12, 64
-    errs = {"dkv": 0.0, "dq": 0.0, "lse": 0.0}
+    errs = {"dkv": 0.0, "dq": 0.0, "lse": 0.0, "delta": 0.0}
     check_bwd_case(bwd_inputs(gen, 64, 1, s, nh, hd, dev, False), errs, f"b=64 g=1 s={s}")
     check_bwd_case(bwd_inputs(gen, 64, 2, 128, nh, hd, dev, True), errs, "b=64 g=2 s=128, every key valid")
-    timed = []
+    # the Hopper bodies at a g that is no multiple of 64 (a part-padding last query tile)
+    check_bwd_case(bwd_inputs(gen, 64, 100, s, nh, hd, dev, False), errs, f"b=64 g=100 s={s}")
+    timed, profiled = [], None
     for b, g, s_, all_valid in ((64, s, s, False), (63, s, s, True), (1, s, s, True)) + tuple(
             (b, g, s_, True) for b, g, s_ in TOWER_SHAPES):
         what = f"b={b} g={g} s={s_} nh={nh} hd={hd} bf16, " + ("every key valid" if all_valid else "random key lengths")
         case = bwd_inputs(gen, b, g, s_, nh, hd, dev, all_valid)
         check_bwd_case(case, errs, what)
         timed.append(time_bwd_case(case, what, flush))
+        if b == 63:
+            profiled = profile_bwd(case, what)
     common = {"route": "cuda", "source": "anncur_tpu_torch/csrc/attention_bwd.cu"}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "whole_backward_ms", "shape")
     kernels = []
-    for i, (name, replaces, kernel, param) in enumerate((
-        ("attention_bwd_dkv", "jax/experimental/pallas/ops/tpu/flash_attention.py:1121", "attention_bwd_dkv_bf16_kernel", "query_tile"),
-        ("attention_bwd_dq", "jax/experimental/pallas/ops/tpu/flash_attention.py:1456", "attention_bwd_dq_bf16_kernel", "warps"),
+    for i, (name, replaces, kernel, param, hopper) in enumerate((
+        ("attention_bwd_dkv", "jax/experimental/pallas/ops/tpu/flash_attention.py:1121", "attention_bwd_dkv_bf16_kernel",
+         "query_tile", "attention_bwd_dkv_wgmma_kernel"),
+        ("attention_bwd_dq", "jax/experimental/pallas/ops/tpu/flash_attention.py:1456", "attention_bwd_dq_bf16_kernel",
+         "warps", "attention_bwd_dq_wgmma_kernel"),
     )):
         shapes = [recs[i] for recs in timed]
         kernels.append({
             "name": name, "replaces": replaces, **common,
             "max_abs_err": errs["dkv" if i == 0 else "dq"],
             **{key: shapes[0][key] for key in keys}, "shapes": shapes,
-            "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS),
+            "instantiations": instantiations("attention_bwd", kernel, param, BWD_BF16_INSTANTIATIONS, hopper),
         })
+    kernels[1]["delta_rel_err"] = errs["delta"]
+    kernels[1]["whole_backward_profile"] = profiled
     return errs["lse"], kernels
 
 
@@ -604,10 +680,11 @@ def check_attention_wide(dev, flush):
 
 
 def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
-    """Kernels A, C and D at one wide input, each beside its bound (bytes:
+    """Kernels A, D and C at one wide input, each beside its bound (bytes:
     each input read once at valid keys, each output written once;
     operations: its products over the valid keys at the dtype's peak), the
-    plain version's and SDPA's forward and whole backward."""
+    port's whole backward (D then C through the autograd), the plain
+    version's and SDPA's forward and whole backward."""
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq, attention_fwd, attention_plain
 
     b, g, nh, hd = q.shape
@@ -620,10 +697,11 @@ def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
         sdpa_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=key_valid[:, None, None, :]), reps, flush)
         out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
-        delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+        d_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, out, lse), reps, flush)
+        _, delta = attention_bwd_dq(q, k, v, key_valid, dout, out, lse)
         c_ms = time_ms(lambda: attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta), reps, flush)
-        d_ms = time_ms(lambda: attention_bwd_dq(q, k, v, key_valid, dout, lse, delta), reps, flush)
     leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    whole_ms = time_grad_ms(attention(*leaves, key_valid), leaves, dout, reps, flush)
     plain_bwd_ms = time_grad_ms(attention_plain(*leaves, key_valid), leaves, dout, 3, flush)
     lib_leaves = [t.detach().transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
     lib_out = torch.nn.functional.scaled_dot_product_attention(*lib_leaves, attn_mask=key_valid[:, None, None, :])
@@ -639,15 +717,15 @@ def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
         "A": {"ms": a_ms, **bound(2 * qo + 2 * kv_valid + key_valid.numel(), 2 * pair_ops, dt),
               "plain_ms": plain_ms, "library_ms": sdpa_ms},
         "C": {"ms": c_ms, **bound(2 * qo + 4 * kv_valid + stats + key_valid.numel(), 4 * pair_ops, dt),
-              "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
-        "D": {"ms": d_ms, **bound(3 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops, dt),
-              "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms},
+              "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms, "whole_backward_ms": whole_ms},
+        "D": {"ms": d_ms, **bound(4 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops, dt),
+              "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms, "whole_backward_ms": whole_ms},
     }
     for rec in recs.values():
         rec["x_bound"] = rec["ms"] / rec["bound_ms"]
     log(f"  wide route {what}: A {a_ms:.4f} ms (bound {recs['A']['bound_ms']:.4f}, {recs['A']['bound_by']}; plain "
         f"{plain_ms:.4f}, SDPA {sdpa_ms:.4f}); C {c_ms:.4f} (bound {recs['C']['bound_ms']:.4f}), D {d_ms:.4f} "
-        f"(bound {recs['D']['bound_ms']:.4f}); whole backward plain {plain_bwd_ms:.4f}, SDPA {sdpa_bwd_ms:.4f}")
+        f"(bound {recs['D']['bound_ms']:.4f}); whole backward {whole_ms:.4f}, plain {plain_bwd_ms:.4f}, SDPA {sdpa_bwd_ms:.4f}")
     return recs
 
 

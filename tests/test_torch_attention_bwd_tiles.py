@@ -1,17 +1,21 @@
 """Kernels C and D's bf16 arithmetic, emulated on the CPU in their own order.
 
 ``csrc/attention_bwd.cu`` cannot run here, so this test-local emulation
-does what its bf16 bodies do, in torch: kernel C owns 64-key tiles and
-walks the query rows in tiles (64 rows, or 16 when g <= 16), padding rows
-past g with zero Q and dO, lse = +inf and D = 0 so that they add nothing;
-kernel D walks 64-key tiles and skips those without a valid key when the
-pair has one (tile 0 always runs). Both recompute P = exp(S * scale + bias
-- shift - lse) in f32, round P and dS to bf16 before the dV, dK and dQ
-products and sum in f32. ``shift`` is -1e9 in a pair with no valid key,
-whose lse kernel A writes without the -1e9 (``csrc/attention.cu``). The
-emulation is held against the port's plain autograd and ``jax.vjp`` of the
-JAX package's ``_attn_core`` in bf16, and with skipping against without.
-Nothing in the package uses the emulation.
+does what its bf16 bodies do, in torch: kernel D, launched first, sums D =
+rowsum(dO * O) per row in f32 from bf16 O and dO (four lanes a row, as
+:func:`emulate_delta` orders it) and writes it for kernel C; kernel C owns
+64-key tiles and walks the query rows in tiles (64 rows, or 16 when g <=
+16), padding rows past g with zero Q and dO, lse = +inf and D = 0 so that
+they add nothing; kernel D walks 64-key tiles and skips those without a
+valid key when the pair has one (the mma.sync body always runs tile 0, the
+Hopper body at hd = 64, g > 16 skips it too). Both recompute P = exp(S *
+scale + bias - shift - lse) in f32, round P and dS to bf16 before the dV,
+dK and dQ products and sum in f32. ``shift`` is -1e9 in a pair with no
+valid key, whose lse kernel A writes without the -1e9
+(``csrc/attention.cu``). The emulation is held against the port's plain
+autograd and ``jax.vjp`` of the JAX package's ``_attn_core`` in bf16, its
+D against the plain reduction and JAX's ``di``, and with skipping against
+without. Nothing in the package uses the emulation.
 """
 
 import math
@@ -24,7 +28,7 @@ import torch
 
 from anncur_tpu.models import bert as jbert
 
-from anncur_tpu_torch.ops.attention import attention_bwd_plain, attention_plain
+from anncur_tpu_torch.ops.attention import attention_bwd_plain, attention_delta_plain, attention_plain
 
 torch.set_num_threads(2)  # xdist runs several test files side by side
 
@@ -36,6 +40,9 @@ PLAIN_RTOL = 2e-2  # x the plain gradient's max: chip_smoke.py's GRAD_RTOL (bf16
 # before the softmax backward), each a bf16 rounding; the distance is
 # ~5e-3 at these inputs, as the port's plain autograd's from JAX's
 JAX_RTOL = 2e-2
+# D = rowsum(dO * O) vs the plain reduction and JAX's di, x max|D|: f32 sums
+# of exact bf16 products in other orders
+DELTA_RTOL = 1e-6
 
 
 def _bf(t):
@@ -55,6 +62,22 @@ def forward_lse(q, k, key_valid, shifted=True):
     x = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
     x = x + torch.where(key_valid, 0.0, MASK)[:, None, None, :]
     return torch.logsumexp(x - _shift(key_valid, shifted)[:, None, None, None], dim=-1)
+
+
+def emulate_delta(dout, out):
+    """(b, nh, g) f32 D = rowsum(dO * O) as kernel D sums it: each row's
+    16-byte units (8 values) dealt to the four lanes of a quad, lane p
+    taking units p, p + 4, ..., each lane adding its products (exact in
+    f32: bf16 times bf16) in order, then (p0 + p1) + (p2 + p3)."""
+    prod = (dout.float() * out.float()).transpose(1, 2)  # (b, nh, g, hd)
+    parts = []
+    for p in range(4):
+        acc = torch.zeros(prod.shape[:-1])
+        for u in range(p, prod.shape[-1] // 8, 4):
+            for e in range(8):
+                acc = acc + prod[..., 8 * u + e]
+        parts.append(acc)
+    return (parts[0] + parts[1]) + (parts[2] + parts[3])
 
 
 def _pad_keys(k, v, key_valid):
@@ -166,13 +189,17 @@ def _inputs(hd, g=255, seed=0):
 
 
 def _backward(q, k, v, valid, dout, skip=True, shifted=True):
-    """(dQ, dK, dV) of the emulated kernels C and D, and their skip counts,
-    with lse and D = rowsum(dO * O) as AttentionFunction feeds them."""
+    """(dQ, dK, dV) of the emulated kernels D then C, and their skip
+    counts, from the bf16 forward output and lse as AttentionFunction
+    feeds them; D = rowsum(dO * O) as kernel D sums it. At hd = 64, g > 16
+    kernel D's Hopper body skips a masked tile 0 as well."""
     lse = forward_lse(q, k, valid, shifted)
     out = attention_plain(q, k, v, valid)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
+    delta = emulate_delta(dout, out)
+    hopper = q.shape[-1] == 64 and q.shape[1] > 16
+    dq, skipped = emulate_kernel_d(q, k, v, valid, dout, lse, delta, skip=skip, first_tile_runs=not hopper,
+                                   shifted=shifted)
     dk, dv, zero_blocks = emulate_kernel_c(q, k, v, valid, dout, lse, delta, skip=skip, shifted=shifted)
-    dq, skipped = emulate_kernel_d(q, k, v, valid, dout, lse, delta, skip=skip, shifted=shifted)
     return (dq, dk, dv), zero_blocks, skipped
 
 
@@ -180,7 +207,7 @@ def _max_rel_err(got, want):
     return float((got.float() - want.float()).abs().max() / want.float().abs().max())
 
 
-@pytest.mark.parametrize("hd,g", [(16, 255), (64, 255), (64, 1), (64, 3)])
+@pytest.mark.parametrize("hd,g", [(16, 255), (64, 255), (64, 1), (64, 3), (64, 17), (64, 64), (64, 100), (32, 100)])
 def test_emulated_backward_matches_plain_autograd(hd, g):
     q, k, v, valid, dout = _inputs(hd, g)
     got, zero_blocks, skipped = _backward(q, k, v, valid, dout)
@@ -208,6 +235,44 @@ def test_emulated_backward_matches_jax_attn_core_bf16(hd):
     want = [torch.tensor(np.asarray(t.astype(jnp.float32))) for t in vjp(jdo)]
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert _max_rel_err(a, w) <= JAX_RTOL, (name, _max_rel_err(a, w))
+
+
+@pytest.mark.parametrize("hd,g", [(64, 100), (64, 3)])
+def test_emulated_backward_matches_jax_attn_core_bf16_at_tile_edges(hd, g):
+    """As above at a g that is no multiple of 64 (the Hopper bodies' last
+    query tile is part padding) and at a g <= 16 (the mma.sync bodies)."""
+    q, k, v, valid, dout = _inputs(hd, g, seed=4)
+    got, _, _ = _backward(q, k, v, valid, dout)
+    bias = jnp.asarray(np.where(valid.numpy(), 0.0, MASK).astype(np.float32)[:, None, None, :])
+
+    def core(q_, k_, v_):
+        return jbert._attn_core(q_, k_, v_, bias, None, jnp.bfloat16, 0.0, "bqnk")
+
+    jq, jk, jv, jdo = (jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16) for t in (q, k, v, dout))
+    _, vjp = jax.vjp(core, jq, jk, jv)
+    want = [torch.tensor(np.asarray(t.astype(jnp.float32))) for t in vjp(jdo)]
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert _max_rel_err(a, w) <= JAX_RTOL, (name, _max_rel_err(a, w))
+
+
+@pytest.mark.parametrize("hd,g", [(64, 255), (64, 1), (16, 100), (128, 37)])
+def test_emulated_delta_matches_plain_reduction_and_jax_di(hd, g):
+    """Kernel D's D = rowsum(dO * O) from bf16 O and dO, summed per row in
+    f32 over four lanes: within 1e-6 x max|D| of the plain reduction
+    (:func:`attention_delta_plain`, the ``(dO.float() * O.float()).sum(-1)``
+    the backward computed before) and of JAX's ``di`` (``jnp.sum(
+    o.astype(f32) * do.astype(f32), -1)``, flash_attention.py:273), at
+    every row, the pair with no valid key included."""
+    q, k, v, valid, dout = _inputs(hd, g, seed=5)
+    out = attention_plain(q, k, v, valid)
+    got = emulate_delta(dout, out)
+    plain = attention_delta_plain(dout, out)
+    jo, jdo = (jnp.asarray(t.float().numpy(), dtype=jnp.bfloat16) for t in (out, dout))
+    di = torch.tensor(np.asarray(jnp.sum(jo.astype(jnp.float32) * jdo.astype(jnp.float32), -1))).transpose(1, 2)
+    assert got.shape == plain.shape == (q.shape[0], q.shape[2], g) and got.dtype == torch.float32
+    scale = float(plain.abs().max())
+    for want in (plain, di):
+        assert float((got - want).abs().max()) <= DELTA_RTOL * scale
 
 
 def test_skipping_is_exact():

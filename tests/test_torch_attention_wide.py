@@ -75,9 +75,10 @@ def test_attention_function_pads_keeps_the_real_scale_and_slices(monkeypatch, hd
         seen.append(("C", q.shape[-1], scale, dout.shape[-1], bool(dout[..., hd:].any())))
         return grads(q, k, v, key_valid, dout, scale)[1:]
 
-    def dq(q, k, v, key_valid, dout, lse, delta, scale=None):
-        seen.append(("D", q.shape[-1], scale, dout.shape[-1], bool(dout[..., hd:].any())))
-        return grads(q, k, v, key_valid, dout, scale)[0]
+    def dq(q, k, v, key_valid, dout, out, lse, scale=None):
+        seen.append(("D", q.shape[-1], scale, dout.shape[-1], bool(dout[..., hd:].any()), out.shape[-1]))
+        delta = (dout * out).sum(-1).transpose(1, 2)
+        return grads(q, k, v, key_valid, dout, scale)[0], delta
 
     monkeypatch.setattr(attn_mod, "attention_fwd", fwd)
     monkeypatch.setattr(attn_mod, "attention_bwd_dkv", dkv)
@@ -89,7 +90,8 @@ def test_attention_function_pads_keeps_the_real_scale_and_slices(monkeypatch, hd
 
     padded = hd + (-hd % 16)
     scale = 1.0 / math.sqrt(hd)
-    assert seen == [("A", padded, scale), ("C", padded, scale, padded, False), ("D", padded, scale, padded, False)]
+    # kernel D first (it writes the D = rowsum(dO * O) that C reads)
+    assert seen == [("A", padded, scale), ("D", padded, scale, padded, False, padded), ("C", padded, scale, padded, False)]
     want_leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
     want_out = attention_plain(*want_leaves, valid)
     want = torch.autograd.grad(want_out, want_leaves, dout)

@@ -14,6 +14,7 @@ from anncur_tpu_torch.ops.attention import (
     attention_bwd_dkv,
     attention_bwd_dq,
     attention_bwd_plain,
+    attention_delta_plain,
     attention_fwd,
     attention_plain,
 )
@@ -128,20 +129,29 @@ def test_attention_backward_kernels_through_bf16_forward_at_ragged_s(dev):
     assert not got[1][~valid].any() and not got[2][~valid].any()
 
 
+def _run_bwd(q, k, v, valid, dout, out, lse):
+    """Kernel D then kernel C, as the autograd runs them: (dK, dV, dQ, delta)."""
+    dq, delta = attention_bwd_dq(q, k, v, valid, dout, out, lse)
+    return (*attention_bwd_dkv(q, k, v, valid, dout, lse, delta), dq, delta)
+
+
 @pytest.mark.parametrize(
     "b,g,hd",
     [(8, 1, 64), (8, 3, 64), (8, 16, 64), (8, 17, 64), (8, 255, 64), (8, 255, 16), (8, 255, 32),
-     (8, 255, 128), (1, 255, 64), (1, 1, 64)],
+     (8, 255, 128), (1, 255, 64), (1, 1, 64), (8, 64, 64), (8, 65, 64), (8, 100, 64), (63, 255, 64),
+     (8, 128, 64)],
 )
 def test_attention_backward_bf16_tensor_core_path_at_tile_edges(dev, b, g, hd):
-    """Kernels C and D's bf16 bodies (16-row query tiles for g <= 16,
-    64-row above) against the plain autograd at 2e-2 x the plain gradient's
-    max, at every row and key: b = 8 with the ``_edge_case`` masks (the pair
-    with no valid key included), b = 1 with every key valid, as the train
-    step's positive pair. Masked keys of pairs with a valid key get exactly
-    zero dK and dV; two launches give the same bits (no atomics)."""
-    if b == 1:
-        q, k, v, valid, _ = _attn_case(dev, 1, g, 255, 12, hd, torch.bfloat16, seed=g + hd)
+    """Kernels C and D's bf16 bodies (the Hopper bodies at hd = 64, g > 16;
+    mma.sync with 16-row query tiles for g <= 16, 64-row above) against the
+    plain autograd at 2e-2 x the plain gradient's max, at every row and
+    key: b = 8 with the ``_edge_case`` masks (the pair with no valid key
+    included), b = 1 and 63 with every key valid, as the train step's
+    pairs. Masked keys of pairs with a valid key get exactly zero dK and
+    dV; kernel D's delta is the plain rowsum(dO * O) within 1e-6 x its max;
+    two launches give the same bits (no atomics)."""
+    if b != 8:
+        q, k, v, valid, _ = _attn_case(dev, b, g, 255, 12, hd, torch.bfloat16, seed=g + hd)
         valid = torch.ones_like(valid)
     else:
         q, k, v, valid = _edge_case(dev, g, hd, seed=g * 100 + hd)
@@ -149,13 +159,11 @@ def test_attention_backward_bf16_tensor_core_path_at_tile_edges(dev, b, g, hd):
     dout = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
     want = attention_bwd_plain(q, k, v, valid, dout)
     out, lse = attention_fwd(q, k, v, valid, with_lse=True)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    runs = [
-        (*attention_bwd_dkv(q, k, v, valid, dout, lse, delta), attention_bwd_dq(q, k, v, valid, dout, lse, delta))
-        for _ in range(2)
-    ]
+    runs = [_run_bwd(q, k, v, valid, dout, out, lse) for _ in range(2)]
     torch.cuda.synchronize()
-    dk, dv, dq = runs[0]
+    dk, dv, dq, delta = runs[0]
+    want_delta = attention_delta_plain(dout, out)
+    assert (delta - want_delta).abs().max().item() <= 1e-6 * want_delta.abs().max().item()
     for name, a, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
         assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
         err = (a.float() - w.float()).abs().max().item()
@@ -256,13 +264,11 @@ def test_attention_wide_route_at_edge_masks(dev, g, hd, dtype):
     gen = torch.Generator(device=dev).manual_seed(g * 10 + hd)
     dout = torch.randn(q.shape, generator=gen, device=dev).to(dtype)
     want = attention_bwd_plain(q, k, v, valid, dout)
-    delta = (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    runs = [
-        (*attention_bwd_dkv(q, k, v, valid, dout, lse, delta), attention_bwd_dq(q, k, v, valid, dout, lse, delta))
-        for _ in range(2)
-    ]
+    runs = [_run_bwd(q, k, v, valid, dout, out, lse) for _ in range(2)]
     torch.cuda.synchronize()
-    dk, dv, dq = runs[0]
+    dk, dv, dq, delta = runs[0]
+    want_delta = attention_delta_plain(dout, out)
+    assert (delta - want_delta).abs().max().item() <= 1e-6 * want_delta.abs().max().item()
     for name, a, w in (("dq", dq, want[0]), ("dk", dk, want[1]), ("dv", dv, want[2])):
         assert a.dtype == dtype and a.shape == w.shape, name
         err = (a.float() - w.float()).abs().max().item()
@@ -370,21 +376,74 @@ def test_attention_backward_kernels_match_plain_autograd(dev, g, dtype, tol):
 
 
 def test_attention_backward_kernels_reject_what_they_cannot_take(dev):
+    """Kernel D (dout, out, lse) and kernel C (dout, lse, delta) refuse a
+    dO or O of another dtype, with hd strided, or with a broadcast axis
+    (stride 0), a missing lse, a delta of another dtype and a head dim off
+    the 16 grid. A dO transposed over (g, nh) is taken: the kernels read
+    its strides."""
     q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
     out, lse = attention_fwd(q, k, v, valid, with_lse=True)
     dout = torch.ones_like(out)
-    delta = (dout * out).sum(-1).transpose(1, 2).contiguous()
-    for fn in (attention_bwd_dkv, attention_bwd_dq):
-        with pytest.raises(ValueError, match="dout"):
-            fn(q, k, v, valid, dout.bfloat16(), lse, delta)
-        with pytest.raises(ValueError, match="dout"):
-            fn(q, k, v, valid, dout.transpose(1, 2).contiguous().transpose(1, 2), lse, delta)
+    _, delta = attention_bwd_dq(q, k, v, valid, dout, out, lse)
+    strided_hd = torch.ones(out.shape + (2,), device=dev)[..., 0]
+    broadcast = torch.ones(1, *out.shape[1:], device=dev).expand(out.shape)
+    entries = (
+        (lambda do, o, ls, d: attention_bwd_dq(q, k, v, valid, do, o, ls)),
+        (lambda do, o, ls, d: attention_bwd_dkv(q, k, v, valid, do, ls, d)),
+    )
+    for i, fn in enumerate(entries):
+        for bad in (dout.bfloat16(), strided_hd, broadcast):
+            with pytest.raises(ValueError, match="dout"):
+                fn(bad, out, lse, delta)
+            if i == 0:
+                with pytest.raises(ValueError, match="backward: out "):
+                    fn(dout, bad, lse, delta)
         with pytest.raises(ValueError, match="lse"):
-            fn(q, k, v, valid, dout, None, delta)
-        with pytest.raises(ValueError, match="delta"):
-            fn(q, k, v, valid, dout, lse, delta.double())
+            fn(dout, out, None, delta)
+        if i == 1:
+            with pytest.raises(ValueError, match="delta"):
+                fn(dout, out, lse, delta.double())
         with pytest.raises(ValueError, match="head dim"):
-            fn(q[..., :8], k[..., :8], v[..., :8], valid, dout[..., :8].contiguous(), lse, delta)
+            attention_bwd_dq(q[..., :8], k[..., :8], v[..., :8], valid, dout[..., :8].contiguous(),
+                             out[..., :8].contiguous(), lse)
+    fn(dout.transpose(1, 2).contiguous().transpose(1, 2), out, lse, delta)
+
+
+@pytest.mark.parametrize("g,hd,dtype", [(255, 64, torch.bfloat16), (3, 64, torch.bfloat16), (130, 32, torch.bfloat16),
+                                        (100, 384, torch.bfloat16), (100, 64, torch.float32), (100, 384, torch.float32)])
+def test_attention_backward_takes_strided_dout_without_a_copy(dev, g, hd, dtype):
+    """dO laid out (b, nh, g, hd) and handed over as its (b, g, nh, hd)
+    view (strides of a transposed tensor; the CE's dO is contiguous, a
+    head-major model's would be such a view): kernels D and C read it in
+    place and give the same bits as with the contiguous copy, on every
+    route (the Hopper bodies at hd = 64, g > 16; mma.sync; the wide route;
+    f32). Through the autograd the backward launches D and C once each
+    and copies nothing: its device work is exactly those two kernels."""
+    q, k, v, valid = _edge_case(dev, g, hd, seed=g + hd, dtype=dtype)
+    gen = torch.Generator(device=dev).manual_seed(g + 1)
+    dout_hm = torch.randn(q.shape[0], q.shape[2], g, hd, generator=gen, device=dev).to(dtype)
+    strided = dout_hm.transpose(1, 2)
+    assert not strided.is_contiguous()
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    got = _run_bwd(q, k, v, valid, strided, out, lse)
+    want = _run_bwd(q, k, v, valid, strided.contiguous(), out, lse)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    res = attention(*leaves, valid)
+    torch.cuda.synchronize()
+    before = (attention_bwd_dkv.launches, attention_bwd_dq.launches)
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        grads = torch.autograd.grad(res, leaves, strided)
+        torch.cuda.synchronize()
+    assert (attention_bwd_dkv.launches, attention_bwd_dq.launches) == tuple(n + 1 for n in before)
+    for a, w in zip(grads, (got[2], got[0], got[1])):
+        assert torch.equal(a, w)
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [n for n in names if "attention_bwd" in n] == names and len(names) == 2, names
+    assert "attention_bwd_dq" in names[0] and "attention_bwd_dkv" in names[1], names
 
 
 def _int_mips_inputs(dev, q, d, n, seed):

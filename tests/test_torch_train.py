@@ -103,7 +103,7 @@ def test_attention_backward_matches_jax_vjp(g):
     def core(q_, k_, v_):
         return jbert._attn_core(q_, k_, v_, jnp.asarray(bias), None, jnp.float32, 0.0, "bqnk")
 
-    _, vjp = jax.vjp(core, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want_out, vjp = jax.vjp(core, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     want = [np.asarray(t) for t in vjp(jnp.asarray(dout))]
 
     leaves = [torch.tensor(t, requires_grad=True) for t in (q, k, v)]
@@ -114,13 +114,17 @@ def test_attention_backward_matches_jax_vjp(g):
     # zero rows: masked keys get no dK, dV; padded query rows no dQ
     assert not got[1][~valid].any() and not got[2][~valid].any()
     assert not got[0][~real_rows].any()
-    # the kernel wrappers take the same plain autograd for CPU tensors
+    # the kernel wrappers take the same plain autograd for CPU tensors, D
+    # first: its D = rowsum(dO * O) is JAX's di (flash_attention.py:273)
     args = [torch.as_tensor(t) for t in (q, k, v)] + [torch.as_tensor(valid)]
-    dk, dv = attention_bwd_dkv(*args, torch.as_tensor(dout), None, None)
-    dq = attention_bwd_dq(*args, torch.as_tensor(dout), None, None)
+    dq, delta = attention_bwd_dq(*args, torch.as_tensor(dout), out.detach(), None)
+    dk, dv = attention_bwd_dkv(*args, torch.as_tensor(dout), None, delta)
     for a, w in zip((dq, dk, dv), attention_bwd_plain(*args, torch.as_tensor(dout))):
         assert torch.equal(a, w)
     np.testing.assert_array_equal(dq.numpy(), got[0])
+    di = np.sum(np.asarray(want_out) * dout, -1).transpose(0, 2, 1)
+    assert delta.shape == (b, nh, g) and delta.dtype == torch.float32
+    np.testing.assert_allclose(delta.numpy(), di, atol=1e-5 * np.abs(di).max(), rtol=0)
     assert attention.launches == attention_bwd_dkv.launches == attention_bwd_dq.launches == 0
 
 
