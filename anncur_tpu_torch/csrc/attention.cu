@@ -14,11 +14,41 @@
 // (1.61 GB) and read K and V at the valid keys (0.81 GB): 0.725 ms at
 // 3.35 TB/s. Its products over the valid keys are 207 GFLOP, 0.21 ms on the
 // bf16 tensor cores: ~128 FLOP/B, below the bf16 ridge (~295 FLOP/B), so
-// bytes bound it. mma.sync at a third of the tensor-core peak already keeps
-// the arithmetic under the byte time, so this design needs neither wgmma,
-// TMA nor warp specialisation.
+// bytes bound it. A work item (a pair, a head, 64 query rows) is short: its
+// Q tile, two to four 64-key K/V tiles, its O tile. What keeps such a
+// kernel from the byte bound is latency: a block that loads its Q and first
+// tiles, then runs, then writes O in turn leaves the card idle between.
 //
-// bf16 design (hd any multiple of 16 up to 256, templated on HD):
+// Hopper body (bf16, hd = 64, g > 16: every configuration's full layers;
+// namespace hopper): one warpgroup a block owns two 64-row query tiles of
+// a (pair, head), so each K/V tile it loads serves 128 query rows (the
+// blocks of a head run together and share its K/V in L2); a launch that
+// would then have fewer blocks than the card has SMs (the towers'
+// micro-batch of 4 pairs) gives each block one query tile. Thread 0 issues
+// every load by TMA (4-D tensor maps of q, k and v with their strides,
+// 128-byte-swizzled 64 x 64 tiles; rows past g or s read as zeros),
+// predicated so the warpgroup takes no divergent branch: both Q tiles and
+// K/V tile 0 (which always runs) while the block reads the mask, then the
+// running K/V tiles through a 3-stage ring. Per key tile: S = Q K^T for
+// both query tiles by wgmma m64n64k16 from shared memory (both K-major),
+// committed as two groups; the first tile's scale, bias and online softmax
+// in f32 (as below) run while the second's S is on the tensor cores, then
+// its O += P V (P rounded to bf16 straight from the accumulator as the A
+// fragments, V MN-major through the transpose bit) while the second tile's
+// softmax runs. The epilogue is the one below, through padded rows of the
+// freed ring. Designs timed side by side on the H100 at the build layer
+// (cli/time_kernels.py --source; PERF.md): persistent blocks walking
+// single 64-row items with the next item's loads in flight, 1.83 ms, or
+// walking (pair, head) units, 1.58 ms, against the mma.sync body's 1.63:
+// each K/V tile read once per 64 query rows through L2 held them back; two
+// query tiles a block, 1.24 ms as here, 1.35 ms with the two softmaxes
+// after both products. ptxas reports the wgmma of this body serialised
+// (C7515: the second tile's softmax writes its accumulators while the
+// first tile's P V runs); the overlap still pays.
+
+// mma.sync design (bf16, every other head dim that is a multiple of 16 up
+// to 256, templated on HD, and g <= 16 at hd 64; the Hopper body keeps its
+// semantics):
 // - One block per (pair, head, tile of query rows), the tile index fastest,
 //   so the tiles of one head run together and re-read its K/V from L2. Four
 //   warps own 16 query rows each. 64 rows rather than 128: an 8-warp block
@@ -81,6 +111,7 @@
 #include "attention_common.cuh"
 #include "attention_wide.cuh"
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace {
 
@@ -331,6 +362,259 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
   }
 }
+
+// ------------------------------------------------------------- Hopper
+
+// bf16, hd = 64, g > 16: wgmma on TMA-filled, 128-byte-swizzled tiles (the
+// header note). One warpgroup a block, owning two query tiles of a (pair,
+// head) that share each K/V tile; its thread 0 issues every TMA load,
+// predicated.
+namespace hopper {
+
+using namespace wgmma_sm90;
+
+constexpr int kRows = 64;                   // query rows of a tile, keys of a K/V tile
+constexpr int kTileBytes = kRows * 64 * 2;  // one 64 x 64 bf16 tile
+constexpr int kQTiles = 2;                  // query tiles of a block, at most
+constexpr int kStages = 3;                  // depth of the K/V ring
+constexpr int kThreads = 128;               // one warpgroup
+constexpr int kBlocksPerSm = 3;
+constexpr int kLdOut = 72;                  // epilogue rows, padded by 16 bytes
+// shared memory from a 1024-byte boundary: the query tiles, the ring's K
+// and V tiles, the barriers, then one mask word and one running tile index
+// per key tile; the epilogue rows reuse the ring
+constexpr int kK = kQTiles * kTileBytes;
+constexpr int kV = kK + kStages * kTileBytes;
+constexpr int kBars = kV + kStages * kTileBytes;
+constexpr int kMeta = kBars + (1 + kStages) * 8;
+static_assert(kQTiles * kRows * kLdOut * 2 <= 2 * kStages * kTileBytes, "the epilogue fits in the ring");
+
+__host__ __device__ constexpr size_t smem_bytes(int n_tiles) {
+  return kMeta + static_cast<size_t>(n_tiles) * (sizeof(uint64_t) + sizeof(int)) + 1024;
+}
+
+struct Maps {  // q, k, v as 64-row x 64-column TMA boxes
+  RowMap q, k, v;
+};
+
+__device__ __forceinline__ void load_tile(void* dst, const RowMap& m, uint64_t* bar, int h, int row, int b,
+                                          bool issue) {
+  int c[4];
+  tile_coords(m.order, h, row, b, c);
+  tma_load_4d(dst, &m.map, bar, c[0], c[1], c[2], c[3], issue);
+}
+
+// One query tile's online softmax over a key tile (the mma.sync body's
+// arithmetic): s <- exp(s * scale + bias - m) in f32, bias 0 at valid keys,
+// -1e9 at masked ones and -inf past s (n_keys keys of the tile below s);
+// m, l and o rescaled
+__device__ __forceinline__ void online_softmax(float (&sc)[32], float (&o)[32], float (&m)[2], float (&l)[2],
+                                               uint64_t bits, int n_keys, float scale, int cq) {
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * jj + cq + (e & 1);
+      const float bias = col >= n_keys ? -INFINITY : (((bits >> col) & 1) ? 0.0f : kMaskBias);
+      sc[4 * jj + e] = sc[4 * jj + e] * scale + bias;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], sc[4 * jj + e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+    // finite: a running tile holds a key < s. alpha is 0 on the first tile
+    // (m = -inf); the difference is taken before log2(e), as at m ~ -1e9
+    // (no valid key) a folded log2(e) would lose it
+    const float m_new = fmaxf(m[i], tmax[i]);
+    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    o[e] *= alpha[(e >> 1) & 1];
+    sc[e] = exp2f((sc[e] - m[(e >> 1) & 1]) * kLog2e);
+    l[(e >> 1) & 1] += sc[e];
+  }
+}
+
+// P rounded to bf16 from the accumulator: the A fragments of O += P V (the
+// layout note of csrc/wgmma_sm90.cuh)
+__device__ __forceinline__ void to_a(uint32_t (&p)[4][4], const float (&sc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+// One query tile's O / l in bf16 through the warp's padded rows of
+// `stage`, then 16-byte stores of rows < g; its lse
+__device__ __forceinline__ void epilogue(bf16* stage, float (&o)[32], float (&m)[2], float (&l)[2], bf16* out,
+                                         float* lse, int b, int h, int row0, int g, int nh, float shift, int warp,
+                                         int lane) {
+  const int r = lane >> 2, cq = 2 * (lane & 3), er = 16 * warp + r;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    *reinterpret_cast<uint32_t*>(stage + er * kLdOut + 8 * jj + cq) = pack_bf16x2(o[4 * jj] * inv[0], o[4 * jj + 1] * inv[0]);
+    *reinterpret_cast<uint32_t*>(stage + (er + 8) * kLdOut + 8 * jj + cq) =
+        pack_bf16x2(o[4 * jj + 2] * inv[1], o[4 * jj + 3] * inv[1]);
+  }
+  __syncwarp();
+  for (int u = lane; u < 16 * 8; u += 32) {
+    const int i = 16 * warp + u / 8, unit = u % 8, row = row0 + i;
+    if (row < g)
+      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(b) * g + row) * nh + h) * 64 + 8 * unit) =
+          *reinterpret_cast<const uint4*>(stage + i * kLdOut + 8 * unit);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + er + 8 * i;
+      if (row < g) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m[i] - shift) + logf(l[i]);
+    }
+  }
+}
+
+// One block per (pair, head, pass of n_q 64-row query tiles: 2, or 1 where
+// two a block would leave SMs idle), the pass fastest: O = softmax(Q K^T *
+// scale + bias) V for the pass's query tiles over the pair's running key
+// tiles (every tile that holds a valid key, and tile 0; every tile in a
+// pair with none). Each K/V tile serves both query tiles, their products
+// interleaved with the other tile's softmax.
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+attention_fwd_wgmma_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
+                           bf16* __restrict__ out, float* __restrict__ lse, int g, int s, int nh, int n_q,
+                           int n_pass, long long valid_sb, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kBars);
+  uint64_t* kv_full = q_full + 1;  // [kStages]
+  const int n_tiles = (s + kRows - 1) / kRows;
+  uint64_t* tile_bits = reinterpret_cast<uint64_t*>(smem + kMeta);
+  int* run = reinterpret_cast<int*>(tile_bits + n_tiles);  // the running tiles, in order
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int pass = blockIdx.x % n_pass, bh = blockIdx.x / n_pass;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = pass * n_q * kRows;
+  const bool two = n_q == 2 && row0 + kRows < g;  // a second query tile that holds a row < g
+  auto load_kv = [&](int t, int st, bool issue) {
+    mbar_arrive_expect_tx(kv_full + st, 2 * kTileBytes, issue);
+    load_tile(smem + kK + st * kTileBytes, maps.k, kv_full + st, h, t * kRows, b, issue);
+    load_tile(smem + kV + st * kTileBytes, maps.v, kv_full + st, h, t * kRows, b, issue);
+  };
+
+  // the barriers, then the query tiles and key tile 0 (which always runs)
+  // in flight while the block reads the mask
+  if (tid == 0) {
+    mbar_init(q_full, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) mbar_init(kv_full + i, 1);
+    mbar_init_fence();
+    mbar_arrive_expect_tx(q_full, (two ? 2 : 1) * kTileBytes, true);
+    load_tile(smem, maps.q, q_full, h, row0, b, true);
+    load_tile(smem + kTileBytes, maps.q, q_full, h, row0 + kRows, b, two);
+    load_kv(0, 0, true);
+  }
+  // one word of valid-key bits per key tile (the barrier also publishes the
+  // mbarriers' init)
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  bool any_local = false;
+  for (int t = warp; t < n_tiles; t += kThreads / 32) {
+    const int j0 = t * kRows + lane, j1 = j0 + 32;
+    const uint32_t lo = __ballot_sync(0xffffffffu, j0 < s && vrow[j0]);
+    const uint32_t hi = __ballot_sync(0xffffffffu, j1 < s && vrow[j1]);
+    if (lane == 0) tile_bits[t] = (static_cast<uint64_t>(hi) << 32) | lo;
+    any_local |= (lo | hi) != 0;
+  }
+  const bool any_valid = __syncthreads_or(any_local);
+  int n_run = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t > 0 && any_valid && tile_bits[t] == 0) continue;
+    if (tid == 0) run[n_run] = t;
+    ++n_run;
+  }
+  __syncthreads();  // publishes run
+  for (int j = 1; j < kStages && j < n_run; ++j) load_kv(run[j], j, tid == 0);
+
+  const int cq = 2 * (lane & 3);  // accumulator rows 16 warp + (lane / 4) (+ 8), columns 8j + cq (+ 1)
+  float oa[32], ob[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) oa[i] = ob[i] = 0.0f;
+  float ma[2] = {-INFINITY, -INFINITY}, mb[2] = {-INFINITY, -INFINITY};  // rows lane / 4 and + 8
+  float la[2] = {0.0f, 0.0f}, lb[2] = {0.0f, 0.0f};  // this lane's share of each row's sum
+  const uint32_t qa = smem_u32(smem), qb = qa + kTileBytes;
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_run; ++j) {
+    const int t = run[j], st = j % kStages;
+    const uint32_t k_addr = smem_u32(smem + kK + st * kTileBytes), v_addr = smem_u32(smem + kV + st * kTileBytes);
+    const uint64_t bits = tile_bits[t];
+    const int n_keys = s - t * kRows;
+    mbar_wait(kv_full + st, (j / kStages) & 1);
+    // S = Q K^T for both query tiles, as two groups: queries x keys, hd
+    // reduced (both K-major)
+    float sa[32], sb[32];  // the first k-step overwrites them
+    uint32_t p[4][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_ss(sa, desc_sw128(qa + 32 * kk), desc_sw128(k_addr + 32 * kk), kk);
+    wgmma_commit();
+    if (two) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_ss(sb, desc_sw128(qb + 32 * kk), desc_sw128(k_addr + 32 * kk), kk);
+    }
+    wgmma_commit();  // possibly empty: keeps the group count uniform
+    wgmma_wait<1>();
+    keep(sa);
+    // the first tile's softmax while the second's S is on the tensor cores;
+    // then its O += P V (keys reduced, V MN-major), and the second tile's
+    // softmax while that runs
+    online_softmax(sa, oa, ma, la, bits, n_keys, scale, cq);
+    to_a(p, sa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) mma_rs_mn(oa, p[kk], desc_sw128(v_addr + 2048 * kk));
+    wgmma_commit();
+    if (two) {
+      wgmma_wait<1>();  // the second S; the first P V may still run
+      keep(sb);
+      online_softmax(sb, ob, mb, lb, bits, n_keys, scale, cq);
+      wgmma_wait<0>();
+      keep(oa);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) keep(p[kk]);
+      to_a(p, sb);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) mma_rs_mn(ob, p[kk], desc_sw128(v_addr + 2048 * kk));
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    keep(oa);
+    keep(ob);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) keep(p[kk]);
+    __syncthreads();  // every warp is done with the stage: refill it kStages running tiles on
+    const bool refill = j + kStages < n_run;
+    load_kv(run[refill ? j + kStages : j], st, tid == 0 && refill);
+  }
+
+  // O / l in bf16 through the ring (every product has read it)
+  const float shift = any_valid ? 0.0f : kMaskBias;  // exact: m is -1e9 + a multiple of 64
+  bf16* stage = reinterpret_cast<bf16*>(smem + kK);
+  epilogue(stage, oa, ma, la, out, lse, b, h, row0, g, nh, shift, warp, lane);
+  if (two) epilogue(stage + kRows * kLdOut, ob, mb, lb, out, lse, b, h, row0 + kRows, g, nh, shift, warp, lane);
+}
+
+}  // namespace hopper
 
 // ----------------------------------------------------------------- f32
 
@@ -670,6 +954,45 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void*
   return cudaGetLastError();
 }
 
+// the Hopper body (bf16, hd = 64, g > 16): one block per (pair, head, pass
+// of two query tiles), or of one where two would give fewer blocks than
+// the card has SMs (a micro-batch of a few pairs)
+cudaError_t launch_bf16_hopper(const void* q, const void* k, const void* v, const void* key_valid, void* out,
+                               float* lse, int b, int g, int s, int nh, const long long* st, float scale,
+                               cudaStream_t stream) {
+  using wgmma_sm90::make_row_map;
+  hopper::Maps maps;
+  cudaError_t err = make_row_map(&maps.q, q, b, g, nh, st[0], st[1], st[2]);
+  if (err == cudaSuccess) err = make_row_map(&maps.k, k, b, s, nh, st[3], st[4], st[5]);
+  if (err == cudaSuccess) err = make_row_map(&maps.v, v, b, s, nh, st[6], st[7], st[8]);
+  const size_t smem = hopper::smem_bytes((s + hopper::kRows - 1) / hopper::kRows);
+  auto kern = hopper::attention_fwd_wgmma_kernel;
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess) return err;
+  const int n_qt = (g + hopper::kRows - 1) / hopper::kRows;
+  const long long units = static_cast<long long>(b) * nh;
+  const int n_q = units * ((n_qt + hopper::kQTiles - 1) / hopper::kQTiles) < sms ? 1 : hopper::kQTiles;
+  const int n_pass = (n_qt + n_q - 1) / n_q;
+  if (units * n_pass > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(units * n_pass), hopper::kThreads, smem, stream>>>(
+      maps, static_cast<const uint8_t*>(key_valid), static_cast<bf16*>(out), lse, g, s, nh, n_q, n_pass, st[9],
+      scale);
+  return cudaGetLastError();
+}
+
+// whether the Hopper body takes these q, k, v: every axis TMA maps with a
+// positive stride (a broadcast view, stride 0, takes the mma.sync body) and
+// the mask words of s keys in shared memory
+bool hopper_takes(int s, const long long* st) {
+  for (int i = 0; i < 9; ++i)
+    if (st[i] <= 0) return false;
+  return hopper::smem_bytes((s + hopper::kRows - 1) / hopper::kRows) <= 227 * 1024;
+}
+
 template <int HD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, const void* key_valid,
                        void* out, float* lse, int b, int g, int s, int nh, const long long* st,
@@ -695,6 +1018,8 @@ cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v,
   if (!is_bf16) return launch_f32<HD>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
   if (g <= 16)
     return launch_bf16<HD, 1>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
+  if (HD == 64 && hopper_takes(s, st))
+    return launch_bf16_hopper(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
   return launch_bf16<HD, 4>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
 }
 

@@ -6,7 +6,9 @@
 // masked at padded columns, then lax.top_k) and every candidate pick of the
 // adaptive engine (anncur_tpu/core/adaptive_fused.py, `approx.at[rows,
 // ids].set(-inf)` then lax.top_k):
-//     scores = queries @ items^T   (IEEE f32, FFMA, no TF32 tensor cores)
+//     scores = queries @ items^T   (f32-accurate: an IEEE FFMA chain, or
+//                                   three TF32 passes on the tensor cores,
+//                                   never one TF32 or bf16 pass)
 //     top-k per query over columns < n_valid that are not on the query's
 //     row of an optional exclusion list, scores descending, ties to the
 //     smallest item id, +0.0 above -0.0 (lax.top_k's order); any
@@ -17,18 +19,50 @@
 // scale each; score = (the same in-order fmaf chain over float(value)) *
 // scale, the scale applied once to the finished sum, as JAX applies it.
 //
-// Bound on the H100: the f32 FMA work, 2*q*n*d operations at 67 TFLOP/s,
-// against the bytes of the queries and items read once. At q=32, d=500,
-// n=10,000 the items' 20 MB (6 us) bound it; from q ~ 40 on the operations
-// do (q=256, n=104,520: 0.40 ms of FFMA against 0.06 ms of bytes). Int8
-// items cut the item bytes 4x, which moves the bound only where bytes set
-// it: one text (q=1) over a large corpus.
+// Bound on the H100: 2*q*n*d operations as an f32-accurate product, three
+// TF32 passes at 495 TFLOP/s (165 TFLOP/s of f32 work, 2.5x the 67 TFLOP/s
+// of FFMA), against the bytes of the queries and items read once. At q=32,
+// d=500, n=10,000 the items' 20 MB (6 us) bound it; from q ~ 100 on the
+// operations do (q=256, n=104,520: 0.16 ms on the tensor cores, 0.40 ms of
+// FFMA, against 0.06 ms of bytes; ZeShEL-military's 13,063 x 104,520 x 768:
+// 12.7 ms, 31.3 ms by FFMA). Int8 items cut the item bytes 4x, which moves
+// the bound only where bytes set it: one text (q=1) over a large corpus.
+//
+// Numerics. The reference asks the TPU for precision="highest"
+// (mips_pallas.py:129-133, :176-178), which its matrix unit carries out as
+// several bf16 passes. Here every score is f32-accurate: an in-order FFMA
+// chain, or on the tensor cores x = big + small for each operand (big =
+// tf32(x) by cvt.rna for a query, the raw f32 for an item, whose low 13
+// bits the tensor cores drop; small = tf32(x - big)), and per 8 of depth S +=
+// small_q big_i + big_q small_i + big_q big_i (small terms first; the
+// dropped small_q small_i is below 2^-22 of the product). The tensor cores
+// truncate as they accumulate, so each 32-deep stage's sum is kept apart
+// and added to the score in f32 (round to nearest): the error against an
+// f64 product stays within that of an f32 matmul
+// (tests/test_torch_mips_split.py emulates it; chip_smoke.py holds the
+// kernel at 4x the plain matmul's at the hard-negative mine and
+// ZeShEL-military). Small integers (every card test's exact equality) are
+// tf32 with small = 0 and sum exactly.
 //
 // Design. The TPU kernels carry a running top-k from one sequential grid step
 // to the next; Hopper runs blocks in parallel and in no order. So two stages,
 // run once per chunk of queries whose (chunk, n_valid) score matrix fits a
 // fixed scratch budget:
-//  1. mips_score_kernel: a register-tiled FFMA GEMM. A block owns up to
+//  1. mips_score_tc_kernel, for f32 items when rows take 16-byte copies
+//     (d % 4 == 0, aligned bases) and a chunk has more than 32 queries: the
+//     three TF32 passes on wgmma m64n128k8 (tc:: below). One persistent
+//     block an SM walks the chunk's 128-query x 128-item tiles, query tiles
+//     fastest; 2-D TMA fills a 4-stage ring of 128-byte-swizzled tiles 32
+//     f32 deep (zero past d, past the chunk's rows and past n_valid); two
+//     split warps write each item tile's small parts beside it (the raw
+//     tile is its big part: TF32 wgmma drops the low 13 bits); two
+//     consumer warpgroups of 64 queries split their query fragments in
+//     registers, take the item tiles from shared memory by descriptor, and
+//     add each stage's sum into f32 registers from +0.0 (so never -0.0).
+//     Ties keep their meaning: a duplicated item row scores the same bits
+//     wherever it sits (every output of a product is the same sum of the
+//     same terms). Every other chunk and the int8 entry take
+//     mips_score_kernel, a register-tiled FFMA GEMM. A block owns up to
 //     64 queries x 128 items, each of its 128 threads up to 8 x 8 of them;
 //     depth is staged through shared memory in a 2-4 deep cp.async ring:
 //     16-byte copies into row-major tiles read as float4 along the depth
@@ -69,8 +103,8 @@
 //     chunks); its last pass writes the output.
 // Exclusions: after the score kernel, each select block writes the bits
 // 0xFFFFFFFF (a NaN whose key is 0) over the excluded ids of its own slice of
-// the scratch row, then loads its keys. The score kernel never writes those
-// bits (it stores that one NaN as 0xFFFFFFFE), so every real key is >= 1 and
+// the scratch row, then loads its keys. Neither score kernel writes those
+// bits (each stores that one NaN as 0xFFFFFFFE), so every real key is >= 1 and
 // an excluded id ranks below every real score, -inf included, and is never
 // taken while k <= n_valid - S. No launch is added.
 // Output scores are read back from the score scratch at the selected ids, so
@@ -83,6 +117,7 @@
 #include <stdint.h>
 
 #include "mma_sm90.cuh"
+#include "wgmma_sm90.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -334,13 +369,227 @@ mips_score_kernel(const float* __restrict__ qry, const void* __restrict__ items,
 }
 
 // the tilings, by queries per chunk (L: > 32, M: 9-32, S: <= 8), by whether
-// rows take 16-byte copies (V) or not (W), and by the item type
+// rows take 16-byte copies (V) or not (W), and by the item type; f32 items
+// at L with V take the tensor-core kernel below instead, so only int8 uses
+// ScoreLV
 template <bool I8> using ScoreLV = ScoreTile<true, I8, 64, 128, 8, 8, 32, 2>;
 template <bool I8> using ScoreMV = ScoreTile<true, I8, 32, 64, 4, 4, 32, 4>;
 template <bool I8> using ScoreSV = ScoreTile<true, I8, 8, 64, 1, 4, 32, 4>;
 template <bool I8> using ScoreLW = ScoreTile<false, I8, 64, 128, 8, 8, 16, 3>;
 template <bool I8> using ScoreMW = ScoreTile<false, I8, 32, 64, 4, 4, 32, 4>;
 template <bool I8> using ScoreSW = ScoreTile<false, I8, 8, 64, 1, 4, 32, 4>;
+
+// -------------------------------------------------------------------------
+// stage 1 on the tensor cores: f32-accurate scores in three TF32 passes
+// -------------------------------------------------------------------------
+
+namespace tc {
+
+using namespace wgmma_sm90;
+
+constexpr int kBM = 128;                     // queries of a tile: two consumer warpgroups of 64
+constexpr int kBN = 128;                     // items of a tile
+constexpr int kBK = 32;                      // depth of a stage: one 128-byte row of f32
+constexpr int kStages = 4;                   // depth of the ring
+constexpr int kSplitWarps = 2;               // warps that split the item tiles (the first issues TMA)
+constexpr int kThreads = 256 + 32 * kSplitWarps;
+constexpr int kQBytes = kBM * kBK * 4;       // a stage's query tile
+constexpr int kIBytes = kBN * kBK * 4;       // its item tile, and again the items' small parts
+constexpr int kStageBytes = kQBytes + 2 * kIBytes;
+constexpr int kBars = kStages * kStageBytes;
+constexpr int kSmem = kBars + 3 * kStages * 8 + 1024;  // + room to align to 1024 bytes
+// An item's small part. The raw item tile serves as its big part: TF32
+// wgmma reads the top 19 bits of each f32 and drops the low 13
+// (tests/test_torch_cuda.py, test_tf32_wgmma_fragments_and_the_low_13_bits,
+// holds the card to it), so big = x with its low 13 bits cleared, and
+// x - big is exact in f32 before it is rounded to tf32.
+__device__ __forceinline__ float small_part(float x) {
+  return __uint_as_float(tf32_rna(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
+}
+
+// Scores of every (query tile, item tile) of a chunk, one block an SM
+// walking the tiles (query tiles fastest, so the blocks that run together
+// share an item tile); per tile the depth streams through a ring of
+// kStages stages. Warps 8 and up split: lane 0 of warp 8 keeps TMA loads of
+// the query and item tiles kStages stages ahead (full), then they write each
+// item's small part beside the item tile and signal ready. Warpgroups 0 and
+// 1 own 64 queries each: per stage, each of their threads splits its query
+// fragments in registers and issues, per k-step of 8, S += small_q big_i +
+// big_q small_i + big_q big_i (small terms first) into a stage accumulator,
+// waits, releases the stage (empty) and adds the stage's sum to the tile's
+// f32 sum. The tensor cores truncate as they accumulate: the stage's sum is
+// what keeps the score f32-accurate (one accumulator over the whole depth
+// measured 4.6x and 5.7x the f32 matmul's error against f64 at the mine and
+// ZeShEL-military, cli/time_kernels.py; the stage sums 0.27x and 0.30x).
+__global__ void __launch_bounds__(kThreads, 1)
+mips_score_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap imap, int q,
+                     int n_valid, int d, int ld, float* __restrict__ scores) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBars);  // [kStages] a stage's tiles landed
+  uint64_t* ready = full + kStages;                            // [kStages] its small parts written
+  uint64_t* empty = ready + kStages;                           // [kStages] both warpgroups are done with it
+  const int tid = threadIdx.x, lane = tid & 31;
+  // 0, 1: the consumer warpgroups; 2: the split warps (uniform in a warp, as
+  // the compiler is told, so no wgmma sits in divergent code)
+  const int role = __shfl_sync(0xffffffffu, tid / 128, 0);
+  const int q_tiles = (q + kBM - 1) / kBM;
+  const int n_tiles = q_tiles * ((n_valid + kBN - 1) / kBN);
+  const int n_k = (d + kBK - 1) / kBK;
+  const int total = ((n_tiles - static_cast<int>(blockIdx.x) + static_cast<int>(gridDim.x) - 1) /
+                     static_cast<int>(gridDim.x)) * n_k;  // this block's stages
+  if (tid == 0) {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(ready + i, 32 * kSplitWarps);
+      mbar_init(empty + i, 8);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (role == 2) {
+    const int ptid = tid - 256;
+    // stage f of this block: tile blockIdx.x + (f / n_k) gridDim.x, depth f % n_k
+    auto issue = [&](int f, bool on) {
+      const int tile = blockIdx.x + (f / n_k) * gridDim.x, kt = f % n_k, s = f % kStages;
+      unsigned char* st = smem + s * kStageBytes;
+      mbar_arrive_expect_tx(full + s, kQBytes + kIBytes, on);
+      tma_load_2d(st, &qmap, full + s, kt * kBK, (tile % q_tiles) * kBM, on);
+      tma_load_2d(st + kQBytes, &imap, full + s, kt * kBK, (tile / q_tiles) * kBN, on);
+    };
+    for (int f = 0; f < kStages && f < total; ++f) issue(f, ptid == 0);
+    for (int f = 0; f < total; ++f) {
+      const int s = f % kStages;
+      unsigned char* st = smem + s * kStageBytes;
+      mbar_wait(full + s, (f / kStages) & 1);
+      const float4* items = reinterpret_cast<const float4*>(st + kQBytes);
+      float4* small = reinterpret_cast<float4*>(st + kQBytes + kIBytes);
+#pragma unroll 4
+      for (int i = ptid; i < kIBytes / 16; i += 32 * kSplitWarps) {
+        const float4 x = items[i];
+        small[i] = make_float4(small_part(x.x), small_part(x.y), small_part(x.z), small_part(x.w));
+      }
+      fence_proxy_async();
+      mbar_arrive(ready + s, true);
+      // the stage of f - 1, once both warpgroups are done with it, takes f - 1 + kStages
+      if (f >= 1 && f - 1 + kStages < total) {
+        mbar_wait(empty + (f - 1) % kStages, ((f - 1) / kStages) & 1);
+        issue(f - 1 + kStages, ptid == 0);
+      }
+    }
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    return;
+  }
+
+  // this thread's query rows in a tile: qrow and qrow + 8; its fragment
+  // columns t and t + 4 of each k-step
+  const int warp = (tid / 32) % 4, r = lane >> 2, t = lane & 3;
+  const int qrow = 64 * role + 16 * warp + r;
+  int f = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;  // +0.0: a score is never -0.0 from an empty sum
+    for (int kt = 0; kt < n_k; ++kt, ++f) {
+      const int s = f % kStages;
+      const unsigned char* st = smem + s * kStageBytes;
+      mbar_wait(ready + s, (f / kStages) & 1);
+      // per k-step of 8: the query fragments split in registers, big =
+      // tf32(x) and small = tf32(x - big), then the three products into the
+      // stage's sum, committed as a group; two k-steps' fragments live, one
+      // group in flight while the next is issued
+      const uint32_t big_i = smem_u32(st + kQBytes), small_i = big_i + kIBytes;
+      float part[64];  // the first product overwrites it
+      uint32_t qb0[4], qs0[4], qb1[4], qs1[4];
+      auto issue_k = [&](int kk, uint32_t (&qb)[4], uint32_t (&qs)[4]) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int row = qrow + 8 * (i & 1), col = 8 * kk + t + 4 * (i >> 1);
+          const float x = *reinterpret_cast<const float*>(st + row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4);
+          qb[i] = tf32_rna(x);
+          qs[i] = tf32_rna(x - __uint_as_float(qb[i]));
+        }
+        wgmma_fence();
+        mma_tf32_rs(part, qs, desc_sw128(big_i + 32 * kk), kk);
+        mma_tf32_rs(part, qb, desc_sw128(small_i + 32 * kk), 1);
+        mma_tf32_rs(part, qb, desc_sw128(big_i + 32 * kk), 1);
+        wgmma_commit();
+      };
+      issue_k(0, qb0, qs0);
+      issue_k(1, qb1, qs1);
+      wgmma_wait<1>();
+      keep(qb0);
+      keep(qs0);
+      issue_k(2, qb0, qs0);
+      wgmma_wait<1>();
+      keep(qb1);
+      keep(qs1);
+      issue_k(3, qb1, qs1);
+      wgmma_wait<0>();
+      keep(part);
+      keep(qb0);
+      keep(qs0);
+      keep(qb1);
+      keep(qs1);
+      mbar_arrive(empty + s, lane == 0);
+      // each stage's sum rounded once into the tile's sum
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    }
+    // the exclusion mark's bits are never a score; columns in [n_valid, ld)
+    // hold zeros (TMA zero-fills the item rows past n_valid)
+    const int q0 = (tile % q_tiles) * kBM, i0 = (tile / q_tiles) * kBN;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + qrow + 8 * h;
+      float* out = scores + static_cast<size_t>(row < q ? row : 0) * ld + i0;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (__float_as_uint(v.x) == kExcludedBits) v.x = __uint_as_float(kExcludedBits - 1);
+        if (__float_as_uint(v.y) == kExcludedBits) v.y = __uint_as_float(kExcludedBits - 1);
+        if (row < q && i0 + 8 * j + 2 * t < ld) *reinterpret_cast<float2*>(out + 8 * j + 2 * t) = v;
+      }
+    }
+  }
+  // the select may launch now; it waits for this grid's stores
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+}
+
+// One m64n128k8 product of raw f32 bits, the way the score kernel reads
+// its operands (A a register fragment, B a 128-byte-swizzled K-major tile):
+// d (64 x 128) = a (64 x 8) b^T (b: 128 x 8), both row-major. A probe for
+// tests/test_torch_cuda.py: what TF32 wgmma does with the low 13 bits of
+// each f32, and the fragment layouts above.
+__global__ void __launch_bounds__(128) tf32_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                                         float* __restrict__ d) {
+  __shared__ __align__(1024) float tile[kBN * 32];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, r = lane >> 2, t = lane & 3;
+  for (int i = tid; i < kBN * 32; i += 128) {
+    const int row = i / 32, col = i % 32;
+    tile[row * 32 + (((col >> 2) ^ (row & 7)) << 2) + (col & 3)] = col < 8 ? b[row * 8 + col] : 0.0f;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  uint32_t frag[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) frag[i] = __float_as_uint(a[(16 * warp + r + 8 * (i & 1)) * 8 + t + 4 * (i >> 1)]);
+  float acc[64];
+  wgmma_fence();
+  mma_tf32_rs(acc, frag, desc_sw128(smem_u32(tile)), 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  keep(acc);
+  keep(frag);
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[(16 * warp + r + 8 * (e >> 1)) * kBN + 8 * j + 2 * t + (e & 1)] = acc[4 * j + e];
+}
+
+}  // namespace tc
 
 // -------------------------------------------------------------------------
 // stage 2: select
@@ -668,14 +917,40 @@ cudaError_t launch_score(const float* qry, const void* items, const float* scale
   return cudaGetLastError();
 }
 
-// the score stage of one chunk of rows, by tiling
+// the tensor-core score stage of one chunk of rows (f32 items, d % 4 == 0,
+// 16-byte aligned bases): one block an SM at most
+cudaError_t launch_score_tc(const float* qry, const float* items, int rows, int n_valid, int d, int ld,
+                            float* scores, cudaStream_t cs) {
+  CUtensorMap qmap, imap;
+  cudaError_t err = wgmma_sm90::make_f32_matrix_map(&qmap, qry, rows, d, tc::kBM);
+  if (err == cudaSuccess) err = wgmma_sm90::make_f32_matrix_map(&imap, items, n_valid, d, tc::kBN);
+  int device = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int tiles = ((rows + tc::kBM - 1) / tc::kBM) * ((n_valid + tc::kBN - 1) / tc::kBN);
+  tc::mips_score_tc_kernel<<<tiles < sms ? tiles : sms, tc::kThreads, tc::kSmem, cs>>>(qmap, imap, rows, n_valid,
+                                                                                        d, ld, scores);
+  return cudaGetLastError();
+}
+
+// the score stage of one chunk of rows, by tiling: f32 items with 16-byte
+// rows and more than 32 rows on the tensor cores (counted in *tc_chunks),
+// the rest by FFMA
 template <bool I8>
 cudaError_t launch_score_chunk(bool vec, const float* qry, const void* items, const float* scales, int rows,
-                               int n_valid, int d, int ld, float* scores, cudaStream_t cs) {
+                               int n_valid, int d, int ld, float* scores, int* tc_chunks, cudaStream_t cs) {
+  if (vec && rows > 32) {
+    if constexpr (I8) {
+      return launch_score<ScoreLV<true>>(qry, items, scales, rows, n_valid, d, ld, scores, cs);
+    } else {
+      ++*tc_chunks;
+      return launch_score_tc(qry, static_cast<const float*>(items), rows, n_valid, d, ld, scores, cs);
+    }
+  }
   if (vec)
-    return rows > 32 ? launch_score<ScoreLV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
-           : rows > 8 ? launch_score<ScoreMV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
-                      : launch_score<ScoreSV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs);
+    return rows > 8 ? launch_score<ScoreMV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
+                    : launch_score<ScoreSV<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs);
   return rows > 32 ? launch_score<ScoreLW<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
          : rows > 8 ? launch_score<ScoreMW<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs)
                     : launch_score<ScoreSW<I8>>(qry, items, scales, rows, n_valid, d, ld, scores, cs);
@@ -693,7 +968,9 @@ cudaError_t allow_score_smem() {
 // with that device current. Returns the first CUDA error.
 extern "C" int mips_topk_init() {
   cudaError_t err = cudaSuccess;
-  for (cudaError_t e : {allow_score_smem<ScoreLV<false>>(), allow_score_smem<ScoreMV<false>>(),
+  for (cudaError_t e : {cudaFuncSetAttribute(tc::mips_score_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             tc::kSmem),
+                        allow_score_smem<ScoreMV<false>>(),
                         allow_score_smem<ScoreSV<false>>(), allow_score_smem<ScoreLW<false>>(),
                         allow_score_smem<ScoreMW<false>>(), allow_score_smem<ScoreSW<false>>(),
                         allow_score_smem<ScoreLV<true>>(), allow_score_smem<ScoreMV<true>>(),
@@ -723,12 +1000,13 @@ namespace {
 template <bool I8>
 int run_mips_topk(const void* queries, const void* items, const float* scales, void* out_s, void* out_i,
                   const void* exclude, int n_ex, long long ex_ld, void* scratch, long long scratch_bytes,
-                  int q, int n, int d, int k, int n_valid, void* stream) {
+                  int q, int n, int d, int k, int n_valid, int* tc_chunks, void* stream) {
   if (q < 1 || d < 1 || k < 1 || n_valid > n || n_ex < 0 || k > n_valid - n_ex ||
       (n_ex > 0 && exclude == nullptr) || (I8 && scales == nullptr))
     return cudaErrorInvalidValue;
   const Plan p = make_plan(q, n_valid, k);
   if (scratch_bytes < static_cast<long long>(p.score_bytes + p.surv_bytes)) return cudaErrorInvalidValue;
+  *tc_chunks = 0;
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   float* scores = static_cast<float*>(scratch);
   u64* surv = p.large ? reinterpret_cast<u64*>(static_cast<unsigned char*>(scratch) + p.score_bytes) : nullptr;
@@ -745,7 +1023,7 @@ int run_mips_topk(const void* queries, const void* items, const float* scales, v
     long long* oi = static_cast<long long*>(out_i) + static_cast<size_t>(q0) * k;
     const long long* ex = n_ex > 0 ? static_cast<const long long*>(exclude) + q0 * ex_ld : nullptr;
 
-    cudaError_t err = launch_score_chunk<I8>(vec, qry, items, scales, rows, n_valid, d, p.ld, scores, cs);
+    cudaError_t err = launch_score_chunk<I8>(vec, qry, items, scales, rows, n_valid, d, p.ld, scores, tc_chunks, cs);
     if (err != cudaSuccess) return err;
 
     cudaLaunchConfig_t cfg = {};
@@ -792,14 +1070,15 @@ int run_mips_topk(const void* queries, const void* items, const float* scales, v
 // out_i (q, k) int64; scratch of mips_topk_scratch_bytes(q, n_valid, k)
 // bytes, 256-byte aligned; exclude: null (n_ex = 0) or n_ex int64 ids per
 // query at a row stride of ex_ld elements. Needs 1 <= k <= n_valid - n_ex
-// and n_valid <= n. Launches on `stream` of the current device. Returns the
-// first CUDA error.
+// and n_valid <= n. Launches on `stream` of the current device; writes to
+// *tc_chunks how many chunks of queries took the tensor-core score stage.
+// Returns the first CUDA error.
 extern "C" int mips_topk_fused(const void* queries, const void* items, void* out_s, void* out_i,
                                const void* exclude, int n_ex, long long ex_ld, void* scratch,
                                long long scratch_bytes, int q, int n, int d, int k, int n_valid,
-                               void* stream) {
+                               int* tc_chunks, void* stream) {
   return run_mips_topk<false>(queries, items, nullptr, out_s, out_i, exclude, n_ex, ex_ld, scratch,
-                              scratch_bytes, q, n, d, k, n_valid, stream);
+                              scratch_bytes, q, n, d, k, n_valid, tc_chunks, stream);
 }
 
 // The same over int8 items (n, d) row-major with f32 scales (n,): score =
@@ -807,9 +1086,17 @@ extern "C" int mips_topk_fused(const void* queries, const void* items, void* out
 extern "C" int mips_topk_int8_fused(const void* queries, const void* items, const void* scales,
                                     void* out_s, void* out_i, const void* exclude, int n_ex,
                                     long long ex_ld, void* scratch, long long scratch_bytes, int q, int n,
-                                    int d, int k, int n_valid, void* stream) {
+                                    int d, int k, int n_valid, int* tc_chunks, void* stream) {
   return run_mips_topk<true>(queries, items, static_cast<const float*>(scales), out_s, out_i, exclude, n_ex,
-                             ex_ld, scratch, scratch_bytes, q, n, d, k, n_valid, stream);
+                             ex_ld, scratch, scratch_bytes, q, n, d, k, n_valid, tc_chunks, stream);
+}
+
+// tc::tf32_probe_kernel on a (64, 8), b (128, 8) f32 into d (64, 128) f32,
+// all contiguous on the current device; returns cudaGetLastError().
+extern "C" int mips_tf32_probe(const void* a, const void* b, void* d, void* stream) {
+  tc::tf32_probe_kernel<<<1, 128, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), static_cast<float*>(d));
+  return cudaGetLastError();
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) warpgroup helpers for the port's kernels: wgmma
 // m64n64k16 (bf16 in, f32 accumulate) with both operands in shared memory
-// or A in registers, shared-memory matrix descriptors for 128-byte-swizzled
-// tiles, mbarriers, and 4-D TMA tile loads with their tensor maps.
+// or A in registers, wgmma m64n128k8 (tf32 in, f32 accumulate) with A in
+// registers, shared-memory matrix descriptors for 128-byte-swizzled tiles,
+// mbarriers, and 2-D and 4-D TMA tile loads with their tensor maps.
 //
 // Layouts (one warpgroup = warps 4i..4i+3, w = warp % 4, lane = threadIdx.x
 // % 32, r = lane / 4, c = 2 * (lane % 4)):
@@ -12,8 +13,12 @@
 //     c+8..c+9).
 // So columns 16kk..16kk+15 of an accumulator, rounded to bf16 pairs
 // (d[8kk..8kk+7] in order), are the A operand of the k-step over those 16
-// columns: P^T and dS^T (kernel C), dS (kernel D) feed the next product
-// from registers.
+// columns: P^T and dS^T (kernel C), dS (kernel D) and P (kernel A) feed
+// the next product from registers.
+//   accumulator of m64n128: the same with j = 0..15 (64 f32 a thread);
+//   A from registers for tf32 m64k8 (4 regs of tf32, t = lane % 4): a0
+//     (16w + r, t), a1 (16w + r + 8, t), a2 (16w + r, t + 4), a3 (16w + r
+//     + 8, t + 4).
 //
 // A tile is 64 rows of 64 bf16 (128 bytes), as TMA writes it with the
 // 128-byte swizzle: the 16-byte unit u of row i sits at unit u ^ (i % 8),
@@ -21,7 +26,9 @@
 // As a K-major operand (rows are M or N, the 64 columns the reduced axis)
 // a k-step of 16 columns starts 32 bytes on; as an MN-major B operand
 // (rows are the reduced axis, columns N) a k-step of 16 rows starts 2048
-// bytes on. Both strides between 8-row groups are 1024 bytes.
+// bytes on. Both strides between 8-row groups are 1024 bytes. A tf32 tile
+// has the same bytes: rows of 32 f32, a K-major k-step of 8 columns 32
+// bytes on (tf32 takes K-major operands only).
 #pragma once
 
 #include <cuda.h>
@@ -96,6 +103,53 @@ __device__ __forceinline__ void mma_rs_mn(float (&d)[32], const uint32_t (&a)[4]
 #undef WGMMA_D32
 #undef WGMMA_D32_OPS
 
+#define WGMMA_D64                                                                                          \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, " \
+  "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "  \
+  "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "  \
+  "%62, %63}"
+#define WGMMA_D64_OPS(d)                                                                                      \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), \
+      "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),  \
+      "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), \
+      "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), \
+      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), \
+      "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+// d (64 x 128) = A (64 x 8 tf32, this thread's fragment) * B (8 x 128,
+// K-major tf32 in shared memory, by descriptor) + (accumulate ? d : 0)
+__device__ __forceinline__ void mma_tf32_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " WGMMA_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : WGMMA_D64_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+#undef WGMMA_D64
+#undef WGMMA_D64_OPS
+
+__device__ __forceinline__ void keep(float (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// x rounded to tf32, to nearest with ties away from zero: the f32 bits with
+// the low 13 zero
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// this thread's generic-proxy writes to shared memory, ordered before later
+// async-proxy accesses (wgmma operand reads, TMA writes) of the block
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ----------------------------------------------------------- mbarriers
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -117,6 +171,16 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t by
       "{\n.reg .pred p;\n.reg .b64 state;\nsetp.ne.b32 p, %2, 0;\n"
       "@p mbarrier.arrive.expect_tx.release.cta.shared::cta.b64 state, [%0], %1;\n}\n" ::"r"(smem_u32(bar)),
       "r"(bytes), "r"(static_cast<int>(issue))
+      : "memory");
+}
+
+// an arrival without bytes (release: this thread's prior writes are seen by
+// the threads that wait on the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar, bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 state;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.release.cta.shared::cta.b64 state, [%0];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(static_cast<int>(issue))
       : "memory");
 }
 
@@ -143,6 +207,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "@p cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, "
       "%4, %5}], [%6];\n}\n" ::"r"(smem_u32(dst)),
       "l"(map), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(smem_u32(bar)), "r"(static_cast<int>(issue))
+      : "memory");
+}
+
+// a tile of a 2-D tensor map at coordinates c0 (column), c1 (row) into
+// shared memory; its bytes complete on bar
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            bool issue) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %5, 0;\n"
+      "@p cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], "
+      "[%4];\n}\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(c0), "r"(c1), "r"(smem_u32(bar)), "r"(static_cast<int>(issue))
       : "memory");
 }
 
@@ -209,6 +285,22 @@ inline cudaError_t make_row_map(RowMap* out, const void* base, int b, int n_rows
   }
   const CUresult rc = encode(&out->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A row-major (rows, cols) f32 matrix (cols % 4 == 0, base on 16 bytes) as
+// a 2-D tensor map of box_rows x 32-column boxes (128 bytes a row) with the
+// 128-byte swizzle; entries past either edge read as zeros.
+inline cudaError_t make_f32_matrix_map(CUtensorMap* out, const void* base, int rows, int cols, int box_rows) {
+  EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * sizeof(float)};
+  const cuuint32_t box[2] = {32, static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem_strides[2] = {1, 1};
+  const CUresult rc = encode(out, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims, strides, box,
+                             elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

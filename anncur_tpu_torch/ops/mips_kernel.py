@@ -9,9 +9,13 @@ is ``ops/mips.py::mips_topk``. :func:`mips_topk_int8_fused` is the same
 kernel over int8 items with per-row scales (``ops/quantized.py``); its
 plain version is ``ops/mips.py::mips_topk_int8_plain``.
 
-On the card it is a register-tiled f32 FFMA GEMM into a score scratch,
-then an exact radix select, one thread-block cluster per query; any
-``1 <= k <= n_valid - S``, as ``lax.top_k`` takes.
+On the card it is a score GEMM into a score scratch, then an exact radix
+select, one thread-block cluster per query; any ``1 <= k <= n_valid - S``,
+as ``lax.top_k`` takes. The score GEMM of f32 items runs on the tensor
+cores in three TF32 passes (f32-accurate, as the reference's
+``precision="highest"`` is on the TPU) for chunks of more than 32 queries
+over rows of 16 bytes (d % 4 == 0, aligned bases), and as an IEEE FFMA
+chain otherwise; int8 items take the FFMA chain.
 """
 
 from __future__ import annotations
@@ -53,12 +57,16 @@ def mips_topk_fused(
     if queries.device.type == "cpu" and items.device.type == "cpu":
         return mips_topk(queries, items, k, n_valid, exclude)
     _check(queries, items, torch.float32, k, n_valid)
-    out = _launch("mips_topk_fused", queries, (items.data_ptr(),), n, k, n_valid, exclude)
+    out, tc_chunks = _launch("mips_topk_fused", queries, (items.data_ptr(),), n, k, n_valid, exclude)
     mips_topk_fused.launches += 1
+    mips_topk_fused.tc_launches += tc_chunks > 0
     return out
 
 
-mips_topk_fused.launches = 0  # kernel B launches; chip_smoke reads and resets it
+# kernel B launches, and those whose score stage ran on the tensor cores;
+# chip_smoke reads and resets both
+mips_topk_fused.launches = 0
+mips_topk_fused.tc_launches = 0
 
 
 def mips_topk_int8_fused(
@@ -83,7 +91,7 @@ def mips_topk_int8_fused(
     _check(queries, values, torch.int8, k, n_valid)
     if scales.dtype != torch.float32 or scales.device != queries.device or scales.numel() != n or not scales.is_contiguous():
         raise ValueError(f"mips_topk_int8_fused: scales must be {n} contiguous f32 values on {queries.device}")
-    out = _launch("mips_topk_int8_fused", queries, (values.data_ptr(), scales.data_ptr()), n, k, n_valid, exclude)
+    out, _ = _launch("mips_topk_int8_fused", queries, (values.data_ptr(), scales.data_ptr()), n, k, n_valid, exclude)
     mips_topk_int8_fused.launches += 1
     return out
 
@@ -129,7 +137,8 @@ def _check(queries, items, item_dtype, k, n_valid) -> None:
 def _launch(entry, queries, item_ptrs, n, k, n_valid, exclude):
     """One call of the C ``entry`` (``mips_topk_fused`` or its int8 twin,
     whose item pointers are ``item_ptrs``): outputs and scratch allocated
-    here, on the queries' device and current stream."""
+    here, on the queries' device and current stream. Returns ((scores,
+    ids), the chunks of queries whose score stage ran on the tensor cores)."""
     n_ex = check_exclude(exclude, queries.shape[0], k, n_valid)
     if n_ex:
         if exclude.device != queries.device:
@@ -145,13 +154,14 @@ def _launch(entry, queries, item_ptrs, n, k, n_valid, exclude):
         scratch = _scratch(dev, stream, int(lib.mips_topk_scratch_bytes(q, n_valid, k)))
         out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
+        tc_chunks = ctypes.c_int(0)
         rc = getattr(lib, entry)(
             queries.data_ptr(), *item_ptrs, out_s.data_ptr(), out_i.data_ptr(),
             exclude.data_ptr() if n_ex else None, n_ex, exclude.stride(0) if n_ex else 0,
-            scratch.data_ptr(), scratch.numel(), q, n, d, k, n_valid, stream,
+            scratch.data_ptr(), scratch.numel(), q, n, d, k, n_valid, ctypes.byref(tc_chunks), stream,
         )
     cuda_build.check(lib, rc, f"{entry} kernel")
-    return out_s, out_i
+    return (out_s, out_i), tc_chunks.value
 
 
 def _scratch(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
@@ -170,9 +180,10 @@ def _lib(device: int) -> ctypes.CDLL:
     if lib.mips_topk_fused.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         i64 = ctypes.c_longlong
-        lib.mips_topk_fused.argtypes = [ptr] * 5 + [i32, i64, ptr, i64] + [i32] * 5 + [ptr]
+        i32p = ctypes.POINTER(i32)
+        lib.mips_topk_fused.argtypes = [ptr] * 5 + [i32, i64, ptr, i64] + [i32] * 5 + [i32p, ptr]
         lib.mips_topk_fused.restype = i32
-        lib.mips_topk_int8_fused.argtypes = [ptr] * 6 + [i32, i64, ptr, i64] + [i32] * 5 + [ptr]
+        lib.mips_topk_int8_fused.argtypes = [ptr] * 6 + [i32, i64, ptr, i64] + [i32] * 5 + [i32p, ptr]
         lib.mips_topk_int8_fused.restype = i32
         lib.mips_topk_scratch_bytes.argtypes = [i32] * 3
         lib.mips_topk_scratch_bytes.restype = ctypes.c_longlong

@@ -1,11 +1,13 @@
 """Multi-rank dry run of the parallel layer.
 
-    python -m anncur_tpu_torch.parallel.dryrun --nproc N [--device cpu|cuda] [--timeout S]
+    python -m anncur_tpu_torch.parallel.dryrun --nproc N [--device cuda|cpu] [--timeout S]
 
-Spawns N ranks (gloo on the CPU; NCCL with ``--device cuda``, one rank
-per card) and runs, at ``BertSpec.tiny`` sizes, the steps of the JAX
-package's ``__graft_entry__.py::dryrun_multichip`` with the port, each
-held against the same call without a mesh on the same rank:
+Spawns N ranks (NCCL on the cards, one rank per card, the default; a dry
+run on the CPU over gloo must be asked for with ``--device cpu``, and
+without a card the default raises instead of moving to the CPU) and
+runs, at ``BertSpec.tiny`` sizes, the steps of the JAX package's
+``__graft_entry__.py::dryrun_multichip`` with the port, each held against
+the same call without a mesh on the same rank:
 
 (a) a data-parallel bi-encoder step over a 1-D mesh, with explicit and
     with in-batch negatives; (a2) at N >= 4 (even), a (N/2 x 2)
@@ -287,7 +289,7 @@ def launch(nproc: int, device: str, timeout: float, out_dir: str) -> dict:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--nproc", type=int, default=2)
-    p.add_argument("--device", default="cpu", choices=["cpu", "cuda"])
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--timeout", type=float, default=300.0, help="seconds for the whole run and for each collective")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--out", default=None, help=argparse.SUPPRESS)
@@ -295,6 +297,10 @@ def main(argv=None) -> int:
     if args.worker:
         worker(args)
         return 0
+    if args.device == "cuda":
+        from anncur_tpu_torch.utils.device import resolve_device
+
+        resolve_device("cuda")  # no card: raises, never a quiet run on the CPU
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as out_dir:
         try:

@@ -454,6 +454,55 @@ def _int_mips_inputs(dev, q, d, n, seed):
     return queries, items
 
 
+def _profiled_kernels(fn):
+    """Names of the device kernels that ``fn()`` ran, under torch.profiler."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.parametrize("g", [17, 64, 65, 255, 256])
+def test_attention_hopper_body_at_ragged_s(dev, g):
+    """Kernel A's Hopper body (bf16, hd 64, g > 16: wgmma on TMA tiles,
+    persistent blocks) on strided q/k/v slices of one projection at a ragged
+    s=300: every row of every pair (prefix lengths at the tile edges, a pair
+    with no valid key, holes, a masked tile between valid keys, a masked
+    first tile) within 2e-2 of the plain attention, its lse within 1e-5 of
+    the plain logsumexp (without the -1e9 of the pair with no valid key),
+    the same bits without the lse, and the launch on the wgmma kernel."""
+    q, k, v, valid = _edge_case(dev, g, 64, seed=g, s=300, nh=12)
+    assert q.stride(1) == 3 * 12 * 64  # a slice of the fused projection
+    names = _profiled_kernels(lambda: attention_fwd(q, k, v, valid))
+    assert any("attention_fwd_wgmma_kernel" in n for n in names), names
+    out, lse = attention_fwd(q, k, v, valid, with_lse=True)
+    want = attention_plain(q, k, v, valid).float()
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / 8.0
+    scores = scores + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    shift = torch.where(valid.any(dim=1), 0.0, -1e9)[:, None, None, None]
+    want_lse = torch.logsumexp(scores - shift, dim=-1)
+    torch.cuda.synchronize()
+    err = (out.float() - want).abs().max().item()
+    assert err <= 2e-2, err
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, attention_fwd(q, k, v, valid)[0])
+
+
+def test_attention_hopper_body_walks_many_items_per_block(dev):
+    """2,304 work items (48 pairs x 12 heads x 4 query tiles) over the
+    card's persistent blocks, random key lengths: each block walks several
+    items, its loads running across them, against the plain attention at
+    every real row."""
+    q, k, v, valid, lengths = _attn_case(dev, 48, 200, 200, 12, 64, torch.bfloat16, seed=11)
+    got = attention(q, k, v, valid).float()
+    want = attention_plain(q, k, v, valid).float()
+    torch.cuda.synchronize()
+    rows = torch.arange(200, device=dev)[None, :] < lengths[:, None]
+    err = (got - want).abs().amax(dim=(2, 3))[rows].max().item()
+    assert err <= 2e-2, err
+
+
 @pytest.mark.parametrize(
     "q,d,n,n_valid,k",
     [
@@ -469,7 +518,10 @@ def _int_mips_inputs(dev, q, d, n, seed):
         (256, 500, 104520, 104520, 100),  # an eval batch at ZeShEL-military's entity count
         (700, 8, 104520, 100000, 50),  # score scratch over its budget: two query chunks
         (2, 4, 400000, 400000, 50),  # slices of 50,000 keys, re-read from the score scratch
-    ],
+    ]
+    # more than 32 rows of 16-byte rows: the tensor-core route (one ragged
+    # 128-query tile, one full, two) at depths under, at and past one stage
+    + [(q, d, 3000, 2999, 50) for q in (33, 64, 65, 128) for d in (8, 24, 500, 768)],
 )
 def test_mips_kernel_matches_plain(dev, q, d, n, n_valid, k):
     queries, items = _int_mips_inputs(dev, q, d, n, seed=n + k)
@@ -532,6 +584,16 @@ def test_mips_kernel_rejects_what_it_cannot_take(dev):
 @pytest.mark.parametrize("n_ex", [0, 26, 210])
 @pytest.mark.parametrize("q", [1, 128, 700])
 def test_mips_kernel_exclusions_match_plain(dev, q, n_ex):
+    _exclusions_match_plain(dev, q, n_ex)
+
+
+def test_mips_kernel_exclusions_at_the_last_growth_round(dev):
+    """The adaptive engine's last growth round of 210 over 8 at its batch of
+    512: S = 184 scored ids excluded, through the tensor-core route."""
+    _exclusions_match_plain(dev, 512, 184)
+
+
+def _exclusions_match_plain(dev, q, n_ex):
     """Kernel B with a per-row exclusion list exactly equal to the plain
     ``mips_topk(..., exclude=)`` on small-integer inputs: the excluded ids
     are each row's best (so the pick must reach past them), with a
@@ -602,6 +664,76 @@ def test_mips_kernel_signed_zero_order_matches_topk_stable(dev):
     row = torch.empty(8)
     row[i_k[0].cpu()] = s_k[0].cpu()
     assert topk_stable(row, 8)[1].tolist() == i_k[0].tolist()
+
+
+def test_mips_kernel_signed_zero_order_on_the_tensor_cores(dev):
+    """The same items at q=64 (the tensor-core route): its f32 sum of the
+    stages starts at +0.0, so the items whose products round to -0.0 score
+    +0.0 and tie with the +0.0 ones; every row's ids are ``topk_stable``'s
+    order of the kernel's own scores (+0.0 above -0.0, ties by id)."""
+    from anncur_tpu_torch.ops.mips import topk_stable
+
+    col = torch.tensor([0.0, -0.0, 1.0, -0.0, 0.0, -1.0, -0.0, 0.0])
+    per_term = torch.where(col > 0, -3.125e28, torch.where(col < 0, 3.125e28,
+                           torch.where(torch.signbit(col), 1e-30, -1e-30)))
+    items = per_term[:, None].expand(8, 32).contiguous().to(dev)
+    queries = torch.full((64, 32), -1e-30, device=dev)
+    s_k, i_k = mips_topk_fused(queries, items, 8)
+    torch.cuda.synchronize()
+    assert i_k[0].tolist()[0] == 2 and i_k[0].tolist()[-1] == 5
+    for r in range(64):
+        row = torch.empty(8)
+        row[i_k[r].cpu()] = s_k[r].cpu()
+        assert topk_stable(row, 8)[1].tolist() == i_k[r].tolist()
+        assert torch.signbit(s_k[r].cpu()).tolist() == torch.signbit(row[i_k[r].cpu()]).tolist()
+
+
+def _tf32_probe(a, b):
+    """One TF32 wgmma of kernel B's score stage on raw f32 bits:
+    (64, 8) x (128, 8)^T (``mips_tf32_probe``)."""
+    import ctypes
+
+    from anncur_tpu_torch.ops import cuda_build
+
+    lib = cuda_build.load("mips_topk")
+    lib.mips_tf32_probe.argtypes = [ctypes.c_void_p] * 4
+    lib.mips_tf32_probe.restype = ctypes.c_int
+    d = torch.empty(64, 128, device=a.device)
+    rc = lib.mips_tf32_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
+    cuda_build.check(lib, rc, "mips_tf32_probe")
+    torch.cuda.synchronize()
+    return d
+
+
+def test_tf32_wgmma_fragments_and_the_low_13_bits(dev):
+    """The tensor-core route's operand layouts, and what TF32 wgmma does with
+    the low 13 bits of an f32 (whether the raw item tile could serve as the
+    big part): small integers come out as the exact product; values whose
+    low 13 bits are at least half a tf32 step (round-to-nearest and
+    truncation differ) come out as the product of the truncated values."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randint(-3, 4, (64, 8), generator=gen, device=dev).float()
+    b = torch.randint(-3, 4, (128, 8), generator=gen, device=dev).float()
+    assert torch.equal(_tf32_probe(a, b), a @ b.T)
+
+    def low_bits(n, seed):
+        # +-(1 + m 2^-23) 2^e with m in [0x1000, 0x1FFF]: bit 12 set
+        g = torch.Generator().manual_seed(seed)
+        m = torch.randint(0x1000, 0x2000, (n,), generator=g)
+        e = torch.randint(-4, 5, (n,), generator=g).double()
+        sign = torch.where(torch.rand(n, generator=g) < 0.5, -1.0, 1.0).double()
+        return (sign * (1.0 + m.double() * 2.0**-23) * torch.exp2(e)).float()
+
+    a = torch.zeros(64, 8)
+    b = torch.zeros(128, 8)
+    a[:, 0], b[:, 0] = low_bits(64, 1), low_bits(128, 2)  # one product an output: no sum to round
+
+    def trunc(x):
+        return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+    got = _tf32_probe(a.to(dev), b.to(dev)).cpu()
+    want = (trunc(a[:, 0]).double()[:, None] * trunc(b[:, 0]).double()[None, :]).float()
+    assert torch.equal(got, want)
 
 
 def _serving_world(device, n_items=1200, n_anchors=48, n_train=64, seed=0, rank=8):

@@ -62,7 +62,7 @@ from jax.sharding import PartitionSpec as P
 from anncur_tpu_torch.config import Config
 from anncur_tpu_torch.models.bert import BertSpec
 from anncur_tpu_torch.models.convert import biencoder_from_jax_params, crossencoder_from_jax_params
-from anncur_tpu_torch.parallel import multihost, tp
+from anncur_tpu_torch.parallel import dryrun, multihost, tp
 from anncur_tpu_torch.parallel.dryrun import GRAD_RTOL, LOSS_RTOL, PARAM_ATOL, step
 from anncur_tpu_torch.parallel.mesh import make_mesh, mesh_session
 from anncur_tpu_torch.train import data as tdata
@@ -138,7 +138,7 @@ class Group:
 class Dryrun(Group):
     def __init__(self, tmp, name, n):
         self.dir, self.n = str(tmp / name), n
-        cmd = [sys.executable, "-m", "anncur_tpu_torch.parallel.dryrun", "--nproc", str(n), "--timeout", "120"]
+        cmd = [sys.executable, "-m", "anncur_tpu_torch.parallel.dryrun", "--nproc", str(n), "--device", "cpu", "--timeout", "120"]
         env = dict(os.environ, OMP_NUM_THREADS="1")
         env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
         self.procs = [subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
@@ -559,6 +559,15 @@ def test_query_sharded_serving_matches_one_process_and_jax(runs, world):  # noqa
     for r in res:
         np.testing.assert_array_equal(r["added_ids"], ids)
         _assert_same_topk(r["after_add"][0], r["after_add"][1], want[0], want[1])
+
+
+def test_dryrun_defaults_to_the_card_and_raises_without_one(monkeypatch):
+    """With no ``--device`` the dry run asks for the card; where there is
+    none it raises before any rank starts, never running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(dryrun, "launch", lambda *a: pytest.fail("a rank was started"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dryrun.main(["--nproc", "1"])
 
 
 @pytest.mark.parametrize("n", [2, 4])
