@@ -9,7 +9,8 @@ change, parent). Times them with this checkout's ``chip_smoke.py`` (the
 same yardstick for every root): kernel A with ``time_attention`` at the
 hd-64 layers (the build's b=2048 g=s=256 and the train layer's b=64
 g=s=255, random key lengths; the bi-encoder towers' b=252 and b=256
-g=s=128, every key valid) beside SDPA, and kernel B with ``time_mips``
+g=s=128, every key valid) beside SDPA, kernel A's wide route (hd 272 and
+768, bf16 and f32, at ``chip_smoke.WIDE_SHAPE``) alone, and kernel B with ``time_mips``
 (its score stage and select apart, beside ``matmul`` + ``topk``) at
 ``MIPS_SHAPES`` (exclusions where a shape has them), the hard-negative
 mine, the TF-IDF mine's width and ZeShEL-military's shape, on seeded
@@ -39,6 +40,8 @@ _HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 
 # (b, g, s, every key valid)
 ATTENTION_SHAPES = ((2048, 256, 256, False), (64, 255, 255, False), (252, 128, 128, True), (256, 128, 128, True))
+# kernel A's wide route: (hd, dtype) at chip_smoke.WIDE_SHAPE
+WIDE_SHAPES = ((272, torch.bfloat16), (768, torch.bfloat16), (272, torch.float32), (768, torch.float32))
 # (q, d, n, k): the TF-IDF mine's width (cli/compute_tfidf_hard_negs.py,
 # dense here) and ZeShEL-military's 13,063 mentions over 104,520 entities
 MIPS_LOSING_SHAPES = ((400, 16620, 10000, 64), (13063, 768, 104520, 64))
@@ -118,6 +121,17 @@ def main(argv=None) -> None:
         for name in each("attention"):
             rec = smoke.time_attention(q, k, v, valid, lengths, 20, flush, all_valid)
             print(json.dumps({"kernel": "A", "root": root, "library": name, "card": card, **rec}), flush=True)
+        del q, k, v, valid
+    from anncur_tpu_torch.ops.attention import attention
+
+    b, g, s, nh = smoke.WIDE_SHAPE
+    for hd, dtype in WIDE_SHAPES:
+        q, k, v, valid, _ = smoke.attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
+        for name in each("attention"):
+            ms = smoke.time_ms(lambda: attention(q, k, v, valid), 10, flush)
+            print(json.dumps({"kernel": "A", "root": root, "library": name, "card": card, "ms": ms,
+                              "shape": f"b={b} g={g} s={s} nh={nh} hd={hd} {str(dtype)[6:]}, random key lengths"}),
+                  flush=True)
         del q, k, v, valid
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = [*smoke.MIPS_SHAPES, (*smoke.MINE_SHAPE[:3], smoke.MINE_SHAPE[2], smoke.MINE_SHAPE[3], 0)]

@@ -114,10 +114,41 @@
 // Every output row is written by one block and no atomics are used, so two
 // launches on the same inputs give the same bits.
 //
-// Head dims above 256 (any multiple of 16) take the wide route (the
-// *_wide_kernel bodies; shared pieces in csrc/attention_wide.cuh): S and
-// dP stream their operands in 64-column chunks, and each block writes one
-// 64-column slice of dK and dV (C) or dQ (D), recomputing its scores.
+// Head dims above 256 (any multiple of 16) take the wide route. Its Hopper
+// bodies (namespace wide, bf16 and f32) run where TMA takes the strides and
+// a block's stored tiles fit in shared memory (bf16: g <= 640 for C, s <=
+// 1280 for D; f32: g <= 256, s <= 512), and compute S and dP once per
+// (query tile, key tile), on wgmma with TMA-filled tiles through a ring of
+// two or three slots that side warps keep full (namespace wide's note):
+// - Kernel C: one block per (pair, head, tile of 64 keys). Phase 1 walks
+//   the query tiles, each over the head dim in chunks (64 bf16 or 32 f32
+//   columns): S^T = K Q^T and dP^T = V dO^T, then P^T and dS^T of every
+//   query row go to shared memory (bf16 as the A fragments of the next
+//   products, f32 as their values). Phase 2 walks the output columns in
+//   slices (bf16 128: two m64n64 blocks each of dK and dV; f32 64): dV =
+//   P^T dO and dK = dS^T Q over the query tiles, Q and dO streaming through
+//   the same ring. A block whose keys are all masked, in a pair that has a
+//   valid key, writes zeros and returns.
+// - Kernel D: the same with rows and keys swapped, one block per (pair,
+//   head, tile of 64 query rows), over the key tiles that hold a valid key
+//   (every tile in a pair with none): dS of every running key stored, then
+//   dQ = dS K by slices (bf16 128, f32 64). D = rowsum(dO * O) is summed
+//   from device memory while the first loads land.
+// - bf16: wgmma m64n64k16, phase 1's operands K-major, phase 2's dO, Q and
+//   K MN-major (the transpose bit). Columns past hd are zero-filled and
+//   computed (a wgmma skipped by a predicate made ptxas serialise every
+//   product, C7520: 1.17x the time at hd 768). f32: three TF32 passes
+//   (m64n64k8; A split in registers, B's small part written beside it by
+//   the side warps, its raw tile the big part), each chunk or tile of 64
+//   reduced rows summed apart and added in f32; phase 2 in 64-column
+//   blocks, kernel C's dV and dK in ring steps of their own. TF32 takes
+//   K-major operands only, so phase 2's dO, Q and K are transposed in the
+//   pass that splits them, their reduced rows placed in the order of the
+//   stored A fragments.
+// Elsewhere the slice bodies (the *_wide_kernel bodies; shared pieces in
+// csrc/attention_wide.cuh) stream S and dP in 64-column chunks and write
+// one 64-column slice of dK and dV (C) or dQ (D) a block, recomputing the
+// scores for each.
 //
 // f32 (no main-path caller; the card tests use it): the first version's
 // CUDA-core bodies. One thread would hold k, v, dK and dV rows (4 x hd f32 =
@@ -152,6 +183,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 #include "attention_wide.cuh"
 #include "mma_sm90.cuh"
@@ -185,6 +218,24 @@ __device__ __forceinline__ float quad_row_delta(const bf16* dor, const bf16* oro
         acc = fmaf(xf.x, yf.x, acc);  // the product is exact in f32
         acc = fmaf(xf.y, yf.y, acc);
       }
+    }
+  }
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  return acc;
+}
+
+// the same of f32 rows: lane part takes the 16-byte units part, part + 4, ...
+__device__ __forceinline__ float quad_row_delta(const float* dor, const float* orow, int hd, bool ok, int part) {
+  float acc = 0.0f;
+  if (ok) {
+    for (int u = part; u < hd / 4; u += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(dor + 4 * u);
+      const float4 y = *reinterpret_cast<const float4*>(orow + 4 * u);
+      acc = fmaf(x.x, y.x, acc);
+      acc = fmaf(x.y, y.y, acc);
+      acc = fmaf(x.z, y.z, acc);
+      acc = fmaf(x.w, y.w, acc);
     }
   }
   acc += __shfl_xor_sync(0xffffffffu, acc, 1);
@@ -634,9 +685,9 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
 }
 
 __device__ __forceinline__ void load_tile(void* dst, const RowMap& m, uint64_t* bar, int h, int row, int b,
-                                          bool issue) {
+                                          bool issue, int col = 0) {
   int c[4];
-  tile_coords(m.order, h, row, b, c);
+  tile_coords(m.order, h, row, b, c, col);
   tma_load_4d(dst, &m.map, bar, c[0], c[1], c[2], c[3], issue);
 }
 
@@ -1235,8 +1286,9 @@ attention_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict
 
 // ------------------------------------------------------------------- wide
 
-// The wide route (csrc/attention_wide.cuh): hd above 256, any multiple of
-// 16, a runtime count. The score products S and dP stream their operands in
+// The wide route's slice bodies (csrc/attention_wide.cuh): hd above 256,
+// any multiple of 16, a runtime count, past the Hopper bodies' limits (the
+// header note). The score products S and dP stream their operands in
 // 64-column chunks; each block writes one column slice of its outputs and
 // recomputes the scores. lse, shift and the -inf of rows past g and keys
 // past s are as in the templated bodies, so a pair with no valid key and a
@@ -1648,6 +1700,738 @@ attention_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __res
   }
 }
 
+// ------------------------------------------------------- wide, Hopper bodies
+
+// Head dims above 256 on wgmma + TMA (the header note): S and dP once per
+// (query tile, key tile), every output column from them. A block is one
+// consumer warpgroup, which runs the products, and side warps: one (bf16)
+// or four (f32), whose first lane keeps TMA loads a ring of slots ahead
+// (three where they fit in shared memory, else two; bf16 D two, so that
+// two blocks share an SM). In f32 the side warps also write each slot's
+// split operands (phase 1's small parts, phase 2's transposes) while the
+// consumers run the products of the slot before. Per slot, full completes
+// when its tiles land, ready (f32) when its split operands are written,
+// empty when the consumers are done with it. A block's steps, in ring
+// order: phase 1 walks its pairs of tiles over the head dim in chunks,
+// phase 2 its output columns in slices, so the loads run ahead across the
+// two. (On the H100 the side warps took the f32 backward at hd 768 from
+// 4.05 to 3.63 ms against one warpgroup that loaded and split for itself,
+// and a third slot from 3.14 to 2.82, each pair in one call of
+// cli/time_attention_bwd.py; PERF.md.)
+namespace wide {
+
+using namespace wgmma_sm90;
+using hopper::Maps;
+
+constexpr int kRows = 64;         // rows of every tile: queries or keys
+constexpr int kTile = 8192;       // a 64-row x 128-byte tile: 64 bf16 or 32 f32 columns
+constexpr int kThreads = 128;     // the consumer warpgroup
+constexpr int kMaxStages = 3;     // slots of the ring at most (a launch takes 2 or 3)
+constexpr int kSmemMax = 232448;  // the dynamic shared memory a block may take
+
+template <typename T>
+struct Cfg {  // bf16
+  static constexpr int kCols = 64;            // head-dim columns of a tile (a chunk)
+  static constexpr int kSlot = 4 * kTile;     // a slot of the ring: four tiles
+  static constexpr int kSliceC = 128;         // output columns of a kernel C slice: two m64n64 blocks of dK, of dV
+  static constexpr int kSliceD = 128;         // of a kernel D slice: two of dQ
+  static constexpr int kStoreC = 2 * kTile;   // P^T and dS^T of a query tile, as bf16 A fragments
+  static constexpr int kStoreD = kTile;       // dS of a key tile
+  static constexpr int kSide = 32;            // side threads: one warp, the producer
+  static constexpr int kStagesC = 3, kStagesD = 2;  // ring slots, where they fit
+  static constexpr int kMinBlocksD = 2;       // D's blocks an SM (its shared memory allows two at g = s = 255)
+};
+template <>
+struct Cfg<float> {
+  static constexpr int kCols = 32;
+  static constexpr int kSlot = 6 * kTile;     // four raw tiles and two small parts, or two raw and a split transpose
+  static constexpr int kSliceC = 64;          // one m64n64 block of dK and of dV (a ring step each)
+  static constexpr int kSliceD = 64;          // one of dQ
+  static constexpr int kStoreC = 4 * kTile;   // P^T and dS^T of a query tile, f32 in A-fragment order
+  static constexpr int kStoreD = 2 * kTile;
+  static constexpr int kSide = 128;           // four warps: the producer and splitters
+  static constexpr int kStagesC = 3, kStagesD = 3;
+  static constexpr int kMinBlocksD = 1;
+};
+
+// a block's dynamic shared memory: a ring of n_st slots, n stored tiles (C:
+// every query tile; D: every key tile, of n_kt), the barriers (full, ready,
+// empty per slot), (D) a mask word and a running-tile index per key tile,
+// room to align to 1024 bytes
+template <typename T, bool kDkv>
+constexpr size_t smem_bytes(int n_st, int n, int n_kt) {
+  return static_cast<size_t>(n_st) * Cfg<T>::kSlot +
+         static_cast<size_t>(n) * (kDkv ? Cfg<T>::kStoreC : Cfg<T>::kStoreD) + 3 * kMaxStages * sizeof(uint64_t) +
+         (kDkv ? 0 : static_cast<size_t>(n_kt) * (sizeof(uint64_t) + sizeof(int))) + 1024;
+}
+
+using hopper::load_tile;
+
+// byte offset of f32 (row, col) in a 128-byte-swizzled tile of 32-column rows
+__device__ __forceinline__ int sw_f32(int row, int col) {
+  return row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
+}
+
+// the tf32 A fragment of k-step kk (columns 8kk..8kk+7) of a raw f32 tile,
+// split in registers: big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_frag(uint32_t (&big)[4], uint32_t (&small)[4], const unsigned char* tile, int kk,
+                                           int tid) {
+  const int row = 16 * (tid >> 5) + ((tid & 31) >> 2), col = 8 * kk + (tid & 3);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float x = *reinterpret_cast<const float*>(tile + sw_f32(row + 8 * (i & 1), col + 4 * (i >> 1)));
+    big[i] = tf32_rna(x);
+    small[i] = tf32_rna(x - __uint_as_float(big[i]));
+  }
+}
+
+// the same of an A fragment stored in fragment order
+__device__ __forceinline__ void split4(uint32_t (&big)[4], uint32_t (&small)[4], float4 v) {
+  const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    big[i] = tf32_rna(x[i]);
+    small[i] = tf32_rna(x[i] - __uint_as_float(big[i]));
+  }
+}
+
+__device__ __forceinline__ void keep(uint32_t (&a)[2][4]) {
+  wgmma_sm90::keep(a[0]);
+  wgmma_sm90::keep(a[1]);
+}
+
+// Phase 1's products over one chunk of the head dim, from a slot holding
+// A0, A1, B0, B1 at tiles 0-3 (rows, then the chunk's columns: every
+// operand K-major): x (+)= A0 B0^T and y (+)= A1 B1^T; the first chunk
+// overwrites x and y. Columns past hd are zero-filled and add nothing.
+// bf16: straight into x and y. f32: B0's and B1's small parts in tiles 4
+// and 5 (the side warps' split_small; the raw tiles serve as their big
+// parts), the chunk's three TF32 passes into sums of its own, added to x
+// and y in f32.
+template <typename T>
+__device__ __forceinline__ void chunk(float (&x)[32], float (&y)[32], unsigned char* slot, bool first, int tid) {
+  const uint32_t base = smem_u32(slot);
+  if constexpr (!std::is_same<T, float>::value) {
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {  // x's and y's products in turns
+      mma_ss(x, desc_sw128(base + 32 * kk), desc_sw128(base + 2 * kTile + 32 * kk), !first || kk > 0);
+      mma_ss(y, desc_sw128(base + kTile + 32 * kk), desc_sw128(base + 3 * kTile + 32 * kk), !first || kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    wgmma_sm90::keep(x);
+    wgmma_sm90::keep(y);
+  } else {
+    float px[32], py[32];  // the first k-step overwrites them
+    uint32_t fb[2][2][4], fs[2][2][4];  // [set][operand][register]: two k-steps' fragments live
+    // per k-step: A0's and A1's fragments split in registers, then small A x
+    // big B + big A x small B + big A x big B, x's and y's in turns,
+    // committed as a group
+    auto issue = [&](int kk, uint32_t (&b)[2][4], uint32_t (&s)[2][4]) {
+      split_frag(b[0], s[0], slot, kk, tid);
+      split_frag(b[1], s[1], slot + kTile, kk, tid);
+      wgmma_fence();
+      mma_tf32_n64(px, s[0], desc_sw128(base + 2 * kTile + 32 * kk), kk > 0);
+      mma_tf32_n64(py, s[1], desc_sw128(base + 3 * kTile + 32 * kk), kk > 0);
+      mma_tf32_n64(px, b[0], desc_sw128(base + 4 * kTile + 32 * kk), 1);
+      mma_tf32_n64(py, b[1], desc_sw128(base + 5 * kTile + 32 * kk), 1);
+      mma_tf32_n64(px, b[0], desc_sw128(base + 2 * kTile + 32 * kk), 1);
+      mma_tf32_n64(py, b[1], desc_sw128(base + 3 * kTile + 32 * kk), 1);
+      wgmma_commit();
+    };
+    issue(0, fb[0], fs[0]);
+#pragma unroll
+    for (int kk = 1; kk < 4; ++kk) {
+      issue(kk, fb[kk & 1], fs[kk & 1]);
+      wgmma_wait<1>();  // k-step kk - 1 is done: its fragments may be rewritten
+      keep(fb[(kk - 1) & 1]);
+      keep(fs[(kk - 1) & 1]);
+    }
+    wgmma_wait<0>();
+    wgmma_sm90::keep(px);
+    wgmma_sm90::keep(py);
+    keep(fb[1]);
+    keep(fs[1]);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      x[i] = first ? px[i] : x[i] + px[i];
+      y[i] = first ? py[i] : y[i] + py[i];
+    }
+  }
+}
+
+// P, then dS = P (dP - D), in place in x = S and y = dP, at e of this
+// thread's accumulator entries: z = S scale + bias - shift - lse
+template <typename T>
+__device__ __forceinline__ void softmax_grad(float& x, float& y, float z, float d) {
+  const float p = std::is_same<T, float>::value ? expf(z) : exp2f(z * kLog2e);
+  x = p;
+  y = p * (y - d);
+}
+
+// Kernel C, end of a query tile's chunks: P^T and dS^T from x = S^T and y =
+// dP^T (rows keys, columns queries q0 + 8j + cq, + 1; lse = +inf past g, so
+// P = 0 there), then stored: bf16 as the A fragments of the phase-2
+// products, f32 as the fragments' f32 values in their order (a0..a3 =
+// entries 0, 2, 1, 3 of each 8 columns; transpose_split places the reduced
+// rows to match)
+template <typename T>
+__device__ __forceinline__ void finish_c(float (&x)[32], float (&y)[32], unsigned char* st, const float (&bias)[2],
+                                         const float* lse_b, const float* delta_b, int q0, int g, float shift,
+                                         float scale, int tid) {
+  const int cq = 2 * (tid & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int q = q0 + 8 * j + cq + u, qc = min(q, g - 1);
+      const float l = q < g ? lse_b[qc] : INFINITY, d = q < g ? delta_b[qc] : 0.0f;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int e = 4 * j + 2 * half + u;
+        softmax_grad<T>(x[e], y[e], x[e] * scale + bias[half] - shift - l, d);
+      }
+    }
+  if constexpr (std::is_same<T, float>::value) {
+    float4* out = reinterpret_cast<float4*>(st);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      out[j * kThreads + tid] = make_float4(x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]);
+      out[(8 + j) * kThreads + tid] = make_float4(y[4 * j], y[4 * j + 2], y[4 * j + 1], y[4 * j + 3]);
+    }
+  } else {
+    uint32_t pa[4][4], sa[4][4];
+    hopper::to_a(pa, x);
+    hopper::to_a(sa, y);
+    uint4* out = reinterpret_cast<uint4*>(st);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      out[kk * kThreads + tid] = make_uint4(pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]);
+      out[(4 + kk) * kThreads + tid] = make_uint4(sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3]);
+    }
+  }
+}
+
+// Kernel D, end of a key tile's chunks: dS from x = S and y = dP (rows
+// queries, columns keys 8j + cq, + 1 of the tile: bias from its mask word,
+// -inf past s), stored as finish_c stores dS^T
+template <typename T>
+__device__ __forceinline__ void finish_d(float (&x)[32], float (&y)[32], unsigned char* st, uint64_t bits, int n_keys,
+                                         const float (&lse_r)[2], const float (&delta_r)[2], float shift, float scale,
+                                         int tid) {
+  const int cq = 2 * (tid & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + cq + (e & 1);
+      const float bias = col >= n_keys ? -INFINITY : (((bits >> col) & 1) ? 0.0f : kMaskBias);
+      softmax_grad<T>(x[4 * j + e], y[4 * j + e], x[4 * j + e] * scale + bias - shift - lse_r[e >> 1],
+                      delta_r[e >> 1]);
+    }
+  if constexpr (std::is_same<T, float>::value) {
+    float4* out = reinterpret_cast<float4*>(st);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j * kThreads + tid] = make_float4(y[4 * j], y[4 * j + 2], y[4 * j + 1], y[4 * j + 3]);
+  } else {
+    uint32_t sa[4][4];
+    hopper::to_a(sa, y);
+    uint4* out = reinterpret_cast<uint4*>(st);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) out[kk * kThreads + tid] = make_uint4(sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3]);
+  }
+}
+
+// f32, phase 2: the two raw tiles of a slot (64 reduced rows x 32 columns
+// each, at tiles 0 and 1: one 64-column block) as the K-major B operand of
+// its columns: the big part in tiles 2 and 3 (reduced rows 0-31, 32-63),
+// the small in 4 and 5. The reduced row q goes to place k = 8 (q / 8) + p,
+// p = q % 8 / 2 (+ 4 if q is odd): the order of the A fragments that
+// finish_c and finish_d store. So places 4m..4m+3 hold rows of one parity,
+// 8 (m / 2) + (m % 2) + 0, 2, 4, 6: each thread gathers four of them from
+// one column (a warp reads 32 neighbouring columns of a row) and writes
+// them as one 16-byte unit (a quarter-warp's units fall in distinct banks).
+// Run by the f32 side warps (side thread sid of kSide).
+__device__ __forceinline__ void transpose_split(unsigned char* slot, int sid) {
+  constexpr int kSide = Cfg<float>::kSide;
+#pragma unroll 4
+  for (int j = 0; j < 2 * 32 * (kRows / 4) / kSide; ++j) {
+    const int i = sid + j * kSide, n = i & 31, m = (i >> 5) & 15, src = i >> 9;
+    const int q0 = 8 * (m >> 1) + (m & 1), k = 4 * m;
+    float e[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) e[c] = *reinterpret_cast<const float*>(slot + src * kTile + sw_f32(q0 + 2 * c, n));
+    const int off = (2 + (k >> 5)) * kTile + sw_f32(32 * src + n, k & 31);
+    *reinterpret_cast<float4*>(slot + off) = make_float4(e[0], e[1], e[2], e[3]);
+    *reinterpret_cast<float4*>(slot + off + 2 * kTile) =
+        make_float4(tf32_small(e[0]), tf32_small(e[1]), tf32_small(e[2]), tf32_small(e[3]));
+  }
+}
+
+// f32, phase 1: the small parts of the slot's B tiles (tiles 2 and 3) into
+// tiles 4 and 5, by the side warps
+__device__ __forceinline__ void split_small(unsigned char* slot, int sid) {
+  constexpr int kSide = Cfg<float>::kSide;
+  const float4* raw = reinterpret_cast<const float4*>(slot + 2 * kTile);
+  float4* small = reinterpret_cast<float4*>(slot + 4 * kTile);
+#pragma unroll 4
+  for (int j = 0; j < 2 * kTile / 16 / kSide; ++j) {
+    const float4 v = raw[sid + j * kSide];
+    small[sid + j * kSide] = make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
+  }
+}
+
+// f32, phase 2: out (+)= A X for one 64-column block over one tile of 64
+// reduced rows. A: the stored f32 fragments at a (one float4 a thread per
+// k-step of 8 rows), split in registers; X: the slot's block as the side
+// warps' transpose_split left it. Per k-step small A x big X + big A x
+// small X + big A x big X, each pass in a sum of its own, the small sums
+// then the big added to out in f32. acc: add to out (else overwrite it).
+__device__ __forceinline__ void f32_block_step(float (&out)[32], unsigned char* slot, const float4* a, bool acc,
+                                               int tid) {
+  const uint32_t base = smem_u32(slot);
+  float part[3][32];  // the first k-step overwrites them
+  uint32_t fb[2][4], fs[2][4];
+  auto issue = [&](int j, uint32_t (&b)[4], uint32_t (&s)[4]) {
+    split4(b, s, a[j * kThreads + tid]);
+    const uint32_t kt = (j >> 2) * kTile + 32 * (j & 3);
+    wgmma_fence();
+    mma_tf32_n64(part[0], s, desc_sw128(base + 2 * kTile + kt), j > 0);
+    mma_tf32_n64(part[1], b, desc_sw128(base + 4 * kTile + kt), j > 0);
+    mma_tf32_n64(part[2], b, desc_sw128(base + 2 * kTile + kt), j > 0);
+    wgmma_commit();
+  };
+  issue(0, fb[0], fs[0]);
+#pragma unroll
+  for (int j = 1; j < 8; ++j) {
+    issue(j, fb[j & 1], fs[j & 1]);
+    wgmma_wait<1>();  // k-step j - 1 is done: its fragments may be rewritten
+    wgmma_sm90::keep(fb[(j - 1) & 1]);
+    wgmma_sm90::keep(fs[(j - 1) & 1]);
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int p = 0; p < 3; ++p) wgmma_sm90::keep(part[p]);
+  wgmma_sm90::keep(fb[1]);
+  wgmma_sm90::keep(fs[1]);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const float v = part[2][i] + (part[0][i] + part[1][i]);
+    out[i] = acc ? out[i] + v : v;
+  }
+}
+
+// Kernel C, phase 2, bf16, one query tile of one slice: dV (+)= P^T dO and
+// dK (+)= dS^T Q over the tile's 64 rows, from its stored fragments, the
+// slot's dO blocks at tiles 0, 1 and Q blocks at 2, 3 as MN-major B. acc:
+// add to dv and dk (else overwrite them). A block past hd is zero-filled
+// and gives columns that are not stored.
+__device__ __forceinline__ void dkv_step(float (&dv)[2][32], float (&dk)[2][32], unsigned char* slot,
+                                         const unsigned char* st, bool acc, int tid) {
+  const uint32_t base = smem_u32(slot);
+  const uint4* in = reinterpret_cast<const uint4*>(st);
+  uint32_t pa[4][4], sa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint4 p = in[kk * kThreads + tid], s = in[(4 + kk) * kThreads + tid];
+    pa[kk][0] = p.x, pa[kk][1] = p.y, pa[kk][2] = p.z, pa[kk][3] = p.w;
+    sa[kk][0] = s.x, sa[kk][1] = s.y, sa[kk][2] = s.z, sa[kk][3] = s.w;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // the four accumulators in turns
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      mma_rs_mn(dv[j], pa[kk], desc_sw128(base + j * kTile + 2048 * kk), acc || kk > 0);
+      mma_rs_mn(dk[j], sa[kk], desc_sw128(base + (2 + j) * kTile + 2048 * kk), acc || kk > 0);
+    }
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    wgmma_sm90::keep(dv[j]);
+    wgmma_sm90::keep(dk[j]);
+  }
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wgmma_sm90::keep(pa[kk]);
+    wgmma_sm90::keep(sa[kk]);
+  }
+}
+
+// Kernel D, phase 2, bf16, one key tile of one slice: dQ (+)= dS K over the
+// tile's 64 keys, from its stored fragments, the slot's two K blocks as
+// MN-major B.
+__device__ __forceinline__ void dq_step(float (&dq)[2][32], unsigned char* slot, const unsigned char* st, bool acc,
+                                        int tid) {
+  const uint32_t base = smem_u32(slot);
+  const uint4* in = reinterpret_cast<const uint4*>(st);
+  uint32_t sa[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint4 s = in[kk * kThreads + tid];
+    sa[kk][0] = s.x, sa[kk][1] = s.y, sa[kk][2] = s.z, sa[kk][3] = s.w;
+  }
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)  // the two accumulators in turns
+#pragma unroll
+    for (int j = 0; j < 2; ++j) mma_rs_mn(dq[j], sa[kk], desc_sw128(base + j * kTile + 2048 * kk), acc || kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+#pragma unroll
+  for (int j = 0; j < 2; ++j) wgmma_sm90::keep(dq[j]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_sm90::keep(sa[kk]);
+}
+
+// two outputs at p, where on (a predicated store: no branch in the warpgroup)
+__device__ __forceinline__ void store2(bf16* p, float a, float b, bool on) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q st.global.b32 [%0], %1;\n}\n" ::"l"(p),
+               "r"(pack_bf16x2(a, b)), "r"(static_cast<int>(on))
+               : "memory");
+}
+__device__ __forceinline__ void store2(float* p, float a, float b, bool on) {
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %3, 0;\n@q st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p), "f"(a),
+               "f"(b), "r"(static_cast<int>(on))
+               : "memory");
+}
+
+// this thread's entries of a 64-row output block (times mul): rows row0 + 16
+// warp + r (+ 8) below n_rows of dst (row stride rs), columns col0 + 8jj +
+// cq (+ 1) below hd
+template <typename T, int NA>
+__device__ __forceinline__ void store_block(T* dst, long long rs, const float (&d)[NA], float mul, int row0, int n_rows,
+                                            int col0, int hd, int tid) {
+  const int row = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2), cq = 2 * (tid & 3);
+#pragma unroll
+  for (int jj = 0; jj < NA / 4; ++jj)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int rr = row + 8 * half, col = col0 + 8 * jj + cq;
+      const bool on = rr < n_rows && col < hd;
+      store2(dst + (on ? rr * rs + col : 0), d[4 * jj + 2 * half] * mul, d[4 * jj + 2 * half + 1] * mul, on);
+    }
+}
+
+// a step's slot of a ring of n slots, and the parity of the slot's phase
+struct Ring {
+  int n, slot = 0, parity = 0;
+  __device__ __forceinline__ void next() {
+    if (++slot == n) slot = 0, parity ^= 1;
+  }
+};
+
+// The side warps' loop over a block's ring steps (side thread sid): lane 0
+// keeps the loads n_st steps ahead, refilling a slot once the consumers
+// are done with it; in f32 the side warps first write each slot's split
+// operands (steps below n1, phase 1: the small parts; phase 2: the
+// transpose) and mark it ready.
+template <typename T, typename Issue>
+__device__ __forceinline__ void side_loop(const Issue& issue, uint64_t* full, uint64_t* ready, uint64_t* empty,
+                                          unsigned char* smem, int n_st, int n1, int n_all, int sid) {
+  for (int i = 0; i < n_st; ++i) issue(i, i, sid == 0 && i < n_all);
+  Ring fs{n_st}, rs{n_st};  // the slots of steps f and r
+  for (int f = 0; f < n_all; ++f, fs.next()) {
+    if constexpr (std::is_same<T, float>::value) {
+      unsigned char* slot = smem + fs.slot * Cfg<T>::kSlot;
+      mbar_wait(full + fs.slot, fs.parity);
+      if (f < n1)
+        split_small(slot, sid);
+      else
+        transpose_split(slot, sid);
+      fence_proxy_async();
+      mbar_arrive(ready + fs.slot, true);
+    }
+    // the slot of step r, once the consumers are done with it, takes step r + n_st
+    const int r = std::is_same<T, float>::value ? f - 1 : f;
+    if (r >= 0) {
+      if (r + n_st < n_all) {
+        mbar_wait(empty + rs.slot, rs.parity);
+        issue(r + n_st, rs.slot, sid == 0);
+      }
+      rs.next();
+    }
+  }
+}
+
+// Kernel C: one block per (pair, head, tile of 64 keys), the tile fastest.
+// Phase 1: per query tile, S^T = K Q^T and dP^T = V dO^T over the head dim,
+// then P^T and dS^T of every query row stored; phase 2: per slice of
+// columns, dV = P^T dO and dK = dS^T Q over the query tiles (f32: dV's and
+// dK's products in ring steps of their own), then stored. A block whose 64
+// keys are all masked, in a pair that has a valid key, writes zeros and
+// returns.
+template <typename T>
+__global__ void __launch_bounds__(kThreads + Cfg<T>::kSide, 1)
+attention_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
+                                    const float* __restrict__ lse, const float* __restrict__ delta,
+                                    T* __restrict__ dk_out, T* __restrict__ dv_out, int g, int s, int nh, int hd,
+                                    int n_kt, int n_st, long long valid_sb, float scale) {
+  using C = Cfg<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int NB = kF32 ? 1 : 2;  // 64-column output blocks of a slice
+  constexpr int kSteps = kF32 ? 2 : 1;  // phase 2's ring steps per query tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::aligned_smem(smem_raw);
+  const int n_qt = (g + kRows - 1) / kRows;
+  unsigned char* stored = smem + n_st * C::kSlot;  // query tile t at t * kStoreC
+  uint64_t* full = reinterpret_cast<uint64_t*>(stored + static_cast<size_t>(n_qt) * C::kStoreC);
+  uint64_t* ready = full + kMaxStages;  // [n_st] each, as side_loop says
+  uint64_t* empty = ready + kMaxStages;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int kt = blockIdx.x % n_kt, bh = blockIdx.x / n_kt;
+  const int h = bh % nh, b = bh / nh;
+  const int key0 = kt * kRows;
+  const int n_ch = (hd + C::kCols - 1) / C::kCols, n_sl = (hd + C::kSliceC - 1) / C::kSliceC;
+  const int n1 = n_qt * n_ch, n_all = n1 + n_sl * n_qt * kSteps;  // steps of phase 1, of both
+  const long long rs = static_cast<long long>(nh) * hd;
+  T* dk_b = dk_out + (static_cast<size_t>(b) * s * nh + h) * hd;
+  T* dv_b = dv_out + (static_cast<size_t>(b) * s * nh + h) * hd;
+
+  if (tid == 0) {
+    for (int i = 0; i < n_st; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(ready + i, C::kSide);
+      mbar_init(empty + i, kThreads / 32);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  // does the pair have a valid key, and this tile? (the first barrier also
+  // publishes the mbarriers' init)
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  int any = 0;
+  for (int j = tid; j < s; j += blockDim.x) any |= vrow[j];
+  const bool pair_any = __syncthreads_or(any);
+  const bool tile_any = __syncthreads_or(tid < kRows && key0 + tid < s && vrow[key0 + tid]);
+  if (pair_any && !tile_any) {
+    // every P of the tile is exp(-1e9 + ...) = 0 in f32: dK = dV = 0 exactly
+    const int units = hd * static_cast<int>(sizeof(T)) / 16;
+    const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+    for (int u = tid; u < kRows * units; u += blockDim.x) {
+      const int key = key0 + u / units;
+      if (key < s) {
+        const long long o = key * rs + (u % units) * static_cast<int>(16 / sizeof(T));
+        *reinterpret_cast<uint4*>(dk_b + o) = zero;
+        *reinterpret_cast<uint4*>(dv_b + o) = zero;
+      }
+    }
+    return;
+  }
+  const float shift = pair_any ? 0.0f : kMaskBias;
+
+  // step f's tiles into its slot, issued by the threads that pass `on`.
+  // Phase 1 (f < n1), query tile f / n_ch over chunk f % n_ch: K, V of the
+  // key tile, Q, dO of the query tile. Phase 2, of slice sl and query tile
+  // t: bf16 the tile's dO and Q columns of the slice as two 64-column blocks
+  // each (tiles 0, 1 and 2, 3); f32 its dO columns, then its Q columns, as
+  // two 32-column boxes (tiles 0, 1).
+  auto issue = [&](int f, int st, bool on) {
+    const bool p1 = f < n1;
+    const int f2 = f - n1, t = p1 ? f / n_ch : (f2 / kSteps) % n_qt;
+    const int c0 = p1 ? (f % n_ch) * C::kCols : (f2 / (kSteps * n_qt)) * C::kSliceC;
+    unsigned char* slot = smem + st * C::kSlot;
+    uint64_t* bar = full + st;
+    const bool four = !kF32 || p1;
+    const RowMap& x2 = kF32 && f2 % 2 ? maps.q : maps.dout;  // phase 2's first two tiles
+    const int col1 = p1 ? c0 : c0 + C::kCols;
+    const int row_a = p1 ? key0 : t * kRows;
+    mbar_arrive_expect_tx(bar, (four ? 4 : 2) * kTile, on);
+    load_tile(slot, p1 ? maps.k : x2, bar, h, row_a, b, on, c0);
+    load_tile(slot + kTile, p1 ? maps.v : x2, bar, h, row_a, b, on, col1);
+    load_tile(slot + 2 * kTile, maps.q, bar, h, t * kRows, b, on && four, c0);
+    load_tile(slot + 3 * kTile, p1 ? maps.dout : maps.q, bar, h, t * kRows, b, on && four, col1);
+  };
+  // the side warps (uniform in a warp, as the compiler is told)
+  if (__shfl_sync(0xffffffffu, tid / kThreads, 0)) {
+    side_loop<T>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
+    return;
+  }
+  // one ring step: wait for the step's slot (f32: its split operands),
+  // work on it, then hand it back to the producer
+  Ring ring{n_st};
+  auto step = [&](auto&& work) {
+    mbar_wait((kF32 ? ready : full) + ring.slot, ring.parity);
+    work(smem + ring.slot * C::kSlot);
+    mbar_arrive(empty + ring.slot, lane == 0);
+    ring.next();
+  };
+
+  // this thread's accumulator rows are keys key0 + 16 warp + r and + 8
+  const int r = lane >> 2;
+  float bias[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int key = key0 + 16 * warp + r + 8 * i;
+    bias[i] = key >= s ? -INFINITY : (vrow[min(key, s - 1)] ? 0.0f : kMaskBias);
+  }
+  const float* lse_b = lse + (static_cast<size_t>(b) * nh + h) * g;
+  const float* delta_b = delta + (static_cast<size_t>(b) * nh + h) * g;
+
+  float x[32], y[32];
+  for (int t = 0; t < n_qt; ++t) {
+    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T>(x, y, slot, c == 0, tid); });
+    finish_c<T>(x, y, stored + static_cast<size_t>(t) * C::kStoreC, bias, lse_b, delta_b, t * kRows, g, shift, scale,
+                tid);
+  }
+  float dv[NB][32], dk[NB][32];
+  for (int sl = 0; sl < n_sl; ++sl) {
+    for (int t = 0; t < n_qt; ++t) {
+      const unsigned char* st = stored + static_cast<size_t>(t) * C::kStoreC;
+      if constexpr (kF32) {
+        const float4* a = reinterpret_cast<const float4*>(st);
+        step([&](unsigned char* slot) { f32_block_step(dv[0], slot, a, t > 0, tid); });  // P^T dO
+        step([&](unsigned char* slot) { f32_block_step(dk[0], slot, a + 8 * kThreads, t > 0, tid); });  // dS^T Q
+      } else {
+        step([&](unsigned char* slot) { dkv_step(dv, dk, slot, st, t > 0, tid); });
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+      store_block<T>(dk_b, rs, dk[j], scale, key0, s, sl * C::kSliceC + 64 * j, hd, tid);
+      store_block<T>(dv_b, rs, dv[j], 1.0f, key0, s, sl * C::kSliceC + 64 * j, hd, tid);
+    }
+  }
+}
+
+// Kernel D: one block per (pair, head, tile of 64 query rows), the tile
+// fastest. D = rowsum(dO * O) of its rows from device memory while the
+// first loads land. Phase 1: per running key tile (one with a valid key; in
+// a pair with none, every tile), S = Q K^T and dP = dO V^T over the head
+// dim, then dS stored; phase 2: per slice of columns, dQ = dS K over the
+// running key tiles, then stored.
+template <typename T>
+__global__ void __launch_bounds__(kThreads + Cfg<T>::kSide, Cfg<T>::kMinBlocksD)
+attention_bwd_dq_wide_wgmma_kernel(const __grid_constant__ Maps maps, const T* __restrict__ dout,
+                                   const T* __restrict__ out, const uint8_t* __restrict__ key_valid,
+                                   const float* __restrict__ lse, float* __restrict__ delta, T* __restrict__ dq_out,
+                                   int g, int s, int nh, int hd, int n_qt, int n_st, long long valid_sb, long long do_sb,
+                                   long long do_sr, long long do_sh, long long o_sb, long long o_sr, long long o_sh,
+                                   float scale) {
+  using C = Cfg<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int NB = kF32 ? 1 : 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = hopper::aligned_smem(smem_raw);
+  const int n_kt = (s + kRows - 1) / kRows;
+  unsigned char* stored = smem + n_st * C::kSlot;  // running tile i at i * kStoreD
+  uint64_t* full = reinterpret_cast<uint64_t*>(stored + static_cast<size_t>(n_kt) * C::kStoreD);
+  uint64_t* ready = full + kMaxStages;  // [n_st] each, as side_loop says
+  uint64_t* empty = ready + kMaxStages;
+  uint64_t* tile_bits = empty + kMaxStages;  // [n_kt]
+  int* run = reinterpret_cast<int*>(tile_bits + n_kt);  // the running tiles, in order
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows;
+
+  if (tid == 0) {
+    for (int i = 0; i < n_st; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(ready + i, C::kSide);
+      mbar_init(empty + i, kThreads / 32);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  // one word of valid-key bits per key tile (the barrier also publishes
+  // the mbarriers' init)
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  bool any_local = false;
+  for (int t = warp; t < n_kt; t += blockDim.x / 32) {
+    const uint64_t bits = attn_wide::key_bits(vrow, t * kRows, s, lane);
+    if (lane == 0) tile_bits[t] = bits;
+    any_local |= bits != 0;
+  }
+  const bool any_valid = __syncthreads_or(any_local);
+  // the running key tiles: a tile without a valid key adds exactly 0 when
+  // the pair has one; a pair with none attends every key
+  int n_run = 0;
+  for (int t = 0; t < n_kt; ++t) {
+    if (any_valid && tile_bits[t] == 0) continue;
+    if (tid == 0) run[n_run] = t;
+    ++n_run;
+  }
+  __syncthreads();  // publishes run
+  const float shift = any_valid ? 0.0f : kMaskBias;
+  const int n_ch = (hd + C::kCols - 1) / C::kCols, n_sl = (hd + C::kSliceD - 1) / C::kSliceD;
+  const int n1 = n_run * n_ch, n_all = n1 + n_sl * n_run;
+
+  // step f's tiles into its slot, issued by the threads that pass `on`.
+  // Phase 1 (f < n1), running tile f / n_ch over chunk f % n_ch: Q, dO of
+  // the block's rows, K, V of the key tile. Phase 2, slice (f - n1) / n_run
+  // of running tile (f - n1) % n_run: its K columns as two tiles (bf16
+  // 64-column blocks, f32 32-column boxes).
+  auto issue = [&](int f, int st, bool on) {
+    const bool p1 = f < n1;
+    const int f2 = f - n1, key0 = run[p1 ? f / n_ch : f2 % n_run] * kRows;
+    const int c0 = p1 ? (f % n_ch) * C::kCols : (f2 / n_run) * C::kSliceD;
+    unsigned char* slot = smem + st * C::kSlot;
+    uint64_t* bar = full + st;
+    const int row_a = p1 ? row0 : key0;
+    mbar_arrive_expect_tx(bar, (p1 ? 4 : 2) * kTile, on);
+    load_tile(slot, p1 ? maps.q : maps.k, bar, h, row_a, b, on, c0);
+    load_tile(slot + kTile, p1 ? maps.dout : maps.k, bar, h, row_a, b, on, p1 ? c0 : c0 + C::kCols);
+    load_tile(slot + 2 * kTile, maps.k, bar, h, key0, b, on && p1, c0);
+    load_tile(slot + 3 * kTile, maps.v, bar, h, key0, b, on && p1, c0);
+  };
+  // the side warps (uniform in a warp, as the compiler is told)
+  if (__shfl_sync(0xffffffffu, tid / kThreads, 0)) {
+    side_loop<T>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
+    return;
+  }
+
+  // lse and D of this thread's rows, row0 + 16 warp + r and + 8, while the
+  // first loads land; D summed as quad_row_delta sums it, written for C
+  const int r = lane >> 2;
+  const T* dob = dout + b * do_sb + h * do_sh;
+  const T* ob = out + b * o_sb + h * o_sh;
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 16 * warp + r + 8 * i;
+    const bool ok = row < g;
+    const size_t at = (static_cast<size_t>(b) * nh + h) * g + (ok ? row : 0);
+    lse_r[i] = ok ? lse[at] : INFINITY;  // P = 0 on padding rows
+    delta_r[i] = quad_row_delta(dob + (ok ? row : 0) * do_sr, ob + (ok ? row : 0) * o_sr, hd, ok, lane & 3);
+    if (ok && (lane & 3) == 0) delta[at] = delta_r[i];
+  }
+
+  // one ring step, as kernel C's
+  Ring ring{n_st};
+  auto step = [&](auto&& work) {
+    mbar_wait((kF32 ? ready : full) + ring.slot, ring.parity);
+    work(smem + ring.slot * C::kSlot);
+    mbar_arrive(empty + ring.slot, lane == 0);
+    ring.next();
+  };
+  float x[32], y[32];
+  for (int i = 0; i < n_run; ++i) {
+    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T>(x, y, slot, c == 0, tid); });
+    const int t = run[i];
+    finish_d<T>(x, y, stored + static_cast<size_t>(i) * C::kStoreD, tile_bits[t], s - t * kRows, lse_r, delta_r,
+                shift, scale, tid);
+  }
+  float dq[NB][32];
+  T* dq_b = dq_out + (static_cast<size_t>(b) * g * nh + h) * hd;
+  for (int sl = 0; sl < n_sl; ++sl) {
+    for (int i = 0; i < n_run; ++i) {
+      const unsigned char* st = stored + static_cast<size_t>(i) * C::kStoreD;
+      step([&](unsigned char* slot) {
+        if constexpr (kF32)
+          f32_block_step(dq[0], slot, reinterpret_cast<const float4*>(st), i > 0, tid);
+        else
+          dq_step(dq, slot, st, i > 0, tid);
+      });
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      store_block<T>(dq_b, static_cast<long long>(nh) * hd, dq[j], scale, row0, g, sl * C::kSliceD + 64 * j, hd, tid);
+  }
+}
+
+}  // namespace wide
+
 // ---------------------------------------------------------------- launches
 
 struct Args {
@@ -1667,15 +2451,17 @@ cudaError_t set_smem(Kern kern, size_t smem) {
   return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
 }
 
-// the Hopper bodies' tensor maps of q, k, v, dO and, for kernel D, O
-cudaError_t make_maps(hopper::Maps* m, const Args& a) {
+// the Hopper bodies' tensor maps of q, k, v, dO and, for kernel D, O: rows
+// of hd columns (64 unless given), bf16 or f32
+cudaError_t make_maps(hopper::Maps* m, const Args& a, int hd = 64, bool f32 = false) {
   using wgmma_sm90::make_row_map;
   const long long* st = a.st;
-  cudaError_t err = make_row_map(&m->q, a.q, a.b, a.g, a.nh, st[0], st[1], st[2]);
-  if (err == cudaSuccess) err = make_row_map(&m->k, a.k, a.b, a.s, a.nh, st[3], st[4], st[5]);
-  if (err == cudaSuccess) err = make_row_map(&m->v, a.v, a.b, a.s, a.nh, st[6], st[7], st[8]);
-  if (err == cudaSuccess) err = make_row_map(&m->dout, a.dout, a.b, a.g, a.nh, st[10], st[11], st[12]);
-  if (err == cudaSuccess && a.out != nullptr) err = make_row_map(&m->out, a.out, a.b, a.g, a.nh, st[13], st[14], st[15]);
+  cudaError_t err = make_row_map(&m->q, a.q, a.b, a.g, a.nh, st[0], st[1], st[2], hd, f32);
+  if (err == cudaSuccess) err = make_row_map(&m->k, a.k, a.b, a.s, a.nh, st[3], st[4], st[5], hd, f32);
+  if (err == cudaSuccess) err = make_row_map(&m->v, a.v, a.b, a.s, a.nh, st[6], st[7], st[8], hd, f32);
+  if (err == cudaSuccess) err = make_row_map(&m->dout, a.dout, a.b, a.g, a.nh, st[10], st[11], st[12], hd, f32);
+  if (err == cudaSuccess && a.out != nullptr)
+    err = make_row_map(&m->out, a.out, a.b, a.g, a.nh, st[13], st[14], st[15], hd, f32);
   return err;
 }
 
@@ -1811,9 +2597,9 @@ cudaError_t launch(int is_bf16, const Args& a) {
   return a.g <= 16 ? launch_dq_bf16<HD, 1>(a) : launch_dq_bf16<HD, 4>(a);
 }
 
-// the wide route: hd above 256, any multiple of 16
+// the wide route's slice bodies: hd above 256, any multiple of 16
 template <bool kDkv>
-cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
+cudaError_t launch_wide_slices(int is_bf16, int hd, const Args& a) {
   using namespace attn_wide;
   const int n_tiles = ((kDkv ? a.s : a.g) + kRows - 1) / kRows;
   const int slice = is_bf16 ? kSliceB : kSliceF;
@@ -1871,6 +2657,57 @@ cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
         st[13], st[14], st[15], a.scale);
   }
   return cudaGetLastError();
+}
+
+// the wide route's Hopper bodies (namespace wide)
+template <typename T, bool kDkv>
+cudaError_t launch_wide_hopper(int hd, const Args& a) {
+  hopper::Maps maps;
+  cudaError_t err = make_maps(&maps, a, hd, std::is_same<T, float>::value);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (a.s + wide::kRows - 1) / wide::kRows, n_qt = (a.g + wide::kRows - 1) / wide::kRows;
+  // the ring's slots: the body's choice where they fit, else two
+  const int n = kDkv ? n_qt : n_kt, pref = kDkv ? wide::Cfg<T>::kStagesC : wide::Cfg<T>::kStagesD;
+  const int n_st = wide::smem_bytes<T, kDkv>(pref, n, n_kt) <= wide::kSmemMax ? pref : 2;
+  const size_t smem = wide::smem_bytes<T, kDkv>(n_st, n, n_kt);
+  const long long blocks = static_cast<long long>(a.b) * a.nh * (kDkv ? n_kt : n_qt);
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  const long long* st = a.st;
+  if constexpr (kDkv) {
+    auto kern = wide::attention_bwd_dkv_wide_wgmma_kernel<T>;
+    err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<static_cast<unsigned>(blocks), wide::kThreads + wide::Cfg<T>::kSide, smem, a.stream>>>(
+        maps, static_cast<const uint8_t*>(a.key_valid), static_cast<const float*>(a.lse),
+        static_cast<const float*>(a.delta), static_cast<T*>(a.out0), static_cast<T*>(a.out1), a.g, a.s, a.nh, hd, n_kt,
+        n_st, st[9], a.scale);
+  } else {
+    auto kern = wide::attention_bwd_dq_wide_wgmma_kernel<T>;
+    err = set_smem(kern, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<static_cast<unsigned>(blocks), wide::kThreads + wide::Cfg<T>::kSide, smem, a.stream>>>(
+        maps, static_cast<const T*>(a.dout), static_cast<const T*>(a.out), static_cast<const uint8_t*>(a.key_valid),
+        static_cast<const float*>(a.lse), static_cast<float*>(a.delta), static_cast<T*>(a.out0), a.g, a.s, a.nh, hd,
+        n_qt, n_st, st[9], st[10], st[11], st[12], st[13], st[14], st[15], a.scale);
+  }
+  return cudaGetLastError();
+}
+
+// the wide route, hd above 256: the Hopper bodies wherever TMA takes the
+// strides and a block's stored tiles fit in shared memory (C: P^T and dS^T
+// of every query row, bf16 g <= 640, f32 g <= 256; D: dS of every key, bf16
+// s <= 1280, f32 s <= 512); the slice bodies, which recompute the scores
+// for each 64-column output slice, past that
+template <bool kDkv>
+cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
+  const int n_kt = (a.s + wide::kRows - 1) / wide::kRows;
+  const int n = kDkv ? (a.g + wide::kRows - 1) / wide::kRows : n_kt;
+  if (tma_strides(a, kDkv)) {
+    if (is_bf16 && wide::smem_bytes<bf16, kDkv>(2, n, n_kt) <= wide::kSmemMax) return launch_wide_hopper<bf16, kDkv>(hd, a);
+    if (!is_bf16 && wide::smem_bytes<float, kDkv>(2, n, n_kt) <= wide::kSmemMax)
+      return launch_wide_hopper<float, kDkv>(hd, a);
+  }
+  return launch_wide_slices<kDkv>(is_bf16, hd, a);
 }
 
 template <bool kDkv>

@@ -9,7 +9,9 @@
 // outputs (O in A, dK and dV in C, dQ in D) are split into column slices
 // over a grid axis; each slice's block recomputes its scores. Every staged
 // tile is 64 rows; rows past the sequence and columns past hd are
-// zero-filled, so they add nothing to a product.
+// zero-filled, so they add nothing to a product. (C and D run these slice
+// bodies only past the limits of their Hopper bodies, which compute the
+// scores once: csrc/attention_bwd.cu, namespace wide.)
 //
 // The bf16 bodies keep the tensor-core fragments of the templated route
 // (mma.sync m16n8k16, ldmatrix from rows padded by 16 bytes); the f32

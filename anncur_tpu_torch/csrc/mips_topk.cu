@@ -398,14 +398,6 @@ constexpr int kIBytes = kBN * kBK * 4;       // its item tile, and again the ite
 constexpr int kStageBytes = kQBytes + 2 * kIBytes;
 constexpr int kBars = kStages * kStageBytes;
 constexpr int kSmem = kBars + 3 * kStages * 8 + 1024;  // + room to align to 1024 bytes
-// An item's small part. The raw item tile serves as its big part: TF32
-// wgmma reads the top 19 bits of each f32 and drops the low 13
-// (tests/test_torch_cuda.py, test_tf32_wgmma_fragments_and_the_low_13_bits,
-// holds the card to it), so big = x with its low 13 bits cleared, and
-// x - big is exact in f32 before it is rounded to tf32.
-__device__ __forceinline__ float small_part(float x) {
-  return __uint_as_float(tf32_rna(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
-}
 
 // Scores of every (query tile, item tile) of a chunk, one block an SM
 // walking the tiles (query tiles fastest, so the blocks that run together
@@ -469,7 +461,7 @@ mips_score_tc_kernel(const __grid_constant__ CUtensorMap qmap, const __grid_cons
 #pragma unroll 4
       for (int i = ptid; i < kIBytes / 16; i += 32 * kSplitWarps) {
         const float4 x = items[i];
-        small[i] = make_float4(small_part(x.x), small_part(x.y), small_part(x.z), small_part(x.w));
+        small[i] = make_float4(tf32_small(x.x), tf32_small(x.y), tf32_small(x.z), tf32_small(x.w));
       }
       fence_proxy_async();
       mbar_arrive(ready + s, true);

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) warpgroup helpers for the port's kernels: wgmma
 // m64n64k16 (bf16 in, f32 accumulate) with both operands in shared memory
-// or A in registers, wgmma m64n128k8 (tf32 in, f32 accumulate) with A in
-// registers, shared-memory matrix descriptors for 128-byte-swizzled tiles,
-// mbarriers, and 2-D and 4-D TMA tile loads with their tensor maps.
+// or A in registers, wgmma m64n128k8 and m64n64k8 (tf32 in, f32
+// accumulate) with A in registers, shared-memory matrix descriptors for
+// 128-byte-swizzled tiles, mbarriers, and 2-D and 4-D TMA tile loads with
+// their tensor maps.
 //
 // Layouts (one warpgroup = warps 4i..4i+3, w = warp % 4, lane = threadIdx.x
 // % 32, r = lane / 4, c = 2 * (lane % 4)):
@@ -89,15 +90,26 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t desc_a, uint64_t
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d (64 x 64) += A (64 x 16, this thread's bf16 fragment) * B (16 x 64,
-// MN-major in shared memory: rows of B are the 16 reduced rows)
-__device__ __forceinline__ void mma_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b) {
+// d (64 x 64) = A (64 x 16, this thread's bf16 fragment) * B (16 x 64,
+// MN-major in shared memory: rows of B are the 16 reduced rows) + d (+ 0
+// where accumulate is 0)
+__device__ __forceinline__ void mma_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WGMMA_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : WGMMA_D32_OPS(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64) = A (64 x 8 tf32, this thread's fragment) * B (8 x 64, K-major
+// tf32 in shared memory) + (accumulate ? d : 0)
+__device__ __forceinline__ void mma_tf32_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WGMMA_D32 ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : WGMMA_D32_OPS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 #undef WGMMA_D32
@@ -142,6 +154,16 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// The small part of an f32 operand read from shared memory in three TF32
+// passes. The raw f32 serves as its big part: TF32 wgmma reads the top 19
+// bits of each f32 and drops the low 13 (tests/test_torch_cuda.py,
+// test_tf32_wgmma_fragments_and_the_low_13_bits, holds the card to it), so
+// big = x with its low 13 bits cleared, and x - big is exact in f32 before
+// it is rounded to tf32.
+__device__ __forceinline__ float tf32_small(float x) {
+  return __uint_as_float(tf32_rna(x - __uint_as_float(__float_as_uint(x) & 0xFFFFE000u)));
 }
 
 // this thread's generic-proxy writes to shared memory, ordered before later
@@ -222,9 +244,11 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A (b, rows, nh, 64) bf16 tensor with element strides sb, sr, sh (the 64
-// columns contiguous) as a 4-D tensor map of 64-row x 64-column boxes with
-// the 128-byte swizzle; rows past n_rows read as zeros. The three outer
+// A (b, rows, nh, cols) bf16 tensor with element strides sb, sr, sh (the
+// cols columns contiguous; 64 unless given) as a 4-D tensor map of 64-row x
+// 64-column boxes with the 128-byte swizzle; rows past n_rows and columns
+// past cols read as zeros. With f32, an f32 tensor in boxes of 64 rows x 32
+// columns (128 bytes a row, as well). The three outer
 // axes go in order of stride, so any strides TMA takes are taken; `order`
 // records where each went: its coordinate slot (1-3) for the head at bits
 // 0-1, the row at bits 2-3, the batch at bits 4-5 (tile_coords).
@@ -233,9 +257,9 @@ struct RowMap {
   int order;
 };
 
-__device__ __forceinline__ void tile_coords(int order, int h, int row, int b, int (&c)[4]) {
+__device__ __forceinline__ void tile_coords(int order, int h, int row, int b, int (&c)[4], int col = 0) {
   const int ph = order & 3, pr = (order >> 2) & 3;
-  c[0] = 0;
+  c[0] = col;
 #pragma unroll
   for (int i = 1; i < 4; ++i) c[i] = ph == i ? h : (pr == i ? row : b);
 }
@@ -260,7 +284,7 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 inline cudaError_t make_row_map(RowMap* out, const void* base, int b, int n_rows, int nh, long long sb, long long sr,
-                                long long sh) {
+                                long long sh, int cols = 64, bool f32 = false) {
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   // (stride, size, box, kind 0 head / 1 row / 2 batch), sorted by stride
@@ -272,18 +296,20 @@ inline cudaError_t make_row_map(RowMap* out, const void* base, int b, int n_rows
         axes[j][f] = axes[j - 1][f];
         axes[j - 1][f] = t;
       }
-  cuuint64_t dims[4] = {64, 0, 0, 0};
+  const size_t es = f32 ? sizeof(float) : sizeof(__nv_bfloat16);
+  cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), 0, 0, 0};
   cuuint64_t strides[3];
-  cuuint32_t box[4] = {64, 0, 0, 0};
+  cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / es), 0, 0, 0};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   out->order = 0;
   for (int i = 0; i < 3; ++i) {
     dims[i + 1] = static_cast<cuuint64_t>(axes[i][1]);
-    strides[i] = static_cast<cuuint64_t>(axes[i][0]) * sizeof(__nv_bfloat16);
+    strides[i] = static_cast<cuuint64_t>(axes[i][0]) * es;
     box[i + 1] = static_cast<cuuint32_t>(axes[i][2]);
     out->order |= (i + 1) << (2 * axes[i][3]);
   }
-  const CUresult rc = encode(&out->map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+  const CUresult rc = encode(&out->map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                             const_cast<void*>(base), dims, strides,
                              box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;

@@ -89,10 +89,12 @@ def axn_rank_of(train):
     return int(min(2 * (int(np.searchsorted(energy, 0.97)) + 1), min(train.shape)))
 
 
-def early_stop_sweep(full, train, fixed_anc, fixed_retvr, seeds, configs, device="cpu"):
+def early_stop_sweep(full, train, fixed_anc, fixed_retvr, seeds, configs, device="cuda"):
     """Recall, average budget and escalated share of the early-stop engine
     per (base, ceiling) config, beside the fixed-anchor recall at cost
-    ``fixed_anc + fixed_retvr``."""
+    ``fixed_anc + fixed_retvr``. On the card unless ``device`` says
+    otherwise; raises without CUDA when no device is given."""
+    device = resolve_device(device)
     fixed = float(np.mean([fixed_anchor_recall(full, train, fixed_anc, fixed_retvr, 10, s, device) for s in seeds]))
     out = {"fixed_recall": fixed, "fixed_cost": fixed_anc + fixed_retvr, "configs": {}}
     for base, base_rounds, ceiling, esc_rounds in configs:

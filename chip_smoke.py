@@ -39,14 +39,19 @@ Phases, in order; any failure exits non-zero before the result line:
    dims above 256 (kernels A, C and D's wide route): ``attention`` and
    its autograd against the plain versions at hd 272, 384, 512 and 768,
    bf16 and f32, at b=64 g=s=255 nh=4 (one launch each of A, C and D and
-   none of the plain attention per call), each kernel timed there beside
-   its bound, the plain version and SDPA (C and D also as the whole
-   backward). For every bf16 instantiation of kernels A, C and D (every
-   head dim that is a multiple of 16 up to 256, the wide route's body, and
-   C and D's Hopper body at hd 64): its HMMA count in the SASS, HGMMA for
-   the Hopper body (it fails on none, and on a Hopper body that spills)
-   and ptxas' registers and spills; for kernel B's kernels, f32 and int8,
-   registers and spills;
+   none of the plain attention per call; C and D's Hopper bodies there,
+   named under ``torch.profiler``), each kernel timed there beside its
+   bound, the plain version and SDPA (C and D also as the whole
+   backward); then at hd 272 one query or key tile past what C's or D's
+   Hopper body stores in shared memory (bf16 g 641 and s 1281, f32 g 257
+   and s 513), checked the same way with C or D on its slice body. For every bf16 instantiation of kernels A, C and D (every
+   head dim that is a multiple of 16 up to 256, the wide route's slice
+   body, the Hopper body at hd 64 and C and D's wide Hopper body): its
+   HMMA count in the SASS, HGMMA for the Hopper bodies (it fails on none,
+   and on an hd-64 Hopper body that spills; C and D's f32 wide Hopper body
+   too) and ptxas' registers and spills; the f32 wide backward against an
+   f64 autograd, within 4x the plain f32 autograd's error; for kernel B's
+   kernels, f32 and int8, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -226,9 +231,12 @@ SLEEP_CYCLES = 20_000_000
 # a step may leave them, and their parameters, unchanged
 ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
 # bf16 instantiations of kernels A, C and D: 16 head dims x 2 tilings, the
-# wide route's one body (head dims above 256, a runtime count) and the
-# Hopper body (wgmma, hd = 64, g > 16)
+# wide route's slice body (head dims above 256, a runtime count) and the
+# Hopper body (wgmma, hd = 64, g > 16); C and D one more, the wide route's
+# Hopper body (wgmma + TMA, head dims above 256; its f32 instantiation, on
+# the tensor cores in three TF32 passes, is held apart)
 BF16_INSTANTIATIONS = 34
+BF16_INSTANTIATIONS_BWD = BF16_INSTANTIATIONS + 1
 DELTA_RTOL = 1e-6  # kernel D's D = rowsum(dO * O) vs the plain reduction, x max|D| (f32 sums in another order)
 # head dims above 256 (the wide route; 272 also pads nothing, 300-style
 # widths pad to these), held in bf16 and f32 at the train layer's b=64
@@ -238,6 +246,10 @@ WIDE_SHAPE = (64, 255, 255, 4)
 # f32 kernel vs plain: sums of up to 768 products in another order
 ATTN_F32_ATOL = 1e-4  # forward, absolute
 GRAD_F32_RTOL = 1e-4  # gradients, x the plain gradient's max
+# the f32 wide backward (three TF32 passes) against the autograd in f64, max
+# error over max |f64| of each gradient: at most this many times the plain
+# f32 autograd's (cuBLAS, no TF32), as kernel B's MIPS_F64_RATIO
+WIDE_F64_RATIO = 4.0
 
 
 def log(msg):
@@ -468,25 +480,34 @@ def wgmma_warnings(source):
 
 
 HOPPER_LABEL = "hd=64 g>16 (wgmma)"
+WIDE_HOPPER_LABEL = "hd>256 (wide route, wgmma)"
+TF32_LABEL = "f32 hd>256 (wide route, wgmma in three TF32 passes)"
 
 
-def instantiations(source, kernel, param, expected, hopper=None):
+def instantiations(source, kernel, param, expected, hopper=None, wide_hopper=None):
     """Each instantiation (head dim, ``param``) of the bf16 body ``kernel``
-    in the built library of ``csrc/<source>.cu``, its wide route's body
-    (``kernel`` with ``_wide`` before ``_kernel``: head dims above 256) and
-    its Hopper body ``hopper`` where it has one: its tensor-core
-    instructions as ``cuobjdump -sass`` lists them (HMMA for mma.sync,
-    HGMMA for wgmma: neither name contains the other), and its registers
-    and spilled bytes from the build's ``ptxas -v`` report. Fails unless
-    there are ``expected`` instantiations, each mma.sync body with HMMA and
-    the Hopper body with HGMMA and no spilled byte."""
+    in the built library of ``csrc/<source>.cu``, its wide route's slice
+    body (``kernel`` with ``_wide`` before ``_kernel``: head dims above
+    256), its Hopper body ``hopper`` where it has one and its wide route's
+    Hopper body ``wide_hopper`` where it has one (bf16, and f32 apart): its
+    tensor-core instructions as ``cuobjdump -sass`` lists them (HMMA for
+    mma.sync, HGMMA for wgmma: neither name contains the other), and its
+    registers and spilled bytes from the build's ``ptxas -v`` report. Fails
+    unless there are ``expected`` bf16 instantiations, each mma.sync body
+    with HMMA, the Hopper bodies with HGMMA (the f32 wide one too) and the
+    hd-64 Hopper body with no spilled byte."""
     pattern = re.compile(kernel + r"ILi(\d+)ELi(\d+)E")
     wide = kernel.replace("_kernel", "_wide_kernel")
+    on_wgmma = (HOPPER_LABEL, WIDE_HOPPER_LABEL, TF32_LABEL)
 
     def label(name):
         found = pattern.search(name)
         if found:
             return f"hd={found.group(1)} {param}={found.group(2)}"
+        if wide_hopper and wide_hopper + "I13__nv_bfloat16E" in name:
+            return WIDE_HOPPER_LABEL
+        if wide_hopper and wide_hopper + "IfE" in name:
+            return TF32_LABEL
         if hopper and hopper in name:
             return HOPPER_LABEL
         return "hd>256 (wide route)" if wide in name else None
@@ -509,9 +530,11 @@ def instantiations(source, kernel, param, expected, hopper=None):
     log(f"  {kernel} by instantiation (HMMA and HGMMA in SASS, ptxas registers and spill bytes): {found}")
 
     def on_tensor_cores(name, rec):
-        return rec.get("hgmma") if name == HOPPER_LABEL else rec.get("hmma")
+        return rec.get("hgmma") if name in on_wgmma else rec.get("hmma")
 
-    if len(found) != expected or (sass is not None and not all(on_tensor_cores(n, r) for n, r in found.items())):
+    n_bf16 = len(found) - (TF32_LABEL in found)
+    if (n_bf16 != expected or (wide_hopper and TF32_LABEL not in found)
+            or (sass is not None and not all(on_tensor_cores(n, r) for n, r in found.items()))):
         fail(f"{kernel} is not on the tensor cores in every one of its {expected} instantiations: {found}")
     if hopper and (found.get(HOPPER_LABEL, {}).get("spill_stores", 1) or found[HOPPER_LABEL].get("spill_loads", 1)):
         fail(f"{hopper} spills registers (ptxas): {found.get(HOPPER_LABEL)}")
@@ -687,83 +710,189 @@ def check_attention_bwd(dev, flush):
             "name": name, "replaces": replaces, **common,
             "max_abs_err": errs["dkv" if i == 0 else "dq"],
             **{key: shapes[0][key] for key in keys}, "shapes": shapes,
-            "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS, hopper),
+            "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS_BWD, hopper,
+                                             kernel.replace("_bf16_kernel", "_wide_wgmma_kernel")),
         })
     kernels[1]["delta_rel_err"] = errs["delta"]
     kernels[1]["whole_backward_profile"] = profiled
+    kernels[0]["wgmma_warnings"] = wgmma_warnings("attention_bwd")
     return errs["lse"], kernels
+
+
+# the wide backward past the g (kernel C) or s (kernel D) whose stored
+# P^T and dS^T (C) or dS (D) fit in a block's shared memory (bf16 640 and
+# 1280, f32 256 and 512; attention_bwd.cu's launch_wide), at hd 272, b=8,
+# nh=4 with random key lengths: (dtype, g, s, D's body, C's body), "wgmma"
+# the Hopper body and "slices" the slice body that recomputes the scores
+# for each 64-column output slice; each slice body runs once
+WIDE_PAST_LIMIT = (
+    (torch.bfloat16, 641, 641, "wgmma", "slices"), (torch.bfloat16, 100, 1281, "slices", "wgmma"),
+    (torch.float32, 257, 257, "wgmma", "slices"), (torch.float32, 100, 513, "slices", "wgmma"),
+)
 
 
 def check_attention_wide(dev, flush):
     """Head dims above 256 (the wide route of kernels A, C and D): at each
     of WIDE_HEAD_DIMS, in bf16 and f32, at WIDE_SHAPE with random key
     lengths, ``attention`` and its autograd (``AttentionFunction``: A with
-    the lse, then C and D) against the plain versions at the real rows and
-    valid keys, masked keys' dK and dV exactly zero; each call launches A,
-    C and D once and the plain attention never. Then A, C and D timed,
-    each beside its bound, the plain version and SDPA. Returns one record
-    per (hd, dtype) with the errors and times of the three kernels."""
-    from anncur_tpu_torch.ops import attention as attn_mod
-    from anncur_tpu_torch.ops.attention import (
-        attention, attention_bwd_dkv, attention_bwd_dq, attention_bwd_plain, attention_fwd, attention_plain,
-    )
-
+    the lse, then C and D) against the plain versions (``wide_case``), C
+    and D on their Hopper bodies (``wide_bodies``), the f32 backward
+    against f64; then A, C and D timed, each beside its bound, the plain
+    version and SDPA. Then the shapes of WIDE_PAST_LIMIT, where C or D
+    takes its slice body, checked the same way. Returns one record per
+    (hd, dtype) with the errors and times of the three kernels, and one per
+    shape past the limit."""
     b, g, s, nh = WIDE_SHAPE
     gen = torch.Generator(device=dev).manual_seed(12)
+    recs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "f32"
+        for hd in WIDE_HEAD_DIMS:
+            q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
+            rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]).expand(b, g)
+            dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(dtype)
+            what = f"hd={hd} {name} b={b} g=s={s} nh={nh}"
+            fwd_err, errs, got = wide_case(q, k, v, key_valid, rows, dout, what)
+            f64 = wide_f64_accuracy(q, k, v, key_valid, dout, got, what) if dtype == torch.float32 else None
+            del got
+            bodies = wide_bodies(q, k, v, key_valid, dout, ("wgmma", "wgmma"), what)
+            rec = {"hd": hd, "dtype": name, "fwd_err": fwd_err, "grad_rel_err": errs, "f64": f64,
+                   **time_wide(q, k, v, key_valid, lengths, dout, what, flush)}
+            rec["D"]["body"], rec["C"]["body"] = bodies
+            recs.append(rec)
+    past, b, hd = [], 8, 272
+    for dtype, g, s, d_body, c_body in WIDE_PAST_LIMIT:
+        q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
+        rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]).expand(b, g) if g == s else \
+            torch.ones(b, g, dtype=torch.bool, device=dev)
+        dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(dtype)
+        what = f"hd={hd} {'bf16' if dtype == torch.bfloat16 else 'f32'} b={b} g={g} s={s} nh={nh}, past the staging limit"
+        _, errs, _ = wide_case(q, k, v, key_valid, rows, dout, what)
+        bodies = wide_bodies(q, k, v, key_valid, dout, (d_body, c_body), what)
+        past.append({"shape": what, "grad_rel_err": errs, "D_body": bodies[0], "C_body": bodies[1]})
+    return recs, past
+
+
+def wide_case(q, k, v, key_valid, rows, dout, what):
+    """``attention`` and its autograd at one wide input against the plain
+    attention and its autograd at the real ``rows`` and valid keys (bf16
+    ATTN_ATOL and GRAD_RTOL, f32 ATTN_F32_ATOL and GRAD_F32_RTOL), masked
+    keys' dK and dV exactly zero; launch counts set to 0 just before: the
+    call launches A, C and D once each and the plain attention never.
+    Returns the forward's error, the gradients' errors (x the plain
+    gradient's max) and the gradients."""
+    from anncur_tpu_torch.ops import attention as attn_mod
+    from anncur_tpu_torch.ops.attention import attention, attention_bwd_plain, attention_plain
+
+    fwd_tol, grad_tol = (ATTN_ATOL, GRAD_RTOL) if q.dtype == torch.bfloat16 else (ATTN_F32_ATOL, GRAD_F32_RTOL)
     plain_calls = []
 
     def counted_plain(*a, **k):
         plain_calls.append(1)
         return attention_plain(*a, **k)
 
-    recs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        name = "bf16" if dtype == torch.bfloat16 else "f32"
-        fwd_tol, grad_tol = (ATTN_ATOL, GRAD_RTOL) if dtype == torch.bfloat16 else (ATTN_F32_ATOL, GRAD_F32_RTOL)
-        for hd in WIDE_HEAD_DIMS:
-            q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
-            rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]).expand(b, g)
-            dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(dtype)
-            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-            reset_counts()
-            attn_mod.attention_plain = counted_plain
-            try:
-                out = attention(*leaves, key_valid)
-                got = torch.autograd.grad(out, leaves, dout)
-                torch.cuda.synchronize()
-            finally:
-                attn_mod.attention_plain = attention_plain
-            counts = read_counts()
-            want_out = attention_plain(q, k, v, key_valid)
-            want = attention_bwd_plain(q, k, v, key_valid, dout)
-            fwd_err = float((out.detach().float() - want_out.float()).abs().amax(dim=(2, 3))[rows].max())
-            errs = {}
-            for key, a, w, sel in (("dq", got[0], want[0], rows), ("dk", got[1], want[1], key_valid),
-                                   ("dv", got[2], want[2], key_valid)):
-                errs[key] = float((a.float() - w.float()).abs().amax(dim=(2, 3))[sel].max() / w.float().abs().max())
-            zero = bool((got[1][~key_valid] == 0).all() and (got[2][~key_valid] == 0).all())
-            launched = (counts["attention_fwd"], counts["attention_bwd_dkv"], counts["attention_bwd_dq"])
-            what = f"hd={hd} {name} b={b} g=s={s} nh={nh}"
-            log(f"  wide route {what}: forward max |kernel - plain| {fwd_err:.3e} (tol {fwd_tol}); dQ/dK/dV "
-                f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} x max (tol {grad_tol}); masked keys zero: {zero}; "
-                f"launches A/C/D {launched}, plain attention {len(plain_calls)}")
-            if not (fwd_err <= fwd_tol and max(errs.values()) <= grad_tol and zero):
-                fail(f"the wide route disagrees with the plain attention at {what}: forward {fwd_err}, {errs}, "
-                     f"masked keys zero {zero}")
-            if launched != (1, 1, 1) or plain_calls:
-                fail(f"at {what} the call launched A/C/D {launched} times and the plain attention {len(plain_calls)}")
-            del out, got, want, want_out, leaves
-            recs.append({"hd": hd, "dtype": name, "fwd_err": fwd_err, "grad_rel_err": errs,
-                         **time_wide(q, k, v, key_valid, lengths, dout, what, flush)})
-    return recs
+    leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+    reset_counts()
+    attn_mod.attention_plain = counted_plain
+    try:
+        out = attention(*leaves, key_valid)
+        got = torch.autograd.grad(out, leaves, dout)
+        torch.cuda.synchronize()
+    finally:
+        attn_mod.attention_plain = attention_plain
+    counts = read_counts()
+    want_out = attention_plain(q, k, v, key_valid)
+    want = attention_bwd_plain(q, k, v, key_valid, dout)
+    fwd_err = float((out.detach().float() - want_out.float()).abs().amax(dim=(2, 3))[rows].max())
+    errs = {}
+    for key, a, w, sel in (("dq", got[0], want[0], rows), ("dk", got[1], want[1], key_valid),
+                           ("dv", got[2], want[2], key_valid)):
+        errs[key] = float((a.float() - w.float()).abs().amax(dim=(2, 3))[sel].max() / w.float().abs().max())
+    zero = bool((got[1][~key_valid] == 0).all() and (got[2][~key_valid] == 0).all())
+    launched = (counts["attention_fwd"], counts["attention_bwd_dkv"], counts["attention_bwd_dq"])
+    log(f"  wide route {what}: forward max |kernel - plain| {fwd_err:.3e} (tol {fwd_tol}); dQ/dK/dV "
+        f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} x max (tol {grad_tol}); masked keys zero: {zero}; "
+        f"launches A/C/D {launched}, plain attention {len(plain_calls)}")
+    if not (fwd_err <= fwd_tol and max(errs.values()) <= grad_tol and zero):
+        fail(f"the wide route disagrees with the plain attention at {what}: forward {fwd_err}, {errs}, "
+             f"masked keys zero {zero}")
+    if launched != (1, 1, 1) or plain_calls:
+        fail(f"at {what} the call launched A/C/D {launched} times and the plain attention {len(plain_calls)}")
+    return fwd_err, errs, got
+
+
+def wide_bodies(q, k, v, key_valid, dout, expect, what, tries=10):
+    """The device kernels of the wide backward (kernel D, then C, as
+    ``run_bwd`` launches them) under ``torch.profiler``: fails unless they
+    are exactly the bodies ``expect`` names, D's then C's ("wgmma": the
+    Hopper body; "slices": the slice body). Each session runs the backward
+    twice, since the profiler loses records late in a long run (often the
+    first kernel after the spin): it must record D's body directly
+    followed by C's, and is taken again otherwise, up to ``tries``
+    (``profiled_kernels``); one that records another body fails at once.
+    Returns D's and C's kernel names."""
+    from anncur_tpu_torch.ops.attention import attention_fwd
+
+    dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
+    want = [f"attention_bwd_{kern}_wide_wgmma_kernel" if body == "wgmma" else f"attention_bwd_{kern}_{dt}_wide_kernel"
+            for kern, body in zip(("dq", "dkv"), expect)]
+    out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+
+    def fn():
+        return run_bwd(q, k, v, key_valid, dout, out, lse)
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(tries):
+        seen = [e.name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                for e in profiled_kernels(lambda: (fn(), fn())) if "attention_bwd" in e.name]
+        if not all(any(w in n for w in want) for n in seen):
+            break  # another body: fails at once
+        for pair in zip(seen, seen[1:]):
+            if all(w in n for w, n in zip(want, pair)):
+                log(f"  wide route {what}: the backward ran {list(pair)} (profiler records {len(seen)} of 4)")
+                return list(pair)
+    fail(f"the wide backward at {what} did not run exactly {want}, in that order: {seen}")
+
+
+def wide_f64_accuracy(q, k, v, key_valid, dout, got, what):
+    """The f32 wide backward (``got``: dQ, dK, dV through kernels D and C)
+    against the plain attention's autograd in f64: max |error| over max
+    |f64| of each gradient, beside the plain f32 autograd's (cuBLAS, no
+    TF32); fails past WIDE_F64_RATIO times the plain error."""
+    from anncur_tpu_torch.ops.attention import attention_bwd_plain
+    from anncur_tpu_torch.utils.device import true_f32
+
+    with true_f32():
+        plain = attention_bwd_plain(q, k, v, key_valid, dout)
+    with torch.enable_grad():
+        leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+        scores = torch.einsum("bqnd,bknd->bnqk", leaves[0], leaves[1]) / math.sqrt(q.shape[-1])
+        probs = torch.softmax(scores + torch.where(key_valid, 0.0, -1e9).double()[:, None, None, :], dim=-1)
+        exact = torch.autograd.grad(torch.einsum("bnqk,bknd->bqnd", probs, leaves[2]), leaves, dout.double())
+    rec = {}
+    for name, a, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+        scale = float(e.abs().max())
+        rec[name] = {"kernel": float((a.double() - e).abs().max()) / scale,
+                     "plain_f32": float((p.double() - e).abs().max()) / scale}
+        rec[name]["ratio"] = rec[name]["kernel"] / rec[name]["plain_f32"]
+    del plain, exact, leaves, scores, probs
+    log(f"  wide route {what} against f64 (x max |f64|): " + ", ".join(
+        f"{n} {r['kernel']:.3e} (plain f32 {r['plain_f32']:.3e}, ratio {r['ratio']:.2f})" for n, r in rec.items())
+        + f" (limit {WIDE_F64_RATIO})")
+    if not max(r["ratio"] for r in rec.values()) <= WIDE_F64_RATIO:
+        fail(f"the f32 wide backward at {what} is not f32-accurate: {rec}")
+    return rec
 
 
 def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
     """Kernels A, D and C at one wide input, each beside its bound (bytes:
     each input read once at valid keys, each output written once;
-    operations: its products over the valid keys at the dtype's peak), the
-    port's whole backward (D then C through the autograd), the plain
-    version's and SDPA's forward and whole backward."""
+    operations: its products over the valid keys at the dtype's peak; C and
+    D in f32 as three TF32 passes on the tensor cores, their FFMA bound
+    beside it), the port's whole backward (D then C through the autograd),
+    the plain version's and SDPA's forward and whole backward."""
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq, attention_fwd, attention_plain
 
     b, g, nh, hd = q.shape
@@ -792,12 +921,18 @@ def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
     kv_valid = n_keys * row_bytes  # k or v (or dK, dV) at the valid keys
     pair_ops = 2 * nh * g * n_keys * hd  # one product of (g x valid keys x hd)
     stats = 2 * b * nh * g * 4  # lse and D
+
+    def bwd_bound(nbytes, ops):
+        if dt == "bf16":
+            return bound(nbytes, ops, dt)
+        return {**bound(nbytes, TF32_PASSES * ops, "tf32"), "ffma_bound_ms": bound(nbytes, ops, "f32")["bound_ms"]}
+
     recs = {
         "A": {"ms": a_ms, **bound(2 * qo + 2 * kv_valid + key_valid.numel(), 2 * pair_ops, dt),
               "plain_ms": plain_ms, "library_ms": sdpa_ms},
-        "C": {"ms": c_ms, **bound(2 * qo + 4 * kv_valid + stats + key_valid.numel(), 4 * pair_ops, dt),
+        "C": {"ms": c_ms, **bwd_bound(2 * qo + 4 * kv_valid + stats + key_valid.numel(), 4 * pair_ops),
               "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms, "whole_backward_ms": whole_ms},
-        "D": {"ms": d_ms, **bound(4 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops, dt),
+        "D": {"ms": d_ms, **bwd_bound(4 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops),
               "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms, "whole_backward_ms": whole_ms},
     }
     for rec in recs.values():
@@ -3065,9 +3200,10 @@ def phase_parallel(dev, smi, build, serve, train, adaptive, embeds, retriever, t
                           "mips_topk_sharded at ZeShEL-military", atol=MIPS_RTOL * float(want[0].abs().max()))
         sharded_ms = time_ms(lambda: mips_topk_sharded(queries, items, kk, mesh), 10, flush)
         fused_ms = time_ms(lambda: fused_mips_topk(queries, items, kk), 10, flush)
+        library_ms = time_ms(lambda: torch.topk(queries @ items.T, kk), 3, flush)  # matmul + topk
         del queries, items, got, want
         line("mips_sharded", t0, shape=f"q={q} d={d} n={n} k={kk}", max_abs_err=err, ms=sharded_ms,
-             one_device_ms=fused_ms)
+             one_device_ms=fused_ms, library_ms=library_ms)
         t0 = time.perf_counter()
         ment_emb, label_emb = embeds
         index = DenseIndex(label_emb, mesh=mesh, device=dev)
@@ -3078,10 +3214,17 @@ def phase_parallel(dev, smi, build, serve, train, adaptive, embeds, retriever, t
         q_dev = torch.as_tensor(ment_emb, device=dev)
         sharded_ms = time_ms(lambda: topk_of_shards(q_dev, index.embeds, RERANK["top_k"], mesh, "data", 0, index.n), 30, flush)
         fused_ms = time_ms(lambda: mips_topk_fused(q_dev, one.embeds, RERANK["top_k"]), 30, flush)
+        library_ms = time_ms(lambda: torch.topk(q_dev @ one.embeds[:one.n].T, RERANK["top_k"]), 30, flush)
+        # the bound of the search: queries and items read once, k scores and ids written, the product in
+        # three TF32 passes (kernel B's route for f32 items in chunks of more than 32 queries)
+        nq, d_emb = q_dev.shape
+        dense_bound = bound(4 * (nq + one.n) * d_emb + 12 * nq * RERANK["top_k"],
+                            TF32_PASSES * 2 * nq * one.n * d_emb, "tf32")
         del flush, index, one, q_dev
         torch.cuda.empty_cache()
         line("dense_index", t0, shape=f"q={ment_emb.shape[0]} d={ment_emb.shape[1]} n={label_emb.shape[0]} "
-             f"k={RERANK['top_k']}", max_abs_err=err, ms=sharded_ms, one_device_ms=fused_ms)
+             f"k={RERANK['top_k']}", max_abs_err=err, ms=sharded_ms, one_device_ms=fused_ms, library_ms=library_ms,
+             **dense_bound)
 
         # (d) query-sharded serving over phase 4's 10,000 items
         t0 = time.perf_counter()
@@ -3389,11 +3532,14 @@ def main():
     fwd = check_attention(dev, flush)
     lse_err, bwd = check_attention_bwd(dev, flush)
     fwd["lse_rel_err"] = lse_err
-    wide = check_attention_wide(dev, flush)
+    wide, wide_past = check_attention_wide(dev, flush)
     for kern, key, err in ((fwd, "A", "fwd_err"), (bwd[0], "C", "dk"), (bwd[1], "D", "dq")):
         kern["wide_head_dims"] = [
             {"hd": r["hd"], "dtype": r["dtype"], "err": r[err] if err == "fwd_err" else r["grad_rel_err"][err],
              **r[key]} for r in wide]
+    for kern, key in ((bwd[0], "C"), (bwd[1], "D")):
+        kern["wide_past_staging_limit"] = [{"shape": r["shape"], "body": r[f"{key}_body"], "grad_rel_err": r["grad_rel_err"]}
+                                           for r in wide_past]
     mips_f32, mips_int8 = check_mips_kernel(dev, flush)
     del flush
     torch.cuda.empty_cache()

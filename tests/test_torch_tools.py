@@ -224,6 +224,17 @@ def test_adaptive_matched_recall_tiny_equals_jax_oracles(amr_tiny):
     assert res["headline_matched_budget"] is not None
 
 
+def test_early_stop_sweep_runs_on_the_card_unless_told_otherwise(monkeypatch):
+    """``early_stop_sweep`` with no device resolves ``"cuda"`` as every
+    other entry does: without a card it raises, as ``resolve_device`` does,
+    and does not run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    grid = adaptive_matched_recall.TINY
+    full, train = adaptive_matched_recall.make_matrix(7, grid["n_q"], grid["n_train"], grid["n_items"], 60, 0.05)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        adaptive_matched_recall.early_stop_sweep(full, train, *grid["fixed"], grid["seeds"], grid["es_configs"])
+
+
 def test_adaptive_matched_recall_es_only_skips_unswept_scenarios_and_honours_budgets(amr_tiny, tmp_path, capsys):
     """``--es_only`` over an artifact that lacks a scenario skips it with a
     warning (JAX's tool raises KeyError there), keeps the swept ones'
