@@ -9,8 +9,9 @@ change, parent). Times them with this checkout's ``chip_smoke.py`` (the
 same yardstick for every root): kernel A with ``time_attention`` at the
 hd-64 layers (the build's b=2048 g=s=256 and the train layer's b=64
 g=s=255, random key lengths; the bi-encoder towers' b=252 and b=256
-g=s=128, every key valid) beside SDPA, kernel A's wide route (hd 272 and
-768, bf16 and f32, at ``chip_smoke.WIDE_SHAPE``) alone, and kernel B with ``time_mips``
+g=s=128, every key valid) beside SDPA, kernel A's wide route (hd 272, 384,
+512 and 768, bf16 and f32, at ``chip_smoke.WIDE_SHAPE``) with its error
+against the plain attention, SDPA beside it, and kernel B with ``time_mips``
 (its score stage and select apart, beside ``matmul`` + ``topk``) at
 ``MIPS_SHAPES`` (exclusions where a shape has them), the hard-negative
 mine, the TF-IDF mine's width and ZeShEL-military's shape, on seeded
@@ -19,7 +20,9 @@ such. Prints one JSON line per kernel and shape with the card and the
 root. Each ``--source`` is a variant of ``csrc/attention.cu`` or
 ``csrc/mips_topk.cu`` (named so, with the headers it includes beside it,
 the same C entries): it is built with ``cuda_build.NVCC_FLAGS``, and its
-kernel is timed on the same inputs after this checkout's, with kernel B's
+kernel is timed on the same inputs in turns with this checkout's (the
+variants, this checkout twice, the variants reversed: with one variant,
+the parent, parent / change / change / parent), with kernel B's
 top-k scores also held against f64 products (``f64_accuracy``) at the
 mine and ZeShEL-military. Needs a CUDA card; compare designs only within
 one run.
@@ -41,7 +44,7 @@ _HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 # (b, g, s, every key valid)
 ATTENTION_SHAPES = ((2048, 256, 256, False), (64, 255, 255, False), (252, 128, 128, True), (256, 128, 128, True))
 # kernel A's wide route: (hd, dtype) at chip_smoke.WIDE_SHAPE
-WIDE_SHAPES = ((272, torch.bfloat16), (768, torch.bfloat16), (272, torch.float32), (768, torch.float32))
+WIDE_SHAPES = tuple((hd, dtype) for dtype in (torch.bfloat16, torch.float32) for hd in (272, 384, 512, 768))
 # (q, d, n, k): the TF-IDF mine's width (cli/compute_tfidf_hard_negs.py,
 # dense here) and ZeShEL-military's 13,063 mentions over 104,520 entities
 MIPS_LOSING_SHAPES = ((400, 16620, 10000, 64), (13063, 768, 104520, 64))
@@ -102,13 +105,16 @@ def main(argv=None) -> None:
     libs += _variants(args.source)
 
     def each(kind):
-        """Each library of ``kind``, loaded in turn as the wrappers' own."""
+        """Each library of ``kind``, loaded in turn as the wrappers' own: with
+        variants, in turns (the variants, this checkout twice, the variants
+        reversed)."""
+        mine = [(name, lib) for name, k, lib in libs if k == kind]
+        order = mine[1:] + [mine[0], mine[0]] + mine[:0:-1] if len(mine) > 1 else mine
         try:
-            for name, k, lib in libs:
-                if k == kind:
-                    cuda_build._LOADED[kind] = lib
-                    mips_kernel._INIT_DEVICES.clear()  # the attributes of this library's kernels
-                    yield name
+            for name, lib in order:
+                cuda_build._LOADED[kind] = lib
+                mips_kernel._INIT_DEVICES.clear()  # the attributes of this library's kernels
+                yield name
         finally:
             cuda_build._LOADED[kind] = libs[0 if kind == "attention" else 1][2]
             mips_kernel._INIT_DEVICES.clear()
@@ -122,17 +128,23 @@ def main(argv=None) -> None:
             rec = smoke.time_attention(q, k, v, valid, lengths, 20, flush, all_valid)
             print(json.dumps({"kernel": "A", "root": root, "library": name, "card": card, **rec}), flush=True)
         del q, k, v, valid
-    from anncur_tpu_torch.ops.attention import attention
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
 
     b, g, s, nh = smoke.WIDE_SHAPE
     for hd, dtype in WIDE_SHAPES:
         q, k, v, valid, _ = smoke.attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
+        shape = f"b={b} g={g} s={s} nh={nh} hd={hd} {str(dtype)[6:]}, random key lengths"
+        want = attention_plain(q, k, v, valid).float()
         for name in each("attention"):
+            err = float((attention(q, k, v, valid).float() - want).abs().max())
             ms = smoke.time_ms(lambda: attention(q, k, v, valid), 10, flush)
             print(json.dumps({"kernel": "A", "root": root, "library": name, "card": card, "ms": ms,
-                              "shape": f"b={b} g={g} s={s} nh={nh} hd={hd} {str(dtype)[6:]}, random key lengths"}),
-                  flush=True)
-        del q, k, v, valid
+                              "max_abs_err_vs_plain": err, "shape": shape}), flush=True)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        sdpa_ms = smoke.time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=valid[:, None, None, :]), 10, flush)
+        print(json.dumps({"kernel": "SDPA", "card": card, "ms": sdpa_ms, "shape": shape}), flush=True)
+        del q, k, v, valid, want, qt, kt, vt
     gen = torch.Generator(device=dev).manual_seed(2)
     shapes = [*smoke.MIPS_SHAPES, (*smoke.MINE_SHAPE[:3], smoke.MINE_SHAPE[2], smoke.MINE_SHAPE[3], 0)]
     shapes += [(q, d, n, n, k, 0) for q, d, n, k in MIPS_LOSING_SHAPES]

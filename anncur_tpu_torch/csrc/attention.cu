@@ -77,12 +77,35 @@
 // - Epilogue: O / l rounded to bf16, staged in the warp's rows of the Q
 //   tile, written in 16-byte coalesced stores; rows >= g are not stored.
 //
-// Head dims above 256 (any multiple of 16) take the wide route below
-// (attention_fwd_bf16_wide_kernel, attention_fwd_f32_wide_kernel; shared
-// pieces in csrc/attention_wide.cuh): S = Q K^T streams Q and K in
-// 64-column chunks, and each block writes one column slice of O (128 in
-// bf16, 64 in f32), recomputing its scores. The templated bodies keep hd
-// up to 256.
+// Head dims above 256 (any multiple of 16, a runtime count) take the wide
+// route. Its Hopper body (namespace wide, bf16 and f32) runs where TMA takes
+// the strides and a block's stored tiles fit in shared memory (bf16 s <=
+// 1472, f32 s <= 448: launch_wide), and computes S once per (query tile,
+// key tile) on wgmma with TMA-filled tiles through a ring of two or three
+// slots that side warps keep full (csrc/wide_sm90.cuh, shared with kernels
+// C and D). One block per (pair, head, tile of 64 query rows):
+// - Phase 1 walks the key tiles that hold a valid key (every tile in a pair
+//   with none), each over the head dim in chunks (64 bf16 or 32 f32
+//   columns): S = Q K^T, then in f32 the scale, the key bias and the online
+//   max and sum, and P = exp(S - m) of the tile goes to shared memory (bf16
+//   as the A fragments of the next product, rounded after the running max
+//   is taken off, as the TPU kernel rounds p; f32 in fragment order) with
+//   each row's rescale factor exp(m before - m after).
+// - Phase 2 walks the output columns in slices (bf16 128: two m64n64
+//   blocks; f32 64): O = P V over the running tiles, O rescaled before each
+//   tile's product, V streaming through the same ring; then O / l. The lse
+//   comes from phase 1's m and l.
+// - bf16: wgmma m64n64k16, Q and K K-major, V MN-major (the transpose bit).
+//   f32: three TF32 passes (m64n64k8), each 32-column chunk of S and each
+//   64-key tile of P V summed apart and added in f32; TF32 takes K-major
+//   operands only, so the side warps transpose V in the pass that splits
+//   it. Columns past hd are zero-filled and computed (a predicated wgmma
+//   made ptxas serialise every product, C7520).
+// Elsewhere the slice bodies (attention_fwd_bf16_wide_kernel,
+// attention_fwd_f32_wide_kernel; shared pieces in csrc/attention_wide.cuh)
+// stream Q and K in 64-column chunks and write one column slice of O a
+// block (128 in bf16, 64 in f32), recomputing the scores for each. The
+// templated bodies keep hd up to 256.
 //
 // f32 (no main-path caller on the card; the card tests use it): a CUDA-core
 // body. One block per (pair, head, tile of 128 / SPLIT query rows) streams
@@ -108,10 +131,13 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 #include "attention_wide.cuh"
 #include "mma_sm90.cuh"
 #include "wgmma_sm90.cuh"
+#include "wide_sm90.cuh"
 
 namespace {
 
@@ -397,12 +423,8 @@ struct Maps {  // q, k, v as 64-row x 64-column TMA boxes
   RowMap q, k, v;
 };
 
-__device__ __forceinline__ void load_tile(void* dst, const RowMap& m, uint64_t* bar, int h, int row, int b,
-                                          bool issue) {
-  int c[4];
-  tile_coords(m.order, h, row, b, c);
-  tma_load_4d(dst, &m.map, bar, c[0], c[1], c[2], c[3], issue);
-}
+using wide_sm90::load_tile;
+using wide_sm90::to_a;
 
 // One query tile's online softmax over a key tile (the mma.sync body's
 // arithmetic): s <- exp(s * scale + bias - m) in f32, bias 0 at valid keys,
@@ -439,15 +461,6 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&o)[32], 
     sc[e] = exp2f((sc[e] - m[(e >> 1) & 1]) * kLog2e);
     l[(e >> 1) & 1] += sc[e];
   }
-}
-
-// P rounded to bf16 from the accumulator: the A fragments of O += P V (the
-// layout note of csrc/wgmma_sm90.cuh)
-__device__ __forceinline__ void to_a(uint32_t (&p)[4][4], const float (&sc)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) p[kk][i] = pack_bf16x2(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
 }
 
 // One query tile's O / l in bf16 through the warp's padded rows of
@@ -932,6 +945,223 @@ attention_fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restri
   }
 }
 
+// ------------------------------------------------------- wide, Hopper body
+
+// Head dims above 256 on wgmma + TMA (the header note): S once per (query
+// tile, key tile), every output column from it. The ring, its side warps
+// and the products are csrc/wide_sm90.cuh's, shared with kernels C and D.
+namespace wide {
+
+using namespace wgmma_sm90;
+using namespace wide_sm90;
+// declared here, so that they hide the file's own names
+using wide_sm90::Cfg;
+using wide_sm90::kMaxStages;
+using wide_sm90::kRows;
+using wide_sm90::kSmemMax;
+using wide_sm90::kThreads;
+using wide_sm90::kTile;
+using hopper::Maps;
+
+// exp(z) as the other bodies take it: f32 expf, bf16 exp2f of z log2(e)
+// (z is a difference, taken before the scaling: at m ~ -1e9, no valid key,
+// a folded log2(e) would lose it)
+template <typename T>
+__device__ __forceinline__ float softmax_exp(float z) {
+  return std::is_same<T, float>::value ? expf(z) : exp2f(z * kLog2e);
+}
+
+// End of a key tile's chunks: x = S (rows queries 16 warp + r and + 8,
+// columns keys 8j + cq, + 1 of the tile) times scale plus the key bias in
+// f32 (0 at valid keys, -1e9 at masked ones from the tile's mask word,
+// -inf past s: n_keys keys of the tile lie below s); each row's running max
+// m and sum l moved on, P = exp(S - m) in place with m the max after this
+// tile (rounded to bf16 only when stored, as the TPU kernel rounds p
+// after subtracting its running max), stored (store_frags), and each row's
+// rescale factor exp(m before - m after) at alpha_t (0 on the first tile,
+// m = -inf then)
+template <typename T>
+__device__ __forceinline__ void finish_a(float (&x)[32], unsigned char* st, float* alpha_t, uint64_t bits, int n_keys,
+                                         float (&m)[2], float (&l)[2], float scale, int tid) {
+  const int cq = 2 * (tid & 3);
+  float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + cq + (e & 1);
+      const float bias = col >= n_keys ? -INFINITY : (((bits >> col) & 1) ? 0.0f : kMaskBias);
+      x[4 * j + e] = x[4 * j + e] * scale + bias;
+      tmax[e >> 1] = fmaxf(tmax[e >> 1], x[4 * j + e]);
+    }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 1));
+    tmax[i] = fmaxf(tmax[i], __shfl_xor_sync(0xffffffffu, tmax[i], 2));
+    const float m_new = fmaxf(m[i], tmax[i]);  // finite: a running tile holds a key < s
+    alpha[i] = softmax_exp<T>(m[i] - m_new);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    x[e] = softmax_exp<T>(x[e] - m[(e >> 1) & 1]);
+    l[(e >> 1) & 1] += x[e];
+  }
+  store_frags<T>(st, x, tid);
+  if ((tid & 3) == 0) {
+    const int row = 16 * (tid >> 5) + ((tid & 31) >> 2);
+    alpha_t[row] = alpha[0];
+    alpha_t[row + 8] = alpha[1];
+  }
+}
+
+// One block per (pair, head, tile of 64 query rows), the tile fastest.
+// Phase 1: per running key tile (one with a valid key; in a pair with none,
+// every tile), S = Q K^T over the head dim in chunks, then P and each row's
+// rescale factor stored; the lse from the rows' final m and l. Phase 2: per
+// slice of columns, O = sum of P V over the running tiles, O rescaled
+// before each tile's product, then O / l stored.
+template <typename T>
+__global__ void __launch_bounds__(kThreads + Cfg<T>::kSide, Cfg<T>::kMinBlocksA)
+attention_fwd_wide_wgmma_kernel(const __grid_constant__ Maps maps, const uint8_t* __restrict__ key_valid,
+                                T* __restrict__ out, float* __restrict__ lse, int g, int s, int nh, int hd, int n_qt,
+                                int n_st, long long valid_sb, float scale) {
+  using C = Cfg<T>;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  constexpr int NB = kF32 ? 1 : 2;  // 64-column output blocks of a slice
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = aligned_smem(smem_raw);
+  const int n_kt = (s + kRows - 1) / kRows;
+  unsigned char* stored = smem + n_st * C::kSlotA;  // running tile i's P at i * kStoreA
+  float* alphas = reinterpret_cast<float*>(stored + static_cast<size_t>(n_kt) * C::kStoreA);  // [running tile][row]
+  uint64_t* full = reinterpret_cast<uint64_t*>(alphas + n_kt * kRows);
+  uint64_t* ready = full + kMaxStages;  // [n_st] each, as side_loop says
+  uint64_t* empty = ready + kMaxStages;
+  uint64_t* tile_bits = empty + kMaxStages;  // [n_kt]
+  int* run = reinterpret_cast<int*>(tile_bits + n_kt);  // the running tiles, in order
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qt = blockIdx.x % n_qt, bh = blockIdx.x / n_qt;
+  const int h = bh % nh, b = bh / nh;
+  const int row0 = qt * kRows;
+
+  if (tid == 0) {
+    for (int i = 0; i < n_st; ++i) {
+      mbar_init(full + i, 1);
+      mbar_init(ready + i, C::kSide);
+      mbar_init(empty + i, kThreads / 32);  // lane 0 of each consumer warp
+    }
+    mbar_init_fence();
+  }
+  // one word of valid-key bits per key tile (the barrier also publishes
+  // the mbarriers' init)
+  const uint8_t* vrow = key_valid + b * valid_sb;
+  bool any_local = false;
+  for (int t = warp; t < n_kt; t += blockDim.x / 32) {
+    const uint64_t bits = attn_wide::key_bits(vrow, t * kRows, s, lane);
+    if (lane == 0) tile_bits[t] = bits;
+    any_local |= bits != 0;
+  }
+  const bool any_valid = __syncthreads_or(any_local);
+  // the running key tiles: a tile without a valid key adds exactly 0 when
+  // the pair has one (exp(-1e9 - m) is 0 in f32); a pair with none attends
+  // every key
+  int n_run = 0;
+  for (int t = 0; t < n_kt; ++t) {
+    if (any_valid && tile_bits[t] == 0) continue;
+    if (tid == 0) run[n_run] = t;
+    ++n_run;
+  }
+  __syncthreads();  // publishes run
+  const int n_ch = (hd + C::kCols - 1) / C::kCols, n_sl = (hd + C::kSliceA - 1) / C::kSliceA;
+  const int n1 = n_run * n_ch, n_all = n1 + n_sl * n_run;
+
+  // step f's tiles into its slot, issued by the threads that pass `on`.
+  // Phase 1 (f < n1), running tile f / n_ch over chunk f % n_ch: the
+  // block's Q rows (tile 0) and the key tile's K rows (tile 1). Phase 2,
+  // slice (f - n1) / n_run of running tile (f - n1) % n_run: its V columns
+  // as two tiles (bf16 64-column blocks, f32 32-column boxes).
+  auto issue = [&](int f, int st, bool on) {
+    const bool p1 = f < n1;
+    const int f2 = f - n1, key0 = run[p1 ? f / n_ch : f2 % n_run] * kRows;
+    const int c0 = p1 ? (f % n_ch) * C::kCols : (f2 / n_run) * C::kSliceA;
+    unsigned char* slot = smem + st * C::kSlotA;
+    uint64_t* bar = full + st;
+    mbar_arrive_expect_tx(bar, 2 * kTile, on);
+    load_tile(slot, p1 ? maps.q : maps.v, bar, h, p1 ? row0 : key0, b, on, c0);
+    load_tile(slot + kTile, p1 ? maps.k : maps.v, bar, h, key0, b, on, p1 ? c0 : c0 + C::kCols);
+  };
+  // the side warps (uniform in a warp, as the compiler is told)
+  if (__shfl_sync(0xffffffffu, tid / kThreads, 0)) {
+    side_loop<T, 1, C::kSlotA>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
+    return;
+  }
+  // one ring step: wait for the step's slot (f32: its split operands),
+  // work on it, then hand it back to the producer
+  Ring ring{n_st};
+  auto step = [&](auto&& work) {
+    mbar_wait((kF32 ? ready : full) + ring.slot, ring.parity);
+    work(smem + ring.slot * C::kSlotA);
+    mbar_arrive(empty + ring.slot, lane == 0);
+    ring.next();
+  };
+
+  float x[32];
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // rows 16 warp + r and + 8; l this thread's share
+  for (int i = 0; i < n_run; ++i) {
+    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T>(x, slot, c == 0, tid); });
+    const int t = run[i];
+    finish_a<T>(x, stored + static_cast<size_t>(i) * C::kStoreA, alphas + i * kRows, tile_bits[t], s - t * kRows, m,
+                l, scale, tid);
+  }
+  const int r = lane >> 2;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+  if (lse != nullptr && (lane & 3) == 0) {
+    const float shift = any_valid ? 0.0f : kMaskBias;  // exact: m is -1e9 + a multiple of 64
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = row0 + 16 * warp + r + 8 * i;
+      if (row < g) lse[(static_cast<size_t>(b) * nh + h) * g + row] = (m[i] - shift) + logf(l[i]);
+    }
+  }
+  __syncwarp();  // the rescale factors: lane 4r of this warp wrote those lanes 4r..4r+3 read
+  const float inv[2] = {1.0f / l[0], 1.0f / l[1]};
+  float o[NB][32];
+  T* out_b = out + (static_cast<size_t>(b) * g * nh + h) * hd;
+  const long long rs = static_cast<long long>(nh) * hd;
+  for (int sl = 0; sl < n_sl; ++sl) {
+    for (int i = 0; i < n_run; ++i) {
+      const unsigned char* st = stored + static_cast<size_t>(i) * C::kStoreA;
+      if (i > 0) {  // O <- O exp(m before tile i - m after it), before the tile's product
+        const float a[2] = {alphas[i * kRows + 16 * warp + r], alphas[i * kRows + 16 * warp + r + 8]};
+#pragma unroll
+        for (int j = 0; j < NB; ++j)
+#pragma unroll
+          for (int e = 0; e < 32; ++e) o[j][e] *= a[(e >> 1) & 1];
+      }
+      step([&](unsigned char* slot) {
+        if constexpr (kF32)
+          f32_block_step(o[0], slot, reinterpret_cast<const float4*>(st), i > 0, tid);
+        else
+          bf16_block_step(o, slot, st, i > 0, tid);
+      });
+    }
+#pragma unroll
+    for (int j = 0; j < NB; ++j) {
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[j][e] *= inv[(e >> 1) & 1];
+      store_block<T>(out_b, rs, o[j], 1.0f, row0, g, sl * C::kSliceA + 64 * j, hd, tid);
+    }
+  }
+}
+
+}  // namespace wide
+
 // ----------------------------------------------------------------- launch
 
 template <int HD, int NW>
@@ -1023,10 +1253,59 @@ cudaError_t launch(int is_bf16, const void* q, const void* k, const void* v,
   return launch_bf16<HD, 4>(q, k, v, key_valid, out, lse, b, g, s, nh, st, scale, stream);
 }
 
-// the wide route: hd above 256, any multiple of 16
+// the wide route's Hopper body (namespace wide): one block per (pair, head,
+// tile of 64 query rows), the ring three slots where they fit, else two
+template <typename T>
+cudaError_t launch_wide_hopper(const void* q, const void* k, const void* v, const void* key_valid, void* out,
+                               float* lse, int b, int g, int s, int nh, int hd, const long long* st, float scale,
+                               cudaStream_t stream) {
+  using wgmma_sm90::make_row_map;
+  using wide_sm90::Body;
+  constexpr bool kF32 = std::is_same<T, float>::value;
+  hopper::Maps maps;
+  cudaError_t err = make_row_map(&maps.q, q, b, g, nh, st[0], st[1], st[2], hd, kF32);
+  if (err == cudaSuccess) err = make_row_map(&maps.k, k, b, s, nh, st[3], st[4], st[5], hd, kF32);
+  if (err == cudaSuccess) err = make_row_map(&maps.v, v, b, s, nh, st[6], st[7], st[8], hd, kF32);
+  if (err != cudaSuccess) return err;
+  const int n_kt = (s + wide::kRows - 1) / wide::kRows, n_qt = (g + wide::kRows - 1) / wide::kRows;
+  constexpr int pref = wide::Cfg<T>::kStagesA;
+  const int n_st = wide_sm90::smem_bytes<T, Body::A>(pref, n_kt, n_kt) <= wide::kSmemMax ? pref : 2;
+  const size_t smem = wide_sm90::smem_bytes<T, Body::A>(n_st, n_kt, n_kt);
+  auto kern = wide::attention_fwd_wide_wgmma_kernel<T>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  const long long blocks = static_cast<long long>(b) * nh * n_qt;
+  if (blocks > INT_MAX) return cudaErrorInvalidValue;
+  kern<<<static_cast<unsigned>(blocks), wide::kThreads + wide::Cfg<T>::kSide, smem, stream>>>(
+      maps, static_cast<const uint8_t*>(key_valid), static_cast<T*>(out), lse, g, s, nh, hd, n_qt, n_st, st[9],
+      scale);
+  return cudaGetLastError();
+}
+
+// whether the wide Hopper body takes these q, k, v: every axis TMA maps has
+// a positive stride (a broadcast view, stride 0, takes the slice bodies),
+// and two ring slots, P and the rescale factors of every key tile, the
+// barriers and the mask words fit in a block's shared memory (bf16: s <=
+// 1472; f32: s <= 448)
+bool wide_hopper_takes(int is_bf16, int s, const long long* st) {
+  using wide_sm90::Body;
+  for (int i = 0; i < 9; ++i)
+    if (st[i] <= 0) return false;
+  const int n_kt = (s + wide::kRows - 1) / wide::kRows;
+  const size_t smem = is_bf16 ? wide_sm90::smem_bytes<bf16, Body::A>(2, n_kt, n_kt)
+                              : wide_sm90::smem_bytes<float, Body::A>(2, n_kt, n_kt);
+  return smem <= static_cast<size_t>(wide::kSmemMax);
+}
+
+// the wide route, hd above 256 (any multiple of 16): the Hopper body where
+// it takes the inputs (wide_hopper_takes), which computes the scores once;
+// past that the slice bodies, which recompute them for each output slice
 cudaError_t launch_wide(int is_bf16, const void* q, const void* k, const void* v,
                         const void* key_valid, void* out, float* lse, int b, int g, int s, int nh,
                         int hd, const long long* st, float scale, cudaStream_t stream) {
+  if (wide_hopper_takes(is_bf16, s, st))
+    return is_bf16 ? launch_wide_hopper<bf16>(q, k, v, key_valid, out, lse, b, g, s, nh, hd, st, scale, stream)
+                   : launch_wide_hopper<float>(q, k, v, key_valid, out, lse, b, g, s, nh, hd, st, scale, stream);
   using namespace attn_wide;
   const int n_qt = (g + kRows - 1) / kRows;
   const int n_sl = (hd + (is_bf16 ? kSliceA : kSliceF) - 1) / (is_bf16 ? kSliceA : kSliceF);

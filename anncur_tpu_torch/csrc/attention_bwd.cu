@@ -189,6 +189,7 @@
 #include "attention_wide.cuh"
 #include "mma_sm90.cuh"
 #include "wgmma_sm90.cuh"
+#include "wide_sm90.cuh"
 
 namespace {
 
@@ -680,16 +681,9 @@ constexpr int kDqBits = kDqBars + (kStages + 1) * 8;
 static_assert(2 * kRows * kLdOut * 2 <= 2 * kStages * kTileBytes, "C's epilogue fits in the ring");
 static_assert(kRows * kLdOut * 2 <= kStages * kTileBytes, "D's epilogue fits in the K ring");
 
-__device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
-  return raw + ((1024 - (smem_u32(raw) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void load_tile(void* dst, const RowMap& m, uint64_t* bar, int h, int row, int b,
-                                          bool issue, int col = 0) {
-  int c[4];
-  tile_coords(m.order, h, row, b, c, col);
-  tma_load_4d(dst, &m.map, bar, c[0], c[1], c[2], c[3], issue);
-}
+using wide_sm90::aligned_smem;
+using wide_sm90::load_tile;
+using wide_sm90::to_a;
 
 // two tiles (one box each of two maps) at one row into dst0, dst1, their
 // bytes on bar; issued by the threads that pass `issue` (one a block)
@@ -698,15 +692,6 @@ __device__ __forceinline__ void load_pair(void* dst0, const RowMap& m0, void* ds
   mbar_arrive_expect_tx(bar, 2 * kTileBytes, issue);
   load_tile(dst0, m0, bar, h, row, b, issue);
   load_tile(dst1, m1, bar, h, row, b, issue);
-}
-
-// the bf16 A fragment of k-step kk from an accumulator (the layout note of
-// csrc/wgmma_sm90.cuh): columns 16kk..16kk+15 rounded to bf16 pairs
-__device__ __forceinline__ void to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[kk][i] = pack_bf16x2(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
 }
 
 // this warp's 16 rows of a 64 x 64 accumulator (times mul) in bf16 into
@@ -1703,163 +1688,21 @@ attention_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __res
 // ------------------------------------------------------- wide, Hopper bodies
 
 // Head dims above 256 on wgmma + TMA (the header note): S and dP once per
-// (query tile, key tile), every output column from them. A block is one
-// consumer warpgroup, which runs the products, and side warps: one (bf16)
-// or four (f32), whose first lane keeps TMA loads a ring of slots ahead
-// (three where they fit in shared memory, else two; bf16 D two, so that
-// two blocks share an SM). In f32 the side warps also write each slot's
-// split operands (phase 1's small parts, phase 2's transposes) while the
-// consumers run the products of the slot before. Per slot, full completes
-// when its tiles land, ready (f32) when its split operands are written,
-// empty when the consumers are done with it. A block's steps, in ring
-// order: phase 1 walks its pairs of tiles over the head dim in chunks,
-// phase 2 its output columns in slices, so the loads run ahead across the
-// two. (On the H100 the side warps took the f32 backward at hd 768 from
-// 4.05 to 3.63 ms against one warpgroup that loaded and split for itself,
-// and a third slot from 3.14 to 2.82, each pair in one call of
-// cli/time_attention_bwd.py; PERF.md.)
+// (query tile, key tile), every output column from them. The ring, its
+// side warps and the products are csrc/wide_sm90.cuh's, shared with kernel
+// A's wide body (bf16 D takes two slots, so that two blocks share an SM).
 namespace wide {
 
 using namespace wgmma_sm90;
+using namespace wide_sm90;
+// declared here, so that they hide the file's own kTile (64 keys) and the like
+using wide_sm90::Cfg;
+using wide_sm90::kMaxStages;
+using wide_sm90::kRows;
+using wide_sm90::kSmemMax;
+using wide_sm90::kThreads;
+using wide_sm90::kTile;
 using hopper::Maps;
-
-constexpr int kRows = 64;         // rows of every tile: queries or keys
-constexpr int kTile = 8192;       // a 64-row x 128-byte tile: 64 bf16 or 32 f32 columns
-constexpr int kThreads = 128;     // the consumer warpgroup
-constexpr int kMaxStages = 3;     // slots of the ring at most (a launch takes 2 or 3)
-constexpr int kSmemMax = 232448;  // the dynamic shared memory a block may take
-
-template <typename T>
-struct Cfg {  // bf16
-  static constexpr int kCols = 64;            // head-dim columns of a tile (a chunk)
-  static constexpr int kSlot = 4 * kTile;     // a slot of the ring: four tiles
-  static constexpr int kSliceC = 128;         // output columns of a kernel C slice: two m64n64 blocks of dK, of dV
-  static constexpr int kSliceD = 128;         // of a kernel D slice: two of dQ
-  static constexpr int kStoreC = 2 * kTile;   // P^T and dS^T of a query tile, as bf16 A fragments
-  static constexpr int kStoreD = kTile;       // dS of a key tile
-  static constexpr int kSide = 32;            // side threads: one warp, the producer
-  static constexpr int kStagesC = 3, kStagesD = 2;  // ring slots, where they fit
-  static constexpr int kMinBlocksD = 2;       // D's blocks an SM (its shared memory allows two at g = s = 255)
-};
-template <>
-struct Cfg<float> {
-  static constexpr int kCols = 32;
-  static constexpr int kSlot = 6 * kTile;     // four raw tiles and two small parts, or two raw and a split transpose
-  static constexpr int kSliceC = 64;          // one m64n64 block of dK and of dV (a ring step each)
-  static constexpr int kSliceD = 64;          // one of dQ
-  static constexpr int kStoreC = 4 * kTile;   // P^T and dS^T of a query tile, f32 in A-fragment order
-  static constexpr int kStoreD = 2 * kTile;
-  static constexpr int kSide = 128;           // four warps: the producer and splitters
-  static constexpr int kStagesC = 3, kStagesD = 3;
-  static constexpr int kMinBlocksD = 1;
-};
-
-// a block's dynamic shared memory: a ring of n_st slots, n stored tiles (C:
-// every query tile; D: every key tile, of n_kt), the barriers (full, ready,
-// empty per slot), (D) a mask word and a running-tile index per key tile,
-// room to align to 1024 bytes
-template <typename T, bool kDkv>
-constexpr size_t smem_bytes(int n_st, int n, int n_kt) {
-  return static_cast<size_t>(n_st) * Cfg<T>::kSlot +
-         static_cast<size_t>(n) * (kDkv ? Cfg<T>::kStoreC : Cfg<T>::kStoreD) + 3 * kMaxStages * sizeof(uint64_t) +
-         (kDkv ? 0 : static_cast<size_t>(n_kt) * (sizeof(uint64_t) + sizeof(int))) + 1024;
-}
-
-using hopper::load_tile;
-
-// byte offset of f32 (row, col) in a 128-byte-swizzled tile of 32-column rows
-__device__ __forceinline__ int sw_f32(int row, int col) {
-  return row * 128 + (((col >> 2) ^ (row & 7)) << 4) + (col & 3) * 4;
-}
-
-// the tf32 A fragment of k-step kk (columns 8kk..8kk+7) of a raw f32 tile,
-// split in registers: big = tf32(x), small = tf32(x - big)
-__device__ __forceinline__ void split_frag(uint32_t (&big)[4], uint32_t (&small)[4], const unsigned char* tile, int kk,
-                                           int tid) {
-  const int row = 16 * (tid >> 5) + ((tid & 31) >> 2), col = 8 * kk + (tid & 3);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x = *reinterpret_cast<const float*>(tile + sw_f32(row + 8 * (i & 1), col + 4 * (i >> 1)));
-    big[i] = tf32_rna(x);
-    small[i] = tf32_rna(x - __uint_as_float(big[i]));
-  }
-}
-
-// the same of an A fragment stored in fragment order
-__device__ __forceinline__ void split4(uint32_t (&big)[4], uint32_t (&small)[4], float4 v) {
-  const float x[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    big[i] = tf32_rna(x[i]);
-    small[i] = tf32_rna(x[i] - __uint_as_float(big[i]));
-  }
-}
-
-__device__ __forceinline__ void keep(uint32_t (&a)[2][4]) {
-  wgmma_sm90::keep(a[0]);
-  wgmma_sm90::keep(a[1]);
-}
-
-// Phase 1's products over one chunk of the head dim, from a slot holding
-// A0, A1, B0, B1 at tiles 0-3 (rows, then the chunk's columns: every
-// operand K-major): x (+)= A0 B0^T and y (+)= A1 B1^T; the first chunk
-// overwrites x and y. Columns past hd are zero-filled and add nothing.
-// bf16: straight into x and y. f32: B0's and B1's small parts in tiles 4
-// and 5 (the side warps' split_small; the raw tiles serve as their big
-// parts), the chunk's three TF32 passes into sums of its own, added to x
-// and y in f32.
-template <typename T>
-__device__ __forceinline__ void chunk(float (&x)[32], float (&y)[32], unsigned char* slot, bool first, int tid) {
-  const uint32_t base = smem_u32(slot);
-  if constexpr (!std::is_same<T, float>::value) {
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {  // x's and y's products in turns
-      mma_ss(x, desc_sw128(base + 32 * kk), desc_sw128(base + 2 * kTile + 32 * kk), !first || kk > 0);
-      mma_ss(y, desc_sw128(base + kTile + 32 * kk), desc_sw128(base + 3 * kTile + 32 * kk), !first || kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    wgmma_sm90::keep(x);
-    wgmma_sm90::keep(y);
-  } else {
-    float px[32], py[32];  // the first k-step overwrites them
-    uint32_t fb[2][2][4], fs[2][2][4];  // [set][operand][register]: two k-steps' fragments live
-    // per k-step: A0's and A1's fragments split in registers, then small A x
-    // big B + big A x small B + big A x big B, x's and y's in turns,
-    // committed as a group
-    auto issue = [&](int kk, uint32_t (&b)[2][4], uint32_t (&s)[2][4]) {
-      split_frag(b[0], s[0], slot, kk, tid);
-      split_frag(b[1], s[1], slot + kTile, kk, tid);
-      wgmma_fence();
-      mma_tf32_n64(px, s[0], desc_sw128(base + 2 * kTile + 32 * kk), kk > 0);
-      mma_tf32_n64(py, s[1], desc_sw128(base + 3 * kTile + 32 * kk), kk > 0);
-      mma_tf32_n64(px, b[0], desc_sw128(base + 4 * kTile + 32 * kk), 1);
-      mma_tf32_n64(py, b[1], desc_sw128(base + 5 * kTile + 32 * kk), 1);
-      mma_tf32_n64(px, b[0], desc_sw128(base + 2 * kTile + 32 * kk), 1);
-      mma_tf32_n64(py, b[1], desc_sw128(base + 3 * kTile + 32 * kk), 1);
-      wgmma_commit();
-    };
-    issue(0, fb[0], fs[0]);
-#pragma unroll
-    for (int kk = 1; kk < 4; ++kk) {
-      issue(kk, fb[kk & 1], fs[kk & 1]);
-      wgmma_wait<1>();  // k-step kk - 1 is done: its fragments may be rewritten
-      keep(fb[(kk - 1) & 1]);
-      keep(fs[(kk - 1) & 1]);
-    }
-    wgmma_wait<0>();
-    wgmma_sm90::keep(px);
-    wgmma_sm90::keep(py);
-    keep(fb[1]);
-    keep(fs[1]);
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      x[i] = first ? px[i] : x[i] + px[i];
-      y[i] = first ? py[i] : y[i] + py[i];
-    }
-  }
-}
 
 // P, then dS = P (dP - D), in place in x = S and y = dP, at e of this
 // thread's accumulator entries: z = S scale + bias - shift - lse
@@ -1872,10 +1715,8 @@ __device__ __forceinline__ void softmax_grad(float& x, float& y, float z, float 
 
 // Kernel C, end of a query tile's chunks: P^T and dS^T from x = S^T and y =
 // dP^T (rows keys, columns queries q0 + 8j + cq, + 1; lse = +inf past g, so
-// P = 0 there), then stored: bf16 as the A fragments of the phase-2
-// products, f32 as the fragments' f32 values in their order (a0..a3 =
-// entries 0, 2, 1, 3 of each 8 columns; transpose_split places the reduced
-// rows to match)
+// P = 0 there), then stored for the phase-2 products (store_frags), P^T in
+// the first half of the tile's store, dS^T in the second
 template <typename T>
 __device__ __forceinline__ void finish_c(float (&x)[32], float (&y)[32], unsigned char* st, const float (&bias)[2],
                                          const float* lse_b, const float* delta_b, int q0, int g, float shift,
@@ -1893,29 +1734,13 @@ __device__ __forceinline__ void finish_c(float (&x)[32], float (&y)[32], unsigne
         softmax_grad<T>(x[e], y[e], x[e] * scale + bias[half] - shift - l, d);
       }
     }
-  if constexpr (std::is_same<T, float>::value) {
-    float4* out = reinterpret_cast<float4*>(st);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      out[j * kThreads + tid] = make_float4(x[4 * j], x[4 * j + 2], x[4 * j + 1], x[4 * j + 3]);
-      out[(8 + j) * kThreads + tid] = make_float4(y[4 * j], y[4 * j + 2], y[4 * j + 1], y[4 * j + 3]);
-    }
-  } else {
-    uint32_t pa[4][4], sa[4][4];
-    hopper::to_a(pa, x);
-    hopper::to_a(sa, y);
-    uint4* out = reinterpret_cast<uint4*>(st);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      out[kk * kThreads + tid] = make_uint4(pa[kk][0], pa[kk][1], pa[kk][2], pa[kk][3]);
-      out[(4 + kk) * kThreads + tid] = make_uint4(sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3]);
-    }
-  }
+  store_frags<T>(st, x, tid);
+  store_frags<T>(st + Cfg<T>::kStoreC / 2, y, tid);
 }
 
 // Kernel D, end of a key tile's chunks: dS from x = S and y = dP (rows
 // queries, columns keys 8j + cq, + 1 of the tile: bias from its mask word,
-// -inf past s), stored as finish_c stores dS^T
+// -inf past s), stored (store_frags)
 template <typename T>
 __device__ __forceinline__ void finish_d(float (&x)[32], float (&y)[32], unsigned char* st, uint64_t bits, int n_keys,
                                          const float (&lse_r)[2], const float (&delta_r)[2], float shift, float scale,
@@ -1930,96 +1755,7 @@ __device__ __forceinline__ void finish_d(float (&x)[32], float (&y)[32], unsigne
       softmax_grad<T>(x[4 * j + e], y[4 * j + e], x[4 * j + e] * scale + bias - shift - lse_r[e >> 1],
                       delta_r[e >> 1]);
     }
-  if constexpr (std::is_same<T, float>::value) {
-    float4* out = reinterpret_cast<float4*>(st);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) out[j * kThreads + tid] = make_float4(y[4 * j], y[4 * j + 2], y[4 * j + 1], y[4 * j + 3]);
-  } else {
-    uint32_t sa[4][4];
-    hopper::to_a(sa, y);
-    uint4* out = reinterpret_cast<uint4*>(st);
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) out[kk * kThreads + tid] = make_uint4(sa[kk][0], sa[kk][1], sa[kk][2], sa[kk][3]);
-  }
-}
-
-// f32, phase 2: the two raw tiles of a slot (64 reduced rows x 32 columns
-// each, at tiles 0 and 1: one 64-column block) as the K-major B operand of
-// its columns: the big part in tiles 2 and 3 (reduced rows 0-31, 32-63),
-// the small in 4 and 5. The reduced row q goes to place k = 8 (q / 8) + p,
-// p = q % 8 / 2 (+ 4 if q is odd): the order of the A fragments that
-// finish_c and finish_d store. So places 4m..4m+3 hold rows of one parity,
-// 8 (m / 2) + (m % 2) + 0, 2, 4, 6: each thread gathers four of them from
-// one column (a warp reads 32 neighbouring columns of a row) and writes
-// them as one 16-byte unit (a quarter-warp's units fall in distinct banks).
-// Run by the f32 side warps (side thread sid of kSide).
-__device__ __forceinline__ void transpose_split(unsigned char* slot, int sid) {
-  constexpr int kSide = Cfg<float>::kSide;
-#pragma unroll 4
-  for (int j = 0; j < 2 * 32 * (kRows / 4) / kSide; ++j) {
-    const int i = sid + j * kSide, n = i & 31, m = (i >> 5) & 15, src = i >> 9;
-    const int q0 = 8 * (m >> 1) + (m & 1), k = 4 * m;
-    float e[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) e[c] = *reinterpret_cast<const float*>(slot + src * kTile + sw_f32(q0 + 2 * c, n));
-    const int off = (2 + (k >> 5)) * kTile + sw_f32(32 * src + n, k & 31);
-    *reinterpret_cast<float4*>(slot + off) = make_float4(e[0], e[1], e[2], e[3]);
-    *reinterpret_cast<float4*>(slot + off + 2 * kTile) =
-        make_float4(tf32_small(e[0]), tf32_small(e[1]), tf32_small(e[2]), tf32_small(e[3]));
-  }
-}
-
-// f32, phase 1: the small parts of the slot's B tiles (tiles 2 and 3) into
-// tiles 4 and 5, by the side warps
-__device__ __forceinline__ void split_small(unsigned char* slot, int sid) {
-  constexpr int kSide = Cfg<float>::kSide;
-  const float4* raw = reinterpret_cast<const float4*>(slot + 2 * kTile);
-  float4* small = reinterpret_cast<float4*>(slot + 4 * kTile);
-#pragma unroll 4
-  for (int j = 0; j < 2 * kTile / 16 / kSide; ++j) {
-    const float4 v = raw[sid + j * kSide];
-    small[sid + j * kSide] = make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z), tf32_small(v.w));
-  }
-}
-
-// f32, phase 2: out (+)= A X for one 64-column block over one tile of 64
-// reduced rows. A: the stored f32 fragments at a (one float4 a thread per
-// k-step of 8 rows), split in registers; X: the slot's block as the side
-// warps' transpose_split left it. Per k-step small A x big X + big A x
-// small X + big A x big X, each pass in a sum of its own, the small sums
-// then the big added to out in f32. acc: add to out (else overwrite it).
-__device__ __forceinline__ void f32_block_step(float (&out)[32], unsigned char* slot, const float4* a, bool acc,
-                                               int tid) {
-  const uint32_t base = smem_u32(slot);
-  float part[3][32];  // the first k-step overwrites them
-  uint32_t fb[2][4], fs[2][4];
-  auto issue = [&](int j, uint32_t (&b)[4], uint32_t (&s)[4]) {
-    split4(b, s, a[j * kThreads + tid]);
-    const uint32_t kt = (j >> 2) * kTile + 32 * (j & 3);
-    wgmma_fence();
-    mma_tf32_n64(part[0], s, desc_sw128(base + 2 * kTile + kt), j > 0);
-    mma_tf32_n64(part[1], b, desc_sw128(base + 4 * kTile + kt), j > 0);
-    mma_tf32_n64(part[2], b, desc_sw128(base + 2 * kTile + kt), j > 0);
-    wgmma_commit();
-  };
-  issue(0, fb[0], fs[0]);
-#pragma unroll
-  for (int j = 1; j < 8; ++j) {
-    issue(j, fb[j & 1], fs[j & 1]);
-    wgmma_wait<1>();  // k-step j - 1 is done: its fragments may be rewritten
-    wgmma_sm90::keep(fb[(j - 1) & 1]);
-    wgmma_sm90::keep(fs[(j - 1) & 1]);
-  }
-  wgmma_wait<0>();
-#pragma unroll
-  for (int p = 0; p < 3; ++p) wgmma_sm90::keep(part[p]);
-  wgmma_sm90::keep(fb[1]);
-  wgmma_sm90::keep(fs[1]);
-#pragma unroll
-  for (int i = 0; i < 32; ++i) {
-    const float v = part[2][i] + (part[0][i] + part[1][i]);
-    out[i] = acc ? out[i] + v : v;
-  }
+  store_frags<T>(st, y, tid);
 }
 
 // Kernel C, phase 2, bf16, one query tile of one slice: dV (+)= P^T dO and
@@ -2060,102 +1796,6 @@ __device__ __forceinline__ void dkv_step(float (&dv)[2][32], float (&dk)[2][32],
   }
 }
 
-// Kernel D, phase 2, bf16, one key tile of one slice: dQ (+)= dS K over the
-// tile's 64 keys, from its stored fragments, the slot's two K blocks as
-// MN-major B.
-__device__ __forceinline__ void dq_step(float (&dq)[2][32], unsigned char* slot, const unsigned char* st, bool acc,
-                                        int tid) {
-  const uint32_t base = smem_u32(slot);
-  const uint4* in = reinterpret_cast<const uint4*>(st);
-  uint32_t sa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint4 s = in[kk * kThreads + tid];
-    sa[kk][0] = s.x, sa[kk][1] = s.y, sa[kk][2] = s.z, sa[kk][3] = s.w;
-  }
-  wgmma_fence();
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)  // the two accumulators in turns
-#pragma unroll
-    for (int j = 0; j < 2; ++j) mma_rs_mn(dq[j], sa[kk], desc_sw128(base + j * kTile + 2048 * kk), acc || kk > 0);
-  wgmma_commit();
-  wgmma_wait<0>();
-#pragma unroll
-  for (int j = 0; j < 2; ++j) wgmma_sm90::keep(dq[j]);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wgmma_sm90::keep(sa[kk]);
-}
-
-// two outputs at p, where on (a predicated store: no branch in the warpgroup)
-__device__ __forceinline__ void store2(bf16* p, float a, float b, bool on) {
-  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q st.global.b32 [%0], %1;\n}\n" ::"l"(p),
-               "r"(pack_bf16x2(a, b)), "r"(static_cast<int>(on))
-               : "memory");
-}
-__device__ __forceinline__ void store2(float* p, float a, float b, bool on) {
-  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %3, 0;\n@q st.global.v2.f32 [%0], {%1, %2};\n}\n" ::"l"(p), "f"(a),
-               "f"(b), "r"(static_cast<int>(on))
-               : "memory");
-}
-
-// this thread's entries of a 64-row output block (times mul): rows row0 + 16
-// warp + r (+ 8) below n_rows of dst (row stride rs), columns col0 + 8jj +
-// cq (+ 1) below hd
-template <typename T, int NA>
-__device__ __forceinline__ void store_block(T* dst, long long rs, const float (&d)[NA], float mul, int row0, int n_rows,
-                                            int col0, int hd, int tid) {
-  const int row = row0 + 16 * (tid >> 5) + ((tid & 31) >> 2), cq = 2 * (tid & 3);
-#pragma unroll
-  for (int jj = 0; jj < NA / 4; ++jj)
-#pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int rr = row + 8 * half, col = col0 + 8 * jj + cq;
-      const bool on = rr < n_rows && col < hd;
-      store2(dst + (on ? rr * rs + col : 0), d[4 * jj + 2 * half] * mul, d[4 * jj + 2 * half + 1] * mul, on);
-    }
-}
-
-// a step's slot of a ring of n slots, and the parity of the slot's phase
-struct Ring {
-  int n, slot = 0, parity = 0;
-  __device__ __forceinline__ void next() {
-    if (++slot == n) slot = 0, parity ^= 1;
-  }
-};
-
-// The side warps' loop over a block's ring steps (side thread sid): lane 0
-// keeps the loads n_st steps ahead, refilling a slot once the consumers
-// are done with it; in f32 the side warps first write each slot's split
-// operands (steps below n1, phase 1: the small parts; phase 2: the
-// transpose) and mark it ready.
-template <typename T, typename Issue>
-__device__ __forceinline__ void side_loop(const Issue& issue, uint64_t* full, uint64_t* ready, uint64_t* empty,
-                                          unsigned char* smem, int n_st, int n1, int n_all, int sid) {
-  for (int i = 0; i < n_st; ++i) issue(i, i, sid == 0 && i < n_all);
-  Ring fs{n_st}, rs{n_st};  // the slots of steps f and r
-  for (int f = 0; f < n_all; ++f, fs.next()) {
-    if constexpr (std::is_same<T, float>::value) {
-      unsigned char* slot = smem + fs.slot * Cfg<T>::kSlot;
-      mbar_wait(full + fs.slot, fs.parity);
-      if (f < n1)
-        split_small(slot, sid);
-      else
-        transpose_split(slot, sid);
-      fence_proxy_async();
-      mbar_arrive(ready + fs.slot, true);
-    }
-    // the slot of step r, once the consumers are done with it, takes step r + n_st
-    const int r = std::is_same<T, float>::value ? f - 1 : f;
-    if (r >= 0) {
-      if (r + n_st < n_all) {
-        mbar_wait(empty + rs.slot, rs.parity);
-        issue(r + n_st, rs.slot, sid == 0);
-      }
-      rs.next();
-    }
-  }
-}
-
 // Kernel C: one block per (pair, head, tile of 64 keys), the tile fastest.
 // Phase 1: per query tile, S^T = K Q^T and dP^T = V dO^T over the head dim,
 // then P^T and dS^T of every query row stored; phase 2: per slice of
@@ -2174,7 +1814,7 @@ attention_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ Maps maps, const uin
   constexpr int NB = kF32 ? 1 : 2;  // 64-column output blocks of a slice
   constexpr int kSteps = kF32 ? 2 : 1;  // phase 2's ring steps per query tile
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = hopper::aligned_smem(smem_raw);
+  unsigned char* smem = aligned_smem(smem_raw);
   const int n_qt = (g + kRows - 1) / kRows;
   unsigned char* stored = smem + n_st * C::kSlot;  // query tile t at t * kStoreC
   uint64_t* full = reinterpret_cast<uint64_t*>(stored + static_cast<size_t>(n_qt) * C::kStoreC);
@@ -2245,7 +1885,7 @@ attention_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ Maps maps, const uin
   };
   // the side warps (uniform in a warp, as the compiler is told)
   if (__shfl_sync(0xffffffffu, tid / kThreads, 0)) {
-    side_loop<T>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
+    side_loop<T, 2, C::kSlot>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
     return;
   }
   // one ring step: wait for the step's slot (f32: its split operands),
@@ -2271,7 +1911,7 @@ attention_bwd_dkv_wide_wgmma_kernel(const __grid_constant__ Maps maps, const uin
 
   float x[32], y[32];
   for (int t = 0; t < n_qt; ++t) {
-    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T>(x, y, slot, c == 0, tid); });
+    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T, 2>(x, y, slot, c == 0, tid); });
     finish_c<T>(x, y, stored + static_cast<size_t>(t) * C::kStoreC, bias, lse_b, delta_b, t * kRows, g, shift, scale,
                 tid);
   }
@@ -2313,7 +1953,7 @@ attention_bwd_dq_wide_wgmma_kernel(const __grid_constant__ Maps maps, const T* _
   constexpr bool kF32 = std::is_same<T, float>::value;
   constexpr int NB = kF32 ? 1 : 2;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = hopper::aligned_smem(smem_raw);
+  unsigned char* smem = aligned_smem(smem_raw);
   const int n_kt = (s + kRows - 1) / kRows;
   unsigned char* stored = smem + n_st * C::kSlot;  // running tile i at i * kStoreD
   uint64_t* full = reinterpret_cast<uint64_t*>(stored + static_cast<size_t>(n_kt) * C::kStoreD);
@@ -2377,7 +2017,7 @@ attention_bwd_dq_wide_wgmma_kernel(const __grid_constant__ Maps maps, const T* _
   };
   // the side warps (uniform in a warp, as the compiler is told)
   if (__shfl_sync(0xffffffffu, tid / kThreads, 0)) {
-    side_loop<T>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
+    side_loop<T, 2, C::kSlot>(issue, full, ready, empty, smem, n_st, n1, n_all, tid - kThreads);
     return;
   }
 
@@ -2407,7 +2047,7 @@ attention_bwd_dq_wide_wgmma_kernel(const __grid_constant__ Maps maps, const T* _
   };
   float x[32], y[32];
   for (int i = 0; i < n_run; ++i) {
-    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T>(x, y, slot, c == 0, tid); });
+    for (int c = 0; c < n_ch; ++c) step([&](unsigned char* slot) { chunk<T, 2>(x, y, slot, c == 0, tid); });
     const int t = run[i];
     finish_d<T>(x, y, stored + static_cast<size_t>(i) * C::kStoreD, tile_bits[t], s - t * kRows, lse_r, delta_r,
                 shift, scale, tid);
@@ -2421,7 +2061,7 @@ attention_bwd_dq_wide_wgmma_kernel(const __grid_constant__ Maps maps, const T* _
         if constexpr (kF32)
           f32_block_step(dq[0], slot, reinterpret_cast<const float4*>(st), i > 0, tid);
         else
-          dq_step(dq, slot, st, i > 0, tid);
+          bf16_block_step(dq, slot, st, i > 0, tid);
       });
     }
 #pragma unroll
@@ -2668,8 +2308,9 @@ cudaError_t launch_wide_hopper(int hd, const Args& a) {
   const int n_kt = (a.s + wide::kRows - 1) / wide::kRows, n_qt = (a.g + wide::kRows - 1) / wide::kRows;
   // the ring's slots: the body's choice where they fit, else two
   const int n = kDkv ? n_qt : n_kt, pref = kDkv ? wide::Cfg<T>::kStagesC : wide::Cfg<T>::kStagesD;
-  const int n_st = wide::smem_bytes<T, kDkv>(pref, n, n_kt) <= wide::kSmemMax ? pref : 2;
-  const size_t smem = wide::smem_bytes<T, kDkv>(n_st, n, n_kt);
+  constexpr wide_sm90::Body kBody = kDkv ? wide_sm90::Body::C : wide_sm90::Body::D;
+  const int n_st = wide_sm90::smem_bytes<T, kBody>(pref, n, n_kt) <= wide::kSmemMax ? pref : 2;
+  const size_t smem = wide_sm90::smem_bytes<T, kBody>(n_st, n, n_kt);
   const long long blocks = static_cast<long long>(a.b) * a.nh * (kDkv ? n_kt : n_qt);
   if (blocks > INT_MAX) return cudaErrorInvalidValue;
   const long long* st = a.st;
@@ -2703,8 +2344,10 @@ cudaError_t launch_wide(int is_bf16, int hd, const Args& a) {
   const int n_kt = (a.s + wide::kRows - 1) / wide::kRows;
   const int n = kDkv ? (a.g + wide::kRows - 1) / wide::kRows : n_kt;
   if (tma_strides(a, kDkv)) {
-    if (is_bf16 && wide::smem_bytes<bf16, kDkv>(2, n, n_kt) <= wide::kSmemMax) return launch_wide_hopper<bf16, kDkv>(hd, a);
-    if (!is_bf16 && wide::smem_bytes<float, kDkv>(2, n, n_kt) <= wide::kSmemMax)
+    constexpr wide_sm90::Body kBody = kDkv ? wide_sm90::Body::C : wide_sm90::Body::D;
+    if (is_bf16 && wide_sm90::smem_bytes<bf16, kBody>(2, n, n_kt) <= wide::kSmemMax)
+      return launch_wide_hopper<bf16, kDkv>(hd, a);
+    if (!is_bf16 && wide_sm90::smem_bytes<float, kBody>(2, n, n_kt) <= wide::kSmemMax)
       return launch_wide_hopper<float, kDkv>(hd, a);
   }
   return launch_wide_slices<kDkv>(is_bf16, hd, a);

@@ -39,19 +39,21 @@ Phases, in order; any failure exits non-zero before the result line:
    dims above 256 (kernels A, C and D's wide route): ``attention`` and
    its autograd against the plain versions at hd 272, 384, 512 and 768,
    bf16 and f32, at b=64 g=s=255 nh=4 (one launch each of A, C and D and
-   none of the plain attention per call; C and D's Hopper bodies there,
-   named under ``torch.profiler``), each kernel timed there beside its
-   bound, the plain version and SDPA (C and D also as the whole
-   backward); then at hd 272 one query or key tile past what C's or D's
-   Hopper body stores in shared memory (bf16 g 641 and s 1281, f32 g 257
-   and s 513), checked the same way with C or D on its slice body. For every bf16 instantiation of kernels A, C and D (every
-   head dim that is a multiple of 16 up to 256, the wide route's slice
-   body, the Hopper body at hd 64 and C and D's wide Hopper body): its
-   HMMA count in the SASS, HGMMA for the Hopper bodies (it fails on none,
-   and on an hd-64 Hopper body that spills; C and D's f32 wide Hopper body
-   too) and ptxas' registers and spills; the f32 wide backward against an
-   f64 autograd, within 4x the plain f32 autograd's error; for kernel B's
-   kernels, f32 and int8, registers and spills;
+   none of the plain attention per call; A's lse against logsumexp; A, C
+   and D's Hopper bodies there, named under ``torch.profiler``), each
+   kernel timed there beside its bound, the plain version and SDPA (C and
+   D also as the whole backward); then at hd 272 one key or query tile
+   past what A's, C's or D's Hopper body stores in shared memory (bf16 s
+   1473 for A, g 641 and s 1281, f32 g 257 and s 513 for A and D), checked
+   the same way with A, C or D on its slice body. For every bf16
+   instantiation of kernels A, C and D (every head dim that is a multiple
+   of 16 up to 256, the wide route's slice body, the Hopper body at hd 64
+   and the wide Hopper body): its HMMA count in the SASS, HGMMA for the
+   Hopper bodies (it fails on none, and on an hd-64 Hopper body that
+   spills; the f32 wide Hopper bodies too) and ptxas' registers and
+   spills; the f32 wide forward and backward against an f64 autograd,
+   within 4x the plain f32 version's error; for kernel B's kernels, f32
+   and int8, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -230,13 +232,12 @@ SLEEP_CYCLES = 20_000_000
 # gradients that are 0 in exact arithmetic (a shift under a softmax), so
 # a step may leave them, and their parameters, unchanged
 ZERO_GRAD_LEAVES = ("attn/k_bias", "score_linear/bias")
-# bf16 instantiations of kernels A, C and D: 16 head dims x 2 tilings, the
-# wide route's slice body (head dims above 256, a runtime count) and the
-# Hopper body (wgmma, hd = 64, g > 16); C and D one more, the wide route's
+# bf16 instantiations of each of kernels A, C and D: 16 head dims x 2
+# tilings, the wide route's slice body (head dims above 256, a runtime
+# count), the Hopper body (wgmma, hd = 64, g > 16) and the wide route's
 # Hopper body (wgmma + TMA, head dims above 256; its f32 instantiation, on
 # the tensor cores in three TF32 passes, is held apart)
-BF16_INSTANTIATIONS = 34
-BF16_INSTANTIATIONS_BWD = BF16_INSTANTIATIONS + 1
+BF16_INSTANTIATIONS = 35
 DELTA_RTOL = 1e-6  # kernel D's D = rowsum(dO * O) vs the plain reduction, x max|D| (f32 sums in another order)
 # head dims above 256 (the wide route; 272 also pads nothing, 300-style
 # widths pad to these), held in bf16 and f32 at the train layer's b=64
@@ -352,7 +353,7 @@ def check_attention(dev, flush):
         **{key: main_shape[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
         "shapes": timed,
         "instantiations": instantiations("attention", "attention_fwd_bf16_kernel", "warps", BF16_INSTANTIATIONS,
-                                         "attention_fwd_wgmma_kernel"),
+                                         "attention_fwd_wgmma_kernel", "attention_fwd_wide_wgmma_kernel"),
         "wgmma_warnings": wgmma_warnings("attention"),
     }
 
@@ -710,7 +711,7 @@ def check_attention_bwd(dev, flush):
             "name": name, "replaces": replaces, **common,
             "max_abs_err": errs["dkv" if i == 0 else "dq"],
             **{key: shapes[0][key] for key in keys}, "shapes": shapes,
-            "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS_BWD, hopper,
+            "instantiations": instantiations("attention_bwd", kernel, param, BF16_INSTANTIATIONS, hopper,
                                              kernel.replace("_bf16_kernel", "_wide_wgmma_kernel")),
         })
     kernels[1]["delta_rel_err"] = errs["delta"]
@@ -719,15 +720,17 @@ def check_attention_bwd(dev, flush):
     return errs["lse"], kernels
 
 
-# the wide backward past the g (kernel C) or s (kernel D) whose stored
-# P^T and dS^T (C) or dS (D) fit in a block's shared memory (bf16 640 and
-# 1280, f32 256 and 512; attention_bwd.cu's launch_wide), at hd 272, b=8,
-# nh=4 with random key lengths: (dtype, g, s, D's body, C's body), "wgmma"
+# the wide route past the s (kernels A and D) or g (kernel C) whose stored
+# tiles fit in a block's shared memory: A's P (bf16 s 1472, f32 448;
+# attention.cu's launch_wide), C's P^T and dS^T (g 640, 256) and D's dS (s
+# 1280, 512; attention_bwd.cu's launch_wide), at hd 272, b=8, nh=4 with
+# random key lengths: (dtype, g, s, A's body, D's body, C's body), "wgmma"
 # the Hopper body and "slices" the slice body that recomputes the scores
-# for each 64-column output slice; each slice body runs once
+# for each output slice; each slice body runs at least once
 WIDE_PAST_LIMIT = (
-    (torch.bfloat16, 641, 641, "wgmma", "slices"), (torch.bfloat16, 100, 1281, "slices", "wgmma"),
-    (torch.float32, 257, 257, "wgmma", "slices"), (torch.float32, 100, 513, "slices", "wgmma"),
+    (torch.bfloat16, 641, 641, "wgmma", "wgmma", "slices"), (torch.bfloat16, 100, 1281, "wgmma", "slices", "wgmma"),
+    (torch.bfloat16, 100, 1473, "slices", "slices", "wgmma"),
+    (torch.float32, 257, 257, "wgmma", "wgmma", "slices"), (torch.float32, 100, 513, "slices", "slices", "wgmma"),
 )
 
 
@@ -735,13 +738,13 @@ def check_attention_wide(dev, flush):
     """Head dims above 256 (the wide route of kernels A, C and D): at each
     of WIDE_HEAD_DIMS, in bf16 and f32, at WIDE_SHAPE with random key
     lengths, ``attention`` and its autograd (``AttentionFunction``: A with
-    the lse, then C and D) against the plain versions (``wide_case``), C
-    and D on their Hopper bodies (``wide_bodies``), the f32 backward
-    against f64; then A, C and D timed, each beside its bound, the plain
-    version and SDPA. Then the shapes of WIDE_PAST_LIMIT, where C or D
-    takes its slice body, checked the same way. Returns one record per
-    (hd, dtype) with the errors and times of the three kernels, and one per
-    shape past the limit."""
+    the lse, then C and D) and A's lse against the plain versions
+    (``wide_case``), A, C and D on their Hopper bodies (``wide_bodies``),
+    the f32 forward and backward against f64; then A, C and D timed, each
+    beside its bound, the plain version and SDPA. Then the shapes of
+    WIDE_PAST_LIMIT, where A, C or D takes its slice body, checked the same
+    way. Returns one record per (hd, dtype) with the errors and times of
+    the three kernels, and one per shape past the limit."""
     b, g, s, nh = WIDE_SHAPE
     gen = torch.Generator(device=dev).manual_seed(12)
     recs = []
@@ -752,24 +755,25 @@ def check_attention_wide(dev, flush):
             rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]).expand(b, g)
             dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(dtype)
             what = f"hd={hd} {name} b={b} g=s={s} nh={nh}"
-            fwd_err, errs, got = wide_case(q, k, v, key_valid, rows, dout, what)
+            fwd_err, lse_err, errs, got = wide_case(q, k, v, key_valid, rows, dout, what)
             f64 = wide_f64_accuracy(q, k, v, key_valid, dout, got, what) if dtype == torch.float32 else None
             del got
-            bodies = wide_bodies(q, k, v, key_valid, dout, ("wgmma", "wgmma"), what)
-            rec = {"hd": hd, "dtype": name, "fwd_err": fwd_err, "grad_rel_err": errs, "f64": f64,
-                   **time_wide(q, k, v, key_valid, lengths, dout, what, flush)}
-            rec["D"]["body"], rec["C"]["body"] = bodies
+            bodies = wide_bodies(q, k, v, key_valid, dout, ("wgmma",) * 3, what)
+            rec = {"hd": hd, "dtype": name, "fwd_err": fwd_err, "lse_rel_err": lse_err, "grad_rel_err": errs,
+                   "f64": f64, **time_wide(q, k, v, key_valid, lengths, dout, what, flush)}
+            rec["A"]["body"], rec["D"]["body"], rec["C"]["body"] = bodies
             recs.append(rec)
     past, b, hd = [], 8, 272
-    for dtype, g, s, d_body, c_body in WIDE_PAST_LIMIT:
+    for dtype, g, s, *expect in WIDE_PAST_LIMIT:
         q, k, v, key_valid, lengths = attention_inputs(gen, b, g, s, nh, hd, dev, dtype=dtype)
         rows = (torch.arange(g, device=dev)[None, :] < lengths[:, None]).expand(b, g) if g == s else \
             torch.ones(b, g, dtype=torch.bool, device=dev)
         dout = (torch.randn(q.shape, generator=gen, device=dev) * rows[:, :, None, None]).to(dtype)
         what = f"hd={hd} {'bf16' if dtype == torch.bfloat16 else 'f32'} b={b} g={g} s={s} nh={nh}, past the staging limit"
-        _, errs, _ = wide_case(q, k, v, key_valid, rows, dout, what)
-        bodies = wide_bodies(q, k, v, key_valid, dout, (d_body, c_body), what)
-        past.append({"shape": what, "grad_rel_err": errs, "D_body": bodies[0], "C_body": bodies[1]})
+        fwd_err, lse_err, errs, _ = wide_case(q, k, v, key_valid, rows, dout, what)
+        bodies = wide_bodies(q, k, v, key_valid, dout, expect, what)
+        past.append({"shape": what, "fwd_err": fwd_err, "lse_rel_err": lse_err, "grad_rel_err": errs,
+                     **{f"{key}_body": body for key, body in zip("ADC", bodies)}})
     return recs, past
 
 
@@ -778,11 +782,13 @@ def wide_case(q, k, v, key_valid, rows, dout, what):
     attention and its autograd at the real ``rows`` and valid keys (bf16
     ATTN_ATOL and GRAD_RTOL, f32 ATTN_F32_ATOL and GRAD_F32_RTOL), masked
     keys' dK and dV exactly zero; launch counts set to 0 just before: the
-    call launches A, C and D once each and the plain attention never.
-    Returns the forward's error, the gradients' errors (x the plain
-    gradient's max) and the gradients."""
+    call launches A, C and D once each and the plain attention never. Then
+    A's lse at the real rows against logsumexp (LSE_RTOL, taken without the
+    -1e9 in a pair with no valid key). Returns the forward's error, the
+    lse's, the gradients' errors (x the plain gradient's max) and the
+    gradients."""
     from anncur_tpu_torch.ops import attention as attn_mod
-    from anncur_tpu_torch.ops.attention import attention, attention_bwd_plain, attention_plain
+    from anncur_tpu_torch.ops.attention import attention, attention_bwd_plain, attention_fwd, attention_plain
 
     fwd_tol, grad_tol = (ATTN_ATOL, GRAD_RTOL) if q.dtype == torch.bfloat16 else (ATTN_F32_ATOL, GRAD_F32_RTOL)
     plain_calls = []
@@ -810,89 +816,113 @@ def wide_case(q, k, v, key_valid, rows, dout, what):
         errs[key] = float((a.float() - w.float()).abs().amax(dim=(2, 3))[sel].max() / w.float().abs().max())
     zero = bool((got[1][~key_valid] == 0).all() and (got[2][~key_valid] == 0).all())
     launched = (counts["attention_fwd"], counts["attention_bwd_dkv"], counts["attention_bwd_dq"])
-    log(f"  wide route {what}: forward max |kernel - plain| {fwd_err:.3e} (tol {fwd_tol}); dQ/dK/dV "
-        f"{errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} x max (tol {grad_tol}); masked keys zero: {zero}; "
-        f"launches A/C/D {launched}, plain attention {len(plain_calls)}")
-    if not (fwd_err <= fwd_tol and max(errs.values()) <= grad_tol and zero):
-        fail(f"the wide route disagrees with the plain attention at {what}: forward {fwd_err}, {errs}, "
+    lse = attention_fwd(q, k, v, key_valid, with_lse=True)[1]
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    shift = torch.where(key_valid.any(dim=1), 0.0, -1e9)[:, None, None, None]
+    want_lse = torch.logsumexp(scores + torch.where(key_valid, 0.0, -1e9)[:, None, None, :] - shift, dim=-1)
+    lse_err = float(((lse - want_lse).abs() / want_lse.abs().clamp(min=1.0)).transpose(1, 2)[rows].max())
+    del scores, want_lse
+    log(f"  wide route {what}: forward max |kernel - plain| {fwd_err:.3e} (tol {fwd_tol}); lse rel err {lse_err:.2e} "
+        f"(tol {LSE_RTOL}); dQ/dK/dV {errs['dq']:.3e}/{errs['dk']:.3e}/{errs['dv']:.3e} x max (tol {grad_tol}); "
+        f"masked keys zero: {zero}; launches A/C/D {launched}, plain attention {len(plain_calls)}")
+    if not (fwd_err <= fwd_tol and lse_err <= LSE_RTOL and max(errs.values()) <= grad_tol and zero):
+        fail(f"the wide route disagrees with the plain attention at {what}: forward {fwd_err}, lse {lse_err}, {errs}, "
              f"masked keys zero {zero}")
     if launched != (1, 1, 1) or plain_calls:
         fail(f"at {what} the call launched A/C/D {launched} times and the plain attention {len(plain_calls)}")
-    return fwd_err, errs, got
+    return fwd_err, lse_err, errs, got
 
 
 def wide_bodies(q, k, v, key_valid, dout, expect, what, tries=10):
-    """The device kernels of the wide backward (kernel D, then C, as
-    ``run_bwd`` launches them) under ``torch.profiler``: fails unless they
-    are exactly the bodies ``expect`` names, D's then C's ("wgmma": the
-    Hopper body; "slices": the slice body). Each session runs the backward
-    twice, since the profiler loses records late in a long run (often the
-    first kernel after the spin): it must record D's body directly
-    followed by C's, and is taken again otherwise, up to ``tries``
-    (``profiled_kernels``); one that records another body fails at once.
-    Returns D's and C's kernel names."""
+    """The device kernels of the wide forward (kernel A) and backward
+    (kernel D, then C, as ``run_bwd`` launches them) under
+    ``torch.profiler``: fails unless they are exactly the bodies ``expect``
+    names, A's, D's, then C's ("wgmma": the Hopper body; "slices": the
+    slice body). Each session runs the forward, or the backward, twice,
+    since the profiler loses records late in a long run (often the first
+    kernel after the spin): it must record A's body (the backward: D's
+    directly followed by C's), and is taken again otherwise, up to
+    ``tries`` (``profiled_kernels``); one that records another body fails
+    at once. Returns A's, D's and C's kernel names."""
     from anncur_tpu_torch.ops.attention import attention_fwd
 
     dt = "bf16" if q.dtype == torch.bfloat16 else "f32"
-    want = [f"attention_bwd_{kern}_wide_wgmma_kernel" if body == "wgmma" else f"attention_bwd_{kern}_{dt}_wide_kernel"
-            for kern, body in zip(("dq", "dkv"), expect)]
+    want = [f"attention_{kern}_wide_wgmma_kernel" if body == "wgmma" else f"attention_{kern}_{dt}_wide_kernel"
+            for kern, body in zip(("fwd", "bwd_dq", "bwd_dkv"), expect)]
     out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
 
-    def fn():
+    def fwd():
+        return attention_fwd(q, k, v, key_valid, with_lse=True)
+
+    def bwd():
         return run_bwd(q, k, v, key_valid, dout, out, lse)
 
-    fn()
-    torch.cuda.synchronize()
-    seen = []
-    for _ in range(tries):
-        seen = [e.name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
-                for e in profiled_kernels(lambda: (fn(), fn())) if "attention_bwd" in e.name]
-        if not all(any(w in n for w in want) for n in seen):
-            break  # another body: fails at once
-        for pair in zip(seen, seen[1:]):
-            if all(w in n for w, n in zip(want, pair)):
-                log(f"  wide route {what}: the backward ran {list(pair)} (profiler records {len(seen)} of 4)")
-                return list(pair)
-    fail(f"the wide backward at {what} did not run exactly {want}, in that order: {seen}")
+    found = []
+    for fn, names, tag in ((fwd, want[:1], "attention_fwd"), (bwd, want[1:], "attention_bwd")):
+        fn()
+        torch.cuda.synchronize()
+        seen, run = [], None
+        for _ in range(tries):
+            seen = [e.name.replace("(anonymous namespace)::", "").split("(")[0].removeprefix("void ")
+                    for e in profiled_kernels(lambda: (fn(), fn())) if tag in e.name]
+            if not all(any(w in n for w in names) for n in seen):
+                break  # another body: fails at once
+            run = next((list(group) for group in zip(*(seen[i:] for i in range(len(names))))
+                        if all(w in n for w, n in zip(names, group))), None)
+            if run:
+                break
+        if not run:
+            fail(f"the wide {'forward' if fn is fwd else 'backward'} at {what} did not run exactly {names}, "
+                 f"in that order: {seen}")
+        found += run
+    log(f"  wide route {what}: the forward ran {found[0]}, the backward {found[1:]}")
+    return found
 
 
 def wide_f64_accuracy(q, k, v, key_valid, dout, got, what):
-    """The f32 wide backward (``got``: dQ, dK, dV through kernels D and C)
-    against the plain attention's autograd in f64: max |error| over max
-    |f64| of each gradient, beside the plain f32 autograd's (cuBLAS, no
-    TF32); fails past WIDE_F64_RATIO times the plain error."""
-    from anncur_tpu_torch.ops.attention import attention_bwd_plain
+    """The f32 wide forward (kernel A's O and lse) and backward (``got``:
+    dQ, dK, dV through kernels D and C) against the plain attention and its
+    autograd in f64: max |error| over max |f64| of each, beside the plain
+    f32 version's (cuBLAS, no TF32; the lse a logsumexp of its f32 scores);
+    fails past WIDE_F64_RATIO times the plain error."""
+    from anncur_tpu_torch.ops.attention import attention_bwd_plain, attention_fwd, attention_plain
     from anncur_tpu_torch.utils.device import true_f32
 
+    out, lse = attention_fwd(q, k, v, key_valid, with_lse=True)
+    bias = torch.where(key_valid, 0.0, -1e9)[:, None, None, :]
     with true_f32():
         plain = attention_bwd_plain(q, k, v, key_valid, dout)
+        plain_out = attention_plain(q, k, v, key_valid)
+        plain_lse = torch.logsumexp(torch.einsum("bqnd,bknd->bnqk", q, k) / math.sqrt(q.shape[-1]) + bias, dim=-1)
     with torch.enable_grad():
         leaves = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
-        scores = torch.einsum("bqnd,bknd->bnqk", leaves[0], leaves[1]) / math.sqrt(q.shape[-1])
-        probs = torch.softmax(scores + torch.where(key_valid, 0.0, -1e9).double()[:, None, None, :], dim=-1)
-        exact = torch.autograd.grad(torch.einsum("bnqk,bknd->bqnd", probs, leaves[2]), leaves, dout.double())
+        scores = torch.einsum("bqnd,bknd->bnqk", leaves[0], leaves[1]) / math.sqrt(q.shape[-1]) + bias.double()
+        exact_out = torch.einsum("bnqk,bknd->bqnd", torch.softmax(scores, dim=-1), leaves[2])
+        exact = torch.autograd.grad(exact_out, leaves, dout.double())
+    exact_lse = torch.logsumexp(scores.detach(), dim=-1)
     rec = {}
-    for name, a, p, e in zip(("dq", "dk", "dv"), got, plain, exact):
+    for name, a, p, e in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *got), (plain_out, plain_lse, *plain),
+                             (exact_out.detach(), exact_lse, *exact)):
         scale = float(e.abs().max())
         rec[name] = {"kernel": float((a.double() - e).abs().max()) / scale,
                      "plain_f32": float((p.double() - e).abs().max()) / scale}
         rec[name]["ratio"] = rec[name]["kernel"] / rec[name]["plain_f32"]
-    del plain, exact, leaves, scores, probs
+    del plain, exact, leaves, scores, exact_out, exact_lse
     log(f"  wide route {what} against f64 (x max |f64|): " + ", ".join(
         f"{n} {r['kernel']:.3e} (plain f32 {r['plain_f32']:.3e}, ratio {r['ratio']:.2f})" for n, r in rec.items())
         + f" (limit {WIDE_F64_RATIO})")
     if not max(r["ratio"] for r in rec.values()) <= WIDE_F64_RATIO:
-        fail(f"the f32 wide backward at {what} is not f32-accurate: {rec}")
+        fail(f"the f32 wide route at {what} is not f32-accurate: {rec}")
     return rec
 
 
 def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
     """Kernels A, D and C at one wide input, each beside its bound (bytes:
     each input read once at valid keys, each output written once;
-    operations: its products over the valid keys at the dtype's peak; C and
-    D in f32 as three TF32 passes on the tensor cores, their FFMA bound
-    beside it), the port's whole backward (D then C through the autograd),
-    the plain version's and SDPA's forward and whole backward."""
+    operations: its products over the valid keys at the dtype's peak; in
+    f32 as three TF32 passes on the tensor cores, the FFMA bound beside
+    it), the port's whole backward (D then C through the autograd), the
+    plain version's and SDPA's forward and whole backward."""
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq, attention_fwd, attention_plain
 
     b, g, nh, hd = q.shape
@@ -922,17 +952,17 @@ def time_wide(q, k, v, key_valid, lengths, dout, what, flush):
     pair_ops = 2 * nh * g * n_keys * hd  # one product of (g x valid keys x hd)
     stats = 2 * b * nh * g * 4  # lse and D
 
-    def bwd_bound(nbytes, ops):
+    def kernel_bound(nbytes, ops):
         if dt == "bf16":
             return bound(nbytes, ops, dt)
         return {**bound(nbytes, TF32_PASSES * ops, "tf32"), "ffma_bound_ms": bound(nbytes, ops, "f32")["bound_ms"]}
 
     recs = {
-        "A": {"ms": a_ms, **bound(2 * qo + 2 * kv_valid + key_valid.numel(), 2 * pair_ops, dt),
+        "A": {"ms": a_ms, **kernel_bound(2 * qo + 2 * kv_valid + key_valid.numel(), 2 * pair_ops),
               "plain_ms": plain_ms, "library_ms": sdpa_ms},
-        "C": {"ms": c_ms, **bwd_bound(2 * qo + 4 * kv_valid + stats + key_valid.numel(), 4 * pair_ops),
+        "C": {"ms": c_ms, **kernel_bound(2 * qo + 4 * kv_valid + stats + key_valid.numel(), 4 * pair_ops),
               "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms, "whole_backward_ms": whole_ms},
-        "D": {"ms": d_ms, **bwd_bound(4 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops),
+        "D": {"ms": d_ms, **kernel_bound(4 * qo + 2 * kv_valid + stats + key_valid.numel(), 3 * pair_ops),
               "plain_ms": plain_bwd_ms, "library_ms": sdpa_bwd_ms, "whole_backward_ms": whole_ms},
     }
     for rec in recs.values():
@@ -3536,10 +3566,11 @@ def main():
     for kern, key, err in ((fwd, "A", "fwd_err"), (bwd[0], "C", "dk"), (bwd[1], "D", "dq")):
         kern["wide_head_dims"] = [
             {"hd": r["hd"], "dtype": r["dtype"], "err": r[err] if err == "fwd_err" else r["grad_rel_err"][err],
-             **r[key]} for r in wide]
-    for kern, key in ((bwd[0], "C"), (bwd[1], "D")):
-        kern["wide_past_staging_limit"] = [{"shape": r["shape"], "body": r[f"{key}_body"], "grad_rel_err": r["grad_rel_err"]}
-                                           for r in wide_past]
+             **({"lse_rel_err": r["lse_rel_err"]} if key == "A" else {}), **r[key]} for r in wide]
+        kern["wide_past_staging_limit"] = [
+            {"shape": r["shape"], "body": r[f"{key}_body"],
+             **({"fwd_err": r["fwd_err"], "lse_rel_err": r["lse_rel_err"]} if key == "A" else {"grad_rel_err": r["grad_rel_err"]})}
+            for r in wide_past]
     mips_f32, mips_int8 = check_mips_kernel(dev, flush)
     del flush
     torch.cuda.empty_cache()

@@ -316,6 +316,36 @@ def test_attention_wide_backward_past_the_staging_limit(dev, dtype, g, s):
     assert all(torch.equal(x, y) for x, y in zip(*runs))
 
 
+@pytest.mark.parametrize(
+    "dtype,g,s,body",
+    [(torch.bfloat16, 17, 1472, "attention_fwd_wide_wgmma_kernel"), (torch.bfloat16, 17, 1473, "attention_fwd_bf16_wide_kernel"),
+     (torch.float32, 100, 448, "attention_fwd_wide_wgmma_kernel"), (torch.float32, 100, 449, "attention_fwd_f32_wide_kernel")],
+)
+def test_attention_wide_forward_past_the_staging_limit(dev, dtype, g, s, body):
+    """Kernel A at hd 272 at the s whose stored P fit in a block's shared
+    memory (bf16 1472, f32 448), on its Hopper body, and one key past it, on
+    the slice body; the profiler names the body. On ``_edge_case``'s masks,
+    the pair with no valid key and masked key tiles included, at every row:
+    the output within 2e-2 (bf16) or 1e-4 (f32) of the plain attention, the
+    lse within 1e-5 relative of the plain logsumexp (without the -1e9 of
+    the pair with no valid key), two launches the same bits."""
+    q, k, v, valid = _edge_case(dev, g, 272, seed=g + s, s=s, dtype=dtype)
+    names = _profiled_kernels(lambda: attention_fwd(q, k, v, valid))
+    assert any(body in n for n in names), names
+    runs = [attention_fwd(q, k, v, valid, with_lse=True) for _ in range(2)]
+    want = attention_plain(q, k, v, valid).float()
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / 272 ** 0.5
+    scores = scores + torch.where(valid, 0.0, -1e9)[:, None, None, :]
+    shift = torch.where(valid.any(dim=1), 0.0, -1e9)[:, None, None, None]
+    want_lse = torch.logsumexp(scores - shift, dim=-1)
+    torch.cuda.synchronize()
+    out, lse = runs[0]
+    err = (out.float() - want).abs().max().item()
+    assert err <= (2e-2 if dtype == torch.bfloat16 else 1e-4), err
+    assert torch.allclose(lse, want_lse, rtol=1e-5, atol=1e-5)
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+
+
 def test_attention_kernel_rejects_what_it_cannot_take(dev):
     q, k, v, valid, _ = _attn_case(dev, 2, 8, 8, 2, 16, torch.float32, seed=0)
     with pytest.raises(ValueError, match="head dim"):  # the kernel itself: multiples of 16 only
