@@ -23,7 +23,14 @@ across requests: a coalescer worker gathers queries of concurrent
 requests into shared device batches (see Coalescer), so N small clients
 cost ~N/batch dispatches instead of N; --coalesce_ms bounds the extra
 fill-wait latency (default 0):
-- GET  /healthz            -> {"status", "n_items", "mode", ...}
+- GET  /healthz            -> {"status", "n_items", "mode", ...,
+                              "queue_wait_ms": {"p50", "p95"},
+                              "ce_pad_share"}; the last two read the
+                              tracer's rings (see traced_health): the
+                              recent queries' waits in the coalescer's
+                              queue, and the share of the recent engine
+                              calls' CE pairs that padded a batch (null
+                              until a query has been answered)
 - POST /query              -> {"queries": [{"mention", "context_left",
                               "context_right"}, ...]} (or one bare
                               query object) -> {"results": [...]}
@@ -60,6 +67,7 @@ from anncur_tpu_torch.core.cur import load_cur_index
 from anncur_tpu_torch.core.retriever import CurRetriever
 from anncur_tpu_torch.data.tokenization import get_candidate_representation_ids
 from anncur_tpu_torch.models.tokenizer import WordPieceTokenizer
+from anncur_tpu_torch.utils.tracker import TRACER
 
 LOGGER = logging.getLogger("anncur_tpu_torch.serve")
 
@@ -107,6 +115,11 @@ class Coalescer:
     callers: submit() blocks the request thread until its rows are
     filled, so the queue never holds more than the live request threads'
     queries.
+
+    Each query's wait, from submit() enqueuing it to the worker taking it,
+    is a ``serve.queue_wait`` sample of the tracer (nanoseconds), and each
+    dispatch runs in a ``serve.dispatch`` span whose trace id is the
+    dispatch's number.
     """
 
     def __init__(self, dispatch, batch, window_s, device_lock):
@@ -115,7 +128,7 @@ class Coalescer:
         self.window_s = float(window_s)
         self._device_lock = device_lock
         self._cond = threading.Condition()
-        self._buf = []  # (query, tok, pending, slot)
+        self._buf = []  # (query, tok, pending, slot, time.time_ns() when queued)
         self._stop = False
         self.n_dispatches = 0
         self.n_queries = 0
@@ -129,7 +142,8 @@ class Coalescer:
         with self._cond:
             if self._stop:
                 raise RuntimeError("server shutting down")
-            self._buf.extend((q, t, pending, i) for i, (q, t) in enumerate(zip(queries, toks)))
+            now = time.time_ns()
+            self._buf.extend((q, t, pending, i, now) for i, (q, t) in enumerate(zip(queries, toks)))
             self._cond.notify_all()
         # no timeout: the worker fills or fails every slot (its dispatch
         # call is wrapped); clients bound their own wait
@@ -161,13 +175,17 @@ class Coalescer:
                 take, self._buf = self._buf[: self.batch], self._buf[self.batch :]
                 self.n_dispatches += 1
                 self.n_queries += len(take)
+                number = self.n_dispatches
+                now = time.time_ns()
+                for *_, queued in take:
+                    TRACER.sample("serve.queue_wait", now - queued, queued, now)
             try:
-                with self._device_lock:
-                    rows = self._dispatch([q for q, _, _, _ in take], [t for _, t, _, _ in take])
-                for (_, _, pending, slot), row in zip(take, rows):
+                with self._device_lock, TRACER.span("serve.dispatch", trace_id=number):
+                    rows = self._dispatch([q for q, *_ in take], [t for _, t, *_ in take])
+                for (_, _, pending, slot, _), row in zip(take, rows):
                     pending.set(slot, row)
             except Exception as e:  # noqa: BLE001 — handed to every waiter of this dispatch
-                for _, _, pending, _ in take:
+                for _, _, pending, *_ in take:
                     pending.fail(e)
 
 
@@ -320,6 +338,23 @@ def main(argv=None):
             fout.close()
 
 
+def traced_health():
+    """/healthz's view of the tracer's rings: ``queue_wait_ms`` (p50, p95
+    of the recent queries' waits in the coalescer's queue) and
+    ``ce_pad_share`` (the share of the recent engine calls' CE rows that
+    were padding); None where nothing was recorded yet."""
+    waits = [s.value / 1e6 for s in TRACER.samples("serve.queue_wait")]
+    pairs = sum(s.value for s in TRACER.samples("ce.pairs"))
+    pad = sum(s.value for s in TRACER.samples("ce.pad_pairs"))
+    return {
+        "queue_wait_ms": {
+            "p50": float(np.percentile(waits, 50)) if waits else None,
+            "p95": float(np.percentile(waits, 95)) if waits else None,
+        },
+        "ce_pad_share": pad / pairs if pairs else None,
+    }
+
+
 def _balanced_block(n: int, cap: int) -> int:
     """The block that covers ``n`` rows in the fewest blocks of at most
     ``cap`` rows, with the least padding."""
@@ -404,6 +439,7 @@ def _serve_http(args, retriever, tokenize, answer):
                     # dispatches < queries_answered: coalescing saved dispatches
                     "dispatches": coalescer.n_dispatches,
                     "queries_answered": coalescer.n_queries,
+                    **traced_health(),
                 },
             )
 

@@ -67,8 +67,18 @@ from anncur_tpu_torch.ops.mips import topk_stable
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused
 from anncur_tpu_torch.parallel.mesh import all_gather_cat
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
+from anncur_tpu_torch.utils.tracker import TRACER
 
 LOGGER = logging.getLogger(__name__)
+
+
+def _sample_ce_rows(start_ns: int, pairs: int, pad_pairs: int) -> None:
+    """The tracer's samples of one engine call from ``start_ns`` to now:
+    ``ce.pairs``, the rows it handed the CE, and ``ce.pad_pairs``, those of
+    them that belong to padding queries."""
+    end = time.time_ns()
+    TRACER.sample("ce.pairs", pairs, start_ns, end)
+    TRACER.sample("ce.pad_pairs", pad_pairs, start_ns, end)
 
 
 def _largest_divisor_leq(n: int, target: int) -> int:
@@ -140,13 +150,17 @@ class CurRetriever:
     def _mesh_size(self) -> int:
         return 1 if self.mesh is None else self.mesh.shape[self.mesh_axis]
 
+    def _shard_index(self) -> int:
+        """This rank's place on the mesh axis (0 off a mesh)."""
+        return 0 if self.mesh is None else self.mesh.coords[self.mesh_axis]
+
     def _local_rows(self, qtoks: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous slice of a padded batch (all of it off a
         mesh); the batch pads to a multiple of the mesh axis."""
         if self.mesh is None:
             return qtoks
         per = qtoks.shape[0] // self._mesh_size()
-        c = self.mesh.coords[self.mesh_axis]
+        c = self._shard_index()
         return qtoks[c * per: (c + 1) * per]
 
     def _gather_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -411,7 +425,12 @@ class CurRetriever:
         """(scores (q, top_k), stable item ids (q, top_k)). Cost per query =
         n_anchor_items + top_k_retvr CE calls (reference online path,
         ..._w_fixed_train_test_splits.py:286-303). Over a mesh each rank
-        answers its shard and every rank returns the whole batch."""
+        answers its shard and every rank returns the whole batch.
+
+        Traced: spans ``fixed.pad``, ``fixed.anchor``, ``fixed.retrieve``,
+        ``fixed.rerank`` and ``fixed.to_host``; one ``ce.pairs`` /
+        ``ce.pad_pairs`` sample per call (this rank's rows)."""
+        t_call = time.time_ns()
         query_tokens = np.asarray(query_tokens, np.int32)
         q, lm = query_tokens.shape
         top_k_retvr = min(top_k_retvr, self.index.n_cols)
@@ -423,11 +442,19 @@ class CurRetriever:
         # 8 x 16 rows, 31.4 -> 4.7 q/s, before capping it)
         chunk = max(1, min(self._stage_batch(max(k_i, top_k_retvr)), -(-q // n_dev)))
         q_pad = q + (-q) % (chunk * n_dev)
-        qtoks = torch.zeros((q_pad, lm), dtype=torch.int32, device=self.device)
-        qtoks[:q] = torch.as_tensor(query_tokens, device=self.device)
-        s, i = self._query_local(self._local_rows(qtoks), chunk, top_k, top_k_retvr, rerank)
+        with TRACER.span("fixed.pad"):
+            qtoks = torch.zeros((q_pad, lm), dtype=torch.int32, device=self.device)
+            qtoks[:q] = torch.as_tensor(query_tokens, device=self.device)
+            local = self._local_rows(qtoks)
+        s, i = self._query_local(local, chunk, top_k, top_k_retvr, rerank)
         s, i = self._gather_rows(s), self._gather_rows(i)
-        return s[:q].cpu().numpy(), self.item_ids[i[:q].cpu().numpy()]
+        with TRACER.span("fixed.to_host"):
+            out = s[:q].cpu().numpy(), self.item_ids[i[:q].cpu().numpy()]
+        per = local.shape[0]
+        n_real = min(max(q - self._shard_index() * per, 0), per)
+        width = k_i + (top_k_retvr if rerank else 0)
+        _sample_ce_rows(t_call, per * width, (per - n_real) * width)
+        return out
 
     def _query_local(self, qtoks: torch.Tensor, chunk: int, top_k: int, top_k_retvr: int, rerank: bool):
         """The fixed path on this device over ``qtoks`` (a multiple of
@@ -435,21 +462,24 @@ class CurRetriever:
         q_pad, lm = qtoks.shape
         n_items = self.item_tokens.shape[0]
         items, _, latent_items = self._device_consts()
-        anchor_scores = self._anchor_scores(qtoks, chunk)
+        with TRACER.span("fixed.anchor"):
+            anchor_scores = self._anchor_scores(qtoks, chunk)
         # latent projection + top-k in f32 (kernel B on the card); padded
         # item rows sit at the tail and are never selected
-        if not rerank:
-            return mips_topk_fused(anchor_scores, latent_items, top_k, n_items)
-        _, cand = mips_topk_fused(anchor_scores, latent_items, top_k_retvr, n_items)
+        with TRACER.span("fixed.retrieve"):
+            if not rerank:
+                return mips_topk_fused(anchor_scores, latent_items, top_k, n_items)
+            _, cand = mips_topk_fused(anchor_scores, latent_items, top_k_retvr, n_items)
 
         # rerank stage: bigger query chunks (only top_k_retvr candidates each)
-        score_pairs = make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
-        r_chunk = _largest_divisor_leq(q_pad, self._stage_batch(top_k_retvr))
-        exact = torch.cat(
-            [score_pairs(blk, items[c]) for blk, c in zip(qtoks.split(r_chunk), cand.split(r_chunk))]
-        )  # (q_pad, top_k_retvr)
-        s, order = topk_stable(exact, top_k)
-        return s, torch.gather(cand, 1, order)
+        with TRACER.span("fixed.rerank"):
+            score_pairs = make_pair_scorer(self.encoder, lm, items.shape[1], self.pair_pad_multiple)
+            r_chunk = _largest_divisor_leq(q_pad, self._stage_batch(top_k_retvr))
+            exact = torch.cat(
+                [score_pairs(blk, items[c]) for blk, c in zip(qtoks.split(r_chunk), cand.split(r_chunk))]
+            )  # (q_pad, top_k_retvr)
+            s, order = topk_stable(exact, top_k)
+            return s, torch.gather(cand, 1, order)
 
     def tokenize_query(self, mention: str, context_left: str = "", context_right: str = "") -> List[int]:
         """The query-tokenization contract: lowercasing + quota-balanced
@@ -603,7 +633,10 @@ class CurRetriever:
         ridge ``axn_lam_rel``. Per batch the host reads the device once,
         for the early-stop flags. Over a mesh each rank runs its shard's
         rounds (the shortlist pool and the escalation bucket are per
-        shard, as JAX's pool is per device) and the stats sum the shards'."""
+        shard, as JAX's pool is per device) and the stats sum the shards'.
+        Traced: one ``ce.pairs`` / ``ce.pad_pairs`` sample per call (this
+        rank's rows, the escalation bucket's included)."""
+        t_call = time.time_ns()
         _check_method(method)
         query_tokens = np.asarray(query_tokens, np.int32)
         q, lm = query_tokens.shape
@@ -649,12 +682,16 @@ class CurRetriever:
             # query's first picks and room for the remaining rounds
             shortlist = None
         # this shard's real rows: the global batch's rows below q
-        c = 0 if self.mesh is None else self.mesh.coords[self.mesh_axis]
-        n_real = min(max(q - c * q_pad_loc, 0), q_pad_loc)
+        n_real = min(max(q - self._shard_index() * q_pad_loc, 0), q_pad_loc)
         s, i, counts = self._adaptive_local(
             self._local_rows(qtoks), n_real, completer, anchors0, total_budget, n_rounds, top_k, extra,
             escalate_rounds, stability_overlap, shortlist,
         )
+        # this rank's CE rows: its shard's rows over the budget, then the
+        # escalation bucket (whose padding repeats a real row) over the rest
+        _, n_unstable, bucket = counts
+        _sample_ce_rows(t_call, q_pad_loc * total_budget + bucket * extra,
+                        (q_pad_loc - n_real) * total_budget + (bucket - n_unstable) * extra)
         s, i = self._gather_rows(s)[:q], self._gather_rows(i)[:q]
         stats = {"avg_budget": float(total_budget), "frac_escalated": 0.0, "stable_frac": 1.0}
         if extra > 0:

@@ -32,6 +32,7 @@ from anncur_tpu_torch.models.biencoder import BiEncoder
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
 from anncur_tpu_torch.ops.dense_index import DenseIndex
 from anncur_tpu_torch.parallel.multihost import world
+from anncur_tpu_torch.utils.tracker import TRACER
 
 LOGGER = logging.getLogger(__name__)
 
@@ -43,18 +44,21 @@ def embed_tokenized(
     """(n, embed_dim) f32 numpy embeddings of ``tokens`` by the input
     (``which='input'``) or label tower, ``batch_size`` rows per forward,
     the last batch zero-padded to full size (reference:
-    eval/eval_utils.py:59-92)."""
+    eval/eval_utils.py:59-92). Traced: a ``tower.forward`` span per
+    forward, ``embed.to_host`` around the copy out."""
     fn = encoder.encode_input if which == "input" else encoder.encode_label
     toks = tokens_on(encoder.device, tokens)
     n = toks.shape[0]
     out = []
     for i in range(0, n, batch_size):
-        block = toks[i:i + batch_size]
-        take = block.shape[0]
-        if take < batch_size:
-            block = torch.cat([block, block.new_zeros((batch_size - take, block.shape[1]))])
-        out.append(fn(block)[:take])
-    return torch.cat(out).cpu().numpy()
+        with TRACER.span("tower.forward"):
+            block = toks[i:i + batch_size]
+            take = block.shape[0]
+            if take < batch_size:
+                block = torch.cat([block, block.new_zeros((batch_size - take, block.shape[1]))])
+            out.append(fn(block)[:take])
+    with TRACER.span("embed.to_host"):
+        return torch.cat(out).cpu().numpy()
 
 
 def run_retrieve_rerank_eval(

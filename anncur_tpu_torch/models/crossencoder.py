@@ -40,6 +40,7 @@ from anncur_tpu_torch.models.special_tokens import (
     NULL_IDX,
 )
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
+from anncur_tpu_torch.utils.tracker import TRACER
 
 
 def to_cross_bert_input(token_ids: torch.Tensor, first_segment_end: int, null_idx: int = NULL_IDX):
@@ -148,11 +149,13 @@ class CrossEncoder(nn.Module):
         ``train=False`` (inference) runs under ``torch.no_grad``. With
         ``train=True`` gradients flow, and a ``generator`` turns on dropout:
         the encoder's, and for the 'default' head a keep-0.9 dropout on the
-        pooled embedding (``anncur_tpu/models/crossencoder.py:138-140``)."""
-        if not train:
-            with torch.no_grad():
-                return self._score(pair_token_ids, first_segment_end, None)
-        return self._score(pair_token_ids, first_segment_end, generator)
+        pooled embedding (``anncur_tpu/models/crossencoder.py:138-140``).
+        Traced as a ``ce.forward`` span."""
+        with TRACER.span("ce.forward"):
+            if not train:
+                with torch.no_grad():
+                    return self._score(pair_token_ids, first_segment_end, None)
+            return self._score(pair_token_ids, first_segment_end, generator)
 
     def _score(self, pair_token_ids, first_segment_end, generator):
         pair_token_ids = torch.as_tensor(pair_token_ids, device=self.device)

@@ -29,6 +29,7 @@ from anncur_tpu_torch.ops.mips import pad_items, topk_of_shards
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
 from anncur_tpu_torch.ops.quantized import quantize_items
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device, same_device
+from anncur_tpu_torch.utils.tracker import TRACER
 
 LOGGER = logging.getLogger(__name__)
 
@@ -79,16 +80,19 @@ class DenseIndex:
 
     def search(self, queries, k: int) -> Tuple[np.ndarray, np.ndarray]:
         """(scores (q, k) f32, ids (q, k) int64) as numpy: the exact top-k by
-        inner product, k = min(k, n), ties to the lowest id."""
-        queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device).contiguous()
-        k = min(k, self.n)
-        if self.quantized is not None:
-            s, i = mips_topk_int8_fused(queries, self.quantized, k)
-        elif self.mesh is not None:
-            s, i = topk_of_shards(queries, self.embeds, k, self.mesh, "data", self._base, self.n)
-        else:
-            s, i = mips_topk_fused(queries, self.embeds, k)
-        return s.cpu().numpy(), i.cpu().numpy()
+        inner product, k = min(k, n), ties to the lowest id. Traced as an
+        ``index.search`` span holding ``index.to_host`` (the copy out)."""
+        with TRACER.span("index.search"):
+            queries = torch.as_tensor(queries, dtype=torch.float32, device=self.device).contiguous()
+            k = min(k, self.n)
+            if self.quantized is not None:
+                s, i = mips_topk_int8_fused(queries, self.quantized, k)
+            elif self.mesh is not None:
+                s, i = topk_of_shards(queries, self.embeds, k, self.mesh, "data", self._base, self.n)
+            else:
+                s, i = mips_topk_fused(queries, self.embeds, k)
+            with TRACER.span("index.to_host"):
+                return s.cpu().numpy(), i.cpu().numpy()
 
 
 def _host_f32(x) -> np.ndarray:

@@ -1,1 +1,1 @@
-from anncur_tpu_torch.utils.tracker import ExperimentTracker, StageTimer, trace_profile  # noqa: F401
+from anncur_tpu_torch.utils.tracker import TRACER, ExperimentTracker, trace_profile  # noqa: F401

@@ -15,17 +15,35 @@ in SURVEY §5.5).
 
 Profiling: :func:`trace_profile` wraps a block in a ``torch.profiler``
 trace of the host and, where there is one, the card (the reference's PL
-'simple' profiler analogue, SURVEY §5.1), written as a Chrome trace.
+'simple' profiler analogue, SURVEY §5.1), written as a Chrome trace with
+the program's own spans beside the profiler's events.
+
+Tracing: :data:`TRACER` holds the serving path's spans and samples.
+Spans (``with TRACER.span("name"):``) mark the layer boundaries of a
+dispatch or a request and are recorded only while a ``torch.profiler``
+session records; outside one a span costs one attribute read and enters
+a shared no-op context. Samples (``TRACER.sample``) are the few values
+that health checks and metrics read over a whole run (a query's wait in
+the front end's queue, the CE rows an engine call scores and how many of
+them pad the batch); they are always recorded, each in a bounded ring.
+Spans never enter the device timeline (no ``record_function``, no NVTX
+range), so a profile's device operations are the same with or without
+them. Both stay in memory; nothing is written while the program runs.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import itertools
 import json
 import logging
 import os
+import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
+
+from torch.autograd import profiler as _autograd_profiler
 
 LOGGER = logging.getLogger(__name__)
 
@@ -99,10 +117,129 @@ class ExperimentTracker:
                 pass
 
 
+class Span(NamedTuple):
+    """One recorded span, stamped on ``time.time_ns`` (the clock the
+    profiler stamps its host and device events on)."""
+
+    name: str
+    start_ns: int
+    end_ns: int
+    seq: int  # unique per span of the tracer
+    parent: Optional[int]  # ``seq`` of the span open on the same thread when this one opened
+    thread: int  # the thread's native id (the profiler's ``tid``)
+    trace_id: int  # shared by every span of one dispatch or request
+
+
+class Sample(NamedTuple):
+    """One value, with the stretch of time it is about on ``time.time_ns``."""
+
+    start_ns: int
+    end_ns: int
+    value: float
+
+
+# the span entered while no profiler session records
+_NO_SPAN = contextlib.nullcontext()
+# spans kept, the newest (a profiled stretch of a serving run records
+# hundreds a second)
+SPAN_CAPACITY = 1 << 16
+# samples kept a name, the newest
+SAMPLE_CAPACITY = 4096
+
+
+class _OpenSpan:
+    __slots__ = ("_tracer", "_name", "_trace_id", "_seq", "_parent", "_start", "_stack", "_thread")
+
+    def __init__(self, tracer: "Tracer", name: str, trace_id: Optional[int]):
+        self._tracer, self._name, self._trace_id = tracer, name, trace_id
+
+    def __enter__(self):
+        stack, self._thread = self._tracer._thread()
+        self._stack = stack
+        outer = stack[-1] if stack else None
+        self._parent = None if outer is None else outer._seq
+        if self._trace_id is None:
+            self._trace_id = next(self._tracer._trace_ids) if outer is None else outer._trace_id
+        self._seq = next(self._tracer._seqs)
+        stack.append(self)
+        self._start = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.time_ns()
+        self._stack.pop()
+        self._tracer._add_span(Span(self._name, self._start, end, self._seq, self._parent, self._thread,
+                                    self._trace_id))
+        return False
+
+
+class Tracer:
+    """Spans at the layer boundaries of the program and samples over a run
+    (module doc). One tracer serves the process, as one profiler does: the
+    spans of a profiled stretch come from every thread that runs the
+    program. Readers take copies (:meth:`spans`, :meth:`samples`) and keep
+    what lies in the time they look at."""
+
+    def __init__(self):
+        self._spans: Deque[Span] = collections.deque(maxlen=SPAN_CAPACITY)
+        self._samples: Dict[str, Deque[Sample]] = {}
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._seqs = itertools.count()
+        self._trace_ids = itertools.count()
+
+    def span(self, name: str, trace_id: Optional[int] = None):
+        """A context that records a span named ``name`` while a
+        ``torch.profiler`` session records (the gate is read once, here).
+        A span opened inside another on its thread takes its trace id;
+        an outermost one takes ``trace_id`` or a fresh number."""
+        if not _autograd_profiler._is_profiler_enabled:
+            return _NO_SPAN
+        return _OpenSpan(self, name, trace_id)
+
+    def sample(self, name: str, value: float, start_ns: int, end_ns: Optional[int] = None) -> None:
+        """Record ``value`` under ``name`` (always on; the ring keeps the
+        newest ``SAMPLE_CAPACITY``)."""
+        item = Sample(start_ns, start_ns if end_ns is None else end_ns, value)
+        with self._lock:
+            ring = self._samples.get(name)
+            if ring is None:
+                ring = self._samples[name] = collections.deque(maxlen=SAMPLE_CAPACITY)
+            ring.append(item)
+
+    def spans(self) -> List[Span]:
+        with self._lock:
+            return list(self._spans)
+
+    def samples(self, name: str) -> List[Sample]:
+        with self._lock:
+            return list(self._samples.get(name, ()))
+
+    def _thread(self) -> Tuple[List[_OpenSpan], int]:
+        """This thread's stack of open spans, and its native id: read once
+        a thread, since on some hosts the system call behind it costs
+        more than a millisecond, far more than the rest of a span."""
+        local = self._local
+        if not hasattr(local, "stack"):
+            local.stack, local.native_id = [], threading.get_native_id()
+        return local.stack, local.native_id
+
+    def _add_span(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+
+
+TRACER = Tracer()
+
+
 @contextlib.contextmanager
 def trace_profile(log_dir: Optional[str], enabled: bool = True):
     """``torch.profiler`` trace context; the trace is written to
-    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing)."""
+    ``log_dir/trace.json`` (open it in Perfetto or chrome://tracing). The
+    program's spans recorded during the session (:data:`TRACER`) are added
+    to it as complete events on the host track of the thread that ran
+    them, on the trace's own clock, so they sit beside the operators and
+    the device timeline they enclose."""
     if not enabled or not log_dir:
         yield
         return
@@ -113,29 +250,30 @@ def trace_profile(log_dir: Optional[str], enabled: bool = True):
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    path = os.path.join(log_dir, "trace.json")
+    t0 = time.time_ns()
     with profile(activities=activities) as prof:
         yield
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    t1 = time.time_ns()
+    prof.export_chrome_trace(path)
+    _add_spans_to_chrome_trace(path, [s for s in TRACER.spans() if s.start_ns >= t0 and s.end_ns <= t1])
     LOGGER.info("profile trace written to %s", log_dir)
 
 
-class StageTimer:
-    """Named wall-clock stage timing (the 'simple profiler' analogue)."""
-
-    def __init__(self):
-        self.times: Dict[str, float] = {}
-
-    @contextlib.contextmanager
-    def stage(self, name: str):
-        t0 = time.time()
-        try:
-            yield
-        finally:
-            self.times[name] = self.times.get(name, 0.0) + time.time() - t0
-
-    def report(self) -> Dict[str, float]:
-        total = sum(self.times.values()) or 1.0
-        return {
-            name: {"seconds": round(t, 3), "frac": round(t / total, 3)}
-            for name, t in sorted(self.times.items(), key=lambda kv: -kv[1])
+def _add_spans_to_chrome_trace(path: str, spans: List[Span]) -> None:
+    """Append ``spans`` to a Chrome trace as complete ("X") events: ``ts``
+    and ``dur`` in microseconds from the trace's ``baseTimeNanoseconds``."""
+    with open(path) as fin:
+        trace = json.load(fin)
+    base = int(trace.get("baseTimeNanoseconds", 0))
+    pid = os.getpid()
+    trace.setdefault("traceEvents", []).extend(
+        {
+            "ph": "X", "cat": "program_span", "name": s.name, "pid": pid, "tid": s.thread,
+            "ts": (s.start_ns - base) / 1e3, "dur": (s.end_ns - s.start_ns) / 1e3,
+            "args": {"trace_id": s.trace_id, "seq": s.seq, "parent": s.parent},
         }
+        for s in spans
+    )
+    with open(path, "w") as fout:
+        json.dump(trace, fout)

@@ -262,7 +262,9 @@ def test_http_routes_and_dynamic_corpus(world, tmp_path):
     try:
         code, health = _call(base, "/healthz")
         assert code == 200 and health["status"] == "ok" and health["n_items"] == N_ENTS and health["mode"] == "fixed"
-        assert {"cost_per_query", "escalate_budget", "batch", "coalesce_ms", "dispatches", "queries_answered"} <= set(health)
+        assert {"cost_per_query", "escalate_budget", "batch", "coalesce_ms", "dispatches", "queries_answered",
+                "queue_wait_ms", "ce_pad_share"} <= set(health)
+        assert set(health["queue_wait_ms"]) == {"p50", "p95"}
         # the fixed mode's cost: anchors + top_k_retvr clamped to the corpus
         assert health["cost_per_query"] == 10 + N_ENTS and health["escalate_budget"] == 0
 
@@ -359,6 +361,9 @@ def test_http_concurrent_clients_coalesce(world):
         code, health = _call(base, "/healthz")
         assert health["queries_answered"] == 12
         assert health["dispatches"] < health["queries_answered"]
+        # the tracer's rings hold these queries' waits and their CE rows
+        assert 0 <= health["queue_wait_ms"]["p50"] <= health["queue_wait_ms"]["p95"]
+        assert 0 <= health["ce_pad_share"] < 1
     finally:
         _stop(t, server)
 
@@ -375,6 +380,8 @@ def test_http_adaptive_healthz_and_ipv6(world):
         assert health["cost_per_query"] == 12 and health["escalate_budget"] == N_ENTS
         code, out = _call(base, "/query", {"mention": "alpha beta"})
         assert code == 200 and len(out["results"][0]["results"]) == 10
+        health = _call(base, "/healthz")[1]
+        assert health["queue_wait_ms"]["p95"] >= 0 and 0 <= health["ce_pad_share"] < 1
     finally:
         _stop(t, server)
 

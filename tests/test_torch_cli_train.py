@@ -31,7 +31,7 @@ import anncur_tpu_torch.cli.train as ttrain
 from anncur_tpu_torch.models.bert import BertSpec
 from anncur_tpu_torch.models.biencoder import BiEncoder
 from anncur_tpu_torch.models.crossencoder import CrossEncoder
-from anncur_tpu_torch.utils import ExperimentTracker, StageTimer, trace_profile
+from anncur_tpu_torch.utils import TRACER, ExperimentTracker, trace_profile
 
 torch.set_num_threads(2)  # xdist runs several test files side by side
 
@@ -184,14 +184,18 @@ def test_tracker_and_timer(tmp_path):
     assert [r["step"] for r in recs] == [0, 1, 2]
     assert recs[0]["loss"] == 0.5 and recs[1]["build_frac"] == 0.25 and recs[2]["alert"] == "disk full"
     assert json.load(open(tmp_path / "run" / "tracker_config.json")) == {"a": 1}
-    timer = StageTimer()
-    with timer.stage("a"):
+    with TRACER.span("a"):  # no profiler session: nothing recorded
         pass
-    with timer.stage("a"):
-        pass
-    assert set(timer.report()) == {"a"}
     with trace_profile(str(tmp_path / "prof")):
-        torch.ones(4).sum()
+        with TRACER.span("a"):
+            torch.ones(4).sum()
     assert os.path.getsize(tmp_path / "prof" / "trace.json") > 0
+    # the program's span sits on the trace's host track around the op it ran
+    events = json.load(open(tmp_path / "prof" / "trace.json"))["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "program_span"]
+    assert [e["name"] for e in spans] == ["a"]
+    ones = [e for e in events if e.get("name") == "aten::ones"]
+    assert ones and spans[0]["ts"] <= ones[0]["ts"] and ones[0]["ts"] + ones[0]["dur"] <= spans[0]["ts"] + spans[0]["dur"]
+    assert spans[0]["tid"] == ones[0]["tid"]
     with trace_profile(None):  # off: nothing written
         pass
