@@ -16,9 +16,13 @@ Counterpart of ``anncur_tpu/models/bert.py`` with the same numerics:
 Attention goes through ``ops/attention.py`` (kernel A forward, kernels C
 and D backward on the card) whenever no attention dropout applies, which is
 JAX's flash condition; with attention dropout in training it is plain
-tensor ops, as JAX's ``_attn_core``. Parameters keep the JAX pytree layout
-(``embeddings``, ``layers[i].attn|mlp``, ``pooler``; kernels ``(in,
-out)``), so a JAX checkpoint maps one to one (``models/convert.py``).
+tensor ops, as JAX's ``_attn_core``. On the card's inference path (bf16,
+no autograd graph, no dropout, no tensor parallelism) each layer's bias
+adds, GELU, residual adds and LayerNorms go through the three kernels of
+``ops/encoder_epilogue.py``, which keep the same rounding points; every
+other forward runs them as plain tensor ops. Parameters keep the JAX
+pytree layout (``embeddings``, ``layers[i].attn|mlp``, ``pooler``; kernels
+``(in, out)``), so a JAX checkpoint maps one to one (``models/convert.py``).
 
 Randomness comes from an explicit ``torch.Generator``: each forward draws
 one integer seed per dropout site off it, and each site's mask comes from
@@ -41,6 +45,7 @@ from torch.nn import functional as F
 from torch.utils.checkpoint import checkpoint
 
 from anncur_tpu_torch.ops.attention import attention
+from anncur_tpu_torch.ops.encoder_epilogue import bias_add3, bias_gelu, bias_residual_layernorm
 from anncur_tpu_torch.parallel.tp import copy_to_tp, reduce_from_tp
 
 BertParams = Dict[str, Any]  # nested dict of arrays, the JAX layout
@@ -238,6 +243,24 @@ def attention_dropout_core(q, k, v, key_valid, seed: int, rate: float, dtype):
     return torch.einsum("bnqk,bknd->bqnd", probs, v.to(dtype))
 
 
+def _on_card(x) -> bool:
+    """Whether ``x`` lies where the epilogue kernels run (tests of the path
+    choice stand a CPU tensor in for a card's)."""
+    return x.is_cuda
+
+
+def _fuses_epilogue(x, lp, dtype, seeds, tp) -> bool:
+    """Whether the layer's elementwise work takes ``ops/encoder_epilogue.py``'s
+    kernels, from what the inputs show: on the card, bf16 compute, no
+    autograd graph recorded, no dropout seeds and no tensor-parallel group.
+    Training (dropout sits between a bias add and its residual, and
+    autograd needs the plain ops), f32, the CPU and tensor parallelism keep
+    the plain ops."""
+    if dtype != torch.bfloat16 or seeds is not None or tp is not None or not _on_card(x):
+        return False
+    return not torch.is_grad_enabled() or not (x.requires_grad or any(t.requires_grad for t in lp.parameters()))
+
+
 def _row_dense(x, kernel, bias, dtype, tp):
     """``_dense`` of a row-parallel product: under tensor parallelism the
     partial products are summed over the ``model`` group before the bias
@@ -277,9 +300,15 @@ def _encoder_layer(
     x_sel = select(x)
     x_in_sel = x_sel if tp is None else select(x_in)
     g = x_sel.shape[1]
-    q = _dense(x_in_sel, p["q_kernel"], p["q_bias"], dtype).reshape(b, g, nh, hd)
-    k = _dense(x_in, p["k_kernel"], p["k_bias"], dtype).reshape(b, s, nh, hd)
-    v = _dense(x_in, p["v_kernel"], p["v_bias"], dtype).reshape(b, s, nh, hd)
+    fused = _fuses_epilogue(x, lp, dtype, seeds, tp)
+    projections = ((x_in_sel, "q"), (x_in, "k"), (x_in, "v"))
+    if fused:
+        q, k, v = bias_add3(
+            *(t @ p[f"{n}_kernel"].to(dtype) for t, n in projections), p["q_bias"], p["k_bias"], p["v_bias"]
+        )
+    else:
+        q, k, v = (_dense(t, p[f"{n}_kernel"], p[f"{n}_bias"], dtype) for t, n in projections)
+    q, k, v = q.reshape(b, g, nh, hd), k.reshape(b, s, nh, hd), v.reshape(b, s, nh, hd)
     if attn_rate:
         # JAX's XLA path (its flash kernel takes no dropout); remat='attn'
         # recomputes this core in backward instead of keeping its (s, s)
@@ -292,10 +321,19 @@ def _encoder_layer(
             ctx = attention_dropout_core(*args)
     else:
         ctx = attention(q, k, v, key_valid)
-    a = _row_dense(ctx.reshape(b, g, nh * hd), p["out_kernel"], p["out_bias"], dtype, tp)
+    ctx = ctx.reshape(b, g, nh * hd)
+    mp = lp["mlp"]
+    if fused:
+        eps = spec.layer_norm_eps
+        approximate = True if spec.gelu_approximate is None else spec.gelu_approximate  # _gelu's bf16 rule
+        a = ctx @ p["out_kernel"].to(dtype)
+        x0 = bias_residual_layernorm(a, p["out_bias"], x_sel, p["ln_scale"], p["ln_bias"], eps)
+        m = bias_gelu(x0 @ mp["in_kernel"].to(dtype), mp["in_bias"], approximate)
+        m = m @ mp["out_kernel"].to(dtype)
+        return bias_residual_layernorm(m, mp["out_bias"], x0, mp["ln_scale"], mp["ln_bias"], eps)
+    a = _row_dense(ctx, p["out_kernel"], p["out_bias"], dtype, tp)
     a = dropout(a, hid_seed1, rate)
     x0 = _layer_norm(x_sel + a, p["ln_scale"], p["ln_bias"], spec.layer_norm_eps)
-    mp = lp["mlp"]
     x0_in = x0 if tp is None else copy_to_tp(x0, tp)
     m = _gelu(_dense(x0_in, mp["in_kernel"], mp["in_bias"], dtype), spec.gelu_approximate)
     m = _row_dense(m, mp["out_kernel"], mp["out_bias"], dtype, tp)

@@ -53,7 +53,12 @@ Phases, in order; any failure exits non-zero before the result line:
    spills; the f32 wide Hopper bodies too) and ptxas' registers and
    spills; the f32 wide forward and backward against an f64 autograd,
    within 4x the plain f32 version's error; for kernel B's kernels, f32
-   and int8, registers and spills;
+   and int8, registers and spills; the encoder layer's epilogue kernels
+   (``bias_residual_layernorm``, ``bias_gelu``, ``bias_add3``) at the build
+   cell's rows (2,048 pairs of 256 tokens: 524,288 x 768, and x 3,072 for
+   the GELU) against their plain compositions (within one bf16 ulp and at
+   least 99% the same bits; ``bias_add3`` bit for bit), each timed beside
+   its byte bound and the plain composition, registers and spills;
 3. build: a bert-base cross-encoder (random weights from seed 0, bf16)
    scores a 32 x 2048 matrix of 256-token pairs with ScoreMatrixBuilder;
 4. serve: CurRetriever.query_tokens_batch answers 32 token queries over
@@ -1251,6 +1256,108 @@ def check_mips_768(dev, flush):
     }
 
 
+# the encoder epilogue at the build cell's rows (2,048 pairs of 256 tokens)
+# and bert-base's hidden and MLP widths
+EPILOGUE_SHAPE = (2048 * 256, 768, 3072)
+# least share of the LayerNorm's and the GELU's elements with the plain
+# composition's bits (the rest within one bf16 ulp: f32 sums in another
+# order, the math library's last bits)
+EPILOGUE_BIT_EQUAL = 0.99
+EPILOGUE_KERNELS = ("bias_residual_layernorm_kernel", "bias_gelu_kernel", "bias_add3_kernel")
+
+
+def epilogue_ulps(got, want, terms=None, chunk_rows=1 << 16):
+    """(largest |got - want| in bf16 ulps of the element's magnitude, share
+    of elements with the same bits), over chunks of rows. The magnitude is
+    the larger of the two values, or of ``terms`` (per column) where the
+    output is a sum that cancels (the LayerNorm's y = g·z + shift: |shift|)."""
+    width = got.shape[-1]
+    got, want = got.reshape(-1, width), want.reshape(-1, width)
+    floor = torch.full((width,), 2.0 ** -126, device=got.device) if terms is None else terms.abs().float()
+    worst, same = 0.0, 0
+    for i in range(0, got.shape[0], chunk_rows):
+        a, b = got[i:i + chunk_rows].float(), want[i:i + chunk_rows].float()
+        mag = torch.maximum(torch.maximum(a.abs(), b.abs()), floor).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        worst = max(worst, float(((a - b).abs() / ulp).max()))
+        same += int((a == b).sum())
+    return worst, same / got.numel()
+
+
+def check_encoder_epilogue(dev, flush):
+    """The epilogue kernels at ``EPILOGUE_SHAPE`` against their plain
+    compositions, then timed beside their byte bounds (activations read
+    once and written once, the f32 vectors once) and the plain
+    compositions they replace in ``models/bert.py``. One kernels-line
+    entry each."""
+    from anncur_tpu_torch.ops import encoder_epilogue as ee
+
+    rows, h, inter = EPILOGUE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(20)
+
+    def act(width, std=1.0):
+        return (torch.randn(rows, width, generator=gen, device=dev) * std).to(torch.bfloat16)
+
+    def vec(width, std, mean=0.0):
+        return torch.randn(width, generator=gen, device=dev) * std + mean
+
+    ptxas = ptxas_report("encoder_epilogue")
+    log(f"  epilogue kernels (ptxas registers and spill bytes): {ptxas}")
+    if not all(any(kern in name for name in ptxas) for kern in EPILOGUE_KERNELS):
+        fail(f"the epilogue's build lacks one of {EPILOGUE_KERNELS}: {sorted(ptxas)}")
+    if any(rec.get("spill_stores", 1) or rec.get("spill_loads", 1) for rec in ptxas.values()):
+        fail(f"an epilogue kernel spills registers (ptxas): {ptxas}")
+    entries = []
+    mm, res = act(h), act(h, 2.0)
+    args = (mm, vec(h, 0.5), res, vec(h, 0.1, 1.0), vec(h, 0.1), 1e-12)
+    entries.append(time_epilogue(ee.bias_residual_layernorm, ee.bias_residual_layernorm_plain, args,
+                                 3 * mm.numel() * 2 + 3 * h * 4, f"rows={rows} h={h} bf16", flush, ptxas))
+    del mm, res, args
+    mm = act(inter, 2.0)
+    args = (mm, vec(inter, 0.5), True)
+    entries.append(time_epilogue(ee.bias_gelu, ee.bias_gelu_plain, args, 2 * mm.numel() * 2 + inter * 4,
+                                 f"rows={rows} width={inter} bf16, tanh", flush, ptxas))
+    del mm, args
+    args = (act(h), act(h), act(h), vec(h, 0.5), vec(h, 0.5), vec(h, 0.5))
+    entries.append(time_epilogue(ee.bias_add3, ee.bias_add3_plain, args, 3 * (2 * rows * h * 2 + h * 4),
+                                 f"q, k, v rows={rows} h={h} bf16, in place", flush, ptxas))
+    return entries
+
+
+def time_epilogue(fn, plain, args, nbytes, shape, flush, ptxas):
+    """One epilogue kernel against its plain composition on ``args`` (on
+    copies, in place), then both timed."""
+    name = fn.__name__
+    if name == "bias_add3":
+        got = fn(*(t.clone() for t in args[:3]), *args[3:])
+        want = plain(*(t.clone() for t in args[:3]), *args[3:])
+        same = all(torch.equal(g, w) for g, w in zip(got, want))
+        worst, share = (0.0, 1.0) if same else (float("inf"), 0.0)
+        del got, want
+        if not same:
+            fail("bias_add3 differs from the plain adds")
+    else:
+        terms = args[4] if name == "bias_residual_layernorm" else None  # the shift
+        worst, share = epilogue_ulps(fn(*args), plain(*args), terms)
+        if worst > 1.0 or share < EPILOGUE_BIT_EQUAL:
+            fail(f"{name} differs from its plain composition: {worst} ulps at most, {share:.4%} the same bits")
+    torch.cuda.empty_cache()
+    ms = time_ms(lambda: fn(*args), 20, flush)
+    plain_ms = time_ms(lambda: plain(*args), 10, flush)
+    rec = {
+        "name": name, "route": "cuda", "source": "anncur_tpu_torch/csrc/encoder_epilogue.cu",
+        "replaces": None, "replaces_plain": f"anncur_tpu_torch/ops/encoder_epilogue.py::{name}_plain",
+        "shape": shape, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 0, "bf16"),
+        "max_ulps": worst, "bit_equal_share": share,
+        "ptxas": {k: v for k, v in ptxas.items() if f"{name}_kernel" in k},
+    }
+    rec["x_bound"] = ms / rec["bound_ms"]
+    log(f"  {name} {shape}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+        f"{100 / rec['x_bound']:.1f}% of it; plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x); "
+        f"{worst:.2f} ulps at most, {share:.4%} the same bits")
+    return rec
+
+
 def bound(nbytes, ops, dtype):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
@@ -1264,11 +1371,13 @@ def bound(nbytes, ops, dtype):
 
 def _wrappers():
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq
+    from anncur_tpu_torch.ops.encoder_epilogue import bias_add3, bias_gelu, bias_residual_layernorm
     from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
 
     return {"attention_fwd": attention, "attention_bwd_dkv": attention_bwd_dkv,
             "attention_bwd_dq": attention_bwd_dq, "mips_topk_fused": mips_topk_fused,
-            "mips_topk_int8_fused": mips_topk_int8_fused}
+            "mips_topk_int8_fused": mips_topk_int8_fused, "bias_residual_layernorm": bias_residual_layernorm,
+            "bias_gelu": bias_gelu, "bias_add3": bias_add3}
 
 
 def _counters():
@@ -3572,6 +3681,7 @@ def main():
              **({"fwd_err": r["fwd_err"], "lse_rel_err": r["lse_rel_err"]} if key == "A" else {"grad_rel_err": r["grad_rel_err"]})}
             for r in wide_past]
     mips_f32, mips_int8 = check_mips_kernel(dev, flush)
+    epilogue = check_encoder_epilogue(dev, flush)
     del flush
     torch.cuda.empty_cache()
 
@@ -3654,7 +3764,7 @@ def main():
                                   axn["mips_err"], cli["tfidf"]["mips_err"], drivers["mips_err"])
     mips_f32["shapes"] += [cli["tfidf"]["kernel"], drivers["military_mips"]]
     mips_int8["max_abs_err"] = max(mips_int8["max_abs_err"], rerank["int8_err"])
-    kernels = [fwd, *bwd, *mips_route_entries(mips_f32), mips_int8]
+    kernels = [fwd, *bwd, *mips_route_entries(mips_f32), mips_int8, *epilogue]
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):

@@ -18,6 +18,7 @@ from anncur_tpu_torch.ops.attention import (
     attention_fwd,
     attention_plain,
 )
+from anncur_tpu_torch.ops import encoder_epilogue as ee
 from anncur_tpu_torch.ops.mips import mips_topk
 from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
 from anncur_tpu_torch.ops.quantized import QuantizedItems, mips_topk_int8_plain, quantize_items
@@ -1312,3 +1313,163 @@ def test_sharded_mips_on_a_world_size_1_nccl_mesh_matches_fused(dev):
     s_ref, i_ref = fused_mips_topk(q, items, 40)
     assert torch.equal(i, i_ref.to(i.dtype)) and torch.equal(s, s_ref)
     assert int(i.max()) < 5000
+
+
+# ---------------------------------------------------------------- encoder epilogue
+
+BUILD_ROWS = 2048 * 256  # the build cell's rows: 2,048 pairs of 256 tokens
+EPILOGUE_ROWS = [1, 7, 33, BUILD_ROWS]
+CE_ATOL = 2e-2  # bf16 CE scores through 12 layers, as chip_smoke's
+
+
+def _assert_within_one_ulp(got, want, terms=None, chunk_rows=1 << 16):
+    """Every element of ``got`` within one bf16 ulp of its magnitude (f32
+    sums in another order and the math library's last bits move a value
+    across at most one rounding boundary), and at least 99% of them the
+    same bits. The magnitude is the larger of the two values, or of
+    ``terms`` (per column) where the output is a sum that cancels: the
+    LayerNorm's y = g·z + shift keeps f32's error of its terms, so a y
+    near 0 is compared in ulps of |shift|."""
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    width = got.shape[-1]
+    got, want = got.reshape(-1, width), want.reshape(-1, width)
+    floor = torch.full((width,), 2.0 ** -126, device=got.device) if terms is None else terms.abs().float()
+    same, worst = 0, 0.0
+    for i in range(0, got.shape[0], chunk_rows):
+        a, b = got[i:i + chunk_rows].float(), want[i:i + chunk_rows].float()
+        mag = torch.maximum(torch.maximum(a.abs(), b.abs()), floor).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        worst = max(worst, ((a - b).abs() / ulp).max().item())
+        same += (a == b).sum().item()
+    assert worst <= 1.0, worst
+    assert same >= 0.99 * got.numel(), same / got.numel()
+
+
+def _bf16(gen, dev, *shape, std=1.0, mean=0.0):
+    return (torch.randn(*shape, generator=gen, device=dev) * std + mean).to(torch.bfloat16)
+
+
+def _f32(gen, dev, n, std, mean=0.0):
+    return torch.randn(n, generator=gen, device=dev) * std + mean
+
+
+@pytest.mark.parametrize("width", [768, 40])
+@pytest.mark.parametrize("rows", EPILOGUE_ROWS)
+def test_bias_residual_layernorm_matches_plain(dev, rows, width):
+    gen = torch.Generator(device=dev).manual_seed(rows + width)
+    mm, res = _bf16(gen, dev, rows, width), _bf16(gen, dev, rows, width, std=2.0, mean=0.3)
+    bias, scale, shift = _f32(gen, dev, width, 0.5), _f32(gen, dev, width, 0.1, 1.0), _f32(gen, dev, width, 0.1)
+    before = ee.bias_residual_layernorm.launches
+    got = ee.bias_residual_layernorm(mm, bias, res, scale, shift, 1e-12)
+    want = ee.bias_residual_layernorm_plain(mm, bias, res, scale, shift, 1e-12)
+    torch.cuda.synchronize()
+    assert ee.bias_residual_layernorm.launches == before + 1
+    _assert_within_one_ulp(got, want, terms=shift)
+
+
+@pytest.mark.parametrize("width", [1032, ee.MAX_LAYERNORM_WIDTH])
+def test_bias_residual_layernorm_takes_widths_up_to_its_cap(dev, width):
+    """Widths past three vectors a lane (1,032: 129 vectors, 5 a lane) and
+    the cap (4,096: 16 a lane), in three leading dims."""
+    gen = torch.Generator(device=dev).manual_seed(width)
+    mm, res = _bf16(gen, dev, 3, 11, width), _bf16(gen, dev, 3, 11, width)
+    bias, scale, shift = _f32(gen, dev, width, 0.5), _f32(gen, dev, width, 0.1, 1.0), _f32(gen, dev, width, 0.1)
+    got = ee.bias_residual_layernorm(mm, bias, res, scale, shift, 1e-5)
+    _assert_within_one_ulp(got, ee.bias_residual_layernorm_plain(mm, bias, res, scale, shift, 1e-5), terms=shift)
+
+
+@pytest.mark.parametrize("approximate", [True, False])
+@pytest.mark.parametrize("width", [3072, 88])
+@pytest.mark.parametrize("rows", EPILOGUE_ROWS)
+def test_bias_gelu_matches_plain(dev, rows, width, approximate):
+    gen = torch.Generator(device=dev).manual_seed(rows + width + approximate)
+    mm, bias = _bf16(gen, dev, rows, width, std=2.0), _f32(gen, dev, width, 0.5)
+    before = ee.bias_gelu.launches
+    got = ee.bias_gelu(mm, bias, approximate)
+    want = ee.bias_gelu_plain(mm, bias, approximate)
+    torch.cuda.synchronize()
+    assert ee.bias_gelu.launches == before + 1
+    _assert_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize(
+    "rows_q,rows_kv,width",
+    [(1, 7, 768), (33, 33, 40), (2048, BUILD_ROWS, 768), (BUILD_ROWS, BUILD_ROWS, 768), (7, 1, 88)],
+)
+def test_bias_add3_is_the_plain_adds_bit_for_bit(dev, rows_q, rows_kv, width):
+    gen = torch.Generator(device=dev).manual_seed(rows_q + rows_kv + width)
+    xs = [_bf16(gen, dev, rows, width) for rows in (rows_q, rows_kv, rows_kv)]
+    bs = [_f32(gen, dev, width, 0.5) for _ in range(3)]
+    want = ee.bias_add3_plain(*(x.clone() for x in xs), *bs)
+    before = ee.bias_add3.launches
+    got = ee.bias_add3(*xs, *bs)
+    torch.cuda.synchronize()
+    assert ee.bias_add3.launches == before + 1
+    for x, g, w in zip(xs, got, want):
+        assert g is x  # in place
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("entry", ["bias_residual_layernorm", "bias_gelu", "bias_add3"])
+def test_epilogue_entries_reject_what_they_cannot_take(dev, entry):
+    def args(x, vec):
+        return {
+            "bias_residual_layernorm": (x, vec, x, vec, vec, 1e-12),
+            "bias_gelu": (x, vec, True),
+            "bias_add3": (x, x.clone(), x.clone(), vec, vec, vec),
+        }[entry]
+
+    fn = getattr(ee, entry)
+    x, vec = torch.zeros(4, 64, dtype=torch.bfloat16, device=dev), torch.zeros(64, device=dev)
+    for bad, match in (
+        (args(x.float(), vec), "bf16"),
+        (args(torch.zeros(64, 8, dtype=torch.bfloat16, device=dev).t(), vec), "contiguous"),
+        (args(x[:, :60].contiguous(), vec[:60]), "multiple of 8"),
+        (args(x.cpu(), vec.cpu()), "CUDA"),
+        (args(x, vec.to(torch.bfloat16)), "f32"),
+    ):
+        with pytest.raises(ValueError, match=match):
+            fn(*bad)
+    if entry == "bias_residual_layernorm":
+        wide = torch.zeros(2, ee.MAX_LAYERNORM_WIDTH + 8, dtype=torch.bfloat16, device=dev)
+        with pytest.raises(ValueError, match="above"):
+            fn(*args(wide, torch.zeros(wide.shape[1], device=dev)))
+
+
+# (weight std, CE_ATOL or None): chip_smoke's CE at bert-base's 0.02, where
+# the fused and plain forwards lie within CE_ATOL of each other; the
+# benchmark's 0.05, where 12 random layers amplify any rounding difference
+# to the bf16 forward's own distance from f32 (~0.05 at the worst pair), so
+# each is held against the f32 forward instead
+@pytest.mark.parametrize("std,atol", [(0.02, CE_ATOL), (0.05, None)])
+def test_ce_forward_fused_matches_plain_and_counts_launches(dev, monkeypatch, std, atol):
+    """A bert-base CE forward over 2,048 pairs of 256 tokens with random key
+    lengths launches 24 / 12 / 12 of the epilogue kernels; against the plain
+    ops it agrees within ``atol``, and its mean distance from the f32
+    forward (the same weights) is at most 1.1x the plain forward's."""
+    from anncur_tpu_torch.models import bert
+    from anncur_tpu_torch.models.bert import BertSpec
+    from anncur_tpu_torch.models.crossencoder import CrossEncoder
+
+    spec = BertSpec(initializer_range=std)
+    ce = CrossEncoder(spec, compute_dtype=torch.bfloat16, device=dev, seed=3)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    b, s = 2048, 256
+    toks = torch.randint(1000, spec.vocab_size, (b, s), generator=gen, device=dev)
+    lengths = torch.randint(130, s + 1, (b,), generator=gen, device=dev)
+    toks = toks.masked_fill(torch.arange(s, device=dev)[None, :] >= lengths[:, None], 0)
+    names = ("bias_residual_layernorm", "bias_gelu", "bias_add3")
+    before = [getattr(ee, n).launches for n in names]
+    got = ce.score(toks, first_segment_end=128)
+    torch.cuda.synchronize()
+    assert [getattr(ee, n).launches - n0 for n, n0 in zip(names, before)] == [24, 12, 12]
+    f32 = CrossEncoder(spec, compute_dtype=torch.float32, device=dev, seed=3).score(toks, first_segment_end=128)
+    monkeypatch.setattr(bert, "_on_card", lambda x: False)
+    want = ce.score(toks, first_segment_end=128)
+    assert [getattr(ee, n).launches - n0 for n, n0 in zip(names, before)] == [24, 12, 12]
+    if atol is not None:
+        err = (got - want).abs().max().item()
+        assert err <= atol, err
+    fused_err, plain_err = (got - f32).abs().mean().item(), (want - f32).abs().mean().item()
+    assert fused_err <= 1.1 * plain_err, (fused_err, plain_err)
+    assert f32.std().item() > 5 * CE_ATOL  # pairs told apart
