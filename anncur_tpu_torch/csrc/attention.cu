@@ -159,11 +159,13 @@ constexpr size_t bf16_smem_bytes(int n_tiles) {
 
 // sc (a warp's 16 x 64 score tile in C fragments) <- sc * scale + bias,
 // bias 0 at valid keys, -1e9 at masked ones and -inf at keys past the end
-// (n_keys = keys of the tile below s); tmax <- each of the lane's two rows'
-// max over its 16 columns
-template <bool kAllValid>
+// (n_keys = keys of the tile below s); kDiag: also -inf at keys past the
+// row (tile-local key > row0, the lane's first row; row0 + 8 its second);
+// tmax <- each of the lane's two rows' max over its 16 columns
+template <bool kAllValid, bool kDiag = false>
 __device__ __forceinline__ void scale_and_bias(float (&sc)[kKeyTile / 8][4], float (&tmax)[2],
-                                               float scale, uint64_t bits, int n_keys, int kq) {
+                                               float scale, uint64_t bits, int n_keys, int kq,
+                                               int row0 = 0) {
   tmax[0] = tmax[1] = -INFINITY;
 #pragma unroll
   for (int j = 0; j < kKeyTile / 8; ++j) {
@@ -172,8 +174,8 @@ __device__ __forceinline__ void scale_and_bias(float (&sc)[kKeyTile / 8][4], flo
       const int kt = 8 * j + kq + e;
       float bias = 0.0f;
       if (!kAllValid) bias = kt >= n_keys ? -INFINITY : (((bits >> kt) & 1) ? 0.0f : kMaskBias);
-      sc[j][e] = sc[j][e] * scale + bias;
-      sc[j][e + 2] = sc[j][e + 2] * scale + bias;
+      sc[j][e] = sc[j][e] * scale + (kDiag && kt > row0 ? -INFINITY : bias);
+      sc[j][e + 2] = sc[j][e + 2] * scale + (kDiag && kt > row0 + 8 ? -INFINITY : bias);
       tmax[0] = fmaxf(tmax[0], sc[j][e]);
       tmax[1] = fmaxf(tmax[1], sc[j][e + 2]);
     }
@@ -186,15 +188,19 @@ __device__ __forceinline__ void scale_and_bias(float (&sc)[kKeyTile / 8][4], flo
 template <int HD, int NW>
 constexpr int kMinBlocksPerSm = (NW == 4 && HD <= 64) ? 4 : 1;
 
-template <int HD, int NW>
-__global__ void __launch_bounds__(NW * 32, kMinBlocksPerSm<HD, NW>)
-attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const uint8_t* __restrict__ key_valid,
-                          bf16* __restrict__ out, float* __restrict__ lse, int g, int s, int nh,
-                          int n_qt, long long q_sb, long long q_sr, long long q_sh,
-                          long long k_sb, long long k_sr, long long k_sh, long long v_sb,
-                          long long v_sr, long long v_sh, long long valid_sb, float scale) {
+// The mma.sync body. kCausal (g = s, query row i at position i): key tiles
+// past the query tile's last row are never loaded, keys past a row's own
+// position score -inf in the tile on the diagonal, and no tile is skipped
+// for its mask (a row's visible keys may all be masked while a later key is
+// valid), so every other key keeps its -1e9 bias.
+template <int HD, int NW, bool kCausal>
+__device__ __forceinline__ void attention_fwd_bf16_body(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const uint8_t* __restrict__ key_valid, bf16* __restrict__ out, float* __restrict__ lse, int g, int s,
+    int nh, int n_qt, long long q_sb, long long q_sr, long long q_sh, long long k_sb, long long k_sr,
+    long long k_sh, long long v_sb, long long v_sr, long long v_sh, long long valid_sb, float scale) {
   constexpr int kRows = 16 * NW, kThreads = 32 * NW, kLd = HD + 8, kUnits = HD / 8;
+  static_assert(!kCausal || kKeyTile % kRows == 0, "a causal query tile ends in one key tile");
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);
   bf16* ks = qs + kRows * kLd;          // 2 stages of kKeyTile rows
@@ -206,7 +212,8 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   const int bh = blockIdx.x / n_qt;
   const int h = bh % nh, b = bh / nh;
   const int row0 = qt * kRows;
-  const int n_tiles = (s + kKeyTile - 1) / kKeyTile;
+  const int n_tiles = kCausal ? min((s + kKeyTile - 1) / kKeyTile, (row0 + kRows - 1) / kKeyTile + 1)
+                              : (s + kKeyTile - 1) / kKeyTile;
 
   const bf16* kb = k + b * k_sb + h * k_sh;
   const bf16* vb = v + b * v_sb + h * v_sh;
@@ -245,7 +252,7 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   }
   const bool any_valid = __syncthreads_or(any_local);  // also publishes tile_bits
   auto next_tile = [&](int t) {
-    while (any_valid && t < n_tiles && tile_bits[t] == 0) ++t;
+    while (!kCausal && any_valid && t < n_tiles && tile_bits[t] == 0) ++t;
     return t;
   };
   int t = 0;
@@ -297,7 +304,9 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     const uint64_t bits = tile_bits[t];
     const int key0 = t * kKeyTile;
     float tmax[2];
-    if (bits == ~0ull && key0 + kKeyTile <= s)
+    if (kCausal && key0 + kKeyTile - 1 > row0 + wrow)  // a key of the tile lies past a row of this warp
+      scale_and_bias<false, true>(sc, tmax, scale, bits, s - key0, kq, row0 + wrow + (lane >> 2) - key0);
+    else if (bits == ~0ull && key0 + kKeyTile <= s)
       scale_and_bias<true>(sc, tmax, scale, bits, s - key0, kq);
     else
       scale_and_bias<false>(sc, tmax, scale, bits, s - key0, kq);
@@ -388,6 +397,35 @@ attention_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     }
   }
 }
+
+#define ATTN_BF16_PARAMS                                                                             \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,                 \
+      const uint8_t *__restrict__ key_valid, bf16 *__restrict__ out, float *__restrict__ lse, int g,   \
+      int s, int nh, int n_qt, long long q_sb, long long q_sr, long long q_sh, long long k_sb,          \
+      long long k_sr, long long k_sh, long long v_sb, long long v_sr, long long v_sh, long long valid_sb, \
+      float scale
+#define ATTN_BF16_ARGS                                                                               \
+  q, k, v, key_valid, out, lse, g, s, nh, n_qt, q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, \
+      valid_sb, scale
+
+template <int HD, int NW>
+__global__ void __launch_bounds__(NW * 32, kMinBlocksPerSm<HD, NW>)
+attention_fwd_bf16_kernel(ATTN_BF16_PARAMS) {
+  attention_fwd_bf16_body<HD, NW, false>(ATTN_BF16_ARGS);
+}
+
+// causal (g = s): four warps, 64-row query tiles, one key tile on the diagonal;
+// instantiated at kCausalHeadDim alone
+constexpr int kCausalHeadDim = 192;
+
+template <int HD>
+__global__ void __launch_bounds__(128, kMinBlocksPerSm<HD, 4>)
+attention_fwd_bf16_causal_kernel(ATTN_BF16_PARAMS) {
+  attention_fwd_bf16_body<HD, 4, true>(ATTN_BF16_ARGS);
+}
+
+#undef ATTN_BF16_PARAMS
+#undef ATTN_BF16_ARGS
 
 // ------------------------------------------------------------- Hopper
 
@@ -1164,13 +1202,14 @@ attention_fwd_wide_wgmma_kernel(const __grid_constant__ Maps maps, const uint8_t
 
 // ----------------------------------------------------------------- launch
 
-template <int HD, int NW>
+template <int HD, int NW, bool kCausal = false>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v, const void* key_valid,
                         void* out, float* lse, int b, int g, int s, int nh, const long long* st,
                         float scale, cudaStream_t stream) {
   const int n_tiles = (s + kKeyTile - 1) / kKeyTile;
   const size_t smem = bf16_smem_bytes<HD, NW>(n_tiles);
   auto kern = attention_fwd_bf16_kernel<HD, NW>;
+  if constexpr (kCausal) kern = attention_fwd_bf16_causal_kernel<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -1359,6 +1398,25 @@ extern "C" int attention_fwd(const void* q, const void* k, const void* v,
       if (hd <= 256 || hd % 16) return cudaErrorInvalidValue;
       return launch_wide(is_bf16, q, k, v, key_valid, out, lse_f, b, g, s, nh, hd, st, scale, cs);
   }
+}
+
+// The causal entry: attention_fwd's arguments, for bf16 q, k, v with g = s
+// and hd 192, the one width a configuration runs (DeepSeek-V2-Lite's qk
+// head dim; ops/attention.py pads narrower ones to it); no lse.
+extern "C" int attention_fwd_causal(const void* q, const void* k, const void* v,
+                                    const void* key_valid, void* out, void* lse, int is_bf16, int b,
+                                    int g, int s, int nh, int hd, long long q_sb,
+                                    long long q_sr, long long q_sh, long long k_sb,
+                                    long long k_sr, long long k_sh, long long v_sb,
+                                    long long v_sr, long long v_sh, long long valid_sb,
+                                    float scale, int device, void* stream) {
+  if (!is_bf16 || lse != nullptr || g != s) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const long long st[10] = {q_sb, q_sr, q_sh, k_sb, k_sr, k_sh, v_sb, v_sr, v_sh, valid_sb};
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (hd != kCausalHeadDim) return cudaErrorInvalidValue;
+  return launch_bf16<kCausalHeadDim, 4, true>(q, k, v, key_valid, out, nullptr, b, g, s, nh, st, scale, cs);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -22,6 +22,12 @@ zero-pads q, k and v of any other width to the next multiple of 16 (zero
 columns add nothing to QKᵀ and give zero output columns), keeps the
 softmax scale at 1/√(real hd), and slices the output and the gradients
 back, so it takes every head dim that JAX's ``_attn_core`` takes.
+
+The decoder cross-encoder (``models/deepseek_v2.py``) calls it with
+``causal=True`` (a mode of kernel A's ``mma.sync`` body, built at hd 192
+alone: key tiles past a query tile's last row are never read, keys past a
+row's position score -inf), its own softmax scale, and v narrower than q
+and k.
 """
 
 from __future__ import annotations
@@ -36,15 +42,29 @@ from anncur_tpu_torch.ops import cuda_build
 # head dims the kernels take are multiples of this (csrc/attention_common.cuh
 # up to 256, csrc/attention_wide.cuh above)
 _HEAD_DIM_UNIT = 16
+# the one head dim of the causal body (DeepSeek-V2-Lite's qk head dim, 128 +
+# 64); narrower causal heads are zero-padded to it
+CAUSAL_HEAD_DIM = 192
 
 
-def attention_plain(q, k, v, key_valid):
+def attention_plain(q, k, v, key_valid, causal: bool = False, scale=None):
     """einsum, mask, softmax, einsum, all in f32 on the JAX layout
-    (``anncur_tpu/models/bert.py::_attn_core``); cast to q's dtype."""
+    (``anncur_tpu/models/bert.py::_attn_core``); cast to q's dtype. ``scale``
+    multiplies QKᵀ (default: divided by √hd). ``causal`` (g = s): keys past
+    a query's own position score -inf, on top of the -1e9 of invalid keys.
+    v may be narrower than q and k; the output takes its width."""
     hd = q.shape[-1]
-    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) / math.sqrt(hd)
+    scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float())
+    scores = scores / math.sqrt(hd) if scale is None else scores * scale
     bias = torch.where(key_valid, 0.0, -1e9).to(torch.float32)
-    probs = torch.softmax(scores + bias[:, None, None, :], dim=-1)
+    scores = scores + bias[:, None, None, :]
+    if causal:
+        g, s = q.shape[1], k.shape[1]
+        if g != s:
+            raise ValueError(f"causal attention takes g = s, got g={g}, s={s}")
+        ahead = torch.ones(g, s, dtype=torch.bool, device=q.device).triu_(1)
+        scores = scores.masked_fill(ahead, -torch.inf)
+    probs = torch.softmax(scores, dim=-1)
     return torch.einsum("bnqk,bknd->bqnd", probs, v.float()).to(q.dtype)
 
 
@@ -63,18 +83,28 @@ def attention_bwd_plain(q, k, v, key_valid, dout):
         return torch.autograd.grad(out, leaves, dout)
 
 
-def attention(q, k, v, key_valid):
-    """softmax(QKᵀ/√hd + bias) V with bias -1e9 at invalid keys.
+def attention(q, k, v, key_valid, causal: bool = False, scale=None):
+    """softmax(QKᵀ · scale + bias) V with bias -1e9 at invalid keys; ``scale``
+    defaults to 1/√hd. ``causal`` (g = s) also hides each query's later
+    keys (the decoder's layers; no backward; on the card q and k at most
+    ``CAUSAL_HEAD_DIM`` wide, zero-padded to it). v may be narrower than q
+    and k (latent attention's 128 against 192): it is zero-padded to their
+    width, which adds zero output columns, and the output sliced back.
 
     CPU tensors take :func:`attention_plain`; CUDA tensors launch kernel A
     (and, when a gradient is needed, kernels C and D in backward) or raise."""
     tensors = (q, k, v, key_valid)
     if all(t.device.type == "cpu" for t in tensors):
-        return attention_plain(q, k, v, key_valid)
+        return attention_plain(q, k, v, key_valid, causal, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if causal or scale is not None or v.shape[-1] != q.shape[-1]:
+            raise ValueError("attention: the backward kernels take the default scale, equal widths, not causal")
         return AttentionFunction.apply(q, k, v, key_valid)
-    hd = q.shape[-1]
-    return attention_fwd(*_pad_head_dim(q, k, v), key_valid, scale=1.0 / math.sqrt(hd))[0][..., :hd]
+    hd, hv = q.shape[-1], v.shape[-1]
+    scale = 1.0 / math.sqrt(hd) if scale is None else scale
+    width = CAUSAL_HEAD_DIM if causal and hd <= CAUSAL_HEAD_DIM else hd + -hd % _HEAD_DIM_UNIT
+    q, k, v = (t if t.shape[-1] >= width else torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
+    return attention_fwd(q, k, v, key_valid, causal=causal, scale=scale)[0][..., :hv]
 
 
 attention.launches = 0  # kernel A launches; chip_smoke reads and resets it
@@ -121,17 +151,22 @@ class AttentionFunction(torch.autograd.Function):
         return dq[..., :hd], dk[..., :hd], dv[..., :hd], None
 
 
-def attention_fwd(q, k, v, key_valid, with_lse: bool = False, scale=None):
+def attention_fwd(q, k, v, key_valid, causal: bool = False, with_lse: bool = False, scale=None):
     """Kernel A: ``(out, lse)``; ``lse`` is the (b, nh, g) f32 row
     log-sum-exp when ``with_lse``, else None. ``scale`` multiplies QKᵀ
-    (default 1/√hd of q's head dim)."""
+    (default 1/√hd of q's head dim). ``causal``: bf16, g = s, hd
+    ``CAUSAL_HEAD_DIM``, no lse (the mma.sync body's causal instantiation)."""
     _check(q, k, v, key_valid)
     b, g, nh, hd = q.shape
     s = k.shape[1]
+    if causal and (q.dtype != torch.bfloat16 or g != s or hd != CAUSAL_HEAD_DIM or with_lse):
+        raise ValueError(f"attention: causal takes bf16, g = s, hd {CAUSAL_HEAD_DIM} and no lse; got {q.dtype}, "
+                         f"g={g}, s={s}, hd={hd}, with_lse={with_lse}")
     out = torch.empty((b, g, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nh, g), dtype=torch.float32, device=q.device) if with_lse else None
-    lib = _lib("attention", "attention_fwd", 6)
-    rc = lib.attention_fwd(
+    entry = "attention_fwd_causal" if causal else "attention_fwd"
+    lib = _lib("attention", entry, 6)
+    rc = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), *_geometry(q, k, v, key_valid, scale),
     )

@@ -26,6 +26,10 @@ a shared no-op context. Samples (``TRACER.sample``) are the few values
 that health checks and metrics read over a whole run (a query's wait in
 the front end's queue, the CE rows an engine call scores and how many of
 them pad the batch); they are always recorded, each in a bounded ring.
+Device counters (``TRACER.device_counter``) are integer tensors on the
+card that the program adds to inside its forwards, with no host sync (rows
+each expert computed, per layer); they are read after the work
+(``read_counter``), never inside it.
 Spans never enter the device timeline (no ``record_function``, no NVTX
 range), so a profile's device operations are the same with or without
 them. Both stay in memory; nothing is written while the program runs.
@@ -183,6 +187,7 @@ class Tracer:
     def __init__(self):
         self._spans: Deque[Span] = collections.deque(maxlen=SPAN_CAPACITY)
         self._samples: Dict[str, Deque[Sample]] = {}
+        self._counters: Dict[str, Any] = {}
         self._lock = threading.Lock()
         self._local = threading.local()
         self._seqs = itertools.count()
@@ -206,6 +211,34 @@ class Tracer:
             if ring is None:
                 ring = self._samples[name] = collections.deque(maxlen=SAMPLE_CAPACITY)
             ring.append(item)
+
+    def device_counter(self, name: str, shape: Tuple[int, ...], device) -> "torch.Tensor":
+        """The int64 counter ``name`` of ``shape`` on ``device``, zeros when
+        first asked for (or asked for with another shape or device). The
+        program adds to it on the device; nothing here reads it."""
+        import torch
+
+        device = torch.device(device)
+        with self._lock:
+            cur = self._counters.get(name)
+            if cur is None or tuple(cur.shape) != tuple(shape) or cur.device.type != device.type \
+                    or (device.index is not None and cur.device.index != device.index):
+                cur = self._counters[name] = torch.zeros(shape, dtype=torch.int64, device=device)
+            return cur
+
+    def read_counter(self, name: str) -> Optional["torch.Tensor"]:
+        """A host copy of the counter ``name`` (waits for the device), or
+        None where the program made none."""
+        with self._lock:
+            cur = self._counters.get(name)
+        return None if cur is None else cur.cpu()
+
+    def reset_counter(self, name: str) -> None:
+        """Zero the counter ``name``, where there is one."""
+        with self._lock:
+            cur = self._counters.get(name)
+        if cur is not None:
+            cur.zero_()
 
     def spans(self) -> List[Span]:
         with self._lock:

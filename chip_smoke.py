@@ -1,8 +1,9 @@
 """Smoke run of the PyTorch + CUDA port (``anncur_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--decoder-only]
 
-Phases, in order; any failure exits non-zero before the result line:
+Phases, in order (``--decoder-only``: 1, 15 and the kernels line of 15's
+kernels); any failure exits non-zero before the result line:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions, and every kernel built from ``anncur_tpu_torch/csrc``
@@ -174,12 +175,27 @@ Phases, in order; any failure exits non-zero before the result line:
    ``make_trained_ce_matrix --quick`` on the card (the matched budgets
    against the committed JAX artifact, the training from one start
    against the CPU's); one JSON line per driver, with the card;
-15. the ``kernels`` line: each kernel's launches on phases 3-14 (counts set
+15. the decoder CE (DeepSeek-V2-Lite, ``models/deepseek_v2.py``) at the
+   index-build cell's shapes: ``moe_permute`` and ``moe_combine`` at
+   131,072 tokens x top 6 of 64 experts x 2,048 (a seeded router) against
+   their plain versions bit for bit (``moe_combine`` the same bits on three
+   runs), timed beside their byte bounds and the plain versions, registers
+   and spills; kernel A's causal body (hd 192, v 128 zero-padded; b=512
+   g=s=256 nh=16, one pad key a pair) and the final layer's g=1 launch
+   against the plain attention (32 pairs), timed beside the bound and SDPA
+   with an explicit mask, its HMMA count, registers and spills; then one
+   forward of 512 pairs (random weights on the card, seed 5) with its
+   launches counted (26 causal + 1 final kernel A, 26 of each dispatch
+   kernel, nothing else), three timed, peak memory, and the gap to the f32
+   reference (``models/deepseek_v2_reference.py``) at 32 pairs with the
+   tokens each expert layer routes apart from it;
+16. the ``kernels`` line: each kernel's launches on phases 3-15 (counts set
    to 0 just before each phase, CLI, driver or path call and read just
    after), error and times; kernel B's f32 entry once per score route
    (``mips_topk_fused``: every launch, its FFMA shapes; ``mips_topk_fused_tc``:
    the launches whose score stage ran on the tensor cores, its shapes);
-16. the last line, ``{"ok": true, "device": {...}}``.
+   kernel A's entry holds phase 15's causal record;
+17. the last line, ``{"ok": true, "device": {...}}``.
 
 Needs a CUDA card and the CUDA toolkit; imports nothing of JAX.
 """
@@ -1373,11 +1389,12 @@ def _wrappers():
     from anncur_tpu_torch.ops.attention import attention, attention_bwd_dkv, attention_bwd_dq
     from anncur_tpu_torch.ops.encoder_epilogue import bias_add3, bias_gelu, bias_residual_layernorm
     from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
+    from anncur_tpu_torch.ops.moe import moe_combine, moe_permute
 
     return {"attention_fwd": attention, "attention_bwd_dkv": attention_bwd_dkv,
             "attention_bwd_dq": attention_bwd_dq, "mips_topk_fused": mips_topk_fused,
             "mips_topk_int8_fused": mips_topk_int8_fused, "bias_residual_layernorm": bias_residual_layernorm,
-            "bias_gelu": bias_gelu, "bias_add3": bias_add3}
+            "bias_gelu": bias_gelu, "bias_add3": bias_add3, "moe_permute": moe_permute, "moe_combine": moe_combine}
 
 
 def _counters():
@@ -3645,7 +3662,281 @@ def phase_tools(dev, root, smi, rehearsal=False):
     return rec
 
 
-def main():
+# --------------------------------------------------------------------- #
+# phase 15: the decoder cross-encoder (DeepSeek-V2-Lite)
+# --------------------------------------------------------------------- #
+
+# the index-build cell's forward: 512 pairs of 256 tokens (131,072 tokens),
+# 16 heads, qk head dim 192 (v 128), 64 experts of which 6 a token, hidden
+# 2,048; 26 expert layers, so 26 causal kernel A launches + the final
+# layer's one, and 26 of each dispatch kernel a forward
+DSV2_PAIRS, DSV2_SEQ, DSV2_HEADS, DSV2_HIDDEN, DSV2_EXPERTS, DSV2_TOP_K = 512, 256, 16, 2048, 64, 6
+DSV2_TOKENS = DSV2_PAIRS * DSV2_SEQ
+DSV2_PLAIN_PAIRS = 32  # the plain attention's f32 scores of 512 pairs would take 8.6 GB
+DSV2_LAUNCHES = {"attention_fwd": 27, "moe_permute": 26, "moe_combine": 26}
+# the published keys the f32 reference reads (models/deepseek_v2_reference.py)
+DSV2_CONFIG = {
+    "hidden_size": 2048, "num_hidden_layers": 27, "num_attention_heads": 16, "kv_lora_rank": 512,
+    "qk_nope_head_dim": 128, "qk_rope_head_dim": 64, "v_head_dim": 128, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000, "rope_scaling": {"factor": 40, "mscale": 0.707, "mscale_all_dim": 0.707,
+                                         "original_max_position_embeddings": 4096, "beta_fast": 32, "beta_slow": 1},
+    "n_routed_experts": 64, "num_experts_per_tok": 6, "first_k_dense_replace": 1, "routed_scaling_factor": 1,
+}
+
+
+def check_dispatch(dev, flush):
+    """``moe_permute`` and ``moe_combine`` at the cell's forward (a seeded
+    router over 131,072 tokens) against their plain versions bit for bit,
+    ``moe_combine`` the same bits on three runs; timed beside their byte
+    bounds (each row read once and written once, the int32 rows and f32
+    weights once) and the plain versions. One kernels-line entry each."""
+    from anncur_tpu_torch.ops import moe
+
+    ptxas = ptxas_report("moe_dispatch")
+    log(f"  dispatch kernels (ptxas registers and spill bytes): {ptxas}")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    x = torch.randn(DSV2_TOKENS, DSV2_HIDDEN, generator=gen, device=dev).to(torch.bfloat16)
+    gate = torch.randn(DSV2_EXPERTS, DSV2_HIDDEN, generator=gen, device=dev) * 0.05
+    ids, weights = moe.route(x, gate, DSV2_TOP_K)
+    dest = moe.sort_rows(ids, DSV2_EXPERTS).dest
+    shape = f"tokens={DSV2_TOKENS} k={DSV2_TOP_K} of {DSV2_EXPERTS} h={DSV2_HIDDEN} bf16"
+    entries = []
+
+    def entry(fn, plain, args, nbytes, checks):
+        ms = time_ms(lambda: fn(*args), 20, flush)
+        plain_ms = time_ms(lambda: plain(*args), 5, flush)
+        rec = {"name": fn.__name__, "route": "cuda", "source": "anncur_tpu_torch/csrc/moe_dispatch.cu",
+               "replaces": None, "replaces_plain": f"anncur_tpu_torch/ops/moe.py::{fn.__name__}_plain",
+               "shape": shape, "ms": ms, "plain_ms": plain_ms, **bound(nbytes, 0, "bf16"), **checks,
+               "ptxas": {k: v for k, v in ptxas.items() if fn.__name__ in k}}
+        rec["x_bound"] = ms / rec["bound_ms"]
+        log(f"  {fn.__name__} {shape}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms, {100 / rec['x_bound']:.1f}% of "
+            f"it; plain {plain_ms:.4f} ms; {checks}")
+        entries.append(rec)
+
+    xs = moe.moe_permute(x, dest)
+    if not torch.equal(xs, moe.moe_permute_plain(x, dest)):
+        fail("moe_permute differs from its plain version")
+    row = DSV2_HIDDEN * 2
+    entry(moe.moe_permute, moe.moe_permute_plain, (x, dest),
+          DSV2_TOKENS * row * (1 + DSV2_TOP_K) + 4 * DSV2_TOKENS * DSV2_TOP_K, {"bit_equal": True})
+    del xs
+    y = torch.randn(dest.numel(), DSV2_HIDDEN, generator=gen, device=dev).to(torch.bfloat16)
+    shared, resid = (torch.randn(DSV2_TOKENS, DSV2_HIDDEN, generator=gen, device=dev).to(torch.bfloat16)
+                     for _ in range(2))
+    args = (y, dest, weights, shared, resid)
+    runs = [moe.moe_combine(*args) for _ in range(3)]
+    if not all(torch.equal(r, runs[0]) for r in runs):
+        fail("moe_combine gives other bits on another run")
+    if not torch.equal(runs[0], moe.moe_combine_plain(*args)):
+        fail("moe_combine differs from its plain version")
+    del runs
+    torch.cuda.empty_cache()
+    entry(moe.moe_combine, moe.moe_combine_plain, args,
+          DSV2_TOKENS * row * (DSV2_TOP_K + 3) + 8 * DSV2_TOKENS * DSV2_TOP_K,
+          {"bit_equal": True, "same_bits_every_run": True})
+    del x, y, shared, resid, args
+    torch.cuda.empty_cache()
+    return entries
+
+
+def check_causal(dev, flush):
+    """Kernel A's causal body at the cell's full layers (b=512 g=s=256
+    nh=16, q and k 192 wide, v 128 zero-padded to 192, 255 valid keys a
+    pair) and the final layer's g=1 launch at the last valid position,
+    against the plain attention (32 pairs) within ``ATTN_ATOL``; timed
+    beside the byte bound, the plain attention and SDPA with an explicit
+    causal and padding mask. The causal body's HMMA count, registers and
+    spills. Kernel A's entry in the kernels line takes the record."""
+    from anncur_tpu_torch.models.deepseek_v2 import DeepseekV2Spec
+    from anncur_tpu_torch.ops.attention import attention, attention_plain
+
+    found = {name: rec for name, rec in ptxas_report("attention").items() if "causal" in name}
+    sass, fn = _sass("attention"), None
+    for line in (sass or "").splitlines():
+        if "Function :" in line:
+            fn = next((name for name in found if name in line), None)
+        elif fn and "HMMA" in line:
+            found[fn]["hmma"] = found[fn].get("hmma", 0) + 1
+    log(f"  causal kernel A (HMMA in SASS, ptxas registers and spill bytes): {found}")
+    if len(found) != 1 or any(rec.get("spill_stores", 1) or rec.get("spill_loads", 1) for rec in found.values()) \
+            or (sass is not None and not all(rec.get("hmma") for rec in found.values())):
+        fail(f"kernel A's causal body is not one instantiation on the tensor cores with no spill: {found}")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    scale = DeepseekV2Spec().softmax_scale
+    b, s, nh = DSV2_PAIRS, DSV2_SEQ, DSV2_HEADS
+    q, k = (torch.randn(b, s, nh, 192, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    v = torch.randn(b, s, nh, 128, generator=gen, device=dev).to(torch.bfloat16)
+    valid = torch.ones(b, s, dtype=torch.bool, device=dev)
+    valid[:, s - 1] = False
+    sub = slice(0, DSV2_PLAIN_PAIRS)
+    out = attention(q, k, v, valid, causal=True, scale=scale)
+    want = attention_plain(q[sub], k[sub], v[sub], valid[sub], causal=True, scale=scale)
+    err = float((out[sub].float() - want.float()).abs().max())
+    last = torch.full((b,), s - 2, device=dev)
+    q1 = q[torch.arange(b, device=dev), last][:, None].contiguous()
+    err1 = float((attention(q1, k, v, valid, scale=scale).float()
+                  - attention_plain(q1, k, v, valid, scale=scale).float()).abs().max())
+    if not (err <= ATTN_ATOL and err1 <= ATTN_ATOL):
+        fail(f"kernel A causal at hd 192 vs plain: {err} (g=s), {err1} (g=1)")
+    del out, want
+    n_valid = int(valid.sum())
+    row = nh * 192 * 2
+    # q and out whole, k and v at the valid keys (v at the padded 192, as
+    # the kernel reads it); QKᵀ and PV over the visible pairs
+    nbytes = 2 * b * s * row + 2 * n_valid * row + b * s
+    ops = 4 * nh * 192 * b * (s - 1) * s / 2
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    pos = torch.arange(s, device=dev)
+    allowed = (pos[None, :] <= pos[:, None])[None, None] & valid[:, None, None, :]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    rec = {"shape": f"b={b} g=s={s} nh={nh} hd=192 (v 128) bf16", "err": err,
+           "ms": time_ms(lambda: attention(q, k, v, valid, causal=True, scale=scale), 10, flush),
+           **bound(nbytes, ops, "bf16"),
+           "plain_ms_scaled": time_ms(lambda: attention_plain(q[sub], k[sub], v[sub], valid[sub], causal=True,
+                                                               scale=scale), 3, flush) * b / DSV2_PLAIN_PAIRS,
+           "sdpa_explicit_mask_ms": time_ms(lambda: sdpa(qt, kt, vt, attn_mask=allowed, scale=scale), 10, flush)}
+    rec1 = {"shape": f"b={b} g=1 s={s} nh={nh} hd=192 (v 128) bf16", "err": err1,
+            "ms": time_ms(lambda: attention(q1, k, v, valid, scale=scale), 20, flush),
+            **bound(2 * b * row + 2 * n_valid * row + b * s, 4 * nh * 192 * n_valid, "bf16"),
+            "sdpa_explicit_mask_ms": time_ms(lambda: sdpa(q1.transpose(1, 2), kt, vt,
+                                                          attn_mask=valid[:, None, None, :], scale=scale), 20, flush)}
+    for r in (rec, rec1):
+        log(f"  kernel A causal {r['shape']}: {r['ms']:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
+            f"SDPA {r['sdpa_explicit_mask_ms']:.4f} ms; error vs plain {r['err']:.4f}")
+    del q, k, v, qt, kt, vt, q1, allowed
+    torch.cuda.empty_cache()
+    return {"full_layer": rec, "final_layer": rec1, "ptxas": found}
+
+
+def routing_flips(ce, ids):
+    """(tokens whose set of experts differs between the bf16 forward and the
+    f32 reference, per expert layer, at the valid positions (the final
+    layer: the last one a pair); the reference's scores)."""
+    from anncur_tpu_torch.models import deepseek_v2 as dsv2
+    from anncur_tpu_torch.models import deepseek_v2_reference as ref
+
+    got, want = [], []
+    route, moe = dsv2.route, ref.moe
+    top_k = DSV2_CONFIG["num_experts_per_tok"]
+
+    def recording_route(x, gate, k, scale=1.0):
+        out = route(x, gate, k, scale)
+        got.append(out[0])
+        return out
+
+    def recording_moe(x, lw, cfg):
+        probs = torch.softmax(x @ lw["router"].T, dim=-1)
+        want.append(torch.sort(probs, dim=-1, descending=True, stable=True).indices[:, :top_k])
+        return moe(x, lw, cfg)
+
+    dsv2.route, ref.moe = recording_route, recording_moe
+    try:
+        ce.score(ids, DSV2_SEQ // 2)
+        w = ce.weights
+        scores = ref.forward_scores(DSV2_CONFIG, ids, w["embed"].float(),
+                                    lambda i: {k: v.float() for k, v in w["layers"][i].items()},
+                                    w["final_norm"].float(), w["score"].float())
+    finally:
+        dsv2.route, ref.moe = route, moe
+    b, s = ids.shape
+    valid = (ids != 0).reshape(-1)
+    last = (torch.arange(s, device=ids.device) * (ids != 0)).argmax(-1)
+    flips = []
+    for li, (g, r) in enumerate(zip(got, want)):
+        if li == len(got) - 1:
+            r = r.view(b, s, -1)[torch.arange(b, device=ids.device), last]
+        else:
+            g, r = g[valid], r[valid]
+        flips.append(int((g.sort(-1).values != r.sort(-1).values).any(-1).sum()))
+    return flips, scores
+
+
+def phase_decoder(dev, flush):
+    """Phase 15: the dispatch kernels and causal kernel A at the cell's
+    shapes, then DeepSeek-V2-Lite as the CE (weights drawn on the card at
+    ``INIT_STD``, seed 5) on 512 pairs of 8 mentions x 64 entities of 128 +
+    128 tokens (a BOS, random words, an entity's EOS): one counted forward,
+    whose launches must be ``DSV2_LAUNCHES``, then three timed; peak
+    memory; the scores' spread over pairs; the gap to the f32 reference at
+    32 pairs and the tokens each expert layer routes apart from it."""
+    from anncur_tpu_torch.indexer.score_matrix import build_pairs
+    from anncur_tpu_torch.models.deepseek_v2 import DeepseekV2CrossEncoder, DeepseekV2Spec
+
+    dispatch = check_dispatch(dev, flush)
+    causal = check_causal(dev, flush)
+    t0 = time.perf_counter()
+    ce = DeepseekV2CrossEncoder(DeepseekV2Spec(), dev, seed=5)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(6)
+    half = DSV2_SEQ // 2
+    ments = torch.randint(1, 100000, (8, half), generator=gen, device=dev, dtype=torch.int32)
+    ents = torch.randint(1, 100000, (DSV2_PAIRS // 8, half), generator=gen, device=dev, dtype=torch.int32)
+    ments[:, 0] = ents[:, 0] = 100000
+    ents[:, -1] = 100001
+    pairs = build_pairs(ments, ents, DSV2_SEQ)
+    ce.score(pairs, half)  # warm: the kernels' first launches, the rope tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    ce.score(pairs, half)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    wrong = {name: counts[name] for name, n in DSV2_LAUNCHES.items() if counts[name] != n}
+    if wrong or any(n for name, n in counts.items() if name not in DSV2_LAUNCHES):
+        fail(f"a DeepSeek-V2-Lite forward launched {counts}, want {DSV2_LAUNCHES} and nothing else")
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        scores = ce.score(pairs, half)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated(dev)
+    flips, want = routing_flips(ce, pairs[:DSV2_PLAIN_PAIRS])
+    w = ce.weights
+    rec = {"init_s": init_s, "forward_s": statistics.median(times),
+           "pairs_per_s": DSV2_PAIRS / statistics.median(times), "peak_gb": peak / 1e9,
+           "weights_gb": sum(t.numel() * t.element_size() for t in [w["embed"], w["final_norm"], w["score"]]
+                             + [t for lw in w["layers"] for t in lw.values()]) / 1e9,
+           "score_std_over_pairs": float(scores.std()),
+           "gap_vs_f32_reference": float((scores[:DSV2_PLAIN_PAIRS] - want).abs().max()),
+           "tokens_routed_apart_per_expert_layer": flips, "launches_one_forward": counts}
+    log(json.dumps({"decoder_forward": f"DeepSeek-V2-Lite bf16, {DSV2_PAIRS} pairs x {DSV2_SEQ} tokens", **rec}))
+    del ce, w, scores, pairs
+    torch.cuda.empty_cache()
+    return {**rec, "dispatch": dispatch, "causal": causal, "launches": counts}
+
+
+def run_phase_decoder(dev, t_start):
+    """Phase 15 with its own flush buffer, timed; adds ``summary`` (the
+    forward's numbers) and ``kernels`` (the phase's kernels-line entries:
+    the dispatch kernels, and kernel A's causal record with this phase's
+    launches of it)."""
+    log(f"[{time.perf_counter() - t_start:.0f} s] phase 15: the decoder CE (DeepSeek-V2-Lite, bf16, random weights "
+        f"from seed 5; {DSV2_PAIRS} pairs of {DSV2_SEQ} tokens a forward)")
+    t0 = time.perf_counter()
+    flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
+    rec = phase_decoder(dev, flush)
+    del flush
+    torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t0
+    rec["summary"] = {k: v for k, v in rec.items() if k not in ("dispatch", "causal", "launches")}
+    for kern in rec["dispatch"]:
+        kern["launches"] = rec["launches"][kern["name"]]
+    rec["kernels"] = [{"name": "attention_fwd (causal, hd 192)", **rec["causal"],
+                       "launches": rec["launches"]["attention_fwd"]}, *rec["dispatch"]]
+    return rec
+
+
+
+def main(argv=None):
+    import argparse
+
+    p = argparse.ArgumentParser(description="Smoke run of the port on one GPU (the module's docstring).")
+    p.add_argument("--decoder-only", action="store_true",
+                   help="phase 1, phase 15 (the decoder CE) and its kernels line alone")
+    args = p.parse_args(argv)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA card")
     sys.path.insert(0, ROOT)
@@ -3665,6 +3956,14 @@ def main():
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}, {torch.cuda.get_device_name(0)}")
     build_s = cuda_build.build()
     log(f"kernels built from {os.path.relpath(cuda_build.CSRC_DIR, ROOT)} in {build_s:.1f} s")
+    if args.decoder_only:
+        decoder = run_phase_decoder(dev, t_start)
+        log(json.dumps({"summary": {"decoder": decoder["summary"], "card": smi,
+                                    "seconds": time.perf_counter() - t_start}}))
+        log(json.dumps({"kernels": decoder["kernels"]}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}), flush=True)
+        return
 
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 2: kernels vs plain versions")
     flush = torch.empty(512 << 20, dtype=torch.uint8, device=dev)
@@ -3759,12 +4058,14 @@ def main():
         tools["phase_s"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
 
-    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers, parallel, tools)
+    decoder = run_phase_decoder(dev, t_start)
+    fwd["causal_hd192"] = decoder["causal"]
+    phases = (build, serve, train, adaptive, rerank, axn, bienc, evals, cli, drivers, parallel, tools, decoder)
     mips_f32["max_abs_err"] = max(mips_f32["max_abs_err"], serve["mips_err"], adaptive["mips_err"], rerank["mips_err"],
                                   axn["mips_err"], cli["tfidf"]["mips_err"], drivers["mips_err"])
     mips_f32["shapes"] += [cli["tfidf"]["kernel"], drivers["military_mips"]]
     mips_int8["max_abs_err"] = max(mips_int8["max_abs_err"], rerank["int8_err"])
-    kernels = [fwd, *bwd, *mips_route_entries(mips_f32), mips_int8, *epilogue]
+    kernels = [fwd, *bwd, *mips_route_entries(mips_f32), mips_int8, *epilogue, *decoder["dispatch"]]
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
@@ -3844,6 +4145,8 @@ def main():
         "launches_parallel": parallel["launches"],
         "tools": {"phase_s": tools["phase_s"], "step_s": tools["seconds"], "lines": tools["lines"]},
         "launches_tools": tools["launches"],
+        "decoder": decoder["summary"],
+        "launches_decoder": decoder["launches"],
         "card": smi,
     }
     summary["seconds"] = time.perf_counter() - t_start
@@ -3857,4 +4160,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])
