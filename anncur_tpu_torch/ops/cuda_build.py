@@ -24,7 +24,7 @@ from typing import Dict, Iterable, List, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
-KERNEL_SOURCES = ("attention", "attention_bwd", "mips_topk", "encoder_epilogue", "moe_dispatch")
+KERNEL_SOURCES = ("attention", "attention_bwd", "mips_topk", "encoder_epilogue", "moe_dispatch", "rms_norm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

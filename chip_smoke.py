@@ -183,12 +183,17 @@ kernels); any failure exits non-zero before the result line:
    and spills; kernel A's causal body (hd 192, v 128 zero-padded; b=512
    g=s=256 nh=16, one pad key a pair) and the final layer's g=1 launch
    against the plain attention (32 pairs), timed beside the bound and SDPA
-   with an explicit mask, its HMMA count, registers and spills; then one
-   forward of 512 pairs (random weights on the card, seed 5) with its
-   launches counted (26 causal + 1 final kernel A, 26 of each dispatch
-   kernel, nothing else), three timed, peak memory, and the gap to the f32
-   reference (``models/deepseek_v2_reference.py``) at 32 pairs with the
-   tokens each expert layer routes apart from it;
+   with an explicit mask, its HMMA count, registers and spills; the
+   RMSNorm kernel (``ops/rms_norm.py``) at 131,072 x 2,048 and at
+   kv_norm's 131,072 x 512 read out of 576-wide rows against its plain
+   composition (each element bit-equal or within one bf16 ulp), timed
+   beside its byte bound, the plain composition and
+   ``torch.nn.functional.rms_norm``, registers and spills;
+   then one forward of 512 pairs (random weights on the card, seed 5) with
+   its launches counted (26 causal + 1 final kernel A, 26 of each dispatch
+   kernel, 82 RMSNorm, nothing else), three timed, peak memory, and the
+   gap to the f32 reference (``models/deepseek_v2_reference.py``) at 32
+   pairs with the tokens each expert layer routes apart from it;
 16. the ``kernels`` line: each kernel's launches on phases 3-15 (counts set
    to 0 just before each phase, CLI, driver or path call and read just
    after), error and times; kernel B's f32 entry once per score route
@@ -1390,11 +1395,13 @@ def _wrappers():
     from anncur_tpu_torch.ops.encoder_epilogue import bias_add3, bias_gelu, bias_residual_layernorm
     from anncur_tpu_torch.ops.mips_kernel import mips_topk_fused, mips_topk_int8_fused
     from anncur_tpu_torch.ops.moe import moe_combine, moe_permute
+    from anncur_tpu_torch.ops.rms_norm import rms_norm
 
     return {"attention_fwd": attention, "attention_bwd_dkv": attention_bwd_dkv,
             "attention_bwd_dq": attention_bwd_dq, "mips_topk_fused": mips_topk_fused,
             "mips_topk_int8_fused": mips_topk_int8_fused, "bias_residual_layernorm": bias_residual_layernorm,
-            "bias_gelu": bias_gelu, "bias_add3": bias_add3, "moe_permute": moe_permute, "moe_combine": moe_combine}
+            "bias_gelu": bias_gelu, "bias_add3": bias_add3, "moe_permute": moe_permute, "moe_combine": moe_combine,
+            "rms_norm": rms_norm}
 
 
 def _counters():
@@ -3669,11 +3676,14 @@ def phase_tools(dev, root, smi, rehearsal=False):
 # the index-build cell's forward: 512 pairs of 256 tokens (131,072 tokens),
 # 16 heads, qk head dim 192 (v 128), 64 experts of which 6 a token, hidden
 # 2,048; 26 expert layers, so 26 causal kernel A launches + the final
-# layer's one, and 26 of each dispatch kernel a forward
+# layer's one, 26 of each dispatch kernel, and 82 RMSNorms (attn_norm,
+# kv_norm over the latent's 512 of 576 columns, mlp_norm; the final norm)
+# a forward
 DSV2_PAIRS, DSV2_SEQ, DSV2_HEADS, DSV2_HIDDEN, DSV2_EXPERTS, DSV2_TOP_K = 512, 256, 16, 2048, 64, 6
 DSV2_TOKENS = DSV2_PAIRS * DSV2_SEQ
+DSV2_LATENT, DSV2_CKV = 512, 576
 DSV2_PLAIN_PAIRS = 32  # the plain attention's f32 scores of 512 pairs would take 8.6 GB
-DSV2_LAUNCHES = {"attention_fwd": 27, "moe_permute": 26, "moe_combine": 26}
+DSV2_LAUNCHES = {"attention_fwd": 27, "moe_permute": 26, "moe_combine": 26, "rms_norm": 82}
 # the published keys the f32 reference reads (models/deepseek_v2_reference.py)
 DSV2_CONFIG = {
     "hidden_size": 2048, "num_hidden_layers": 27, "num_attention_heads": 16, "kv_lora_rank": 512,
@@ -3809,6 +3819,52 @@ def check_causal(dev, flush):
     return {"full_layer": rec, "final_layer": rec1, "ptxas": found}
 
 
+def check_rms_norm(dev, flush):
+    """The RMSNorm kernel at the cell's forward: 131,072 rows of 2,048
+    (attn_norm and mlp_norm) and of 512 read in place out of 576-wide rows
+    (kv_norm), weights around 1, against the plain composition (each
+    element bit-equal or within one bf16 ulp); timed beside the byte bound
+    (each row read once and written once, the weight once) and the plain
+    composition, and beside ``torch.nn.functional.rms_norm`` (one fused
+    library call that does not round before the weight multiply; it copies
+    the strided view). One kernels-line entry, the strided shape under
+    ``kv_norm``."""
+    from anncur_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain, within_one_ulp
+
+    ptxas = {k: v for k, v in ptxas_report("rms_norm").items() if "rms_norm_kernel" in k}
+    log(f"  RMSNorm kernel (ptxas registers and spill bytes): {ptxas}")
+    if not ptxas or any(rec.get("spill_stores", 1) or rec.get("spill_loads", 1) for rec in ptxas.values()):
+        fail(f"the RMSNorm kernel is missing or spills registers (ptxas): {ptxas}")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    eps = 1e-6
+    recs = []
+    for width, row in ((DSV2_HIDDEN, DSV2_HIDDEN), (DSV2_LATENT, DSV2_CKV)):
+        x = torch.randn(DSV2_TOKENS, row, generator=gen, device=dev).to(torch.bfloat16)[:, :width]
+        w = (1.0 + 0.3 * torch.randn(width, generator=gen, device=dev)).to(torch.bfloat16)
+        within, same = within_one_ulp(rms_norm(x, w, eps), x, w, eps)
+        if not within:
+            fail(f"rms_norm at {DSV2_TOKENS} x {width} (rows {row} wide) is beyond one bf16 ulp of the plain "
+                 f"composition: {same:.4%} the same bits")
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: rms_norm(x, w, eps), 20, flush)
+        plain_ms = time_ms(lambda: rms_norm_plain(x, w, eps), 10, flush)
+        library_ms = time_ms(lambda: torch.nn.functional.rms_norm(x, (width,), w, eps), 20, flush)
+        rows = f" of {row}-wide rows" if row != width else ""
+        rec = {"shape": f"rows={DSV2_TOKENS} width={width}{rows} bf16",
+               "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               **bound(2 * x.numel() * 2 + width * 2, 0, "bf16"), "within_one_ulp": within, "bit_equal_share": same}
+        rec["x_bound"] = ms / rec["bound_ms"]
+        log(f"  rms_norm {rec['shape']}: {ms:.4f} ms; bound {rec['bound_ms']:.4f} ms, {100 / rec['x_bound']:.1f}% "
+            f"of it; plain {plain_ms:.4f} ms ({plain_ms / ms:.2f}x); F.rms_norm {library_ms:.4f} ms "
+            f"({ms / library_ms:.2f}x library); {same:.4%} the same bits")
+        recs.append(rec)
+        del x, w
+        torch.cuda.empty_cache()
+    return {"name": "rms_norm", "route": "cuda", "source": "anncur_tpu_torch/csrc/rms_norm.cu", "replaces": None,
+            "replaces_plain": "anncur_tpu_torch/ops/rms_norm.py::rms_norm_plain", **recs[0], "kv_norm": recs[1],
+            "ptxas": ptxas}
+
+
 def routing_flips(ce, ids):
     """(tokens whose set of experts differs between the bf16 forward and the
     f32 reference, per expert layer, at the valid positions (the final
@@ -3853,18 +3909,20 @@ def routing_flips(ce, ids):
 
 
 def phase_decoder(dev, flush):
-    """Phase 15: the dispatch kernels and causal kernel A at the cell's
-    shapes, then DeepSeek-V2-Lite as the CE (weights drawn on the card at
-    ``INIT_STD``, seed 5) on 512 pairs of 8 mentions x 64 entities of 128 +
-    128 tokens (a BOS, random words, an entity's EOS): one counted forward,
-    whose launches must be ``DSV2_LAUNCHES``, then three timed; peak
-    memory; the scores' spread over pairs; the gap to the f32 reference at
-    32 pairs and the tokens each expert layer routes apart from it."""
+    """Phase 15: the dispatch kernels, causal kernel A and the RMSNorm
+    kernel at the cell's shapes, then DeepSeek-V2-Lite as the CE (weights
+    drawn on the card at ``INIT_STD``, seed 5) on 512 pairs of 8 mentions x
+    64 entities of 128 + 128 tokens (a BOS, random words, an entity's EOS):
+    one counted forward, whose launches must be ``DSV2_LAUNCHES``, then
+    three timed; peak memory; the scores' spread over pairs; the gap to the
+    f32 reference at 32 pairs and the tokens each expert layer routes apart
+    from it."""
     from anncur_tpu_torch.indexer.score_matrix import build_pairs
     from anncur_tpu_torch.models.deepseek_v2 import DeepseekV2CrossEncoder, DeepseekV2Spec
 
     dispatch = check_dispatch(dev, flush)
     causal = check_causal(dev, flush)
+    norm = check_rms_norm(dev, flush)
     t0 = time.perf_counter()
     ce = DeepseekV2CrossEncoder(DeepseekV2Spec(), dev, seed=5)
     torch.cuda.synchronize()
@@ -3905,14 +3963,14 @@ def phase_decoder(dev, flush):
     log(json.dumps({"decoder_forward": f"DeepSeek-V2-Lite bf16, {DSV2_PAIRS} pairs x {DSV2_SEQ} tokens", **rec}))
     del ce, w, scores, pairs
     torch.cuda.empty_cache()
-    return {**rec, "dispatch": dispatch, "causal": causal, "launches": counts}
+    return {**rec, "dispatch": dispatch, "causal": causal, "rms_norm": norm, "launches": counts}
 
 
 def run_phase_decoder(dev, t_start):
     """Phase 15 with its own flush buffer, timed; adds ``summary`` (the
     forward's numbers) and ``kernels`` (the phase's kernels-line entries:
-    the dispatch kernels, and kernel A's causal record with this phase's
-    launches of it)."""
+    the dispatch kernels, the RMSNorm kernel, and kernel A's causal record
+    with this phase's launches of it)."""
     log(f"[{time.perf_counter() - t_start:.0f} s] phase 15: the decoder CE (DeepSeek-V2-Lite, bf16, random weights "
         f"from seed 5; {DSV2_PAIRS} pairs of {DSV2_SEQ} tokens a forward)")
     t0 = time.perf_counter()
@@ -3921,11 +3979,11 @@ def run_phase_decoder(dev, t_start):
     del flush
     torch.cuda.empty_cache()
     rec["phase_s"] = time.perf_counter() - t0
-    rec["summary"] = {k: v for k, v in rec.items() if k not in ("dispatch", "causal", "launches")}
-    for kern in rec["dispatch"]:
+    rec["summary"] = {k: v for k, v in rec.items() if k not in ("dispatch", "causal", "rms_norm", "launches")}
+    for kern in (*rec["dispatch"], rec["rms_norm"]):
         kern["launches"] = rec["launches"][kern["name"]]
     rec["kernels"] = [{"name": "attention_fwd (causal, hd 192)", **rec["causal"],
-                       "launches": rec["launches"]["attention_fwd"]}, *rec["dispatch"]]
+                       "launches": rec["launches"]["attention_fwd"]}, *rec["dispatch"], rec["rms_norm"]]
     return rec
 
 
@@ -4065,7 +4123,8 @@ def main(argv=None):
                                   axn["mips_err"], cli["tfidf"]["mips_err"], drivers["mips_err"])
     mips_f32["shapes"] += [cli["tfidf"]["kernel"], drivers["military_mips"]]
     mips_int8["max_abs_err"] = max(mips_int8["max_abs_err"], rerank["int8_err"])
-    kernels = [fwd, *bwd, *mips_route_entries(mips_f32), mips_int8, *epilogue, *decoder["dispatch"]]
+    kernels = [fwd, *bwd, *mips_route_entries(mips_f32), mips_int8, *epilogue, *decoder["dispatch"],
+               decoder["rms_norm"]]
     for kern in kernels:
         kern["launches"] = sum(ph["launches"][kern["name"]] for ph in phases)
     if any(kern["launches"] == 0 for kern in kernels):
