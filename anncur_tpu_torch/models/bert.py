@@ -16,11 +16,13 @@ Counterpart of ``anncur_tpu/models/bert.py`` with the same numerics:
 Attention goes through ``ops/attention.py`` (kernel A forward, kernels C
 and D backward on the card) whenever no attention dropout applies, which is
 JAX's flash condition; with attention dropout in training it is plain
-tensor ops, as JAX's ``_attn_core``. On the card's inference path (bf16,
-no autograd graph, no dropout, no tensor parallelism) each layer's bias
-adds, GELU, residual adds and LayerNorms go through the three kernels of
+tensor ops, as JAX's ``_attn_core``. On the inference path (bf16, no
+autograd graph, no dropout, no tensor parallelism) each layer's bias adds,
+GELU, residual adds and LayerNorms go through the three entries of
 ``ops/encoder_epilogue.py``, which keep the same rounding points; every
-other forward runs them as plain tensor ops. Parameters keep the JAX
+other forward runs them as plain tensor ops. The model never asks where
+its tensors lie: each entry of ``ops/`` launches its kernel on the card and
+computes its plain composition on the CPU. Parameters keep the JAX
 pytree layout (``embeddings``, ``layers[i].attn|mlp``, ``pooler``; kernels
 ``(in, out)``), so a JAX checkpoint maps one to one (``models/convert.py``).
 
@@ -243,20 +245,13 @@ def attention_dropout_core(q, k, v, key_valid, seed: int, rate: float, dtype):
     return torch.einsum("bnqk,bknd->bqnd", probs, v.to(dtype))
 
 
-def _on_card(x) -> bool:
-    """Whether ``x`` lies where the epilogue kernels run (tests of the path
-    choice stand a CPU tensor in for a card's)."""
-    return x.is_cuda
-
-
 def _fuses_epilogue(x, lp, dtype, seeds, tp) -> bool:
     """Whether the layer's elementwise work takes ``ops/encoder_epilogue.py``'s
-    kernels, from what the inputs show: on the card, bf16 compute, no
-    autograd graph recorded, no dropout seeds and no tensor-parallel group.
-    Training (dropout sits between a bias add and its residual, and
-    autograd needs the plain ops), f32, the CPU and tensor parallelism keep
-    the plain ops."""
-    if dtype != torch.bfloat16 or seeds is not None or tp is not None or not _on_card(x):
+    entries, from what the inputs show: bf16 compute, no autograd graph
+    recorded, no dropout seeds and no tensor-parallel group. Training
+    (dropout sits between a bias add and its residual, and autograd needs
+    the plain ops), f32 and tensor parallelism keep the plain ops."""
+    if dtype != torch.bfloat16 or seeds is not None or tp is not None:
         return False
     return not torch.is_grad_enabled() or not (x.requires_grad or any(t.requires_grad for t in lp.parameters()))
 

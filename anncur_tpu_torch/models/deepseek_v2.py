@@ -40,7 +40,9 @@ f32, rounded, then times its weight (the source's order; one kernel a norm
 on the card, ``ops/rms_norm.py``, 82 a forward); RoPE in f32,
 rounded once; the router in f32; the score in f32. The final layer runs
 its query, attention output and experts at each pair's last valid position
-only, which is exact: nothing after it reads the other positions.
+only, which is exact: nothing after it reads the other positions. The
+model never asks where its tensors lie: each entry of ``ops/`` it calls
+launches its kernel on the card and its plain composition on the CPU.
 
 Pairs keep ``ScoreMatrixBuilder``'s layout (mention ⧺ entity[1:], right-padded with id
 0, which is masked as a key); positions run from 0. Spans (``TRACER``):
@@ -59,7 +61,7 @@ import torch
 
 from anncur_tpu_torch.ops.attention import attention
 from anncur_tpu_torch.ops.moe import expert_mlp, moe_combine, moe_permute, route, sort_rows, swiglu
-from anncur_tpu_torch.ops.rms_norm import rms_norm, rms_norm_plain
+from anncur_tpu_torch.ops.rms_norm import rms_norm
 from anncur_tpu_torch.utils.device import DeviceLike, resolve_device
 from anncur_tpu_torch.utils.tracker import TRACER
 
@@ -173,18 +175,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
     xf = x.float().unflatten(-1, (-1, 2))
     x0, x1 = xf[..., 0], xf[..., 1]
     return torch.stack((x0 * cos - x1 * sin, x0 * sin + x1 * cos), dim=-1).flatten(-2).to(x.dtype)
-
-
-def _on_card(x) -> bool:
-    """Whether ``x`` lies where the RMSNorm kernel runs (tests of the path
-    choice stand a CPU tensor in for a card's)."""
-    return x.is_cuda
-
-
-def _norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm (``ops/rms_norm.py``): the kernel on the card, the plain
-    composition on the CPU."""
-    return rms_norm(x, weight, eps) if _on_card(x) else rms_norm_plain(x, weight, eps)
 
 
 def weight_shapes(spec: DeepseekV2Spec) -> Dict[str, Any]:
@@ -301,19 +291,19 @@ class DeepseekV2CrossEncoder:
             if spec.n_moe_layers else None
         for li, lw in enumerate(w["layers"]):
             x = self._layer(li, lw, x, valid, last if li == spec.num_layers - 1 else None, cos, sin, counter)
-        hidden = _norm(x, w["final_norm"], spec.rms_norm_eps)
+        hidden = rms_norm(x, w["final_norm"], spec.rms_norm_eps)
         return (hidden.float() @ w["score"].float())[:, 0]
 
     def _layer(self, li, lw, x, valid, at, cos, sin, counter):
         """One decoder layer over (b, s, h); with ``at`` (b,) positions, the
         layer's output at those positions only, (b, h)."""
         spec = self.spec
-        xn = _norm(x, lw["attn_norm"], spec.rms_norm_eps)
+        xn = rms_norm(x, lw["attn_norm"], spec.rms_norm_eps)
         with TRACER.span("mla.attention"):
             a = self._mla(lw, xn, valid, at, cos, sin)
         resid = x if at is None else x[torch.arange(x.shape[0], device=x.device), at][:, None]
         h1 = resid + a
-        hn = _norm(h1, lw["mlp_norm"], spec.rms_norm_eps)
+        hn = rms_norm(h1, lw["mlp_norm"], spec.rms_norm_eps)
         if li < spec.first_k_dense_replace:
             out = h1 + swiglu(hn @ lw["gate_up"]) @ lw["down"]
         else:
@@ -330,7 +320,7 @@ class DeepseekV2CrossEncoder:
         g = src.shape[1]
         q = (src @ lw["q"]).view(b, g, nh, spec.qk_head_dim)
         ckv = xn @ lw["kv_a"]
-        kv = (_norm(ckv[..., :r], lw["kv_norm"], spec.rms_norm_eps) @ lw["kv_b"]).view(b, s, nh, nope + vd)
+        kv = (rms_norm(ckv[..., :r], lw["kv_norm"], spec.rms_norm_eps) @ lw["kv_b"]).view(b, s, nh, nope + vd)
         if at is None:  # (s, 1, rope / 2) against q's (b, s, nh, rope / 2) pairs
             qc, qs = cos[:, None], sin[:, None]
         else:  # (b, 1, 1, rope / 2): each pair's own position

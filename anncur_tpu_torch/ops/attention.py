@@ -9,11 +9,13 @@ encoder layer of the port's CE calls :func:`attention`, the final layer's
 hd)`` with ``g <= s``, k and v ``(b, s, nh, hd)``, ``key_valid`` ``(b, s)``
 bool; the result is ``(b, g, nh, hd)`` in q's dtype.
 
-On CUDA tensors, a call that needs a gradient goes through
-:class:`AttentionFunction`: kernel A also writes the row log-sum-exp, and
-the backward launches kernel D (dQ, and D = rowsum(dO * O)), then kernel C
-(dK, dV). A call without one launches kernel A alone. CPU tensors take the
-plain versions, and autograd differentiates :func:`attention_plain`.
+Each entry takes its place by ``cuda_build.on_cpu``, the rule every entry
+of ``ops/`` follows: CPU tensors take the plain versions (autograd
+differentiates :func:`attention_plain`); any other call launches the
+kernels, which raise on what they cannot take. There a call that needs a
+gradient goes through :class:`AttentionFunction`: kernel A also writes the
+row log-sum-exp, and the backward launches kernel D (dQ, and D = rowsum(dO
+* O)), then kernel C (dK, dV). A call without one launches kernel A alone.
 
 The kernels take every head dim that is a multiple of 16: up to 256
 through bodies templated on it, above 256 through a wide route with the
@@ -32,12 +34,12 @@ and k.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
 from anncur_tpu_torch.ops import cuda_build
+from anncur_tpu_torch.ops.cuda_build import F32, I32, I64, PTR
 
 # head dims the kernels take are multiples of this (csrc/attention_common.cuh
 # up to 256, csrc/attention_wide.cuh above)
@@ -45,6 +47,15 @@ _HEAD_DIM_UNIT = 16
 # the one head dim of the causal body (DeepSeek-V2-Lite's qk head dim, 128 +
 # 64); narrower causal heads are zero-padded to it
 CAUSAL_HEAD_DIM = 192
+
+# kernel A's entries: q, k, v, key_valid, out, lse, then _geometry's values;
+# kernels D and C: nine pointers, then _bwd_geometry's
+_FWD_ARGS = [PTR] * 6 + [I32] * 6 + [I64] * 10 + [F32]
+_BWD_ARGS = [PTR] * 9 + [I32] * 6 + [I64] * 16 + [F32]
+_FWD = cuda_build.Entry("attention", "attention_fwd", _FWD_ARGS)
+_FWD_CAUSAL = cuda_build.Entry("attention", "attention_fwd_causal", _FWD_ARGS)
+_DQ = cuda_build.Entry("attention_bwd", "attention_bwd_dq", _BWD_ARGS)
+_DKV = cuda_build.Entry("attention_bwd", "attention_bwd_dkv", _BWD_ARGS)
 
 
 def attention_plain(q, k, v, key_valid, causal: bool = False, scale=None):
@@ -91,10 +102,9 @@ def attention(q, k, v, key_valid, causal: bool = False, scale=None):
     and k (latent attention's 128 against 192): it is zero-padded to their
     width, which adds zero output columns, and the output sliced back.
 
-    CPU tensors take :func:`attention_plain`; CUDA tensors launch kernel A
-    (and, when a gradient is needed, kernels C and D in backward) or raise."""
-    tensors = (q, k, v, key_valid)
-    if all(t.device.type == "cpu" for t in tensors):
+    CPU tensors take :func:`attention_plain`; others launch kernel A (and,
+    when a gradient is needed, kernels C and D in backward) or raise."""
+    if cuda_build.on_cpu(q, k, v, key_valid):
         return attention_plain(q, k, v, key_valid, causal, scale)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         if causal or scale is not None or v.shape[-1] != q.shape[-1]:
@@ -102,21 +112,21 @@ def attention(q, k, v, key_valid, causal: bool = False, scale=None):
         return AttentionFunction.apply(q, k, v, key_valid)
     hd, hv = q.shape[-1], v.shape[-1]
     scale = 1.0 / math.sqrt(hd) if scale is None else scale
-    width = CAUSAL_HEAD_DIM if causal and hd <= CAUSAL_HEAD_DIM else hd + -hd % _HEAD_DIM_UNIT
-    q, k, v = (t if t.shape[-1] >= width else torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
+    q, k, v = _pad_head_dim(q, k, v, causal)
     return attention_fwd(q, k, v, key_valid, causal=causal, scale=scale)[0][..., :hv]
 
 
 attention.launches = 0  # kernel A launches; chip_smoke reads and resets it
 
 
-def _pad_head_dim(q, k, v):
-    """q, k, v zero-padded along the head dim to the next multiple of 16
-    (themselves when it is one)."""
-    pad = -q.shape[-1] % _HEAD_DIM_UNIT
-    if not pad:
-        return q, k, v
-    return tuple(torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+def _pad_head_dim(q, k, v, causal: bool = False):
+    """q, k, v zero-padded along the head dim to the width the kernels take
+    for q's: ``CAUSAL_HEAD_DIM`` for causal heads no wider than it, else the
+    next multiple of 16. A tensor already that wide is itself; v narrower
+    than q is padded to the same width."""
+    hd = q.shape[-1]
+    width = CAUSAL_HEAD_DIM if causal and hd <= CAUSAL_HEAD_DIM else hd + -hd % _HEAD_DIM_UNIT
+    return tuple(t if t.shape[-1] >= width else torch.nn.functional.pad(t, (0, width - t.shape[-1])) for t in (q, k, v))
 
 
 class AttentionFunction(torch.autograd.Function):
@@ -164,13 +174,10 @@ def attention_fwd(q, k, v, key_valid, causal: bool = False, with_lse: bool = Fal
                          f"g={g}, s={s}, hd={hd}, with_lse={with_lse}")
     out = torch.empty((b, g, nh, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, nh, g), dtype=torch.float32, device=q.device) if with_lse else None
-    entry = "attention_fwd_causal" if causal else "attention_fwd"
-    lib = _lib("attention", entry, 6)
-    rc = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
+    (_FWD_CAUSAL if causal else _FWD)(
+        q, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), out.data_ptr(),
         None if lse is None else lse.data_ptr(), *_geometry(q, k, v, key_valid, scale),
     )
-    cuda_build.check(lib, rc, "attention kernel")
     attention.launches += 1
     return out, lse
 
@@ -183,19 +190,17 @@ def attention_bwd_dq(q, k, v, key_valid, dout, out, lse, scale=None):
     strides that keep hd contiguous and rows on 16 bytes. ``scale`` as the
     forward's. CPU tensors take :func:`attention_bwd_plain` and
     :func:`attention_delta_plain`."""
-    if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout, out)):
+    if cuda_build.on_cpu(q, k, v, key_valid, dout, out, lse):
         return attention_bwd_plain(q, k, v, key_valid, dout)[0], attention_delta_plain(dout, out)
     _check_bwd(q, k, v, key_valid, dout, lse)
     _check_rows("out", out, q)
     b, g, nh, _ = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     delta = torch.empty((b, nh, g), dtype=torch.float32, device=q.device)
-    lib = _lib("attention_bwd", "attention_bwd_dq", 9, 16)
-    rc = lib.attention_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(), out.data_ptr(),
+    _DQ(
+        q, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(), out.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_bwd_geometry(q, k, v, key_valid, dout, out, scale),
     )
-    cuda_build.check(lib, rc, "attention dQ kernel")
     attention_bwd_dq.launches += 1
     return dq, delta
 
@@ -209,19 +214,17 @@ def attention_bwd_dkv(q, k, v, key_valid, dout, lse, delta, scale=None):
     them), ``lse`` and kernel D's ``delta`` (both (b, nh, g) f32); launch
     it after D on the same stream. CPU tensors take
     :func:`attention_bwd_plain`."""
-    if all(t.device.type == "cpu" for t in (q, k, v, key_valid, dout)):
+    if cuda_build.on_cpu(q, k, v, key_valid, dout, lse, delta):
         return attention_bwd_plain(q, k, v, key_valid, dout)[1:]
     _check_bwd(q, k, v, key_valid, dout, lse)
     _check_stats("delta", delta, q)
     dk = torch.empty(k.shape, dtype=q.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=q.dtype, device=q.device)
-    lib = _lib("attention_bwd", "attention_bwd_dkv", 9, 16)
-    rc = lib.attention_bwd_dkv(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
+    _DKV(
+        q, q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *_bwd_geometry(q, k, v, key_valid, dout, None, scale),
     )
-    cuda_build.check(lib, rc, "attention dK/dV kernel")
     attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -231,7 +234,7 @@ attention_bwd_dkv.launches = 0  # kernel C launches
 
 def _geometry(q, k, v, key_valid, scale=None):
     """The C entries' arguments after the pointers: dtype flag, sizes,
-    strides (in elements), scale (default 1/√hd), device, stream."""
+    strides (in elements), scale (default 1/√hd)."""
     b, g, nh, hd = q.shape
     return (
         int(q.dtype == torch.bfloat16), b, g, k.shape[1], nh, hd,
@@ -239,8 +242,6 @@ def _geometry(q, k, v, key_valid, scale=None):
         k.stride(0), k.stride(1), k.stride(2),
         v.stride(0), v.stride(1), v.stride(2),
         key_valid.stride(0), 1.0 / math.sqrt(hd) if scale is None else scale,
-        q.device.index if q.device.index is not None else torch.cuda.current_device(),
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
 
 
@@ -250,7 +251,7 @@ def _bwd_geometry(q, k, v, key_valid, dout, out, scale=None):
     ``out`` is None) before the scale."""
     geo = _geometry(q, k, v, key_valid, scale)
     o_strides = (0, 0, 0) if out is None else tuple(out.stride()[:3])
-    return (*geo[:16], *dout.stride()[:3], *o_strides, *geo[16:])
+    return (*geo[:16], *dout.stride()[:3], *o_strides, geo[16])
 
 
 def _rows_ok(t) -> bool:
@@ -318,15 +319,3 @@ def _check_stats(name, t, q) -> None:
     ):
         raise ValueError(f"attention backward: {name} must be a contiguous ({b}, {nh}, {g}) f32 tensor on {q.device}")
 
-
-def _lib(source: str, entry: str, n_ptrs: int, n_strides: int = 10) -> ctypes.CDLL:
-    """The library of ``csrc/<source>.cu`` with ``entry``'s signature set:
-    ``n_ptrs`` pointers, then the arguments of :func:`_geometry` (of
-    :func:`_bwd_geometry` with ``n_strides`` 16)."""
-    lib = cuda_build.load(source)
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [ptr] * n_ptrs + [i32] * 6 + [i64] * n_strides + [ctypes.c_float, i32, ptr]
-        fn.restype = i32
-    return lib

@@ -16,24 +16,25 @@ to bf16, each sum rounded to bf16, the LayerNorm and the GELU in f32 and
 rounded once. The ``*_plain`` functions are those compositions, the ops
 ``_encoder_layer`` runs off the fused path. Activations are bf16 rows of a
 width that is a multiple of 8, contiguous on 16-byte bases; bias, scale
-and shift are the f32 parameters of that width. The entries take CUDA
-tensors only and raise on anything else; ``models/bert.py`` picks the
-path.
+and shift are the f32 parameters of that width. Each entry places itself
+by ``cuda_build.on_cpu``: CPU tensors take the plain composition, others
+the kernel, which raises on anything it cannot take.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 from torch.nn import functional as F
 
 from anncur_tpu_torch.ops import cuda_build
+from anncur_tpu_torch.ops.cuda_build import F32, I32, I64, PTR
 
 # the LayerNorm kernel holds a row in registers: 16-byte vectors, at most
 # 16 a lane of one warp (csrc/encoder_epilogue.cu, kLnMaxVecPerLane)
 MAX_LAYERNORM_WIDTH = 4096
-_VECTOR = 8  # bf16 values a 16-byte vector
+_LAYERNORM = cuda_build.Entry("encoder_epilogue", "bias_residual_layernorm", [PTR] * 6 + [I64, I32, F32])
+_GELU = cuda_build.Entry("encoder_epilogue", "bias_gelu", [PTR] * 3 + [I64, I32, I32])
+_ADD3 = cuda_build.Entry("encoder_epilogue", "bias_add3", [PTR] * 6 + [I64] * 3 + [I32] * 3)
 
 
 def bias_residual_layernorm_plain(mm, bias, residual, scale, shift, eps):
@@ -61,21 +62,18 @@ def bias_residual_layernorm(mm, bias, residual, scale, shift, eps):
     """:func:`bias_residual_layernorm_plain` in one pass: each row of
     ``mm`` and ``residual`` read once, the result written once (a new
     tensor). Widths up to :data:`MAX_LAYERNORM_WIDTH`."""
-    width = _check_rows("bias_residual_layernorm", mm=mm, residual=residual)
+    if cuda_build.on_cpu(mm, bias, residual, scale, shift):
+        return bias_residual_layernorm_plain(mm, bias, residual, scale, shift, eps)
+    rows, width, _ = cuda_build.bf16_rows("bias_residual_layernorm", "mm", mm)
     if width > MAX_LAYERNORM_WIDTH:
         raise ValueError(f"bias_residual_layernorm: width {width} is above {MAX_LAYERNORM_WIDTH}")
-    if residual.shape != mm.shape or residual.device != mm.device:
-        raise ValueError(
-            f"bias_residual_layernorm: residual {tuple(residual.shape)} on {residual.device} is not mm's "
-            f"{tuple(mm.shape)} on {mm.device}")
+    cuda_build.bf16_rows("bias_residual_layernorm", "residual", residual, device=mm.device)
+    if residual.shape != mm.shape:
+        raise ValueError(f"bias_residual_layernorm: residual {tuple(residual.shape)} is not mm's {tuple(mm.shape)}")
     _check_vectors("bias_residual_layernorm", mm, width, bias=bias, scale=scale, shift=shift)
     out = torch.empty_like(mm)
-    lib = _lib("bias_residual_layernorm", 6, (ctypes.c_longlong, ctypes.c_int, ctypes.c_float))
-    rc = lib.bias_residual_layernorm(
-        mm.data_ptr(), bias.data_ptr(), residual.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
-        mm.numel() // width, width, float(eps), *_device_stream(mm),
-    )
-    cuda_build.check(lib, rc, "bias_residual_layernorm kernel")
+    _LAYERNORM(mm, mm.data_ptr(), bias.data_ptr(), residual.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+               out.data_ptr(), rows, width, float(eps))
     bias_residual_layernorm.launches += 1
     return out
 
@@ -85,13 +83,12 @@ bias_residual_layernorm.launches = 0  # chip_smoke reads and resets it
 
 def bias_gelu(mm, bias, approximate: bool):
     """:func:`bias_gelu_plain` in one pass (a new tensor)."""
-    width = _check_rows("bias_gelu", mm=mm)
+    if cuda_build.on_cpu(mm, bias):
+        return bias_gelu_plain(mm, bias, approximate)
+    rows, width, _ = cuda_build.bf16_rows("bias_gelu", "mm", mm)
     _check_vectors("bias_gelu", mm, width, bias=bias)
     out = torch.empty_like(mm)
-    lib = _lib("bias_gelu", 3, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int))
-    rc = lib.bias_gelu(mm.data_ptr(), bias.data_ptr(), out.data_ptr(), mm.numel() // width, width,
-                       int(bool(approximate)), *_device_stream(mm))
-    cuda_build.check(lib, rc, "bias_gelu kernel")
+    _GELU(mm, mm.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, width, int(bool(approximate)))
     bias_gelu.launches += 1
     return out
 
@@ -102,44 +99,20 @@ bias_gelu.launches = 0
 def bias_add3(q, k, v, bq, bk, bv):
     """:func:`bias_add3_plain` in one launch, in place; each of q, k, v
     with its own rows and width. Returns (q, k, v)."""
-    widths = []
+    if cuda_build.on_cpu(q, k, v, bq, bk, bv):
+        return bias_add3_plain(q, k, v, bq, bk, bv)
+    rows, widths = [], []
     for name, x, b in (("q", q, bq), ("k", k, bk), ("v", v, bv)):
-        width = _check_rows("bias_add3", **{name: x})
-        if x.device != q.device:
-            raise ValueError(f"bias_add3: {name} is on {x.device}, q on {q.device}")
+        n, width, _ = cuda_build.bf16_rows("bias_add3", name, x, device=q.device)
         _check_vectors("bias_add3", x, width, **{f"b{name}": b})
+        rows.append(n)
         widths.append(width)
-    lib = _lib("bias_add3", 6, (ctypes.c_longlong,) * 3 + (ctypes.c_int,) * 3)
-    rc = lib.bias_add3(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bq.data_ptr(), bk.data_ptr(), bv.data_ptr(),
-        *(x.numel() // w for x, w in zip((q, k, v), widths)), *widths, *_device_stream(q),
-    )
-    cuda_build.check(lib, rc, "bias_add3 kernel")
+    _ADD3(q, q.data_ptr(), k.data_ptr(), v.data_ptr(), bq.data_ptr(), bk.data_ptr(), bv.data_ptr(), *rows, *widths)
     bias_add3.launches += 1
     return q, k, v
 
 
 bias_add3.launches = 0
-
-
-def _check_rows(entry, **tensors) -> int:
-    """The width of bf16 activations (their last dim), after checking each
-    is a contiguous CUDA tensor on a 16-byte base, rows a multiple of 8
-    wide; all of one width."""
-    widths = set()
-    for name, x in tensors.items():
-        if x.device.type != "cuda":
-            raise ValueError(f"{entry}: {name} is on {x.device}; the kernel takes CUDA tensors")
-        if x.dtype != torch.bfloat16:
-            raise ValueError(f"{entry}: {name} is {x.dtype}; the kernel takes bf16")
-        if x.dim() < 1 or not x.is_contiguous() or x.data_ptr() % 16:
-            raise ValueError(f"{entry}: {name} must be contiguous on a 16-byte base")
-        if x.shape[-1] <= 0 or x.shape[-1] % _VECTOR:
-            raise ValueError(f"{entry}: {name}'s width {x.shape[-1]} is not a positive multiple of {_VECTOR}")
-        widths.add(x.shape[-1])
-    if len(widths) != 1:
-        raise ValueError(f"{entry}: widths {sorted(widths)} differ")
-    return widths.pop()
 
 
 def _check_vectors(entry, x, width, **vectors) -> None:
@@ -152,18 +125,3 @@ def _check_vectors(entry, x, width, **vectors) -> None:
             raise ValueError(
                 f"{entry}: {name} must be a contiguous ({width},) f32 tensor on {x.device} on a 16-byte base")
 
-
-def _device_stream(x):
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return dev, torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _lib(entry: str, n_ptrs: int, sizes) -> ctypes.CDLL:
-    """``csrc/encoder_epilogue.cu``'s library with ``entry``'s signature
-    set: ``n_ptrs`` pointers, ``sizes``, then device and stream."""
-    lib = cuda_build.load("encoder_epilogue")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + list(sizes) + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib

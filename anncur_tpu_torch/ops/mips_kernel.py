@@ -16,6 +16,9 @@ cores in three TF32 passes (f32-accurate, as the reference's
 ``precision="highest"`` is on the TPU) for chunks of more than 32 queries
 over rows of 16 bytes (d % 4 == 0, aligned bases), and as an IEEE FFMA
 chain otherwise; int8 items take the FFMA chain.
+
+Both entries place themselves by ``cuda_build.on_cpu``: CPU tensors take
+the plain versions, others kernel B, which raises on what it cannot take.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import TYPE_CHECKING, Dict, Optional, Set, Tuple
 import torch
 
 from anncur_tpu_torch.ops import cuda_build
+from anncur_tpu_torch.ops.cuda_build import I32, I64, PTR, STREAM
 from anncur_tpu_torch.ops.mips import check_exclude, mips_topk, mips_topk_int8_plain
 
 if TYPE_CHECKING:  # ops/quantized.py imports this module
@@ -34,6 +38,14 @@ if TYPE_CHECKING:  # ops/quantized.py imports this module
 # score scratch by (device index, stream): one allocation, grown as needed
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 _INIT_DEVICES: Set[int] = set()
+
+# after the item pointers: outputs, exclusions, scratch, sizes, the count of
+# chunks scored on the tensor cores
+_AFTER_ITEMS = [PTR, PTR, PTR, I32, I64, PTR, I64] + [I32] * 5 + [ctypes.POINTER(I32)]
+_FUSED = cuda_build.Entry("mips_topk", "mips_topk_fused", [PTR] * 2 + _AFTER_ITEMS, STREAM)
+_INT8 = cuda_build.Entry("mips_topk", "mips_topk_int8_fused", [PTR] * 3 + _AFTER_ITEMS, STREAM)
+_SCRATCH_BYTES = cuda_build.Entry("mips_topk", "mips_topk_scratch_bytes", [I32] * 3, (), I64)
+_INIT = cuda_build.Entry("mips_topk", "mips_topk_init", [], ())
 
 
 def mips_topk_fused(
@@ -50,14 +62,14 @@ def mips_topk_fused(
     are ignored, duplicates are allowed, and k <= n_valid - S; its rows
     need unit stride along S only (a column slice of a wider buffer does).
 
-    CPU tensors take the plain :func:`mips_topk`; CUDA tensors launch
-    kernel B or raise."""
+    CPU tensors take the plain :func:`mips_topk`; others launch kernel B or
+    raise."""
     n = items.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
-    if queries.device.type == "cpu" and items.device.type == "cpu":
+    if cuda_build.on_cpu(queries, items, exclude):
         return mips_topk(queries, items, k, n_valid, exclude)
     _check(queries, items, torch.float32, k, n_valid)
-    out, tc_chunks = _launch("mips_topk_fused", queries, (items.data_ptr(),), n, k, n_valid, exclude)
+    out, tc_chunks = _launch(_FUSED, queries, (items.data_ptr(),), n, k, n_valid, exclude)
     mips_topk_fused.launches += 1
     mips_topk_fused.tc_launches += tc_chunks > 0
     return out
@@ -81,17 +93,17 @@ def mips_topk_int8_fused(
     after the sum (``anncur_tpu/ops/quantized.py::mips_topk_int8``). The
     int8 rows are streamed as int8 (16-byte copies when d % 16 == 0).
 
-    CPU tensors take :func:`mips_topk_int8_plain`; CUDA tensors launch
-    kernel B's int8 entry or raise."""
+    CPU tensors take :func:`mips_topk_int8_plain`; others launch kernel
+    B's int8 entry or raise."""
     values, scales = items.values, items.scales
     n = values.shape[0]
     n_valid = n if n_valid is None else int(n_valid)
-    if queries.device.type == "cpu" and values.device.type == "cpu":
+    if cuda_build.on_cpu(queries, values, scales, exclude):
         return mips_topk_int8_plain(queries, items, k, n_valid, exclude)
     _check(queries, values, torch.int8, k, n_valid)
     if scales.dtype != torch.float32 or scales.device != queries.device or scales.numel() != n or not scales.is_contiguous():
         raise ValueError(f"mips_topk_int8_fused: scales must be {n} contiguous f32 values on {queries.device}")
-    out, _ = _launch("mips_topk_int8_fused", queries, (values.data_ptr(), scales.data_ptr()), n, k, n_valid, exclude)
+    out, _ = _launch(_INT8, queries, (values.data_ptr(), scales.data_ptr()), n, k, n_valid, exclude)
     mips_topk_int8_fused.launches += 1
     return out
 
@@ -135,10 +147,10 @@ def _check(queries, items, item_dtype, k, n_valid) -> None:
 
 
 def _launch(entry, queries, item_ptrs, n, k, n_valid, exclude):
-    """One call of the C ``entry`` (``mips_topk_fused`` or its int8 twin,
-    whose item pointers are ``item_ptrs``): outputs and scratch allocated
-    here, on the queries' device and current stream. Returns ((scores,
-    ids), the chunks of queries whose score stage ran on the tensor cores)."""
+    """One call of ``entry`` (kernel B's f32 or int8 ``Entry``, whose item
+    pointers are ``item_ptrs``): outputs and scratch allocated here, on the
+    queries' device and current stream. Returns ((scores, ids), the chunks
+    of queries whose score stage ran on the tensor cores)."""
     n_ex = check_exclude(exclude, queries.shape[0], k, n_valid)
     if n_ex:
         if exclude.device != queries.device:
@@ -149,18 +161,19 @@ def _launch(entry, queries, item_ptrs, n, k, n_valid, exclude):
     q, d = queries.shape
     dev = queries.device
     with torch.cuda.device(dev):
-        lib = _lib(dev.index)
+        if dev.index not in _INIT_DEVICES:  # the kernels' attributes, set on the current device
+            _INIT.call()
+            _INIT_DEVICES.add(dev.index)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        scratch = _scratch(dev, stream, int(lib.mips_topk_scratch_bytes(q, n_valid, k)))
+        scratch = _scratch(dev, stream, int(_SCRATCH_BYTES.function()(q, n_valid, k)))
         out_s = torch.empty((q, k), dtype=torch.float32, device=dev)
         out_i = torch.empty((q, k), dtype=torch.int64, device=dev)
         tc_chunks = ctypes.c_int(0)
-        rc = getattr(lib, entry)(
+        entry.call(
             queries.data_ptr(), *item_ptrs, out_s.data_ptr(), out_i.data_ptr(),
             exclude.data_ptr() if n_ex else None, n_ex, exclude.stride(0) if n_ex else 0,
             scratch.data_ptr(), scratch.numel(), q, n, d, k, n_valid, ctypes.byref(tc_chunks), stream,
         )
-    cuda_build.check(lib, rc, f"{entry} kernel")
     return (out_s, out_i), tc_chunks.value
 
 
@@ -173,23 +186,3 @@ def _scratch(dev: torch.device, stream: int, nbytes: int) -> torch.Tensor:
         buf = _SCRATCH[key] = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     return buf
 
-
-def _lib(device: int) -> ctypes.CDLL:
-    """The kernel library, its attributes set on ``device`` (current)."""
-    lib = cuda_build.load("mips_topk")
-    if lib.mips_topk_fused.argtypes is None:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        i64 = ctypes.c_longlong
-        i32p = ctypes.POINTER(i32)
-        lib.mips_topk_fused.argtypes = [ptr] * 5 + [i32, i64, ptr, i64] + [i32] * 5 + [i32p, ptr]
-        lib.mips_topk_fused.restype = i32
-        lib.mips_topk_int8_fused.argtypes = [ptr] * 6 + [i32, i64, ptr, i64] + [i32] * 5 + [i32p, ptr]
-        lib.mips_topk_int8_fused.restype = i32
-        lib.mips_topk_scratch_bytes.argtypes = [i32] * 3
-        lib.mips_topk_scratch_bytes.restype = ctypes.c_longlong
-        lib.mips_topk_init.argtypes = []
-        lib.mips_topk_init.restype = i32
-    if device not in _INIT_DEVICES:
-        cuda_build.check(lib, lib.mips_topk_init(), "mips_topk kernel attributes")
-        _INIT_DEVICES.add(device)
-    return lib

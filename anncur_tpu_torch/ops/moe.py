@@ -19,22 +19,25 @@ experts:
 5. :func:`moe_combine`: each token's k rows weighted and summed in f32 in
    slot order, rounded, plus the shared experts' output, plus the residual.
 
-Tokens are never dropped (no capacity factor). CPU tensors take the plain
-versions (the experts in a loop); CUDA tensors launch the kernels or raise.
+Tokens are never dropped (no capacity factor). Each of :func:`moe_permute`,
+:func:`expert_mlp` and :func:`moe_combine` places itself by
+``cuda_build.on_cpu``: CPU tensors take the plain versions (the experts in
+a loop), others the kernels, which raise on what they cannot take.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 from torch.nn import functional as F
 
 from anncur_tpu_torch.ops import cuda_build
+from anncur_tpu_torch.ops.cuda_build import I32, I64, PTR
 from anncur_tpu_torch.ops.mips import topk_stable
 
-_VECTOR = 8  # bf16 values a 16-byte vector
+_PERMUTE = cuda_build.Entry("moe_dispatch", "moe_permute", [PTR] * 3 + [I64, I32, I32])
+_COMBINE = cuda_build.Entry("moe_dispatch", "moe_combine", [PTR] * 6 + [I64, I32, I32])
 
 
 class RowOrder(NamedTuple):
@@ -86,14 +89,11 @@ def moe_combine_plain(y, dest, weights, shared, residual) -> torch.Tensor:
 
 def moe_permute(x: torch.Tensor, dest: torch.Tensor) -> torch.Tensor:
     """:func:`moe_permute_plain` in one pass on the card."""
-    if x.device.type == "cpu":
+    if cuda_build.on_cpu(x, dest):
         return moe_permute_plain(x, dest)
     k = _check_dispatch("moe_permute", x, dest, x.shape[0])
     out = torch.empty((dest.numel(), x.shape[1]), dtype=x.dtype, device=x.device)
-    lib = _lib("moe_permute", 3, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int))
-    rc = lib.moe_permute(x.data_ptr(), dest.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], k,
-                         *_device_stream(x))
-    cuda_build.check(lib, rc, "moe_permute kernel")
+    _PERMUTE(x, x.data_ptr(), dest.data_ptr(), out.data_ptr(), x.shape[0], x.shape[1], k)
     moe_permute.launches += 1
     return out
 
@@ -103,22 +103,20 @@ moe_permute.launches = 0
 
 def moe_combine(y, dest, weights, shared, residual) -> torch.Tensor:
     """:func:`moe_combine_plain` in one pass on the card, bit for bit."""
-    if y.device.type == "cpu":
+    if cuda_build.on_cpu(y, dest, weights, shared, residual):
         return moe_combine_plain(y, dest, weights, shared, residual)
     t = residual.shape[0]
     k = _check_dispatch("moe_combine", y, dest, t)
     for name, a in (("shared", shared), ("residual", residual)):
-        _check_rows("moe_combine", name, a, y)
+        cuda_build.bf16_rows("moe_combine", name, a, device=y.device)
         if a.shape != (t, y.shape[1]):
             raise ValueError(f"moe_combine: {name} {tuple(a.shape)} is not ({t}, {y.shape[1]})")
     if weights.dtype != torch.float32 or tuple(weights.shape) != (t, k) or not weights.is_contiguous() \
             or weights.device != y.device:
         raise ValueError(f"moe_combine: weights must be a contiguous ({t}, {k}) f32 tensor on {y.device}")
     out = torch.empty_like(residual)
-    lib = _lib("moe_combine", 6, (ctypes.c_longlong, ctypes.c_int, ctypes.c_int))
-    rc = lib.moe_combine(y.data_ptr(), dest.data_ptr(), weights.data_ptr(), shared.data_ptr(), residual.data_ptr(),
-                         out.data_ptr(), t, y.shape[1], k, *_device_stream(y))
-    cuda_build.check(lib, rc, "moe_combine kernel")
+    _COMBINE(y, y.data_ptr(), dest.data_ptr(), weights.data_ptr(), shared.data_ptr(), residual.data_ptr(),
+             out.data_ptr(), t, y.shape[1], k)
     moe_combine.launches += 1
     return out
 
@@ -146,39 +144,21 @@ def expert_mlp_plain(xs: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Te
 def expert_mlp(xs: torch.Tensor, w_gate_up: torch.Tensor, w_down: torch.Tensor, order: RowOrder) -> torch.Tensor:
     """Each expert's SwiGLU over its group of ``xs`` (T k, h): ``w_gate_up``
     (E, h, 2 w), ``w_down`` (E, w, h). On the card two grouped GEMMs over
-    the groups (the SwiGLU between them plain ops)."""
-    if xs.device.type == "cpu":
+    the groups (the SwiGLU between them plain ops), which take bf16 rows."""
+    if cuda_build.on_cpu(xs, w_gate_up, w_down, order.ends):
         return expert_mlp_plain(xs, w_gate_up, w_down, order)
+    cuda_build.bf16_rows("expert_mlp", "xs", xs)
     return torch._grouped_mm(swiglu(torch._grouped_mm(xs, w_gate_up, offs=order.ends)), w_down, offs=order.ends)
 
 
-def _check_rows(entry, name, a, like) -> None:
-    if a.device != like.device or a.dtype != torch.bfloat16 or a.dim() != 2 or not a.is_contiguous() \
-            or a.data_ptr() % 16 or a.shape[1] % _VECTOR:
-        raise ValueError(f"{entry}: {name} must be a contiguous 2-D bf16 tensor on {like.device}, on a 16-byte "
-                         f"base, {_VECTOR}-aligned rows")
-
-
 def _check_dispatch(entry, rows_t, dest, n_tokens) -> int:
-    """k, after checking the rows tensor and ``dest`` ((n_tokens k,) int32
-    on its device)."""
-    _check_rows(entry, "rows", rows_t, rows_t)
+    """k, after checking the rows tensor (2-D bf16 rows on the card) and
+    ``dest`` ((n_tokens k,) int32 on its device)."""
+    cuda_build.bf16_rows(entry, "rows", rows_t)
+    if rows_t.dim() != 2:
+        raise ValueError(f"{entry}: rows must be 2-D, got {tuple(rows_t.shape)}")
     if dest.dtype != torch.int32 or dest.dim() != 1 or not dest.is_contiguous() or dest.device != rows_t.device \
             or n_tokens <= 0 or dest.numel() % n_tokens:
         raise ValueError(f"{entry}: dest must be a contiguous 1-D int32 tensor of tokens x k on {rows_t.device}")
     return dest.numel() // n_tokens
 
-
-def _device_stream(x):
-    dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-    return dev, torch.cuda.current_stream(x.device).cuda_stream
-
-
-def _lib(entry: str, n_ptrs: int, sizes) -> ctypes.CDLL:
-    """``csrc/moe_dispatch.cu``'s library with ``entry``'s signature set."""
-    lib = cuda_build.load("moe_dispatch")
-    fn = getattr(lib, entry)
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + list(sizes) + [ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return lib

@@ -47,6 +47,18 @@ def test_pad_head_dim_to_the_next_multiple_of_16(hd, padded):
         assert out[0] is q  # nothing copied at a multiple of 16
 
 
+@pytest.mark.parametrize("hd,hv,padded", [(24, 16, 192), (192, 128, 192), (64, 64, 192), (200, 200, 208)])
+def test_pad_head_dim_of_causal_heads_and_narrower_v(hd, hv, padded):
+    """The same rule for ``attention(causal=True)``: q and k no wider than
+    192 go to the causal body's 192, wider ones to the next multiple of 16;
+    v, narrower or not, to q's padded width."""
+    q, v = torch.randn(1, 2, 1, hd), torch.randn(1, 2, 1, hv)
+    out = _pad_head_dim(q, q, v, causal=True)
+    assert all(t.shape[-1] == padded for t in out)
+    assert torch.equal(out[0][..., :hd], q) and not out[0][..., hd:].any()
+    assert torch.equal(out[2][..., :hv], v) and not out[2][..., hv:].any()
+
+
 def _scaled_plain(q, k, v, key_valid, scale):
     """The plain attention with an explicit scale, and its row lse."""
     scores = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * scale

@@ -760,16 +760,11 @@ def test_mips_kernel_signed_zero_order_on_the_tensor_cores(dev):
 def _tf32_probe(a, b):
     """One TF32 wgmma of kernel B's score stage on raw f32 bits:
     (64, 8) x (128, 8)^T (``mips_tf32_probe``)."""
-    import ctypes
-
     from anncur_tpu_torch.ops import cuda_build
 
-    lib = cuda_build.load("mips_topk")
-    lib.mips_tf32_probe.argtypes = [ctypes.c_void_p] * 4
-    lib.mips_tf32_probe.restype = ctypes.c_int
     d = torch.empty(64, 128, device=a.device)
-    rc = lib.mips_tf32_probe(a.data_ptr(), b.data_ptr(), d.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
-    cuda_build.check(lib, rc, "mips_tf32_probe")
+    probe = cuda_build.Entry("mips_topk", "mips_tf32_probe", [cuda_build.PTR] * 3, cuda_build.STREAM)
+    probe.call(a.data_ptr(), b.data_ptr(), d.data_ptr(), torch.cuda.current_stream(a.device).cuda_stream)
     torch.cuda.synchronize()
     return d
 
@@ -1425,7 +1420,7 @@ def test_epilogue_entries_reject_what_they_cannot_take(dev, entry):
         (args(x.float(), vec), "bf16"),
         (args(torch.zeros(64, 8, dtype=torch.bfloat16, device=dev).t(), vec), "contiguous"),
         (args(x[:, :60].contiguous(), vec[:60]), "multiple of 8"),
-        (args(x.cpu(), vec.cpu()), "CUDA"),
+        (args(x.cpu(), vec), "CUDA"),  # mixed devices: only all-CPU arguments take the plain version
         (args(x, vec.to(torch.bfloat16)), "f32"),
     ):
         with pytest.raises(ValueError, match=match):
@@ -1464,7 +1459,7 @@ def test_ce_forward_fused_matches_plain_and_counts_launches(dev, monkeypatch, st
     torch.cuda.synchronize()
     assert [getattr(ee, n).launches - n0 for n, n0 in zip(names, before)] == [24, 12, 12]
     f32 = CrossEncoder(spec, compute_dtype=torch.float32, device=dev, seed=3).score(toks, first_segment_end=128)
-    monkeypatch.setattr(bert, "_on_card", lambda x: False)
+    monkeypatch.setattr(bert, "_fuses_epilogue", lambda *args: False)
     want = ce.score(toks, first_segment_end=128)
     assert [getattr(ee, n).launches - n0 for n, n0 in zip(names, before)] == [24, 12, 12]
     if atol is not None:

@@ -1,8 +1,9 @@
 """The encoder layer's epilogue (``ops/encoder_epilogue.py``) on the CPU:
 each ``*_plain`` against the unfused ops of ``models/bert.py`` bit for
-bit, the fused branch of ``_encoder_layer`` wired through the plain
-versions against the plain branch, and the plain branch wherever the
-fused one must not run (the kernels themselves: tests/test_torch_cuda.py).
+bit, the entries on CPU tensors, the fused branch of ``_encoder_layer``
+(whose entries give the plain versions on the CPU) against the plain
+branch, and the plain branch wherever the fused one must not run (the
+kernels themselves: tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from anncur_tpu_torch.models import bert
+from anncur_tpu_torch.ops import cuda_build
 from anncur_tpu_torch.ops import encoder_epilogue as ee
 
 torch.set_num_threads(2)  # xdist runs several test files side by side
@@ -65,17 +67,32 @@ def test_bias_add3_plain_is_the_unfused_ops_in_place(dtype):
         assert torch.equal(g, wnt)
 
 
+def _refuse_libraries(monkeypatch):
+    """Loading a kernel library fails the test."""
+    def refuse(name):
+        raise AssertionError(f"the {name} library was loaded")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+
+
 @pytest.mark.parametrize("entry", ENTRIES)
-def test_entries_refuse_cpu_tensors(entry):
-    x = torch.zeros(4, 16, dtype=torch.bfloat16)
-    vec = torch.zeros(16)
+def test_entries_refuse_cpu_tensors(entry, monkeypatch):
+    """The entries keep CPU tensors from their kernels: they give the
+    plain composition, bit for bit, and load no library."""
+    gen = torch.Generator().manual_seed(4)
+    x, res, x2, x3 = (_randn(gen, 4, 16).to(torch.bfloat16) for _ in range(4))
+    vecs = [_randn(gen, 16) for _ in range(3)]
     args = {
-        "bias_residual_layernorm": (x, vec, x, vec, vec, 1e-12),
-        "bias_gelu": (x, vec, True),
-        "bias_add3": (x, x.clone(), x.clone(), vec, vec, vec),
+        "bias_residual_layernorm": (x, vecs[0], res, 1.0 + vecs[1], vecs[2], 1e-12),
+        "bias_gelu": (x, vecs[0], True),
+        "bias_add3": (x, x2, x3, *vecs),
     }[entry]
-    with pytest.raises(ValueError, match="CUDA"):
-        getattr(ee, entry)(*args)
+    want = getattr(ee, f"{entry}_plain")(*(a.clone() if isinstance(a, torch.Tensor) else a for a in args))
+    _refuse_libraries(monkeypatch)
+    got = getattr(ee, entry)(*args)
+    for g, w in zip(got if entry == "bias_add3" else [got], want if entry == "bias_add3" else [want]):
+        assert torch.equal(g, w)
+    assert not cuda_build._LOADED
 
 
 # ---------------------------------------------------------------- the layer's path
@@ -103,37 +120,41 @@ def _encode(tiny, dtype=torch.bfloat16, params=None, **kw):
     return bert.bert_encode(params, toks, torch.zeros_like(toks), mask, spec, dtype, **kw)
 
 
-def _counting_plain(monkeypatch):
-    """Each entry as seen from models/bert.py replaced by its plain version,
-    its calls counted; the CPU taken for the card."""
+def _plain_branch(tiny, **kw):
+    """The forward with every layer on the plain branch."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(bert, "_fuses_epilogue", lambda *args: False)
+        return _encode(tiny, **kw)
+
+
+def _counting(monkeypatch, module, suffix=""):
+    """Each of ``module``'s ``<entry><suffix>`` wrapped, its calls counted."""
     calls = dict.fromkeys(ENTRIES, 0)
 
-    def counted(name):
-        plain = getattr(ee, f"{name}_plain")
-
+    def counted(name, fn):
         def call(*args):
             calls[name] += 1
-            return plain(*args)
+            return fn(*args)
 
         return call
 
-    monkeypatch.setattr(bert, "_on_card", lambda x: True)
     for name in ENTRIES:
-        monkeypatch.setattr(bert, name, counted(name))
+        monkeypatch.setattr(module, name + suffix, counted(name, getattr(module, name + suffix)))
     return calls
 
 
 @pytest.mark.parametrize("rows", ["every", "cls_only", "out_positions", "grad_on_nothing_requires_it"])
 def test_fused_branch_through_the_plain_versions_equals_the_plain_branch(tiny, monkeypatch, rows):
-    """The fused branch with each kernel replaced by its plain version is
-    the plain branch bit for bit, at every row set of the final layer, and
-    calls the entries 2 / 1 / 1 times a layer. Grad mode on with nothing
-    that requires grad records no graph, so it takes the fused branch."""
+    """The fused branch on the CPU, where each entry gives its plain
+    version, is the plain branch bit for bit, at every row set of the final
+    layer, and calls the entries 2 / 1 / 1 times a layer. Grad mode on with
+    nothing that requires grad records no graph, so it takes the fused
+    branch."""
     kw = {"cls_only": {"cls_only": True},
           "out_positions": {"out_positions": torch.tensor([[0, 5], [3, 1], [7, 7]])}}.get(rows, {})
     with torch.no_grad():
-        want = _encode(tiny, **kw)
-    calls = _counting_plain(monkeypatch)
+        want = _plain_branch(tiny, **kw)
+    calls = _counting(monkeypatch, bert)
     with torch.set_grad_enabled(rows == "grad_on_nothing_requires_it"):
         got = _encode(tiny, **kw)
     n_layers = tiny[0].num_layers
@@ -142,14 +163,11 @@ def test_fused_branch_through_the_plain_versions_equals_the_plain_branch(tiny, m
         assert torch.equal(g, w)
 
 
-def _refusing(monkeypatch, on_card=True):
-    """Each entry as seen from models/bert.py raises; the CPU taken for the
-    card unless ``on_card`` is False."""
+def _refusing(monkeypatch):
+    """Each entry as seen from models/bert.py raises."""
     def refuse(*args):
         raise AssertionError("the fused epilogue ran off its path")
 
-    if on_card:
-        monkeypatch.setattr(bert, "_on_card", lambda x: True)
     for name in ENTRIES:
         monkeypatch.setattr(bert, name, refuse)
 
@@ -157,8 +175,11 @@ def _refusing(monkeypatch, on_card=True):
 @pytest.mark.parametrize("case", ["grad", "dropout", "f32", "cpu", "tp"])
 def test_plain_branch_where_the_fused_one_must_not_run(tiny, monkeypatch, case):
     """Under autograd with parameters that require grad, with dropout, at
-    f32, on the CPU and for tensor-parallel layers, ``bert_encode`` never
-    reaches an epilogue entry and gives what it gave before."""
+    f32 and for tensor-parallel layers, ``bert_encode`` never reaches an
+    epilogue entry and gives what it gave before. On the CPU at bf16 the
+    model takes the fused branch, as on the card, and the entries give
+    their plain compositions (each called, no library loaded): the plain
+    branch's result, bit for bit."""
     dtype = torch.float32 if case == "f32" else torch.bfloat16
     kw = {}
     if case == "dropout":
@@ -180,9 +201,17 @@ def test_plain_branch_where_the_fused_one_must_not_run(tiny, monkeypatch, case):
     if case == "tp":
         monkeypatch.setattr(bert, "copy_to_tp", lambda x, group: x)
         monkeypatch.setattr(bert, "reduce_from_tp", lambda x, group: x)
-    want = run()
-    _refusing(monkeypatch, on_card=case != "cpu")
-    got = run()
+    if case == "cpu":
+        want = _plain_branch(tiny)
+        calls = _counting(monkeypatch, ee, "_plain")
+        _refuse_libraries(monkeypatch)
+        got = run()
+        n_layers = tiny[0].num_layers
+        assert calls == {"bias_residual_layernorm": 2 * n_layers, "bias_gelu": n_layers, "bias_add3": n_layers}
+    else:
+        want = run()
+        _refusing(monkeypatch)
+        got = run()
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

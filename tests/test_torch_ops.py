@@ -1,7 +1,8 @@
 """Port parity, ops: the plain MIPS top-k (kernel B's plain version and
 the CPU path of its wrapper) against the JAX package's ``mips_topk`` and
 both Pallas MIPS kernels in interpret mode, with padding and ties; the
-pseudoinverse and its cutoffs; the kernel build's source hash (CPU)."""
+pseudoinverse and its cutoffs; the kernel build's source hash (CPU); and
+where every kernel entry runs (``cuda_build.on_cpu``)."""
 
 import shutil
 import sys
@@ -113,3 +114,88 @@ def test_library_path_covers_local_headers(tmp_path, monkeypatch):
     header = csrc / "mma_sm90.cuh"
     header.write_text(header.read_text() + "\n// edited\n")
     assert cuda_build.library_path("attention") != before
+
+
+# ----------------------------------------------- where an entry runs
+
+
+def _entry_case(name):
+    """(module, the entry's plain versions by module attribute, its CPU
+    arguments, a function of them giving the plain result)."""
+    from anncur_tpu_torch.ops import attention as at
+    from anncur_tpu_torch.ops import encoder_epilogue as ee
+    from anncur_tpu_torch.ops import mips_kernel as mk
+    from anncur_tpu_torch.ops import moe
+    from anncur_tpu_torch.ops import rms_norm as rn
+    from anncur_tpu_torch.ops.quantized import quantize_items
+
+    gen = torch.Generator().manual_seed(9)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen).to(dtype)
+
+    bf16 = torch.bfloat16
+    q, k, v, dout = randn(2, 5, 2, 16), randn(2, 5, 2, 16), randn(2, 5, 2, 16), randn(2, 5, 2, 16)
+    valid = torch.tensor([[True] * 5, [True] * 3 + [False] * 2])
+    out, lse, delta = at.attention_plain(q, k, v, valid), randn(2, 2, 5), randn(2, 2, 5)
+    queries, items = randn(3, 8), randn(20, 8)
+    order = moe.sort_rows(torch.tensor([[0, 2], [1, 2], [3, 0], [2, 1], [0, 3], [1, 0]]), 4)
+    x, y, vec = randn(6, 16, dtype=bf16), randn(12, 16, dtype=bf16), randn(16)
+    return {
+        "attention": (at, ["attention_plain"], (q, k, v, valid), at.attention_plain),
+        "attention_bwd_dq": (at, ["attention_bwd_plain", "attention_delta_plain"], (q, k, v, valid, dout, out, lse),
+                             lambda *a: (at.attention_bwd_plain(*a[:5])[0], at.attention_delta_plain(a[4], a[5]))),
+        "attention_bwd_dkv": (at, ["attention_bwd_plain"], (q, k, v, valid, dout, lse, delta),
+                              lambda *a: at.attention_bwd_plain(*a[:5])[1:]),
+        "mips_topk_fused": (mk, ["mips_topk"], (queries, items, 4), mips_topk),
+        "mips_topk_int8_fused": (mk, ["mips_topk_int8_plain"], (queries, quantize_items(items), 4),
+                                 mk.mips_topk_int8_plain),
+        "moe_permute": (moe, ["moe_permute_plain"], (x, order.dest), moe.moe_permute_plain),
+        "moe_combine": (moe, ["moe_combine_plain"], (y, order.dest, randn(6, 2), x, randn(6, 16, dtype=bf16)),
+                        moe.moe_combine_plain),
+        "expert_mlp": (moe, ["expert_mlp_plain"], (y, randn(4, 16, 10, dtype=bf16), randn(4, 5, 16, dtype=bf16), order),
+                       moe.expert_mlp_plain),
+        "bias_residual_layernorm": (ee, ["bias_residual_layernorm_plain"], (x, vec, x.flip(0), 1 + vec, -vec, 1e-12),
+                                    ee.bias_residual_layernorm_plain),
+        "bias_gelu": (ee, ["bias_gelu_plain"], (x, vec, True), ee.bias_gelu_plain),
+        "bias_add3": (ee, ["bias_add3_plain"], (x, y, x.flip(0), vec, -vec, 2 * vec), ee.bias_add3_plain),
+        "rms_norm": (rn, ["rms_norm_plain"], (x, 1 + randn(16, dtype=bf16), 1e-6), rn.rms_norm_plain),
+    }[name]
+
+
+def _tensors(result):
+    return [t for r in result for t in _tensors(r)] if isinstance(result, (tuple, list)) else [result]
+
+
+@pytest.mark.parametrize("name", [
+    "attention", "attention_bwd_dq", "attention_bwd_dkv", "mips_topk_fused", "mips_topk_int8_fused", "moe_permute",
+    "moe_combine", "expert_mlp", "bias_residual_layernorm", "bias_gelu", "bias_add3", "rms_norm",
+])
+def test_each_entry_runs_its_plain_version_on_the_cpu_and_its_kernel_elsewhere(monkeypatch, name):
+    """The one rule, ``cuda_build.on_cpu``, at every public kernel entry:
+    CPU tensors give the plain version bit for bit and load no library;
+    with the rule made to report the card, the entry reaches its kernel's
+    own checks, which raise on the CPU tensors, and never its plain
+    version."""
+    from anncur_tpu_torch.ops import cuda_build
+
+    module, plains, args, plain = _entry_case(name)
+
+    def copies():  # bias_add3 works in place
+        return [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+
+    def refuse(what):
+        def call(*a, **kw):
+            raise AssertionError(f"{name} reached {what}")
+        return call
+
+    want = plain(*copies())
+    monkeypatch.setattr(cuda_build, "load", refuse("a kernel library"))
+    got = getattr(module, name)(*copies())
+    assert all(torch.equal(g, w) for g, w in zip(_tensors(got), _tensors(want), strict=True))
+    assert not cuda_build._LOADED
+    monkeypatch.setattr(cuda_build, "on_cpu", lambda *tensors: False)
+    for attr in plains:
+        monkeypatch.setattr(module, attr, refuse(attr))
+    with pytest.raises(ValueError, match="CUDA"):
+        getattr(module, name)(*copies())

@@ -1,13 +1,13 @@
-"""RMSNorm (``ops/rms_norm.py``) and the decoder CE's choice of its path
+"""RMSNorm (``ops/rms_norm.py``) and the decoder CE's use of it
 (``models/deepseek_v2.py``).
 
-On the CPU: ``rms_norm_plain`` is the source's composition bit for bit, and
-the model picks the path by the device alone: the kernel on the card (the
-CPU standing in for it), where the kernel's entry refuses f32 and inputs
-that record an autograd graph, and the plain composition on the CPU.
-Tests marked ``cuda`` hold the kernel to the plain composition on the card
-and count a forward's launches at the published widths; they skip without
-one:
+On the CPU: ``rms_norm_plain`` is the source's composition bit for bit;
+the model calls the entry for every norm; the entry places itself by
+``cuda_build.on_cpu``: the plain composition for CPU tensors, and
+otherwise the kernel (``on_cpu`` made to report the card), whose checks
+refuse f32 and inputs that record an autograd graph. Tests marked ``cuda``
+hold the kernel to the plain composition on the card and count a
+forward's launches at the published widths; they skip without one:
 
     python -m pytest tests/test_torch_rms_norm.py -q -m cuda --noconftest
 """
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from anncur_tpu_torch.models import deepseek_v2 as dsv2
+from anncur_tpu_torch.ops import cuda_build
 from anncur_tpu_torch.ops import rms_norm as rn
 
 EPS = 1e-6
@@ -70,60 +71,59 @@ def _tiny():
 
 
 def test_the_model_takes_the_kernel_on_the_card_for_every_norm(monkeypatch):
-    """The CPU taken for the card and the kernel replaced by its plain
-    version: a bf16 forward calls the kernel's entry for every norm (3 a
-    layer and the final one), never the plain composition directly, and
-    scores as the plain path does, bit for bit."""
+    """A bf16 forward calls the entry, which takes the kernel on the card,
+    for every norm (3 a layer and the final one); on the CPU each call
+    gives the plain composition, and the scores are those of the source's
+    composition written out, bit for bit."""
     spec, w, ids = _tiny()
+    monkeypatch.setattr(dsv2, "rms_norm", _source_composition)
     want = dsv2.DeepseekV2CrossEncoder(spec, "cpu", weights=w).score(ids, 8)
-    calls = {"kernel": 0, "plain": 0}
+    calls = {"entry": 0, "plain": 0}
 
-    def kernel(x, weight, eps):
-        calls["kernel"] += 1
-        return rn.rms_norm_plain(x, weight, eps)
+    def counted(name, fn):
+        def call(*args):
+            calls[name] += 1
+            return fn(*args)
 
-    def plain(*args):
-        calls["plain"] += 1
-        return rn.rms_norm_plain(*args)
+        return call
 
-    monkeypatch.setattr(dsv2, "_on_card", lambda x: True)
-    monkeypatch.setattr(dsv2, "rms_norm", kernel)
-    monkeypatch.setattr(dsv2, "rms_norm_plain", plain)
+    monkeypatch.setattr(dsv2, "rms_norm", counted("entry", rn.rms_norm))
+    monkeypatch.setattr(rn, "rms_norm_plain", counted("plain", rn.rms_norm_plain))
     got = dsv2.DeepseekV2CrossEncoder(spec, "cpu", weights=w).score(ids, 8)
-    assert calls == {"kernel": 3 * spec.num_layers + 1, "plain": 0}
+    assert calls == {"entry": 3 * spec.num_layers + 1, "plain": 3 * spec.num_layers + 1}
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("case", ["bf16", "f32", "f32_weight", "x_requires_grad", "weight_requires_grad"])
 def test_cpu_tensors_take_the_plain_composition(monkeypatch, case):
-    """On the CPU ``_norm`` gives the plain composition, whatever the dtype
-    and whether autograd records a graph, and never reaches the kernel."""
+    """On the CPU the entry gives the plain composition, whatever the dtype
+    and whether autograd records a graph, and never loads the kernel."""
     x, w = _path_inputs(case)
 
     def refuse(*args):
         raise AssertionError("the RMSNorm kernel ran on the CPU")
 
-    monkeypatch.setattr(dsv2, "rms_norm", refuse)
-    got = dsv2._norm(x, w, EPS)
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    got = rn.rms_norm(x, w, EPS)
     assert torch.equal(got, rn.rms_norm_plain(x, w, EPS))
     assert got.requires_grad == case.endswith("requires_grad")
 
 
 @pytest.mark.parametrize("case", ["f32", "f32_weight", "x_requires_grad", "weight_requires_grad"])
 def test_on_the_card_the_kernel_refuses_what_it_cannot_take(monkeypatch, case):
-    """The CPU taken for the card: ``_norm`` picks the kernel by the device
-    alone, so f32 inputs and inputs that record an autograd graph reach
-    the kernel's entry, which raises on them (before it looks at the
+    """``on_cpu`` made to report the card: the entry takes the kernel by the
+    device alone, so f32 inputs and inputs that record an autograd graph
+    reach the kernel's checks, which raise on them (before they look at the
     device) instead of giving way to the plain composition."""
     x, w = _path_inputs(case)
 
     def refuse(*args):
         raise AssertionError("the plain RMSNorm ran on the card")
 
-    monkeypatch.setattr(dsv2, "_on_card", lambda x: True)
-    monkeypatch.setattr(dsv2, "rms_norm_plain", refuse)
+    monkeypatch.setattr(cuda_build, "on_cpu", lambda *tensors: False)
+    monkeypatch.setattr(rn, "rms_norm_plain", refuse)
     with pytest.raises(ValueError, match="bf16" if case.startswith("f32") else "requires grad"):
-        dsv2._norm(x, w, EPS)
+        rn.rms_norm(x, w, EPS)
 
 
 def _path_inputs(case):
@@ -136,10 +136,18 @@ def _path_inputs(case):
     return x, w
 
 
-def test_the_entry_refuses_cpu_tensors():
-    x = torch.zeros(4, 16, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="CUDA"):
-        rn.rms_norm(x, torch.ones(16, dtype=torch.bfloat16), EPS)
+def test_the_entry_refuses_cpu_tensors(monkeypatch):
+    """The entry keeps CPU tensors from its kernel: at the strided kv_norm
+    view of bf16 rows it gives the plain composition, bit for bit, and
+    loads no library."""
+    x, w = _inputs(torch.Generator().manual_seed(4), 9, 512, torch.bfloat16, stride=576)
+
+    def refuse(name):
+        raise AssertionError(f"the {name} library was loaded")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    assert torch.equal(rn.rms_norm(x, w, EPS), _source_composition(x, w, EPS))
+    assert not cuda_build._LOADED
 
 
 # ------------------------------------------------------------------ card
@@ -213,7 +221,7 @@ def test_the_cells_forward_counts_82_launches_and_no_plain_norm(monkeypatch):
     def refuse(*args):
         raise AssertionError("the plain RMSNorm ran on the card")
 
-    monkeypatch.setattr(dsv2, "rms_norm_plain", refuse)
+    monkeypatch.setattr(rn, "rms_norm_plain", refuse)
     ce = dsv2.DeepseekV2CrossEncoder(dsv2.DeepseekV2Spec(), dev, seed=5)
     gen = torch.Generator(device=dev).manual_seed(6)
     ids = torch.randint(1, 100000, (4, 256), generator=gen, device=dev)
